@@ -2,22 +2,36 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
+Two paths of the port are driven, each through ``deferred_frame``:
+
+* default -- the reference's default frame (u8 combined quad atlas), which
+  runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF select) and K5
+  (draw-mask gather);
+* packed  -- the packed-trilinear material configuration: the u8 combined
+  PACKED atlas (256 lanes), a procedural seamless env cube built here, and
+  the four kernel flags on, which adds K6 (HZB tail), K7 (env select), K8
+  (material select) and K9 (block-index copy).
+
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. device  -- card name and power limit, torch/CUDA versions, TF32 off.
-2. build   -- nvcc builds the kernels from ``unclerenderer_tpu_torch/csrc``.
+2. build   -- nvcc builds the kernels from ``unclerenderer_tpu_torch/csrc``
+   (one nvcc per source, all at once).
 3. kernels -- every kernel against its plain PyTorch version on the same
-   CUDA inputs, bit-equal: on the random-triangle setups of the reference's
-   raster tests (256x256) and on the inputs captured from one full-size
-   frame (fine / mid / giant raster levels of the camera and the shadow map,
-   the PCF fetch, the draw-mask gather), with both versions timed.
-4. cross   -- a 256x256 frame (24 objects, 512^2 shadow map) rendered with
-   the kernels on the card and with the plain versions on the CPU: depth and
-   tri_id bit-equal, color within 1e-3.
-5. slice   -- 10 carried frames of the default deferred frame at 1920x1080
-   over the 263,184-triangle synthetic scene with a 4096^2 shadow map, on a
-   slow orbit: every kernel launched, all drop counters 0, finite color;
-   then 3 timed runs of 10 frames.
+   CUDA inputs, bit-equal: on random inputs (the random-triangle setups of
+   the reference's raster tests at 256x256 for K1/K2, random tables and
+   parameters for K6-K9) and on the inputs captured from one full-size
+   frame of each path, with both versions timed.
+4. cross   -- 256x256 frames (24 objects, 512^2 shadow map) rendered with the
+   kernels on the card and with the plain versions on the CPU: depth and
+   tri_id bit-equal, color within 1e-3; the default path, then the packed
+   path under the trilinear and the anisotropic filter.
+5. slice   -- per path, 10 carried frames at 1920x1080 over the
+   263,184-triangle synthetic scene with a 4096^2 shadow map, on a slow
+   orbit, with the launch counts set to 0 just before and read just after:
+   every kernel of the path launched, all drop counters 0, finite color;
+   then 3 timed runs of 10 frames.  The packed configuration is also timed
+   with the four flags off (the reference's XLA-equivalent branches).
 
 The last three lines of stdout are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
@@ -46,6 +60,9 @@ WIDTH, HEIGHT, FRAMES = 1920, 1080, 10
 SHADOW = 4096
 N_OBJECTS, SPHERE_RES = 340, (32, 24)
 COLOR_ATOL = 1e-3  # transcendental (GGX, sky, tonemap) rounding, CPU vs GPU
+ENV_SIZE = 128  # procedural env cube faces, 8 mips
+KERNEL_FLAGS = dict(hzb_pallas_tail=True, env_select_kernel=True, mat_select_kernel=True,
+                    bin_mat_idx=True)
 
 
 def log(phase: str, msg: str) -> None:
@@ -121,6 +138,34 @@ def to_device(obj, device):
         for f in dataclasses.fields(obj) if isinstance(getattr(obj, f.name), torch.Tensor)})
 
 
+def seamless_env_cube(scene, size, seed, device):
+    """``scene`` with a procedural seamless env cube: 6 seeded faces (a
+    smooth sky-to-ground gradient with a bright sun lobe and texel noise),
+    packed like the reference's Renderer packs a real one
+    (``build_pyramid_tri_atlas(cube=True)``, bf16 rows of 128 lanes).
+    Returns (scene, mip count)."""
+    from unclerenderer_tpu_torch.render.testing import build_pyramid_tri_atlas, generate_mips
+
+    rng = np.random.default_rng(seed)
+    t = (np.arange(size, dtype=np.float32) + 0.5) / size
+    yy, xx = np.meshgrid(t, t, indexing="ij")
+    chains = []
+    for f in range(6):
+        sky = np.stack([0.3 + 0.4 * (1 - yy), 0.4 + 0.4 * (1 - yy), 0.6 + 0.6 * (1 - yy)], -1)
+        sun = 4.0 * np.exp(-((xx - 0.3 - 0.1 * f) ** 2 + (yy - 0.35) ** 2) * 60.0)[..., None]
+        rgb = sky * (0.6 + 0.1 * f) + sun + rng.uniform(0.0, 0.2, (size, size, 3))
+        face = np.concatenate([rgb, np.ones((size, size, 1))], -1).astype(np.float32)
+        chains.append(generate_mips(face))
+    env, rect0 = build_pyramid_tri_atlas(chains, dtype=np.float32, cube=True)
+    tail = np.stack([chain[-1][..., :4] for chain in chains])
+    scene = dataclasses.replace(
+        scene,
+        env_quad=torch.from_numpy(env).to(device=device, dtype=torch.bfloat16),
+        env_rect0=torch.from_numpy(rect0.astype(np.float32)).to(device),
+        env_tail=torch.from_numpy(tail).to(device))
+    return scene, len(chains[0])
+
+
 def random_setup(n, seed, size, device, w=256, h=256):
     """The reference raster tests' random triangles (tests/test_pallas_kernels.py
     ``_setup``), set up by the port."""
@@ -152,6 +197,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False -- needs one CUDA card")
 
     from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.ops import hzb as hzb_mod
     from unclerenderer_tpu_torch.ops import raster_kernels as rk
     from unclerenderer_tpu_torch.ops import shadow as shadow_mod
     from unclerenderer_tpu_torch.ops import texture as tex_mod
@@ -192,11 +238,33 @@ def main() -> int:
         "gather_rows": dict(module=tex_mod, ref=tex_mod.gather_rows_ref,
                             source="unclerenderer_tpu_torch/csrc/gather_rows.cu",
                             replaces="unclerenderer_tpu/ops/texture.py:105"),
+        "hzb_tail": dict(module=hzb_mod, ref=hzb_mod.hzb_tail_ref,
+                         source="unclerenderer_tpu_torch/csrc/hzb_tail.cu",
+                         replaces="unclerenderer_tpu/ops/hzb.py:109"),
+        "env_select": dict(module=tex_mod, ref=tex_mod.env_select_ref,
+                           source="unclerenderer_tpu_torch/csrc/env_select.cu",
+                           replaces="unclerenderer_tpu/ops/texture.py:861"),
+        "mat_select": dict(module=tex_mod, ref=tex_mod.mat_select_ref,
+                           source="unclerenderer_tpu_torch/csrc/mat_select.cu",
+                           replaces="unclerenderer_tpu/ops/texture.py:571"),
+        "materialize_rows": dict(module=rk, ref=rk.materialize_rows_ref,
+                                 source="unclerenderer_tpu_torch/csrc/materialize_rows.cu",
+                                 replaces="unclerenderer_tpu/ops/pallas_raster.py:266"),
     }
     for name, k in kernels.items():
         k.setdefault("attr", name)
         k.update(err=0.0, ms=0.0, plain_ms=0.0, calls=[])
+    check(set(kernels) == set(_cuda.LAUNCHES), "every built kernel is checked")
+    default_kernels = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
+    packed_kernels = ("hzb_tail", "env_select", "mat_select", "materialize_rows")
     report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    def versus_plain(name, *a, **kw):
+        """One call of kernel ``name`` against its plain version, bit-equal."""
+        k = kernels[name]
+        bad, err = compare(getattr(k["module"], k["attr"])(*a, **kw), k["ref"](*a, **kw))
+        check(bad == 0, f"{name} != plain: {bad} elements")
+        k["err"] = max(k["err"], err)
 
     # ---- 3a. kernels vs plain on the reference tests' random setups (256^2)
     for seed, n, size in [(0, 150, 0.04), (2, 60, 0.2), (3, 40, 0.6), (5, 2000, 0.04)]:
@@ -217,122 +285,216 @@ def main() -> int:
             kernels["giant_raster"]["err"] = max(kernels["giant_raster"]["err"], err)
     log("kernels", "binned_raster and giant_raster bit-equal to plain on the 256^2 random setups")
 
-    # ---- full-size scene (the slice) and its orbit
+    # ---- 3a. K6-K9 vs plain on random inputs
+    rng = np.random.default_rng(0)
+    for h, w in ((270, 480), (67, 31), (3, 2), (1, 1)):
+        top = torch.from_numpy(rng.uniform(0.0, 1.0, (h, w)).astype(np.float32)).to(dev)
+        layout, _ = hzb_mod.hzb_layout(max(1, w // 2), max(1, h // 2))
+        versus_plain("hzb_tail", top, [(lw, lh) for _o, lw, lh in layout])
+    env = torch.from_numpy(rng.uniform(0.0, 4.0, (4096, 128)).astype(np.float32)).to(dev)
+    n = 100_000
+    rows = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32)).to(dev)
+    params9 = torch.from_numpy(np.concatenate([
+        rng.random((5, n)), rng.integers(0, 2, (2, n)), rng.integers(-1, 3, (2, n)),
+    ]).astype(np.float32)).to(dev)
+    for table in (env, env.to(torch.bfloat16)):
+        versus_plain("env_select", table, rows, params9)
+    params7 = torch.from_numpy(np.concatenate([
+        rng.random((5, n)), rng.integers(0, 2, (2, n))]).astype(np.float32)).to(dev)
+    atlas = torch.from_numpy(rng.integers(0, 256, (8192, 256), dtype=np.uint8)).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 8192, n).astype(np.int32)).to(dev)
+    for table in (atlas, atlas.float() / 255.0, (atlas.float() / 255.0).to(torch.bfloat16)):
+        versus_plain("mat_select", table, rows, params7)
+    ids = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 7936 * 64 + 1,
+                                        dtype=np.int64).astype(np.int32)).to(dev)
+    for x in (ids[:-1].reshape(7936, 64), ids[1:1002], ids[:37 * 5].reshape(37, 5)):
+        versus_plain("materialize_rows", x)  # aligned, misaligned by 4 B, odd length
+    log("kernels", "hzb_tail, env_select, mat_select and materialize_rows bit-equal to plain "
+                   "on random inputs (mat_select: u8, f32 and bf16 atlases)")
+
+    # ---- full-size scenes (the two paths) and their orbit
     t0 = time.perf_counter()
     scene_cpu, data = synthetic_device_scene(
         N_OBJECTS, sphere_res=SPHERE_RES, ground=True, rich_materials=True, atlas_u8=True)
     scene = to_device(scene_cpu, dev)
+    del scene_cpu
     n_tris = int(scene.tri_model.shape[0])
     settings = RenderSettings(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW,
                               has_masked_models=False, combined_material=True)
 
-    def params_at(i):
+    def params_at(i, mips=None):
         a = 0.0035 * i
-        return synthetic_frame_params(data, WIDTH, HEIGHT, device=dev,
-                                      camera_pos=(4.0 * np.sin(a), 1.5, -4.0 * np.cos(a)))
+        p = synthetic_frame_params(data, WIDTH, HEIGHT, device=dev,
+                                   camera_pos=(4.0 * np.sin(a), 1.5, -4.0 * np.cos(a)))
+        if mips is not None:
+            p.env_mip_count = torch.tensor(float(mips), device=dev)
+        return p
 
     params = [params_at(i) for i in range(FRAMES)]
     log("slice", f"scene: {data.num_models} models, {n_tris} triangles, atlas "
                  f"{tuple(scene.quad_img.shape)} {scene.quad_img.dtype}, built in "
                  f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    packed_cpu, _ = synthetic_device_scene(
+        N_OBJECTS, sphere_res=SPHERE_RES, ground=True, rich_materials=True, atlas_u8=True,
+        packed_trilinear=True)
+    packed, env_mips = seamless_env_cube(to_device(packed_cpu, dev), ENV_SIZE, 0, dev)
+    del packed_cpu
+    packed_settings = dataclasses.replace(settings, material_packed_trilinear=True,
+                                          **KERNEL_FLAGS)
+    packed_params = [params_at(i, env_mips) for i in range(FRAMES)]
+    log("packed", f"scene: packed atlas {tuple(packed.quad_img.shape)} {packed.quad_img.dtype}, "
+                  f"env cube {tuple(packed.env_quad.shape)} {packed.env_quad.dtype} "
+                  f"({env_mips} mips), built in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3b. kernels vs plain on inputs captured from one full-size frame
-    with contextlib.ExitStack() as stack:
-        recs = [stack.enter_context(Recorder(k["module"], k["attr"])) for k in kernels.values()]
-        deferred_frame(scene, params[0], FrameState.initial(WIDTH, HEIGHT, dev), settings)
-        torch.cuda.synchronize()
-    for (name, k), r in zip(kernels.items(), recs):
-        check(r.calls, f"{name}: the frame made no call")
-        wrapper = getattr(k["module"], k["attr"])
-        for ca, ck in r.calls:
-            bad, err = compare(wrapper(*ca, **ck), k["ref"](*ca, **ck))
-            shapes = [tuple(x.shape) for x in ca if isinstance(x, torch.Tensor)]
-            check(bad == 0, f"{name} != plain at frame shapes {shapes}: {bad} elements")
-            ms = cuda_ms(lambda: wrapper(*ca, **ck), reps=20)
-            plain_ms = cuda_ms(lambda: k["ref"](*ca, **ck), reps=1)
-            k["err"] = max(k["err"], err)
-            k["ms"] += ms
-            k["plain_ms"] += plain_ms
-            k["calls"].append({"shapes": shapes, "ms": ms, "plain_ms": plain_ms})
-            log("kernels", f"{name} {shapes}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+    def capture(names, frame_scene, frame_params, frame_settings):
+        with contextlib.ExitStack() as stack:
+            recs = [stack.enter_context(Recorder(kernels[n]["module"], kernels[n]["attr"]))
+                    for n in names]
+            deferred_frame(frame_scene, frame_params,
+                           FrameState.initial(WIDTH, HEIGHT, dev), frame_settings)
+            torch.cuda.synchronize()
+        for name, r in zip(names, recs):
+            k = kernels[name]
+            check(r.calls, f"{name}: the frame made no call")
+            wrapper = getattr(k["module"], k["attr"])
+            for ca, ck in r.calls:
+                bad, err = compare(wrapper(*ca, **ck), k["ref"](*ca, **ck))
+                shapes = [tuple(x.shape) for x in ca if isinstance(x, torch.Tensor)]
+                check(bad == 0, f"{name} != plain at frame shapes {shapes}: {bad} elements")
+                ms = cuda_ms(lambda: wrapper(*ca, **ck), reps=20)
+                plain_ms = cuda_ms(lambda: k["ref"](*ca, **ck), reps=1)
+                k["err"] = max(k["err"], err)
+                k["ms"] += ms
+                k["plain_ms"] += plain_ms
+                k["calls"].append({"shapes": shapes, "ms": ms, "plain_ms": plain_ms})
+                log("kernels", f"{name} {shapes}: bit-equal, kernel {ms:.4f} ms, "
+                               f"plain {plain_ms:.3f} ms")
 
-    # ---- 4. cross-device frame: kernels on the card vs plain versions on the CPU
+    capture(default_kernels, scene, params[0], settings)
+    capture(packed_kernels, packed, packed_params[0], packed_settings)
+
+    # ---- 4. cross-device frames: kernels on the card vs plain versions on the CPU
     small = RenderSettings(width=256, height=256, shadow_map_size=512,
                            has_masked_models=False, combined_material=True)
-    sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True)
-    sc_gpu = to_device(sc_cpu, dev)
-    st_c = FrameState.initial(256, 256, "cpu")
-    st_g = FrameState.initial(256, 256, dev)
-    for i in range(2):
-        pos = (4.0 * np.sin(0.05 * i), 1.5, -4.0 * np.cos(0.05 * i))
-        out_c, st_c = deferred_frame(sc_cpu, synthetic_frame_params(sdata, 256, 256, camera_pos=pos),
-                                     st_c, small)
-        out_g, st_g = deferred_frame(sc_gpu, synthetic_frame_params(sdata, 256, 256, camera_pos=pos,
-                                                                    device=dev), st_g, small)
-        for key in ("depth", "tri_id", "object_id"):
-            bad = int((out_g[key].cpu() != out_c[key]).sum())
-            check(bad == 0, f"cross-device frame {i}: {key} differs at {bad} pixels")
-        cdiff = float((out_g["color"].cpu() - out_c["color"]).abs().max())
-        hdiff = float((out_g["hdr"].cpu() - out_c["hdr"]).abs().max())
-        check(cdiff <= COLOR_ATOL, f"cross-device frame {i}: color differs by {cdiff}")
-        log("cross", f"frame {i}: depth/tri_id/object_id bit-equal, |color| {cdiff:.2e}, "
-                     f"|hdr| {hdiff:.2e}, {int((out_g['tri_id'] >= 0).sum())} covered pixels")
-    report["cross_color_max_abs"] = cdiff
 
-    # ---- 5. the slice: 10 carried frames, counted, then 3 timed runs
-    def run(state):
+    def cross(label, sc_cpu, sdata, frame_settings, mips=None):
+        sc_gpu = to_device(sc_cpu, dev)
+        st_c = FrameState.initial(256, 256, "cpu")
+        st_g = FrameState.initial(256, 256, dev)
+        for i in range(2):
+            pos = (4.0 * np.sin(0.05 * i), 1.5, -4.0 * np.cos(0.05 * i))
+            p_c = synthetic_frame_params(sdata, 256, 256, camera_pos=pos)
+            p_g = synthetic_frame_params(sdata, 256, 256, camera_pos=pos, device=dev)
+            if mips is not None:
+                p_c.env_mip_count = torch.tensor(float(mips))
+                p_g.env_mip_count = torch.tensor(float(mips), device=dev)
+            out_c, st_c = deferred_frame(sc_cpu, p_c, st_c, frame_settings)
+            out_g, st_g = deferred_frame(sc_gpu, p_g, st_g, frame_settings)
+            for key in ("depth", "tri_id", "object_id"):
+                bad = int((out_g[key].cpu() != out_c[key]).sum())
+                check(bad == 0, f"cross-device {label} frame {i}: {key} differs at {bad} pixels")
+            for key, v in out_c["raster_stats"].items():
+                check(int(out_g["raster_stats"][key]) == int(v),
+                      f"cross-device {label} frame {i}: {key} differs")
+            cdiff = float((out_g["color"].cpu() - out_c["color"]).abs().max())
+            hdiff = float((out_g["hdr"].cpu() - out_c["hdr"]).abs().max())
+            check(cdiff <= COLOR_ATOL, f"cross-device {label} frame {i}: color differs by {cdiff}")
+            log("cross", f"{label} frame {i}: depth/tri_id/object_id bit-equal, "
+                         f"|color| {cdiff:.2e}, |hdr| {hdiff:.2e}, "
+                         f"{int((out_g['tri_id'] >= 0).sum())} covered pixels")
+        return cdiff
+
+    sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True)
+    report["cross_color_max_abs"] = cross("default", sc_cpu, sdata, small)
+    sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True,
+                                           packed_trilinear=True)
+    sc_cpu, mips = seamless_env_cube(sc_cpu, 32, 1, "cpu")
+    for filt in ("trilinear", "anisotropic"):
+        report[f"cross_color_max_abs_packed_{filt}"] = cross(
+            f"packed {filt}", sc_cpu, sdata,
+            dataclasses.replace(small, texture_filter=filt, material_packed_trilinear=True,
+                                **KERNEL_FLAGS), mips)
+    del sc_cpu
+
+    # ---- 5. each path at full size: 10 carried frames, counted, then 3 timed runs
+    def run(frame_scene, frame_params, frame_settings, state):
         outs = []
-        for p in params:
-            out, state = deferred_frame(scene, p, state, settings)
+        for p in frame_params:
+            out, state = deferred_frame(frame_scene, p, state, frame_settings)
             outs.append(out)
         return outs, state
 
-    state = FrameState.initial(WIDTH, HEIGHT, dev)
-    torch.cuda.synchronize()
-    _cuda.reset_launches()
-    outs, state = run(state)
-    torch.cuda.synchronize()
-    launches = dict(_cuda.LAUNCHES)
-    log("slice", f"launches in {FRAMES} frames: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
-    drops = {k: max(int(o["raster_stats"][k]) for o in outs) for k in outs[0]["raster_stats"]}
-    log("slice", f"drop counters (max over frames): {drops}")
-    for key in ("pair_overflow", "giant_truncated", "compact_overflow", "shadow_compact_overflow"):
-        check(drops[key] == 0, f"drop counter {key} = {drops[key]}")
-    color = outs[-1]["color"]
-    check(tuple(color.shape) == (HEIGHT, WIDTH, 3), f"color shape {tuple(color.shape)}")
-    check(bool(torch.isfinite(color).all()), "non-finite color")
-    covered = int((outs[-1]["tri_id"] >= 0).sum())
-    check(covered > 0.3 * WIDTH * HEIGHT, f"only {covered} covered pixels")
-    log("slice", f"color finite {tuple(color.shape)}, mean {float(color.mean()):.4f}, "
-                 f"{covered} covered pixels, visible models "
-                 f"{int(outs[-1]['model_visible'].sum())}/{data.num_models}")
-    del outs
+    def timed(label, frame_scene, frame_params, frame_settings, state):
+        per_frame = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state = run(frame_scene, frame_params, frame_settings, state)
+            torch.cuda.synchronize()
+            per_frame.append((time.perf_counter() - t0) * 1000.0 / FRAMES)
+        med = statistics.median(per_frame)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        log(label, f"ms/frame median {med:.2f} min {min(per_frame):.2f} max {max(per_frame):.2f} "
+                   f"(3 runs x {FRAMES} frames, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2, {n_tris} tris) "
+                   f"peak {peak_gb:.1f} GiB on {smi}")
+        return {"ms_per_frame": per_frame, "median_ms": med, "peak_gib": peak_gb}
 
-    per_frame = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
+    def counted(label, names, frame_scene, frame_params, frame_settings):
+        """The main-path run of one path: counts set to 0 just before the 10
+        frames and read just after; then the gates and 3 timed runs."""
+        state = FrameState.initial(WIDTH, HEIGHT, dev)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, state = run(state)
+        _cuda.reset_launches()
+        outs, state = run(frame_scene, frame_params, frame_settings, state)
         torch.cuda.synchronize()
-        per_frame.append((time.perf_counter() - t0) * 1000.0 / FRAMES)
-    med = statistics.median(per_frame)
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    log("slice", f"ms/frame median {med:.2f} min {min(per_frame):.2f} max {max(per_frame):.2f} "
-                 f"(3 runs x {FRAMES} frames, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2, {n_tris} tris) "
-                 f"peak {peak_gb:.1f} GiB on {smi}")
-    report.update(ms_per_frame=per_frame, launches=launches, drops=drops, peak_gib=peak_gb,
-                  kernels={n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
-                           for n, k in kernels.items()})
+        launches = dict(_cuda.LAUNCHES)
+        log(label, f"launches in {FRAMES} frames: {launches}")
+        for name in names:
+            check(launches[name] > 0, f"kernel {name} was not launched by the {label} path")
+        drops = {k: max(int(o["raster_stats"][k]) for o in outs) for k in outs[0]["raster_stats"]}
+        log(label, f"drop counters (max over frames): {drops}")
+        for key in ("pair_overflow", "giant_truncated", "compact_overflow",
+                    "shadow_compact_overflow"):
+            check(drops[key] == 0, f"{label}: drop counter {key} = {drops[key]}")
+        color = outs[-1]["color"]
+        check(tuple(color.shape) == (HEIGHT, WIDTH, 3), f"color shape {tuple(color.shape)}")
+        check(bool(torch.isfinite(color).all()), f"{label}: non-finite color")
+        covered = int((outs[-1]["tri_id"] >= 0).sum())
+        check(covered > 0.3 * WIDTH * HEIGHT, f"{label}: only {covered} covered pixels")
+        log(label, f"color finite {tuple(color.shape)}, mean {float(color.mean()):.4f}, "
+                   f"{covered} covered pixels, visible models "
+                   f"{int(outs[-1]['model_visible'].sum())}/{data.num_models}")
+        del outs
+        return {"launches": launches, "drops": drops,
+                **timed(label, frame_scene, frame_params, frame_settings, state)}
+
+    report["slice"] = counted("slice", default_kernels, scene, params, settings)
+    del scene
+    report["packed"] = counted("packed", default_kernels + packed_kernels, packed,
+                               packed_params, packed_settings)
+    flags_off = dataclasses.replace(packed_settings, **{k: False for k in KERNEL_FLAGS})
+    report["packed_flags_off"] = timed("packed-flags-off", packed, packed_params, flags_off,
+                                       FrameState.initial(WIDTH, HEIGHT, dev))
+    log("packed", f"ms/frame median: kernel flags on {report['packed']['median_ms']:.2f}, "
+                  f"off {report['packed_flags_off']['median_ms']:.2f}; default path "
+                  f"{report['slice']['median_ms']:.2f} (on {smi})")
+
+    report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
+                         for n, k in kernels.items()}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
 
+    def main_path_launches(name):
+        path = "slice" if name in default_kernels else "packed"
+        return report[path]["launches"][name]
+
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-         "launches": launches[n], "max_abs_err": k["err"], "ms": k["ms"],
+         "launches": main_path_launches(n), "max_abs_err": k["err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"]}
         for n, k in kernels.items()]}))
     print(smi)

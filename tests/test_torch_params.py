@@ -2,6 +2,7 @@
 reference package (unclerenderer_tpu_torch vs unclerenderer_tpu)."""
 
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -82,6 +83,15 @@ def test_synthetic_scene_equals_reference(rich_scenes):
     assert tdata.num_triangles == jdata.num_triangles
 
 
+def test_synthetic_packed_scene_equals_reference(packed_scene):
+    t, tdata = packed_scene
+    j, jdata = j_scene(6, rich_materials=True, atlas_u8=True, packed_trilinear=True)
+    got = interop.to_numpy(t)
+    for name in ("quad_img", "tri_mrec", "tri_geo", "tex_ids", "has_map"):
+        np.testing.assert_array_equal(got[name], np.asarray(getattr(j, name)), err_msg=name)
+    assert tdata.num_triangles == jdata.num_triangles
+
+
 def test_synthetic_frame_params_equal_reference(rich_scenes):
     _, jdata, _, tdata = rich_scenes
     kw = dict(camera_pos=(1.0, 2.0, -5.0))
@@ -108,8 +118,6 @@ def test_port_imports_no_jax():
 UNPORTED = [
     {"renderer_type": "forward"},
     {"has_masked_models": True},
-    {"texture_filter": "bilinear"},
-    {"texture_filter": "anisotropic"},
     {"lod_derivatives": "forward"},
     {"combined_material": False},
     {"soa_vertex": False},
@@ -117,23 +125,81 @@ UNPORTED = [
     {"shadow_table_u16": False},
     {"gpu_debug_print": True},
     {"kernel_debug_print": True},
-    {"hzb_pallas_tail": True},
-    {"env_select_kernel": True},
-    {"mat_select_kernel": True},
 ]
+BASE = dict(width=64, height=64, shadow_map_size=64, has_masked_models=False,
+            combined_material=True)
+
+
+def _render(scene, data, **override):
+    settings = tparams.RenderSettings(**{**BASE, **override})
+    return deferred_frame(scene, synthetic_frame_params(data, 64, 64),
+                          tparams.FrameState.initial(64, 64, "cpu"), settings)
 
 
 @pytest.mark.parametrize("override", UNPORTED, ids=lambda o: next(iter(o)))
 def test_unported_settings_raise(override, rich_scenes):
     _, _, t, tdata = rich_scenes
-    base = dict(width=64, height=64, shadow_map_size=64, has_masked_models=False,
-                combined_material=True)
-    settings = tparams.RenderSettings(**{**base, **override})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        deferred_frame(t, synthetic_frame_params(tdata, 64, 64),
-                       tparams.FrameState.initial(64, 64, "cpu"), settings)
+        _render(t, tdata, **override)
 
 
-def test_packed_trilinear_atlas_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synthetic_device_scene(2, rich_materials=True, packed_trilinear=True)
+def _roadmap_queue_titles():
+    """Bold titles of ROADMAP.md's modules queue ("1. **Masked raster**")."""
+    text = (ROOT / "ROADMAP.md").read_text()
+    queue = text.split("**Queue, in order:**", 1)[1].split("\n\n**", 1)[0]
+    return {t.lower() for t in re.findall(r"^\d+\. \*\*([^*]+)\*\*", queue, re.M)}
+
+
+def test_not_ported_messages_name_a_roadmap_queue_entry(rich_scenes):
+    """Every remaining raise names its ROADMAP queue entry by title (a
+    number would go stale at the next re-anchor)."""
+    _, _, t, tdata = rich_scenes
+    titles = _roadmap_queue_titles()
+    assert len(titles) >= 5
+    msgs = []
+    for override in UNPORTED:
+        with pytest.raises(NotImplementedError) as exc:
+            _render(t, tdata, **override)
+        msgs.append(str(exc.value))
+    with pytest.raises(NotImplementedError) as exc:
+        synthetic_device_scene(2, rich_materials=False)
+    msgs.append(str(exc.value))
+    for msg in msgs:
+        m = re.search(r"\(ROADMAP\.md, modules queue: ([^)]+)\)$", msg)
+        assert m and m.group(1) in titles, msg
+
+
+@pytest.fixture(scope="module")
+def packed_scene():
+    """The port's rich-material u8 scene on the packed-trilinear atlas."""
+    return synthetic_device_scene(6, rich_materials=True, atlas_u8=True, packed_trilinear=True)
+
+
+# the settings that raised before the packed-trilinear slice, each now
+# rendered on the packed atlas
+NOW_PORTED = [
+    {"texture_filter": "bilinear"},
+    {"texture_filter": "anisotropic"},
+    {"hzb_pallas_tail": True},
+    {"env_select_kernel": True},
+    {"mat_select_kernel": True},
+    {"material_packed_trilinear": True},
+]
+
+
+@pytest.mark.parametrize("override", NOW_PORTED, ids=lambda o: "-".join(map(str, *o.items())))
+def test_formerly_unported_settings_render(override, packed_scene):
+    t, tdata = packed_scene
+    assert t.quad_img.shape[-1] == 256 and t.quad_img.dtype == torch.uint8
+    out, state = _render(t, tdata, **override)
+    assert tuple(out["color"].shape) == (64, 64, 3)
+    assert bool(torch.isfinite(out["color"]).all()) and bool(torch.isfinite(state.hzb).all())
+    assert int((out["tri_id"] >= 0).sum()) > 100
+    assert ("aniso_tap_overflow" in out["raster_stats"]) == (
+        override.get("texture_filter") == "anisotropic")
+
+
+def test_unknown_texture_filter_is_refused(rich_scenes):
+    _, _, t, tdata = rich_scenes
+    with pytest.raises(ValueError, match="texture_filter"):
+        _render(t, tdata, texture_filter="nearest")

@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into ONE shared library
-with a plain C interface, at first use, into ``unclerenderer_tpu_torch/_build``
+Each source is compiled by its own ``nvcc`` process for ``sm_90a`` (all
+started together), and the objects are linked into ONE shared library with a
+plain C interface, at first use, into ``unclerenderer_tpu_torch/_build``
 (git-ignored).  The library name carries a hash of the sources and flags, so
 an edited source rebuilds.  ``-fmad=false`` keeps nvcc from contracting
 multiply-adds: the kernels spell out the reference's contractions with
@@ -21,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -32,10 +34,10 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures: (argtypes) of each entry point; all return int
 SIGNATURES = {
     # coef, tri_id, valid, tile_start, tile_count, out_key, out_id,
@@ -48,6 +50,15 @@ SIGNATURES = {
     "shadow_select9": [_P, _P, _P, _P, _P, _I, _I, _P],
     # table, idx, out, n, c, is_bf16, stream
     "gather_rows": [_P, _P, _P, _I, _I, _I, _P],
+    # top, dims (host int[3 * levels]: w, h, offset), out, top_h, top_w,
+    # levels, stream
+    "hzb_tail": [_P, _P, _P, _I, _I, _I, _P],
+    # env, env_rows, params (9, n), out, n, lanes, is_bf16, stream
+    "env_select": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # atlas, rows_idx, params (7, n), out, n, c, lanes, dtype, stream
+    "mat_select": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # src, dst, n (4-byte elements), stream
+    "materialize_rows": [_P, _P, _L, _P],
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -89,12 +100,24 @@ def build() -> tuple[Path, float]:
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as obj_dir:
+        objs = [Path(obj_dir) / f"{src.stem}.o" for src in sources()]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)
+        ]
+        logs = [(p, p.communicate()[0]) for p in procs]
+        failed = [f"{p.args[-1]}:\n{log}" for p, log in logs if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
     return out, secs
 

@@ -6,7 +6,9 @@
    ascending triangle id);
 3. block-align: block slot (b, s) reads sorted pair
    ``starts[tile(b)] + (b - blk_start[tile(b)]) * chunk + s``;
-4. gather the packed coefficient records into (n_blocks, 16, chunk).
+4. gather the packed coefficient records into (n_blocks, 16, chunk)
+   (with ``mat_idx``, through a K9 copy of the block index array first,
+   ``raster_kernels.materialize_rows``).
 
 A fixed pair budget keeps the block count static; pairs past it are counted
 (``overflow``), never silently dropped.  The block tables equal the
@@ -116,7 +118,7 @@ def _align_pairs(sorted_key, sorted_tri, n_tiles: int, chunk: int, n_blocks: int
 def bin_triangles(
     setup: RasterSetup, width: int, height: int, tile_h: int, tile_w: int,
     chunk: int, max_span: int = 2, budget_factor: float = 3.0,
-    tri_ids: torch.Tensor | None = None, y_offset: float = 0.0,
+    tri_ids: torch.Tensor | None = None, y_offset: float = 0.0, mat_idx: bool = False,
 ) -> BinnedTriangles:
     """tri_ids (optional) maps local rows of a compacted setup back to
     global triangle ids for the output id buffers."""
@@ -134,10 +136,14 @@ def bin_triangles(
     (blocks_tid, slot_valid, blk_tile, blk_first, in_use, tile_used,
      overflow) = _align_pairs(sorted_key, sorted_tri, n_tiles, chunk, n_blocks)
     blocks_valid = slot_valid.to(torch.float32)
-    bt = blocks_tid.long()
     out_tid = blocks_tid if tri_ids is None else torch.where(
-        slot_valid, tri_ids[bt], torch.zeros_like(blocks_tid))
-    coef = setup.coef[bt].transpose(1, 2).contiguous()  # (n_blocks, 16, chunk)
+        slot_valid, tri_ids[blocks_tid.long()], torch.zeros_like(blocks_tid))
+    gather_tid = blocks_tid
+    if mat_idx:
+        from .raster_kernels import materialize_rows  # raster_kernels imports this module
+
+        gather_tid = materialize_rows(blocks_tid)
+    coef = setup.coef[gather_tid.long()].transpose(1, 2).contiguous()  # (n_blocks, 16, chunk)
     return BinnedTriangles(
         coef=coef,
         tri_id=out_tid.to(torch.int32)[:, None, :].contiguous(),

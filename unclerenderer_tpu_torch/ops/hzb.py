@@ -1,11 +1,16 @@
 """Hierarchical-Z buffer (``unclerenderer_tpu/ops/hzb.py``): min-depth mip
 pyramid at half resolution, packed into one flat buffer with static
 per-mip offsets.  Min-reductions are exact, so the pyramid is bit-equal to
-the reference's."""
+the reference's.  ``hzb_tail`` is K6 (``csrc/hzb_tail.cu``): every level
+past the first two in one launch, under ``RenderSettings.hzb_pallas_tail``."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import _cuda
 
 
 def hzb_layout(width: int, height: int):
@@ -38,13 +43,48 @@ def _reduce_level(cur: torch.Tensor, w: int, h: int) -> torch.Tensor:
     return cur.reshape(h, 2, w, 2).amin(dim=(1, 3))
 
 
-def build_hzb(depth: torch.Tensor, layout) -> torch.Tensor:
-    """Full-res reverse-Z depth (H, W) -> packed min-depth pyramid."""
+def hzb_tail_ref(top: torch.Tensor, dims) -> torch.Tensor:
+    """Plain version of K6: the min cascade from ``top`` (h, w) through the
+    levels ``dims`` [(w, h), ...], flattened and concatenated."""
     parts = []
-    cur = depth
-    for _off, w, h in layout:
+    cur = top
+    for w, h in dims:
         cur = _reduce_level(cur, w, h)
         parts.append(cur.reshape(-1))
+    return torch.cat(parts)
+
+
+def hzb_tail(top: torch.Tensor, dims) -> torch.Tensor:
+    """K6 wrapper (same contract as ``hzb_tail_ref``)."""
+    if _cuda.on_cpu("hzb_tail", top):
+        return hzb_tail_ref(top, dims)
+    if top.dtype != torch.float32 or top.dim() != 2 or not 0 < len(dims) <= 32:
+        raise ValueError("hzb_tail: top must be (h, w) f32 with 1..32 output levels")
+    top = top.contiguous()
+    _cuda.check_cuda("hzb_tail", top)
+    table, off = [], 0
+    for w, h in dims:
+        table += [w, h, off]
+        off += w * h
+    out = torch.empty(off, dtype=torch.float32, device=top.device)
+    host = (ctypes.c_int * len(table))(*table)
+    _cuda.launch("hzb_tail", _cuda.ptr(top), ctypes.cast(host, ctypes.c_void_p), _cuda.ptr(out),
+                 top.shape[0], top.shape[1], len(dims))
+    return out
+
+
+def build_hzb(depth: torch.Tensor, layout, pallas_tail: bool = False) -> torch.Tensor:
+    """Full-res reverse-Z depth (H, W) -> packed min-depth pyramid.
+    ``pallas_tail``: the first two levels as plain reductions, the rest in
+    one K6 launch (the reference's ``build_hzb(pallas_tail=True)``)."""
+    n_plain = min(2, len(layout)) if pallas_tail else len(layout)
+    parts = []
+    cur = depth
+    for _off, w, h in layout[:n_plain]:
+        cur = _reduce_level(cur, w, h)
+        parts.append(cur.reshape(-1))
+    if n_plain < len(layout):
+        parts.append(hzb_tail(cur, [(w, h) for _off, w, h in layout[n_plain:]]))
     return torch.cat(parts)
 
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from .fma import fma
+
 PI = 3.14159265
 
 
@@ -56,21 +58,28 @@ def evaluate_pbr(albedo, metallic, roughness, f0, n, v, l):
 
 def reconstruct_normal_z(rg):
     """Two-channel (BC5) normal map Z reconstruction."""
-    z2 = 1.0 - (rg * rg).sum(dim=-1)
+    z2 = 1.0 - fma(rg[..., 1], rg[..., 1], rg[..., 0] * rg[..., 0])
     return torch.sqrt(saturate(z2))
+
+
+def _dot3_fma(a, b):
+    return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
 
 
 def apply_normal_map(vertex_normal, tangent4, tangent_normal):
     """TBN normal mapping: Gram-Schmidt tangent, bitangent from cross *
-    handedness, degenerate tangent-space normal -> (0, 0, 1)."""
+    handedness, degenerate tangent-space normal -> (0, 0, 1).  The dot, the
+    Gram-Schmidt step and the TBN sum carry the reference's XLA:CPU
+    contractions (a grazing pixel's specular term turns a 1-ulp normal
+    difference into ~1e-3 of HDR)."""
     n = normalize(vertex_normal)
     t_raw = tangent4[..., :3]
-    t = normalize(t_raw - n * _dot(n, t_raw)[..., None])
+    t = normalize(fma(-n, _dot3_fma(n, t_raw)[..., None], t_raw))
     b = normalize(torch.linalg.cross(n, t, dim=-1)) * tangent4[..., 3:4]
     tn_len = torch.linalg.vector_norm(tangent_normal, dim=-1, keepdim=True)
     flat = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=tangent_normal.device)
     tn = torch.where(tn_len < 1e-5, flat, tangent_normal)
-    world = tn[..., 0:1] * t + tn[..., 1:2] * b + tn[..., 2:3] * n
+    world = fma(tn[..., 2:3], n, fma(tn[..., 0:1], t, tn[..., 1:2] * b))
     return normalize(world)
 
 

@@ -6,6 +6,9 @@
 * ``giant_raster`` (K2/K3, ``csrc/giant_raster.cu``): the giant level --
   every pixel against the small compacted giant table, skipping chunks
   whose overlap bit for the tile is clear.
+* ``materialize_rows`` (K9, ``csrc/materialize_rows.cu``): the identity
+  copy of the binning's block-aligned index array before the coefficient
+  gather, under ``RenderSettings.bin_mat_idx``.
 * ``rasterize_binned``: fine bins + coarse (mid) bins + giant brute force,
   merged by depth key with min-id tie-breaks.
 
@@ -35,6 +38,31 @@ from .raster import (
 # pixels per tile the binned kernel holds in registers (512 threads x 8)
 BINNED_MAX_PIX = 4096
 BINNED_MAX_CHUNK = 128
+
+
+# ---------------------------------------------------------------------------
+# K9: identity copy of the block index array
+# ---------------------------------------------------------------------------
+
+
+def materialize_rows_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: a copy of ``x``."""
+    return x.clone()
+
+
+def materialize_rows(x: torch.Tensor) -> torch.Tensor:
+    """K9 wrapper: a bit-exact copy of a 4-byte-element tensor into a fresh
+    one, made by a launched kernel (the reference's ``materialize_rows``)."""
+    if _cuda.on_cpu("materialize_rows", x):
+        return materialize_rows_ref(x)
+    if x.element_size() != 4:
+        raise ValueError(f"materialize_rows: expects 4-byte elements, got {x.dtype}")
+    x = x.contiguous()
+    _cuda.check_cuda("materialize_rows", x)
+    out = torch.empty_like(x)
+    if x.numel():
+        _cuda.launch("materialize_rows", _cuda.ptr(x), _cuda.ptr(out), x.numel())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -270,10 +298,14 @@ def rasterize_binned(
     big_tile_w: int = 128, big_chunk: int = 32, mid_divisor: int = 16,
     giant_divisor: int = 128, giant_tile_h: int = 0, giant_tile_w: int = 0,
     giant_chunk: int = 0, want_ids: bool = True, ortho: bool = False,
+    mat_idx: bool = False,
 ):
     """Binned visibility raster, three levels merged by depth key:
     fine tiles for small triangles, coarse tiles for medium ones over a
     compacted list, and the giant brute-force level for the rest.
+
+    ``mat_idx`` copies each binning level's block index array through K9
+    before its coefficient gather (the reference's ``bin_mat_idx``).
 
     Returns (depth, tri_id, stats) with ``pair_overflow`` (fine/mid pairs
     dropped at the bin budget) and ``giant_truncated`` (giant triangles
@@ -283,7 +315,7 @@ def rasterize_binned(
 
     bins = bin_triangles(setup, width, height, tile_h, tile_w, chunk,
                          max_span=max_span, budget_factor=budget_factor,
-                         y_offset=y_offset)
+                         y_offset=y_offset, mat_idx=mat_idx)
     key_img, id_img = _run_binned_kernel(bins, width, height, tile_h, tile_w,
                                          y_offset, want_ids, ortho)
     t_count = setup.coef.shape[0]
@@ -299,7 +331,7 @@ def rasterize_binned(
     mid_setup = RasterSetup(coef=setup.coef[mi], valid=mid_valid, bbox=setup.bbox[:, mi])
     mid_bins = bin_triangles(mid_setup, width, height, big_tile_h, big_tile_w, big_chunk,
                              max_span=4, budget_factor=2.0, tri_ids=mid_idx,
-                             y_offset=y_offset)
+                             y_offset=y_offset, mat_idx=mat_idx)
     mid_key, mid_id = _run_binned_kernel(mid_bins, width, height, big_tile_h, big_tile_w,
                                          y_offset, want_ids, ortho)
     if want_ids:

@@ -1,10 +1,18 @@
 """Texture sampling over the pyramid atlases (``unclerenderer_tpu/ops/texture.py``).
 
-The port runs the reference's default material path (u8 or bf16 combined
-quad atlas, trilinear with quad-derivative LOD) and its IBL path (seamless
-packed-trilinear env cube, hat-function matmuls for the BRDF LUT and the
-irradiance tail), plus ``gather_rows`` -- the K5 kernel
-(``csrc/gather_rows.cu``).
+The port runs the reference's material samplers on the combined atlas in
+both layouts -- the quad atlas (two row gathers per trilinear tap) and the
+packed-trilinear atlas (one 16C-lane row gather, ``sample_pyramid_tri``) --
+with the trilinear, bilinear and anisotropic footprints, and its IBL path
+(seamless packed-trilinear env cube, hat-function matmuls for the BRDF LUT
+and the irradiance tail).  Three kernels live here, each with its plain
+version (``*_ref``) beside it:
+
+* ``gather_rows`` -- K5 (``csrc/gather_rows.cu``), the draw-mask row gather;
+* ``mat_select`` -- K8 (``csrc/mat_select.cu``), the packed material decode
+  under ``RenderSettings.mat_select_kernel``;
+* ``env_select`` -- K7 (``csrc/env_select.cu``), the seamless env decode
+  under ``RenderSettings.env_select_kernel``.
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .fma import fma
 
 ADDRESS_WRAP = 0
 ADDRESS_CLAMP = 1
@@ -66,14 +75,34 @@ def _wrap_index(i, size, mode: int):
     return torch.minimum(torch.clamp(i, min=0), size - 1)
 
 
+def _footprint_axes(dx, dy, base_w, base_h):
+    """Squared screen-axis footprints (lx, ly) in texels."""
+    sz = torch.stack([base_w.to(torch.float32), base_h.to(torch.float32)], dim=-1)
+    return ((dx * sz) ** 2).sum(dim=-1), ((dy * sz) ** 2).sum(dim=-1)
+
+
 def footprint_lod(dx, dy, base_w, base_h):
     """Isotropic LOD from explicit uv derivatives: max screen-axis footprint
     in texels, squared-log2."""
-    sz = torch.stack([base_w.to(torch.float32), base_h.to(torch.float32)], dim=-1)
-    lx = ((dx * sz) ** 2).sum(dim=-1)
-    ly = ((dy * sz) ** 2).sum(dim=-1)
+    lx, ly = _footprint_axes(dx, dy, base_w, base_h)
     rho2 = torch.maximum(lx, ly)
     return 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
+
+
+def footprint_lod_aniso(dx, dy, base_w, base_h, max_aniso: int):
+    """Anisotropic ``(lod, dmaj, extent)`` from explicit uv derivatives:
+    the minor-axis LOD (floored so ``max_aniso`` taps still cover the major
+    axis), the uv derivative along the major axis, and the tap-offset scale
+    ``extent`` in [0, 1) (0 for an isotropic footprint)."""
+    lx, ly = _footprint_axes(dx, dy, base_w, base_h)
+    rho_maj = torch.clamp(torch.maximum(lx, ly), min=1e-12)
+    rho_min = torch.clamp(torch.minimum(lx, ly), min=1e-12)
+    n_eff = torch.clamp(torch.sqrt(rho_maj / rho_min), 1.0, float(max_aniso))
+    rho_eff = torch.maximum(rho_min, rho_maj / (n_eff * n_eff))
+    lod = 0.5 * torch.log2(rho_eff)
+    dmaj = torch.where((lx >= ly)[..., None], dx, dy)
+    extent = 1.0 - 1.0 / n_eff
+    return lod, dmaj, extent
 
 
 def apply_texture_transform(uv, offset_scale, rotation):
@@ -166,6 +195,143 @@ def sample_pyramid_trilinear(quad_flat, atlas_width: int, rect0, uv, lod):
     return a * (1.0 - frac) + b * frac
 
 
+def _lerp(a, b, f):
+    """``a * (1 - f) + b * f``, uncontracted."""
+    return a * (1.0 - f) + b * f
+
+
+def _tap_coords(rect0, uv, level):
+    """Texel coordinates of a WRAP bilinear tap at ``level``: (x, y, w, h)
+    of the mip rect, the floors (fx0, fy0) and their int conversions."""
+    x, y, w, h = _pyramid_rect(rect0, level)
+    tx = uv[..., 0] * w.to(torch.float32) - 0.5
+    ty = uv[..., 1] * h.to(torch.float32) - 0.5
+    fx0, fy0 = torch.floor(tx), torch.floor(ty)
+    return x, y, w, h, tx, ty, fx0, fy0, _to_int(fx0), _to_int(fy0)
+
+
+def sample_pyramid_tri_level(tri_flat, atlas_width: int, rect0, uv, level):
+    """One bilinear tap at an integer mip over the PACKED atlas: lanes 0:4C
+    of a packed row are exactly the quad atlas's row.  Returns (..., C)."""
+    c = tri_flat.shape[-1] // 16
+    x, y, w, h, tx, ty, fx0, fy0, ix_raw, iy_raw = _tap_coords(rect0, uv, level)
+    fx = (tx - fx0)[..., None]
+    fy = (ty - fy0)[..., None]
+    ix = _wrap_index(ix_raw, w, ADDRESS_WRAP)
+    iy = _wrap_index(iy_raw, h, ADDRESS_WRAP)
+    quad = _rows_to_f32(tri_flat[((y + iy) * atlas_width + (x + ix)).long()][..., :4 * c], c)
+    return _lerp(_lerp(quad[..., 0:c], quad[..., c:2 * c], fx),
+                 _lerp(quad[..., 2 * c:3 * c], quad[..., 3 * c:], fx), fy)
+
+
+def sample_pyramid_tri(tri_flat, atlas_width: int, rect0, uv, lod, select_kernel: bool = False):
+    """Trilinear tap with ONE row gather over the packed atlas
+    (``build_pyramid_tri_atlas``): lanes 0:4C of the row are the mip-L
+    quad, lanes 4C:13C the parent texel's 3x3 at mip L+1, from which the
+    second tap's 2x2 is a lane select.  tri_flat (H*W, 16C); returns
+    (..., C).
+
+    ``select_kernel`` (C = 16) computes the select parameters before the
+    gather and hands row index + parameters to K8 (``mat_select``); off,
+    the 3x3 select runs on the raw rows and only the 8 winning lane groups
+    decode (select-then-decode; selects commute with the per-element
+    decode).  The window column/row are clipped to [0, 1] on both paths
+    (the saturated w == 1 tail, where the window is uniform)."""
+    c = tri_flat.shape[-1] // 16
+    lod = torch.clamp(lod, min=0.0)
+    l0 = _to_int(torch.floor(lod))
+    frac = torch.clamp(lod - l0.to(torch.float32), 0.0, 1.0)
+    x, y, w, h, tx, ty, fx0, fy0, ix_raw, iy_raw = _tap_coords(rect0, uv, l0)
+    ix = _wrap_index(ix_raw, w, ADDRESS_WRAP)
+    iy = _wrap_index(iy_raw, h, ADDRESS_WRAP)
+    rows_idx = (y + iy) * atlas_width + (x + ix)
+    _, _, _, _, tx2, ty2, fx20, fy20, ix2_raw, iy2_raw = _tap_coords(rect0, uv, l0 + 1)
+    cox = torch.clamp(ix2_raw - (ix_raw >> 1) + 1, 0, 1)
+    roy = torch.clamp(iy2_raw - (iy_raw >> 1) + 1, 0, 1)
+    if select_kernel and c == 16:
+        params7 = torch.stack([tx - fx0, ty - fy0, tx2 - fx20, ty2 - fy20, frac,
+                               cox.to(torch.float32), roy.to(torch.float32)]).reshape(7, -1)
+        out = mat_select(tri_flat, rows_idx.reshape(-1), params7)
+        return out.reshape(uv.shape[:-1] + (c,))
+    fx, fy = (tx - fx0)[..., None], (ty - fy0)[..., None]
+    fx2, fy2 = (tx2 - fx20)[..., None], (ty2 - fy20)[..., None]
+    row = tri_flat[rows_idx.long()]
+    quad = _rows_to_f32(row[..., 0:4 * c], c)
+    a = _lerp(_lerp(quad[..., 0:c], quad[..., c:2 * c], fx),
+              _lerp(quad[..., 2 * c:3 * c], quad[..., 3 * c:], fx), fy)
+    cox0 = (cox == 0)[..., None, None]
+    roy0 = (roy == 0)[..., None, None]
+    r3 = row[..., 4 * c:13 * c].reshape(row.shape[:-1] + (3, 3, c))
+    win_t = torch.where(cox0, r3[..., 0, 0:2, :], r3[..., 0, 1:3, :])
+    win_m = torch.where(cox0, r3[..., 1, 0:2, :], r3[..., 1, 1:3, :])
+    win_b = torch.where(cox0, r3[..., 2, 0:2, :], r3[..., 2, 1:3, :])
+    rt = _rows_to_f32(torch.where(roy0, win_t, win_m).flatten(-2), c)
+    rb = _rows_to_f32(torch.where(roy0, win_m, win_b).flatten(-2), c)
+    b = _lerp(_lerp(rt[..., 0:c], rt[..., c:], fx2), _lerp(rb[..., 0:c], rb[..., c:], fx2), fy2)
+    return _lerp(a, b, frac[..., None])
+
+
+# The K7/K8 blends contract like the reference's kernels do under XLA:CPU
+# (measured bit-equal on 20k random rows each); the CUDA kernels use the
+# same __fmaf_rn sequence.
+def _lerp_fa(a, b, f):
+    """``a * (1 - f) + b * f`` as ``fma(a, 1 - f, b * f)``."""
+    return fma(a, 1.0 - f, b * f)
+
+
+def _lerp_fb(a, b, f):
+    """``a * (1 - f) + b * f`` as ``fma(b, f, a * (1 - f))``."""
+    return fma(b, f, a * (1.0 - f))
+
+
+def mat_select_ref(tri_flat: torch.Tensor, rows_idx: torch.Tensor, params7: torch.Tensor):
+    """Plain version of K8 (the reference's ``_mat_select_kernel``): per
+    pixel, row ``rows_idx[n]`` of the packed (rows, 16C) atlas decoded to
+    f32 (u8: gamma 2 on channels {0,1,2,8,9,10}), tap-a quad blend, tap-b
+    2x2 of the 3x3 chosen by (cox < 0.5, roy < 0.5), mip lerp, contracted
+    as the reference's kernel is.  params7 (7, N) f32 = [fx, fy, fx2, fy2,
+    frac, cox, roy]; returns (N, C) f32."""
+    c = tri_flat.shape[-1] // 16
+    n = rows_idx.shape[0]
+    rows = tri_flat[rows_idx.long()].reshape(n, 16, c)
+    fx, fy, fx2, fy2, frac = (params7[k][:, None] for k in range(5))
+    i0 = torch.where(params7[5] < 0.5, 0, 1)
+    j0 = torch.where(params7[6] < 0.5, 0, 1)
+    base = 4 + j0 * 3 + i0
+    q = torch.arange(4, device=rows.device).expand(n, 4)
+    cells = torch.stack([base, base + 1, base + 3, base + 4], dim=1)
+    lane_groups = torch.cat([q, cells], dim=1)[:, :, None].expand(n, 8, c)
+    v = _rows_to_f32(torch.gather(rows, 1, lane_groups), c)
+    a = _lerp_fa(_lerp_fa(v[:, 0], v[:, 1], fx), _lerp_fa(v[:, 2], v[:, 3], fx), fy)
+    b = _lerp_fa(_lerp_fa(v[:, 4], v[:, 5], fx2), _lerp_fa(v[:, 6], v[:, 7], fx2), fy2)
+    return _lerp_fb(a, b, frac)
+
+
+_ATLAS_DTYPE_CODE = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def mat_select(tri_flat: torch.Tensor, rows_idx: torch.Tensor, params7: torch.Tensor):
+    """K8 wrapper (same contract as ``mat_select_ref``)."""
+    if _cuda.on_cpu("mat_select", tri_flat):
+        return mat_select_ref(tri_flat, rows_idx, params7)
+    lanes = tri_flat.shape[-1]
+    c = lanes // 16
+    if tri_flat.dim() != 2 or lanes % 16 or tri_flat.dtype not in _ATLAS_DTYPE_CODE:
+        raise ValueError("mat_select: atlas must be (rows, 16C) u8, f32 or bf16")
+    if tri_flat.dtype == torch.uint8 and c != 16:
+        raise ValueError(f"mat_select: the u8 decode needs C=16 material rows, got C={c}")
+    n = rows_idx.shape[0]
+    if params7.shape != (7, n) or params7.dtype != torch.float32:
+        raise ValueError("mat_select: params7 must be (7, N) f32")
+    rows_idx = rows_idx.to(torch.int32).contiguous()
+    tri_flat, params7 = tri_flat.contiguous(), params7.contiguous()
+    _cuda.check_cuda("mat_select", tri_flat, rows_idx, params7)
+    out = torch.empty((n, c), dtype=torch.float32, device=tri_flat.device)
+    _cuda.launch("mat_select", _cuda.ptr(tri_flat), _cuda.ptr(rows_idx), _cuda.ptr(params7),
+                 _cuda.ptr(out), n, c, lanes, _ATLAS_DTYPE_CODE[tri_flat.dtype])
+    return out
+
+
 def sample_table_bilinear_matmul(table, uv):
     """Bilinear sample of a SMALL (TH, TW, C) table via hat-function
     matmuls (CLAMP, half-texel centers).  Exact 2-tap filtering needs full
@@ -202,11 +368,67 @@ def _cube_face_rect(face_rect0, direction):
     return rect, uv
 
 
-def sample_cube_pyramid_tri(env_tri_flat, atlas_width: int, face_rect0, direction, lod):
+def env_select_ref(env_tri_flat: torch.Tensor, env_rows: torch.Tensor, params9: torch.Tensor):
+    """Plain version of K7 (the reference's ``_env_select_kernel``): per
+    pixel, row ``env_rows[n]`` of the seamless packed env atlas (>= 72
+    lanes of 4-channel groups).  Tap a picks its 2x2 from the quad and the
+    baked border groups by (m_ix > 0.5, m_iy > 0.5); tap b its 2x2 of the
+    3x3 by (cox < 0.5, roy < 0.5) -- cox/roy unclipped, as the kernel
+    receives them; mip lerp, contracted as the reference's kernel is.
+    params9 (9, N) f32 = [fx, fy, fx2, fy2, frac, m_ix, m_iy, cox, roy];
+    returns (N, 4) f32."""
+    n = env_rows.shape[0]
+    groups = env_tri_flat[env_rows.long()].reshape(n, -1, 4)
+    fx, fy, fx2, fy2, frac = (params9[k][:, None] for k in range(5))
+    m_ix, m_iy = params9[5] > 0.5, params9[6] > 0.5
+    both = m_ix & m_iy
+
+    def pick(g_both, g_ix, g_iy, g_none):
+        return torch.where(both, g_both, torch.where(m_ix, g_ix, torch.where(m_iy, g_iy, g_none)))
+
+    # groups: quad 0-3, 3x3 cell (j, i) at 4 + 3j + i, borders L 13, T 14,
+    # corner 15, L2 16, T2 17
+    tl, tr = pick(15, 13, 14, 0), pick(14, 0, 17, 1)
+    bl, br = pick(13, 16, 0, 2), pick(0, 2, 1, 3)
+    base = 4 + torch.where(params9[8] < 0.5, 0, 1) * 3 + torch.where(params9[7] < 0.5, 0, 1)
+    sel = torch.stack([tl, tr, bl, br, base, base + 1, base + 3, base + 4], dim=1)
+    v = torch.gather(groups, 1, sel[:, :, None].expand(n, 8, 4)).to(torch.float32)
+    a = _lerp_fa(_lerp_fb(v[:, 0], v[:, 1], fx), _lerp_fb(v[:, 2], v[:, 3], fx), fy)
+    b = _lerp_fa(_lerp_fa(v[:, 4], v[:, 5], fx2), _lerp_fa(v[:, 6], v[:, 7], fx2), fy2)
+    return _lerp_fb(a, b, frac)
+
+
+def env_select(env_tri_flat: torch.Tensor, env_rows: torch.Tensor, params9: torch.Tensor):
+    """K7 wrapper (same contract as ``env_select_ref``)."""
+    if _cuda.on_cpu("env_select", env_tri_flat):
+        return env_select_ref(env_tri_flat, env_rows, params9)
+    if (env_tri_flat.dim() != 2 or env_tri_flat.shape[-1] < 72
+            or env_tri_flat.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError("env_select: env atlas must be (rows, >= 72 lanes) f32 or bf16")
+    n = env_rows.shape[0]
+    if params9.shape != (9, n) or params9.dtype != torch.float32:
+        raise ValueError("env_select: params9 must be (9, N) f32")
+    env_rows = env_rows.to(torch.int32).contiguous()
+    env_tri_flat, params9 = env_tri_flat.contiguous(), params9.contiguous()
+    _cuda.check_cuda("env_select", env_tri_flat, env_rows, params9)
+    out = torch.empty((n, 4), dtype=torch.float32, device=env_tri_flat.device)
+    _cuda.launch("env_select", _cuda.ptr(env_tri_flat), _cuda.ptr(env_rows), _cuda.ptr(params9),
+                 _cuda.ptr(out), n, env_tri_flat.shape[-1],
+                 int(env_tri_flat.dtype == torch.bfloat16))
+    return out
+
+
+def sample_cube_pyramid_tri(env_tri_flat, atlas_width: int, face_rect0, direction, lod,
+                            select_kernel: bool = False):
     """Trilinear cubemap sample with ONE row gather over the packed
     atlas: lanes 0:16 are the mip-L quad, 16:52 the parent 3x3 at mip L+1,
     and (seamless rows, >= 128 lanes) 52:72 the baked cross-face border
-    lanes.  Returns (..., 4) f32."""
+    lanes.  Returns (..., 4) f32.
+
+    ``select_kernel`` (seamless rows only) computes the select parameters
+    before the gather and hands them to K7 (``env_select``), with the
+    kernel's own semantics: cox/roy unclipped and tested ``< 0.5``, where
+    the path below tests ``== 0``."""
     rect, uv = _cube_face_rect(face_rect0, direction)
     lod = torch.clamp(lod, min=0.0)
     l0 = _to_int(torch.floor(lod))
@@ -230,6 +452,15 @@ def sample_cube_pyramid_tri(env_tri_flat, atlas_width: int, face_rect0, directio
     ix = _wrap_index(ix_raw, w, ADDRESS_CLAMP)
     iy = _wrap_index(iy_raw, h, ADDRESS_CLAMP)
     env_rows = (y + iy) * atlas_width + (x + ix)
+    if select_kernel and seamless:
+        _, _, _, _, tx2k, ty2k, fx20k, fy20k, ix2k, iy2k = _tap_coords(rect, uv, l0 + 1)
+        params9 = torch.stack([
+            tx - fx0, ty - fy0, tx2k - fx20k, ty2k - fy20k, frac[..., 0],
+            (ix_raw < 0).to(torch.float32), (iy_raw < 0).to(torch.float32),
+            (ix2k - (ix >> 1) + 1).to(torch.float32), (iy2k - (iy >> 1) + 1).to(torch.float32),
+        ]).reshape(9, -1)
+        out = env_select(env_tri_flat, env_rows.reshape(-1), params9)
+        return out.reshape(uv.shape[:-1] + (4,))
     row = env_tri_flat[env_rows.long()]
     q00, q10 = row[..., 0:4], row[..., 4:8]
     q01, q11 = row[..., 8:12], row[..., 12:16]

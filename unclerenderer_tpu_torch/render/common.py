@@ -1,7 +1,8 @@
 """Frame building blocks (``unclerenderer_tpu/render/common.py``): vertex
 stage, draw masks, the opaque and shadow visibility rasters, and the
-material resolve on the reference's default branch (combined material,
-trilinear taps with quad-derivative LOD, compact id space)."""
+material resolve (combined material on the quad or the packed-trilinear
+atlas; trilinear, bilinear and anisotropic filters with quad-derivative
+LOD; compact id space)."""
 
 from __future__ import annotations
 
@@ -9,20 +10,21 @@ import torch
 
 from ..ops import pbr
 from ..ops import texture as tex
-from ..ops.fma import fdiff, fdot
+from ..ops.fma import fdiff, fdot, fma
 from ..ops.raster import (
     CULL_BACK,
     CULL_FRONT,
     DEPTH_MAX,
     DEPTH_MIN,
     VertexSoA,
+    compact_mask,
     compact_setup,
     normalize_ortho_setup,
     triangle_setup_from_soa,
 )
 from ..ops.raster_kernels import rasterize_binned
 from . import packing as PK
-from .params import DeviceScene, RenderSettings, not_ported
+from .params import SAMPLING, DeviceScene, RenderSettings, not_ported
 
 SLOT_NORMAL = 2  # material slot of the normal map (has_map column)
 
@@ -93,6 +95,7 @@ def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
         mid_divisor=settings.bin_mid_divisor, giant_divisor=settings.bin_giant_divisor,
         giant_tile_h=giant_tile[0], giant_tile_w=giant_tile[1],
         giant_chunk=settings.bin_giant_chunk, want_ids=want_ids, ortho=ortho,
+        mat_idx=settings.bin_mat_idx,
     )
 
 
@@ -168,14 +171,85 @@ def _interp3(w, av, offset, n):
     return fdot([(w[0][..., None], a[0]), (w[1][..., None], a[1]), (w[2][..., None], a[2])])
 
 
+def _atlas_is_packed_tri(quad_flat) -> bool:
+    """The combined packed-trilinear atlas has 16 * 16 = 256 lanes, the
+    combined quad atlas 64."""
+    return quad_flat.shape[-1] == 256
+
+
+def _sample_level_any(quad_flat, atlas_width, rect0, uv, level):
+    """Bilinear tap at an integer mip on either atlas layout."""
+    if _atlas_is_packed_tri(quad_flat):
+        return tex.sample_pyramid_tri_level(quad_flat, atlas_width, rect0, uv, level)
+    return tex.sample_pyramid_bilinear(quad_flat, atlas_width, rect0, uv, level)
+
+
+def _sample_trilinear_any(quad_flat, atlas_width, rect0, uv, lod, select_kernel=False):
+    """Trilinear tap on either layout: one row gather on the packed atlas
+    (``select_kernel``: decoded by K8), two on the quad atlas."""
+    if _atlas_is_packed_tri(quad_flat):
+        return tex.sample_pyramid_tri(quad_flat, atlas_width, rect0, uv, lod,
+                                      select_kernel=select_kernel)
+    return tex.sample_pyramid_trilinear(quad_flat, atlas_width, rect0, uv, lod)
+
+
+def _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy, base_w, base_h, valid,
+                  settings: RenderSettings):
+    """D3D12_FILTER_ANISOTROPIC analog: ``max_anisotropy`` trilinear taps
+    along the major-axis footprint at the minor-axis LOD.  Returns (sample,
+    aniso_tap_overflow).
+
+    With 0 < ``aniso_compact_frac`` < 1 the line taps run only over a
+    compacted list of the anisotropic pixels (extent > 0; static cap =
+    that fraction of the image, at least 1024) and every other pixel takes
+    one centre tap, which equals its N coincident taps; pixels past the cap
+    keep the centre tap and are counted.  With one combined material slot
+    the count is written once, so the reference's per-slot overwrite of it
+    (render/common.py:1219) cannot arise here."""
+    n = settings.max_anisotropy
+    sk = settings.mat_select_kernel
+    lod, dmaj, extent = tex.footprint_lod_aniso(d_dx, d_dy, base_w, base_h, n)
+
+    def line_taps(rect, uv, lod, dmaj, extent):
+        acc = 0.0
+        for k in range(n):
+            t = ((k + 0.5) / n - 0.5) * extent
+            # the reference's uv + dmaj * t contracts to one FMA on XLA:CPU
+            acc = acc + _sample_trilinear_any(quad_flat, atlas_width, rect,
+                                              fma(dmaj, t[..., None], uv), lod, select_kernel=sk)
+        return acc / n
+
+    frac = settings.aniso_compact_frac
+    if not 0.0 < frac < 1.0:
+        return line_taps(rect0, suv, lod, dmaj, extent), torch.zeros((), dtype=torch.int32,
+                                                                     device=suv.device)
+    lead = suv.shape[:-1]
+    n_pix = lead.numel()
+    cap = max(1024, (int(n_pix * frac) // 1024) * 1024)
+    amask = ((extent > 0.0) & valid).reshape(n_pix)
+    ids, ok = compact_mask(amask, cap)
+    safe = torch.where(ok, ids, torch.zeros_like(ids)).long()
+
+    def flat(x):
+        return x.reshape((n_pix,) + x.shape[len(lead):])[safe]
+
+    acc = line_taps(flat(rect0), flat(suv), flat(lod), flat(dmaj), flat(extent))
+    center = _sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod, select_kernel=sk)
+    img = center.reshape((n_pix,) + center.shape[len(lead):]).clone()
+    img[ids[ok].long()] = acc[ok]
+    overflow = (amask.sum() - ok.sum()).to(torch.int32)
+    return img.reshape(center.shape), overflow
+
+
 def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings,
                       compact_ids=None):
     """Visibility buffer -> interpolated attributes + sampled materials:
-    ONE per-pixel gather of the 128-wide record, then one combined-material
-    trilinear tap at the quad-derivative LOD."""
-    if settings.texture_filter != "trilinear" or settings.lod_derivatives != "quad" \
-            or not settings.combined_material:
-        raise not_ported("this material resolve branch", "item 12 (non-default sampling)")
+    ONE per-pixel gather of the 128-wide record, then the combined-material
+    tap (``settings.texture_filter``) at the quad-derivative LOD.  The
+    result carries ``aniso_tap_overflow`` (0 unless the compacted
+    anisotropic taps overflowed their cap)."""
+    if settings.lod_derivatives != "quad" or not settings.combined_material:
+        raise not_ported("this material resolve branch", SAMPLING)
     width, height = settings.width, tri_id.shape[0]
     dev = tri_id.device
     rec = build_resolve_records(scene, pix9, ids=compact_ids)
@@ -231,8 +305,6 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     uv_bl = uv_at(bx + 0.5, by + 1.5)
 
     quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
-    if quad_flat.shape[-1] == 256:
-        raise not_ported("the packed-trilinear material atlas", "item 12 (non-default sampling)")
     atlas_width = scene.quad_img.shape[1]
 
     # combined material: all maps fused into one 16-channel texture; the
@@ -248,8 +320,18 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     s_tl = tex.apply_texture_transform(uv_tl, t_os, t_rot)
     d_dx = tex.apply_texture_transform(uv_tr, t_os, t_rot) - s_tl
     d_dy = tex.apply_texture_transform(uv_bl, t_os, t_rot) - s_tl
-    lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
-    s = tex.sample_pyramid_trilinear(quad_flat, atlas_width, rect0, suv, lod)
+    aniso_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    if settings.texture_filter == "anisotropic":
+        s, aniso_overflow = _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy,
+                                          base_w, base_h, valid, settings)
+    elif settings.texture_filter == "bilinear":
+        lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
+        level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
+        s = _sample_level_any(quad_flat, atlas_width, rect0, suv, level)
+    else:
+        lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
+        s = _sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod,
+                                  select_kernel=settings.mat_select_kernel)
 
     albedo = M(PK.M_BCF, 3) * v_color[..., :3] * s[..., 0:3]
     alpha = M(PK.M_ALPHA) * v_color[..., 3] * s[..., 3]
@@ -265,6 +347,7 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
                                  pbr.normalize(v_normal))
     return {
         "valid": valid,
+        "aniso_tap_overflow": aniso_overflow,
         "model_id": model_id,
         "object_id_f": M(PK.M_OBJID),
         "world_pos": world_pos,

@@ -77,9 +77,12 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     raster_stats["shadow_compact_overflow"] = shadow_overflow
 
     g = common.resolve_materials(scene, pix9, tri_id, settings, compact_ids=compact_ids)
+    if settings.texture_filter == "anisotropic":
+        raster_stats["aniso_tap_overflow"] = g["aniso_tap_overflow"]
 
-    # --- 6. HZB for next frame
-    new_hzb = build_hzb(depth, layout) if settings.enable_hzb else state.hzb
+    # --- 6. HZB for next frame (hzb_pallas_tail: levels past the first two by K6)
+    new_hzb = (build_hzb(depth, layout, pallas_tail=settings.hzb_pallas_tail)
+               if settings.enable_hzb else state.hzb)
 
     # --- 7. lighting (view space)
     view3 = params.view[:3, :3]
@@ -107,9 +110,13 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
         env_flat = scene.env_quad.reshape(-1, scene.env_quad.shape[-1])
         env_w = scene.env_quad.shape[1]
 
+        # K7 decodes the packed env rows; env_matmul_gather takes precedence
+        # (the reference's order), and only changes how the row is gathered
+        env_kernel = settings.env_select_kernel and not settings.env_matmul_gather
+
         def env_sample(direction, lod):
             return tex.sample_cube_pyramid_tri(env_flat, env_w, scene.env_rect0, direction,
-                                               lod)[..., :3]
+                                               lod, select_kernel=env_kernel)[..., :3]
 
         def env_sample_level(direction, level):
             del level  # always the last mip: its texels live in env_tail

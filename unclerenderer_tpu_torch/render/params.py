@@ -4,9 +4,13 @@
   default of the reference is kept (a test checks them).  Fields that only
   chose between TPU implementations with identical output
   (``raster_backend``, ``pallas_interpret``, ``bin_align_scatter``,
-  ``compact_mode``, ``env_matmul_gather``, ``bin_mat_idx``) are accepted and
-  the port runs its one implementation; branches the port has not taken
-  over yet raise ``NotImplementedError`` naming their ROADMAP item
+  ``compact_mode``, ``env_matmul_gather``) are accepted and the port runs
+  its one implementation.  The four kernel flags launch their kernel, as
+  on the reference's Pallas path: ``hzb_pallas_tail`` K6,
+  ``env_select_kernel`` K7 (not under ``env_matmul_gather``: the
+  reference's precedence), ``mat_select_kernel`` K8 (packed-trilinear
+  atlas) and ``bin_mat_idx`` K9.  Branches the port has not taken over yet
+  raise ``NotImplementedError`` naming their ROADMAP queue entry
   (``check_supported``).
 * FrameParams / DeviceScene / FrameState: dataclasses of tensors, all on one
   explicit device.
@@ -82,7 +86,7 @@ class RenderSettings:
 
 
 # material-count boundary for material_packed_trilinear="auto" (reference
-# value; the packed layout itself is not ported yet)
+# value)
 PACKED_TRI_AUTO_MATERIALS = 6
 
 
@@ -98,47 +102,43 @@ def resolve_packed_trilinear(setting, n_materials: int) -> bool:
     return setting
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
+# titles of the ROADMAP.md modules-queue entries that still raise
+MASKED_RASTER = "masked raster"
+FORWARD_PATH = "forward path"
+SAMPLING = "non-default sampling and storage"
+FUSED_RESOLVE = "fused resolve"
+OBSERVABILITY = "observability"
+
+
+def not_ported(what: str, entry: str) -> NotImplementedError:
+    """The error for a branch the port does not run yet; ``entry`` is the
+    title of its ROADMAP.md modules-queue entry."""
     return NotImplementedError(
-        f"{what} is not ported to unclerenderer_tpu_torch yet (ROADMAP.md {item})"
+        f"{what} is not ported to unclerenderer_tpu_torch yet "
+        f"(ROADMAP.md, modules queue: {entry})"
     )
 
 
 def check_supported(settings: RenderSettings) -> None:
     """Raise for every setting whose branch the port does not run, instead
     of silently computing something else."""
+    if settings.texture_filter not in ("trilinear", "bilinear", "anisotropic"):
+        raise ValueError(f"unknown texture_filter {settings.texture_filter!r}")
     unsupported = [
-        (settings.renderer_type != "deferred", "renderer_type='forward'",
-         "item 11 (forward path)"),
-        (settings.has_masked_models, "has_masked_models=True",
-         "item 7 (masked raster)"),
-        (settings.texture_filter != "trilinear",
-         f"texture_filter={settings.texture_filter!r}",
-         "item 12 (non-default sampling)"),
-        (settings.lod_derivatives != "quad", "lod_derivatives='forward'",
-         "item 12 (non-default sampling)"),
+        (settings.renderer_type != "deferred", "renderer_type='forward'", FORWARD_PATH),
+        (settings.has_masked_models, "has_masked_models=True", MASKED_RASTER),
+        (settings.lod_derivatives != "quad", "lod_derivatives='forward'", SAMPLING),
         (not settings.combined_material,
-         "per-slot material taps (combined_material=False)",
-         "item 12 (non-default sampling)"),
-        (not settings.soa_vertex, "soa_vertex=False (AoS vertex stage)",
-         "item 12 (non-default sampling)"),
-        (settings.fused_resolve == "on", "fused_resolve='on'",
-         "item 13 (fused resolve)"),
-        (not settings.shadow_table_u16, "shadow_table_u16=False",
-         "item 12 (non-default sampling)"),
-        (settings.gpu_debug_print, "gpu_debug_print", "item 14 (observability)"),
-        (settings.kernel_debug_print, "kernel_debug_print",
-         "item 14 (observability)"),
-        (settings.hzb_pallas_tail, "hzb_pallas_tail (kernel K6)",
-         "queue 2, K6"),
-        (settings.env_select_kernel, "env_select_kernel (kernel K7)",
-         "queue 2, K7"),
-        (settings.mat_select_kernel, "mat_select_kernel (kernel K8)",
-         "queue 2, K8"),
+         "per-slot material taps (combined_material=False)", SAMPLING),
+        (not settings.soa_vertex, "soa_vertex=False (AoS vertex stage)", SAMPLING),
+        (settings.fused_resolve == "on", "fused_resolve='on'", FUSED_RESOLVE),
+        (not settings.shadow_table_u16, "shadow_table_u16=False", SAMPLING),
+        (settings.gpu_debug_print, "gpu_debug_print", OBSERVABILITY),
+        (settings.kernel_debug_print, "kernel_debug_print", OBSERVABILITY),
     ]
-    for bad, what, item in unsupported:
+    for bad, what, entry in unsupported:
         if bad:
-            raise not_ported(what, item)
+            raise not_ported(what, entry)
 
 
 @dataclasses.dataclass

@@ -17,7 +17,7 @@ from unclerenderer_tpu import mathlib as m
 from unclerenderer_tpu.scene.build import SceneData, SceneModel
 from unclerenderer_tpu.scene.gltf import GltfMaterial
 from unclerenderer_tpu.scene.mesh import compute_mesh_bounds, create_cube, create_sphere
-from unclerenderer_tpu.textures.atlas import build_pyramid_quad_atlas
+from unclerenderer_tpu.textures.atlas import build_pyramid_quad_atlas, build_pyramid_tri_atlas
 from unclerenderer_tpu.textures.image import (
     combined_chain,
     default_grid_texture,
@@ -26,7 +26,7 @@ from unclerenderer_tpu.textures.image import (
 )
 
 from .packing import pack_model_record, pack_tri_geo, pack_tri_mrec
-from .params import DeviceScene, FrameParams, not_ported, resolve_packed_trilinear
+from .params import SAMPLING, DeviceScene, FrameParams, not_ported, resolve_packed_trilinear
 
 
 def _append_mesh(parts, mesh, world, normalize_normals):
@@ -204,10 +204,11 @@ def synthetic_device_scene(
     """Returns ``(DeviceScene, SceneData)``.  rich_materials gives every
     model fused baseColor+MR+normal(+emissive) maps in one combined
     16-channel chain (render with ``combined_material=True``, the only
-    material branch the port runs)."""
+    material branch the port runs).  packed_trilinear (True, False or
+    "auto", resolved against the 6 materials) builds the 256-lane
+    packed-trilinear atlas instead of the 64-lane quad atlas."""
     if not rich_materials:
-        raise not_ported("per-slot material atlases (rich_materials=False)",
-                         "item 12 (non-default sampling)")
+        raise not_ported("per-slot material atlases (rich_materials=False)", SAMPLING)
     data = synthetic_scene_data(n_objects, seed, sphere_res=sphere_res, ground=ground)
     n = data.num_models
     n_combos = 6
@@ -216,10 +217,9 @@ def synthetic_device_scene(
     if atlas_u8:
         combo_chains = [[encode_combined_u8(lv) for lv in ch] for ch in combo_chains]
         mat_dtype = np.uint8
-    if resolve_packed_trilinear(packed_trilinear, n_combos):
-        raise not_ported("the packed-trilinear material atlas",
-                         "item 12 (non-default sampling)")
-    quad_img, rect0 = build_pyramid_quad_atlas(combo_chains, wrap=True, dtype=mat_dtype)
+    build = (build_pyramid_tri_atlas if resolve_packed_trilinear(packed_trilinear, n_combos)
+             else build_pyramid_quad_atlas)
+    quad_img, rect0 = build(combo_chains, wrap=True, dtype=mat_dtype)
     model_combo = np.arange(n, dtype=np.int32) % n_combos
     tex_ids = np.repeat(model_combo[:, None], 4, axis=1).astype(np.int32)
     has_map = np.ones((n, 4), bool)
