@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Two paths of the port are driven, each through ``deferred_frame``:
+Three paths of the port are driven: two through ``deferred_frame``,
 
 * default -- the reference's default frame (u8 combined quad atlas), which
   runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF select) and K5
@@ -10,7 +10,16 @@ Two paths of the port are driven, each through ``deferred_frame``:
 * packed  -- the packed-trilinear material configuration: the u8 combined
   PACKED atlas (256 lanes), a procedural seamless env cube built here, and
   the four kernel flags on, which adds K6 (HZB tail), K7 (env select), K8
-  (material select) and K9 (block-index copy).
+  (material select) and K9 (block-index copy);
+
+and a third through ``ops/probes.py``:
+
+* probes  -- the rows of the reference's TPU measurement probes that hold
+  its last three kernels, at the probes' 1080p shapes: a (tc, 128) record
+  gather fed by K10 (merge select) or by K12 (identity copy) of a merged
+  (1080, 1920) id image, a packed-atlas row gather whose rows K11 (row
+  copy) copies before a bilinear blend, and the camera and shadow binning
+  whose block index array K12 copies before the coefficient gather.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -20,8 +29,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 3. kernels -- every kernel against its plain PyTorch version on the same
    CUDA inputs, bit-equal: on random inputs (the random-triangle setups of
    the reference's raster tests at 256x256 for K1/K2, random tables and
-   parameters for K6-K9) and on the inputs captured from one full-size
-   frame of each path, with both versions timed.
+   parameters for K6-K9, NaN/signed-zero/equal keys for K10, odd lengths,
+   misaligned views and 1-8 byte types for the K9/K11/K12 copy) and on the
+   inputs captured from one full-size frame of each path, with both
+   versions timed.
 4. cross   -- 256x256 frames (24 objects, 512^2 shadow map) rendered with the
    kernels on the card and with the plain versions on the CPU: depth and
    tri_id bit-equal, color within 1e-3; the default path, then the packed
@@ -32,6 +43,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    every kernel of the path launched, all drop counters 0, finite color;
    then 3 timed runs of 10 frames.  The packed configuration is also timed
    with the four flags off (the reference's XLA-equivalent branches).
+6. probes  -- the probe rows once with the launch counts set to 0 just
+   before and read just after (K10, K11 and K12 each launched); every
+   output equal to the same rows with the plain versions; each kernel
+   call bit-equal to its plain version; kernel, plain and library times
+   per kernel and each row's time with and without its kernel.
+
+Every kernel's bound is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations over the f32
+peak of 67 TFLOP/s (H100 SXM data sheet, 700 W), from the inputs of this
+run.
 
 The last three lines of stdout are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
@@ -63,6 +84,13 @@ COLOR_ATOL = 1e-3  # transcendental (GGX, sky, tonemap) rounding, CPU vs GPU
 ENV_SIZE = 128  # procedural env cube faces, 8 mips
 KERNEL_FLAGS = dict(hzb_pallas_tail=True, env_select_kernel=True, mat_select_kernel=True,
                     bin_mat_idx=True)
+PROBE_ROWS = 786432  # the probes' packed atlas rows (256 u8 lanes)
+SUM_ATOL = 1e-5  # probe-row sums, kernel vs plain: the same adds over equal inputs
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# three edge functions per (pixel, triangle slot), each a multiply, an FMA
+# (2 operations) and an add: the least a raster level evaluates
+EDGE_OPS = 12
 
 
 def log(phase: str, msg: str) -> None:
@@ -95,21 +123,119 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` without the host's launch cost:
+    ``reps`` calls captured in one CUDA graph, replayed, timed with CUDA
+    events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, reps=3)
+    del graph
+    return ms / reps
+
+
 def as_tuple(x):
     return tuple(x) if isinstance(x, tuple) else (x,)
 
 
 def compare(a, b):
-    """(mismatching elements, max abs difference) over matching outputs."""
+    """(mismatching elements, max abs difference) over matching outputs; a
+    NaN matches a NaN."""
     bad, err = 0, 0.0
     for x, y in zip(as_tuple(a), as_tuple(b)):
         if x is None and y is None:
             continue
         check(x.shape == y.shape and x.dtype == y.dtype,
               f"shape/dtype differ: {x.shape} {x.dtype} vs {y.shape} {y.dtype}")
-        bad += int((x != y).sum())
-        err = max(err, float((x.double() - y.double()).abs().max()) if x.numel() else 0.0)
+        ne = x != y
+        if x.is_floating_point():
+            ne &= ~(torch.isnan(x) & torch.isnan(y))
+        bad += int(ne.sum())
+        diff = (x.double() - y.double()).abs()
+        diff = diff[~torch.isnan(diff)]
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
     return bad, err
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def distinct(idx) -> int:
+    return int(torch.unique(idx.reshape(-1)).numel())
+
+
+# (bytes, operations) that one call of each kernel must move and do on its
+# inputs: each input read once, each output written once; a gather reads
+# the distinct rows (or elements) it addresses, in the lanes one request
+# needs; rasters count EDGE_OPS per (pixel, valid triangle slot) of the
+# blocks or chunks the tiles really visit.
+
+
+def work_binned(coef, tri_id, valid, start, count, tile_h, tile_w, n_tx, y_offset=0.0,
+                want_ids=True, ortho=False):
+    pix, chunk = tile_h * tile_w, coef.shape[-1]
+    per_block = (valid[:, 0] > 0).sum(-1)
+    csum = torch.cat([per_block.new_zeros(1), torch.cumsum(per_block, 0)])
+    start, count = start.long(), count.long()
+    slots = int((csum[start + count] - csum[start]).sum())
+    blocks = int(count.sum())
+    moved = (blocks * chunk * 4 * (16 + 1 + int(want_ids)) + nbytes(start, count)
+             + start.shape[0] * pix * 4 * (1 + int(want_ids)))
+    return moved, EDGE_OPS * pix * slots
+
+
+def work_giant(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0, want_ids=True,
+               ortho=False):
+    pix, chunk = tile_h * tile_w, coef.shape[-1]
+    live = overlap != 0
+    per_chunk = (valid > 0).sum(-1)
+    slots = int((live.long() * per_chunk[None, :]).sum())
+    chunks = int(live.any(0).sum())
+    moved = (chunks * chunk * 4 * 17 + nbytes(overlap) + (nbytes(ids) if want_ids else 0)
+             + overlap.shape[0] * pix * 4 * (1 + int(want_ids)))
+    return moved, EDGE_OPS * pix * slots
+
+
+def work_select9(table, row, base, deltas):
+    d = torch.as_tensor(deltas, device=table.device)
+    el = distinct(row.long()[:, None] * table.shape[1] + base.long()[:, None] + d[None, :])
+    return el * table.element_size() + nbytes(row, base) + row.shape[0] * 9 * 4, 0
+
+
+def work_gather_rows(table, idx):
+    n, c = idx.numel(), table.shape[1]
+    return distinct(idx) * c * table.element_size() + nbytes(idx) + n * c * 4, 0
+
+
+def work_hzb_tail(top, dims):
+    return nbytes(top) + 4 * sum(w * h for w, h in dims), 0
+
+
+def work_env_select(env, rows, params9):
+    # the two taps' 2x2 footprints: 8 groups of 4 channels per request
+    n = rows.shape[0]
+    return distinct(rows) * 32 * env.element_size() + nbytes(rows, params9) + n * 16, 0
+
+
+def work_mat_select(atlas, rows, params7):
+    n, c = rows.shape[0], atlas.shape[-1] // 16
+    return distinct(rows) * 8 * c * atlas.element_size() + nbytes(rows, params7) + n * c * 4, 0
+
+
+def work_copy(x):
+    return 2 * nbytes(x), 0
+
+
+def work_merge(a, b, ka, kb):
+    return nbytes(a, b, ka, kb, a), 0
 
 
 class Recorder:
@@ -132,6 +258,17 @@ class Recorder:
         setattr(self.module, self.attr, self.orig)
 
 
+@contextlib.contextmanager
+def patched(module, attr, value):
+    """Module attribute ``attr`` set to ``value`` inside the block."""
+    orig = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, orig)
+
+
 def to_device(obj, device):
     return dataclasses.replace(obj, **{
         f.name: getattr(obj, f.name).to(device)
@@ -144,7 +281,8 @@ def seamless_env_cube(scene, size, seed, device):
     packed like the reference's Renderer packs a real one
     (``build_pyramid_tri_atlas(cube=True)``, bf16 rows of 128 lanes).
     Returns (scene, mip count)."""
-    from unclerenderer_tpu_torch.render.testing import build_pyramid_tri_atlas, generate_mips
+    from unclerenderer_tpu_torch.textures.atlas import build_pyramid_tri_atlas
+    from unclerenderer_tpu_torch.textures.image import generate_mips
 
     rng = np.random.default_rng(seed)
     t = (np.arange(size, dtype=np.float32) + 0.5) / size
@@ -198,6 +336,7 @@ def main() -> int:
 
     from unclerenderer_tpu_torch.ops import _cuda
     from unclerenderer_tpu_torch.ops import hzb as hzb_mod
+    from unclerenderer_tpu_torch.ops import probes
     from unclerenderer_tpu_torch.ops import raster_kernels as rk
     from unclerenderer_tpu_torch.ops import shadow as shadow_mod
     from unclerenderer_tpu_torch.ops import texture as tex_mod
@@ -225,38 +364,60 @@ def main() -> int:
     _cuda.library()
     log("build", f"{lib_path.name} built in {build_s:.1f} s from {len(_cuda.sources())} sources")
 
+    def index_select(table, idx):
+        return torch.index_select(table, 0, idx.reshape(-1))
+
+    def clone(x):
+        return x.clone()
+
+    def where(a, b, ka, kb):
+        return torch.where(ka > kb, a, b)
+
+    csrc = "unclerenderer_tpu_torch/csrc/"
     kernels = {
-        "binned_raster": dict(module=rk, ref=rk.binned_raster_ref,
-                              source="unclerenderer_tpu_torch/csrc/binned_raster.cu",
+        "binned_raster": dict(module=rk, ref=rk.binned_raster_ref, work=work_binned,
+                              source=csrc + "binned_raster.cu",
                               replaces="unclerenderer_tpu/ops/pallas_raster.py:521"),
-        "giant_raster": dict(module=rk, ref=rk.giant_raster_ref,
-                             source="unclerenderer_tpu_torch/csrc/giant_raster.cu",
+        "giant_raster": dict(module=rk, ref=rk.giant_raster_ref, work=work_giant,
+                             source=csrc + "giant_raster.cu",
                              replaces="unclerenderer_tpu/ops/pallas_raster.py:170"),
         "shadow_select9": dict(module=shadow_mod, attr="select9", ref=shadow_mod.select9_ref,
-                               source="unclerenderer_tpu_torch/csrc/shadow_select9.cu",
+                               work=work_select9, source=csrc + "shadow_select9.cu",
                                replaces="unclerenderer_tpu/ops/shadow.py:335"),
-        "gather_rows": dict(module=tex_mod, ref=tex_mod.gather_rows_ref,
-                            source="unclerenderer_tpu_torch/csrc/gather_rows.cu",
+        "gather_rows": dict(module=tex_mod, ref=tex_mod.gather_rows_ref, work=work_gather_rows,
+                            library=index_select, source=csrc + "gather_rows.cu",
                             replaces="unclerenderer_tpu/ops/texture.py:105"),
-        "hzb_tail": dict(module=hzb_mod, ref=hzb_mod.hzb_tail_ref,
-                         source="unclerenderer_tpu_torch/csrc/hzb_tail.cu",
+        "hzb_tail": dict(module=hzb_mod, ref=hzb_mod.hzb_tail_ref, work=work_hzb_tail,
+                         source=csrc + "hzb_tail.cu",
                          replaces="unclerenderer_tpu/ops/hzb.py:109"),
-        "env_select": dict(module=tex_mod, ref=tex_mod.env_select_ref,
-                           source="unclerenderer_tpu_torch/csrc/env_select.cu",
+        "env_select": dict(module=tex_mod, ref=tex_mod.env_select_ref, work=work_env_select,
+                           source=csrc + "env_select.cu",
                            replaces="unclerenderer_tpu/ops/texture.py:861"),
-        "mat_select": dict(module=tex_mod, ref=tex_mod.mat_select_ref,
-                           source="unclerenderer_tpu_torch/csrc/mat_select.cu",
+        "mat_select": dict(module=tex_mod, ref=tex_mod.mat_select_ref, work=work_mat_select,
+                           source=csrc + "mat_select.cu",
                            replaces="unclerenderer_tpu/ops/texture.py:571"),
-        "materialize_rows": dict(module=rk, ref=rk.materialize_rows_ref,
-                                 source="unclerenderer_tpu_torch/csrc/materialize_rows.cu",
+        "materialize_rows": dict(module=rk, ref=rk.materialize_rows_ref, work=work_copy,
+                                 library=clone, source=csrc + "copy_bytes.cu",
                                  replaces="unclerenderer_tpu/ops/pallas_raster.py:266"),
+        "merge_select": dict(module=probes, ref=probes.merge_select_ref, work=work_merge,
+                             library=where, source=csrc + "merge_select.cu",
+                             replaces="tools/prof_r5.py:219"),
+        "copy_rows": dict(module=probes, ref=probes.copy_rows_ref, work=work_copy,
+                          library=clone, source=csrc + "copy_bytes.cu",
+                          replaces="tools/prof_tap_bisect.py:284"),
+        "materialize": dict(module=probes, ref=probes.materialize_ref, work=work_copy,
+                            library=clone, source=csrc + "copy_bytes.cu",
+                            replaces="tools/prof_fuse.py:51"),
     }
     for name, k in kernels.items():
         k.setdefault("attr", name)
-        k.update(err=0.0, ms=0.0, plain_ms=0.0, calls=[])
+        k.setdefault("library", None)
+        k.update(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, graph_ms=0.0,
+                 library_graph_ms=0.0, bytes_s=0.0, ops_s=0.0, calls=[])
     check(set(kernels) == set(_cuda.LAUNCHES), "every built kernel is checked")
     default_kernels = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
     packed_kernels = ("hzb_tail", "env_select", "mat_select", "materialize_rows")
+    probe_kernels = ("merge_select", "copy_rows", "materialize")
     report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     def versus_plain(name, *a, **kw):
@@ -312,12 +473,31 @@ def main() -> int:
     log("kernels", "hzb_tail, env_select, mat_select and materialize_rows bit-equal to plain "
                    "on random inputs (mat_select: u8, f32 and bf16 atlases)")
 
+    # ---- 3a. K10-K12 vs plain on random inputs
+    special = np.array([np.nan, 0.0, -0.0, 1.0, -1.0, np.inf, -np.inf], np.float32)
+    n = 1080 * 1920 + 3
+    ids = [torch.from_numpy(rng.integers(0, 1 << 24, n).astype(np.int32)).to(dev) for _ in "ab"]
+    for keys in ([rng.standard_normal(n), rng.standard_normal(n)],
+                 [rng.choice(special, n), rng.choice(special, n)]):
+        ka, kb = (torch.from_numpy(k.astype(np.float32)).to(dev) for k in keys)
+        kb = torch.where(torch.from_numpy(rng.random(n) < 0.2).to(dev), ka, kb)  # equal keys
+        for sl in (slice(0, n - 3), slice(1, 1002), slice(0, 37)):  # aligned, misaligned, odd
+            versus_plain("merge_select", ids[0][sl], ids[1][sl], ka[sl], kb[sl])
+    raw = torch.from_numpy(rng.integers(0, 256, 8 * 4100 * 16, dtype=np.uint8)).to(dev)
+    for dtype in (torch.uint8, torch.int16, torch.int32, torch.float32, torch.int64):
+        x = raw.view(dtype)
+        for view in (x[:4096 * 16].reshape(4096, 16), x[1:1 + 999 * 8].reshape(999, 8),
+                     x[:37 * 5].reshape(37, 5)):
+            versus_plain("copy_rows", view)
+            versus_plain("materialize", view)
+    log("kernels", "merge_select (NaN, signed-zero and equal keys), copy_rows and materialize "
+                   "(1-8 byte types, aligned, misaligned, odd) bit-equal to plain on random inputs")
+
     # ---- full-size scenes (the two paths) and their orbit
     t0 = time.perf_counter()
-    scene_cpu, data = synthetic_device_scene(
-        N_OBJECTS, sphere_res=SPHERE_RES, ground=True, rich_materials=True, atlas_u8=True)
-    scene = to_device(scene_cpu, dev)
-    del scene_cpu
+    scene, data = synthetic_device_scene(
+        N_OBJECTS, sphere_res=SPHERE_RES, ground=True, rich_materials=True, atlas_u8=True,
+        device=dev)
     n_tris = int(scene.tri_model.shape[0])
     settings = RenderSettings(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW,
                               has_masked_models=False, combined_material=True)
@@ -335,11 +515,10 @@ def main() -> int:
                  f"{tuple(scene.quad_img.shape)} {scene.quad_img.dtype}, built in "
                  f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    packed_cpu, _ = synthetic_device_scene(
+    packed, _ = synthetic_device_scene(
         N_OBJECTS, sphere_res=SPHERE_RES, ground=True, rich_materials=True, atlas_u8=True,
-        packed_trilinear=True)
-    packed, env_mips = seamless_env_cube(to_device(packed_cpu, dev), ENV_SIZE, 0, dev)
-    del packed_cpu
+        packed_trilinear=True, device=dev)
+    packed, env_mips = seamless_env_cube(packed, ENV_SIZE, 0, dev)
     packed_settings = dataclasses.replace(settings, material_packed_trilinear=True,
                                           **KERNEL_FLAGS)
     packed_params = [params_at(i, env_mips) for i in range(FRAMES)]
@@ -348,6 +527,40 @@ def main() -> int:
                   f"({env_mips} mips), built in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3b. kernels vs plain on inputs captured from one full-size frame
+    def measure(name, ca, ck):
+        """One captured call: kernel vs plain bit-equal; kernel, plain and
+        library times; the call's bound."""
+        k = kernels[name]
+        wrapper = getattr(k["module"], k["attr"])
+        bad, err = compare(wrapper(*ca, **ck), k["ref"](*ca, **ck))
+        shapes = [tuple(x.shape) for x in ca if isinstance(x, torch.Tensor)]
+        check(bad == 0, f"{name} != plain at path shapes {shapes}: {bad} elements")
+        ms = cuda_ms(lambda: wrapper(*ca, **ck), reps=20)
+        plain_ms = cuda_ms(lambda: k["ref"](*ca, **ck), reps=1)
+        lib_ms = (cuda_ms(lambda: k["library"](*ca, **ck), reps=20)
+                  if k["library"] is not None else None)
+        # the same calls replayed from a CUDA graph: the device's share alone
+        dev_ms = graph_ms(lambda: wrapper(*ca, **ck), reps=10)
+        lib_dev_ms = (graph_ms(lambda: k["library"](*ca, **ck), reps=10)
+                      if k["library"] is not None else None)
+        moved, ops = k["work"](*ca, **ck)
+        bytes_s, ops_s = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        k["err"] = max(k["err"], err)
+        k["ms"] += ms
+        k["plain_ms"] += plain_ms
+        k["library_ms"] += lib_ms or 0.0
+        k["bytes_s"] += bytes_s
+        k["ops_s"] += ops_s
+        k["graph_ms"] += dev_ms
+        k["library_graph_ms"] += lib_dev_ms or 0.0
+        k["calls"].append({"shapes": shapes, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "graph_ms": dev_ms, "library_graph_ms": lib_dev_ms,
+                           "bytes": moved, "ops": ops, "bound_ms": 1e3 * max(bytes_s, ops_s)})
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms (graph {lib_dev_ms:.4f})"
+        log("kernels", f"{name} {shapes}: bit-equal, kernel {ms:.4f} ms (graph {dev_ms:.4f}), "
+                       f"plain {plain_ms:.3f} ms, library {lib}, bound "
+                       f"{1e3 * max(bytes_s, ops_s):.4f} ms ({moved} B, {ops} ops)")
+
     def capture(names, frame_scene, frame_params, frame_settings):
         with contextlib.ExitStack() as stack:
             recs = [stack.enter_context(Recorder(kernels[n]["module"], kernels[n]["attr"]))
@@ -360,17 +573,7 @@ def main() -> int:
             check(r.calls, f"{name}: the frame made no call")
             wrapper = getattr(k["module"], k["attr"])
             for ca, ck in r.calls:
-                bad, err = compare(wrapper(*ca, **ck), k["ref"](*ca, **ck))
-                shapes = [tuple(x.shape) for x in ca if isinstance(x, torch.Tensor)]
-                check(bad == 0, f"{name} != plain at frame shapes {shapes}: {bad} elements")
-                ms = cuda_ms(lambda: wrapper(*ca, **ck), reps=20)
-                plain_ms = cuda_ms(lambda: k["ref"](*ca, **ck), reps=1)
-                k["err"] = max(k["err"], err)
-                k["ms"] += ms
-                k["plain_ms"] += plain_ms
-                k["calls"].append({"shapes": shapes, "ms": ms, "plain_ms": plain_ms})
-                log("kernels", f"{name} {shapes}: bit-equal, kernel {ms:.4f} ms, "
-                               f"plain {plain_ms:.3f} ms")
+                measure(name, ca, ck)
 
     capture(default_kernels, scene, params[0], settings)
     capture(packed_kernels, packed, packed_params[0], packed_settings)
@@ -385,7 +588,7 @@ def main() -> int:
         st_g = FrameState.initial(256, 256, dev)
         for i in range(2):
             pos = (4.0 * np.sin(0.05 * i), 1.5, -4.0 * np.cos(0.05 * i))
-            p_c = synthetic_frame_params(sdata, 256, 256, camera_pos=pos)
+            p_c = synthetic_frame_params(sdata, 256, 256, camera_pos=pos, device="cpu")
             p_g = synthetic_frame_params(sdata, 256, 256, camera_pos=pos, device=dev)
             if mips is not None:
                 p_c.env_mip_count = torch.tensor(float(mips))
@@ -406,10 +609,10 @@ def main() -> int:
                          f"{int((out_g['tri_id'] >= 0).sum())} covered pixels")
         return cdiff
 
-    sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True)
+    sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True, device="cpu")
     report["cross_color_max_abs"] = cross("default", sc_cpu, sdata, small)
     sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True,
-                                           packed_trilinear=True)
+                                           packed_trilinear=True, device="cpu")
     sc_cpu, mips = seamless_env_cube(sc_cpu, 32, 1, "cpu")
     for filt in ("trilinear", "anisotropic"):
         report[f"cross_color_max_abs_packed_{filt}"] = cross(
@@ -417,6 +620,103 @@ def main() -> int:
             dataclasses.replace(small, texture_filter=filt, material_packed_trilinear=True,
                                 **KERNEL_FLAGS), mips)
     del sc_cpu
+
+    # ---- 6. the probe path (defined here, run after the default path)
+    def probe_path(frame_scene, frame_params):
+        """The probe rows at the probes' shapes; K10-K12 counted, checked
+        against the plain versions, timed beside their rows."""
+        t0 = time.perf_counter()
+        cam, shadow = probes.probe_setups(frame_scene, frame_params, settings)
+        tc = int(cam.coef.shape[0])
+        rng = np.random.default_rng(0)  # the record probe's draws, in its order
+        rec = torch.from_numpy(rng.standard_normal((tc, 128)).astype(np.float32)).to(dev)
+        i1, i2 = (torch.from_numpy(rng.integers(0, tc, (HEIGHT, WIDTH)).astype(np.int32)).to(dev)
+                  for _ in "12")
+        k1, k2 = (torch.from_numpy(rng.standard_normal((HEIGHT, WIDTH)).astype(np.float32)).to(dev)
+                  for _ in "12")
+        rng = np.random.default_rng(5)  # the tap probe's draws, in its order
+        n = WIDTH * HEIGHT
+        table = torch.from_numpy(rng.integers(0, 255, (PROBE_ROWS, 256), dtype=np.int64)
+                                 .astype(np.uint8)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, PROBE_ROWS, n, dtype=np.int64)
+                               .astype(np.int32)).to(dev)
+        fx, fy = (torch.from_numpy(rng.random((n, 1), np.float32)).to(dev) for _ in "xy")
+        tri0 = torch.where(k1 > k2, i1, i2)
+        bins = {
+            "cam": (cam, WIDTH, HEIGHT, settings.tile_h, settings.tile_w, settings.chunk,
+                    settings.bin_budget_factor, settings.bin_max_span),
+            "shadow": (shadow, SHADOW, SHADOW, settings.shadow_tile_h, settings.shadow_tile_w,
+                       settings.shadow_chunk, settings.shadow_bin_budget_factor,
+                       settings.bin_max_span),
+        }
+        rows = {
+            "rec_param": lambda: probes.rec_param(rec, tri0),
+            "rec_pmerge": lambda: probes.rec_pmerge(rec, i1, i2, k1, k2),
+            "rec_mat": lambda: probes.rec_mat(rec, i1, i2, k1, k2),
+            "tap_v10_i32": lambda: probes.tap_copy_blend_i32(table, idx, fx, fy),
+            "tap_v11_f32": lambda: probes.tap_copy_blend_f32(table, idx, fx, fy),
+        }
+        for label, b in bins.items():
+            rows[f"align_gather[{label}]"] = lambda b=b: probes.align_gather(*b)
+            rows[f"align_materialize_gather[{label}]"] = (
+                lambda b=b: probes.align_materialize_gather(*b))
+        torch.cuda.synchronize()
+        log("probes", f"inputs: rec ({tc}, 128) f32, ids/keys ({HEIGHT}, {WIDTH}), table "
+                      f"{tuple(table.shape)} u8 x {n} requests, setups cam {tuple(cam.coef.shape)} "
+                      f"shadow {tuple(shadow.coef.shape)}; built in {time.perf_counter() - t0:.1f} s")
+
+        # the path's run: counts set to 0 just before and read just after
+        _cuda.reset_launches()
+        with contextlib.ExitStack() as stack:
+            recs = {name: stack.enter_context(Recorder(probes, name)) for name in probe_kernels}
+            outs = {name: fn() for name, fn in rows.items()}
+            torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        log("probes", f"launches in one run of the rows: {launches}")
+        for name in probe_kernels:
+            check(launches[name] > 0, f"kernel {name} was not launched by the probe path")
+
+        def plain_versions():
+            stack = contextlib.ExitStack()
+            for name in probe_kernels:
+                stack.enter_context(patched(probes, name, kernels[name]["ref"]))
+            return stack
+
+        # the same rows with the plain versions: ids and indices bit-equal, sums close
+        with plain_versions():
+            plain = {name: fn() for name, fn in rows.items()}
+        sum_err = 0.0
+        for name, out in outs.items():
+            if name.startswith("align"):
+                bad, _ = compare(out, plain[name])
+                check(bad == 0, f"probe row {name} != plain: {bad} elements")
+            else:
+                check(out.shape == plain[name].shape and bool(torch.isfinite(out).all()),
+                      f"probe row {name}: shape or non-finite values")
+                err = float((out - plain[name]).abs().max())
+                check(err <= SUM_ATOL, f"probe row {name} differs from plain by {err}")
+                sum_err = max(sum_err, err)
+        merged = probes.merge_select(i1, i2, k1, k2)
+        check(torch.equal(merged, tri0), "K10 merged ids != torch.where on the probe images")
+        log("probes", f"every row equal to its plain-version run (index blocks bit-equal, sums "
+                      f"max |diff| {sum_err:.3g} <= {SUM_ATOL})")
+        for name, r in recs.items():
+            for ca, ck in r.calls:
+                measure(name, ca, ck)
+        del recs
+
+        # each row with its kernel and with the plain version, in turns
+        # (kernel, plain, plain, kernel; 5 runs each)
+        row_ms = {}
+        for name, fn in rows.items():
+            ms = cuda_ms(fn, reps=5)
+            with plain_versions():
+                plain_ms = cuda_ms(fn, reps=5) + cuda_ms(fn, reps=5)
+            ms = (ms + cuda_ms(fn, reps=5)) / 2
+            row_ms[name] = {"ms": ms, "plain_ms": plain_ms / 2}
+            log("probes", f"row {name}: {ms:.3f} ms with its kernel, {plain_ms / 2:.3f} ms with the "
+                          f"plain version (CUDA events, 2 x 5 runs each, on {smi})")
+        return {"launches": launches, "rows": row_ms, "sum_max_abs_diff": sum_err}
 
     # ---- 5. each path at full size: 10 carried frames, counted, then 3 timed runs
     def run(frame_scene, frame_params, frame_settings, state):
@@ -472,6 +772,7 @@ def main() -> int:
                 **timed(label, frame_scene, frame_params, frame_settings, state)}
 
     report["slice"] = counted("slice", default_kernels, scene, params, settings)
+    report["probes"] = probe_path(scene, params[0])
     del scene
     report["packed"] = counted("packed", default_kernels + packed_kernels, packed,
                                packed_params, packed_settings)
@@ -482,20 +783,26 @@ def main() -> int:
                   f"off {report['packed_flags_off']['median_ms']:.2f}; default path "
                   f"{report['slice']['median_ms']:.2f} (on {smi})")
 
-    report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"]}
+    report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+                             "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],
+                             "library_graph_ms": k["library_graph_ms"],
+                             "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"])}
                          for n, k in kernels.items()}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
 
     def main_path_launches(name):
-        path = "slice" if name in default_kernels else "packed"
+        path = ("slice" if name in default_kernels else
+                "probes" if name in probe_kernels else "packed")
         return report[path]["launches"][name]
 
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": main_path_launches(n), "max_abs_err": k["err"], "ms": k["ms"],
-         "plain_ms": k["plain_ms"]}
+         "plain_ms": k["plain_ms"], "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"]),
+         "bound_by": "bytes" if k["bytes_s"] >= k["ops_s"] else "operations",
+         "library_ms": k["library_ms"] if k["library"] is not None else None}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,6 +11,7 @@ import torch
 
 from unclerenderer_tpu_torch.ops import _cuda
 from unclerenderer_tpu_torch.ops import hzb as hzb_mod
+from unclerenderer_tpu_torch.ops import probes
 from unclerenderer_tpu_torch.ops import raster_kernels as rk
 from unclerenderer_tpu_torch.ops import texture as tex_mod
 from unclerenderer_tpu_torch.ops.binning import bin_triangles
@@ -209,3 +210,79 @@ def test_wrapper_rejects_bad_input(cuda_device):
                            torch.zeros((7, 3), device=cuda_device))
     with pytest.raises(ValueError):
         rk.materialize_rows(torch.zeros(8, dtype=torch.int64, device=cuda_device))
+
+
+def _merge_inputs(n, seed, case):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 1 << 20, n).astype(np.int32)
+    b = rng.integers(0, 1 << 20, n).astype(np.int32)
+    if case == "special":
+        special = np.array([np.nan, 0.0, -0.0, 1.0, -1.0, np.inf, -np.inf], np.float32)
+        ka, kb = rng.choice(special, n), rng.choice(special, n)
+    else:
+        ka, kb = rng.standard_normal(n), rng.standard_normal(n)
+        if case == "equal":
+            kb = np.where(rng.random(n) < 0.5, ka, kb)
+    return [torch.from_numpy(x) for x in (a, b, ka.astype(np.float32), kb.astype(np.float32))]
+
+
+@pytest.mark.parametrize("case", ["random", "special", "equal"])
+@pytest.mark.parametrize("layout", ["image", "odd", "misaligned"])
+def test_merge_select_kernel_bit_equal(cuda_device, case, layout):
+    n = {"image": 1080 * 1920, "odd": 1001, "misaligned": 4097}[layout]
+    a, b, ka, kb = (t.to(cuda_device) for t in _merge_inputs(n, 6, case))
+    if layout == "image":
+        a, b, ka, kb = (t.reshape(1080, 1920) for t in (a, b, ka, kb))
+    elif layout == "misaligned":  # views 4 bytes past a 16-byte boundary
+        a, b, ka, kb = (t[1:] for t in (a, b, ka, kb))
+    before = _cuda.LAUNCHES["merge_select"]
+    got = probes.merge_select(a, b, ka, kb)
+    assert torch.equal(got, probes.merge_select_ref(a, b, ka, kb))
+    assert _cuda.LAUNCHES["merge_select"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32, torch.float32,
+                                   torch.int64])
+@pytest.mark.parametrize("case", ["aligned", "misaligned", "odd"])
+def test_copy_kernels_bit_equal(cuda_device, dtype, case):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(0, 256, 8 * 4100 * 16, dtype=np.uint8)).to(cuda_device)
+    x = x.view(dtype)
+    x = {"aligned": x[: 4096 * 16].reshape(4096, 16), "misaligned": x[1:1 + 999 * 8].reshape(999, 8),
+         "odd": x[: 37 * 5].reshape(37, 5)}[case]
+    for name, fn, ref in (("copy_rows", probes.copy_rows, probes.copy_rows_ref),
+                          ("materialize", probes.materialize, probes.materialize_ref)):
+        before = _cuda.LAUNCHES[name]
+        got = fn(x)
+        # bytes, not values: random float bits hold NaNs
+        assert torch.equal(got.reshape(-1).view(torch.uint8), ref(x).reshape(-1).view(torch.uint8))
+        assert got.shape == x.shape and got.dtype == x.dtype and got.data_ptr() != x.data_ptr()
+        assert _cuda.LAUNCHES[name] == before + 1
+
+
+def test_probe_rows_kernel_paths_match_plain(cuda_device):
+    """The probe rows with K10-K12 on the card against the same rows with
+    the plain versions, at small shapes: every output bit-equal."""
+    rng = np.random.default_rng(8)
+    tc = 5000
+    rec = torch.from_numpy(rng.standard_normal((tc, 128)).astype(np.float32)).to(cuda_device)
+    a, b, ka, kb = (t.reshape(96, 160).to(cuda_device) for t in _merge_inputs(96 * 160, 9, "random"))
+    a, b = a % tc, b % tc
+    table = torch.from_numpy(rng.integers(0, 255, (8192, 256)).astype(np.uint8)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, 8192, 30001).astype(np.int32)).to(cuda_device)
+    fx, fy = (torch.from_numpy(rng.random((30001, 1), np.float32)).to(cuda_device) for _ in "xy")
+    setup = _setup(2000, 10, 0.04, cuda_device)
+    rows = [
+        lambda: probes.rec_pmerge(rec, a, b, ka, kb),
+        lambda: probes.rec_mat(rec, a, b, ka, kb),
+        lambda: probes.tap_copy_blend_i32(table, idx, fx, fy),
+        lambda: probes.tap_copy_blend_f32(table, idx, fx, fy),
+        lambda: probes.align_materialize_gather(setup, 256, 256, 16, 64, 32, 3.0),
+    ]
+    got = [row() for row in rows]
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("merge_select", "copy_rows", "materialize"):
+            mp.setattr(probes, name, getattr(probes, f"{name}_ref"))
+        want = [row() for row in rows]
+    for g, w in zip(got, want):
+        _same(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,))

@@ -151,9 +151,9 @@ def test_packed_and_quad_atlases_agree_under_every_filter(monkeypatch):
     for packed in (False, True):
         scene, data = t_testing.synthetic_device_scene(6, sphere_res=(10, 8), ground=True,
                                                        rich_materials=True,
-                                                       packed_trilinear=packed)
+                                                       packed_trilinear=packed, device="cpu")
         assert scene.quad_img.shape[-1] == (256 if packed else 64)
-        params = t_testing.synthetic_frame_params(data, 64, 64)
+        params = t_testing.synthetic_frame_params(data, 64, 64, device="cpu")
         for filt in ("trilinear", "bilinear", "anisotropic"):
             settings = RenderSettings(texture_filter=filt, material_packed_trilinear=packed,
                                       **small)

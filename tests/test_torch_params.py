@@ -51,7 +51,7 @@ def test_frame_state_initial_matches():
 def rich_scenes():
     """The reference's and the port's rich-material u8 scene (6 models)."""
     j, jdata = j_scene(6, rich_materials=True, atlas_u8=True)
-    t, tdata = synthetic_device_scene(6, rich_materials=True, atlas_u8=True)
+    t, tdata = synthetic_device_scene(6, rich_materials=True, atlas_u8=True, device="cpu")
     return j, jdata, t, tdata
 
 
@@ -96,7 +96,7 @@ def test_synthetic_frame_params_equal_reference(rich_scenes):
     _, jdata, _, tdata = rich_scenes
     kw = dict(camera_pos=(1.0, 2.0, -5.0))
     want = j_frame_params(jdata, 160, 96, **kw)
-    got = interop.to_numpy(synthetic_frame_params(tdata, 160, 96, **kw))
+    got = interop.to_numpy(synthetic_frame_params(tdata, 160, 96, device="cpu", **kw))
     for f in dataclasses.fields(jparams.FrameParams):
         w = np.asarray(getattr(want, f.name))
         np.testing.assert_array_equal(got[f.name], w, err_msg=f.name)
@@ -104,15 +104,25 @@ def test_synthetic_frame_params_equal_reference(rich_scenes):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port (``pkgutil.walk_packages``) and
+    ``chip_smoke``, imported in a fresh process, load neither JAX nor any
+    module of the JAX package."""
     code = (
-        "import sys; import unclerenderer_tpu_torch.render.deferred, "
-        "unclerenderer_tpu_torch.render.testing, unclerenderer_tpu_torch.interop; "
-        "print('jax' in sys.modules)"
+        "import importlib, pkgutil, sys\n"
+        "import unclerenderer_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in mods + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "top = {m.split('.')[0] for m in sys.modules}\n"
+        "print(len(mods), sorted(t for t in top if t.startswith('jax') "
+        "or t == 'unclerenderer_tpu'))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().splitlines()[-1] == "False"
+    n_mods, loaded = res.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(n_mods) >= 25  # every module of the port was imported
+    assert loaded == "[]"
 
 
 UNPORTED = [
@@ -132,7 +142,7 @@ BASE = dict(width=64, height=64, shadow_map_size=64, has_masked_models=False,
 
 def _render(scene, data, **override):
     settings = tparams.RenderSettings(**{**BASE, **override})
-    return deferred_frame(scene, synthetic_frame_params(data, 64, 64),
+    return deferred_frame(scene, synthetic_frame_params(data, 64, 64, device="cpu"),
                           tparams.FrameState.initial(64, 64, "cpu"), settings)
 
 
@@ -162,7 +172,7 @@ def test_not_ported_messages_name_a_roadmap_queue_entry(rich_scenes):
             _render(t, tdata, **override)
         msgs.append(str(exc.value))
     with pytest.raises(NotImplementedError) as exc:
-        synthetic_device_scene(2, rich_materials=False)
+        synthetic_device_scene(2, rich_materials=False, device="cpu")
     msgs.append(str(exc.value))
     for msg in msgs:
         m = re.search(r"\(ROADMAP\.md, modules queue: ([^)]+)\)$", msg)
@@ -172,7 +182,8 @@ def test_not_ported_messages_name_a_roadmap_queue_entry(rich_scenes):
 @pytest.fixture(scope="module")
 def packed_scene():
     """The port's rich-material u8 scene on the packed-trilinear atlas."""
-    return synthetic_device_scene(6, rich_materials=True, atlas_u8=True, packed_trilinear=True)
+    return synthetic_device_scene(6, rich_materials=True, atlas_u8=True, packed_trilinear=True,
+                                  device="cpu")
 
 
 # the settings that raised before the packed-trilinear slice, each now

@@ -1,11 +1,12 @@
 """Carry scenes, frame parameters and frame state between the reference
 package and the port, as numpy arrays.
 
-``to_port(src, cls, device)`` reads every field of the port dataclass
+``to_port(src, cls, device="cuda")`` reads every field of the port dataclass
 ``cls`` from ``src`` (any object with the same attribute names whose values
 are array-likes, e.g. the reference's dataclasses of JAX arrays -- converted
 through ``np.asarray``, so this module never imports JAX) and returns a
-``cls`` of tensors on ``device``.  ``to_numpy(obj)`` goes back to a dict of
+``cls`` of tensors on ``device`` (the card unless the caller names
+another).  ``to_numpy(obj)`` goes back to a dict of
 numpy arrays in the reference's dtypes.
 
 Dtypes: bf16 leaves travel as their 16-bit patterns (ml_dtypes bfloat16 ->
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 
-def array_to_tensor(x, device) -> torch.Tensor:
+def array_to_tensor(x, device="cuda") -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
@@ -46,7 +47,7 @@ def tensor_to_array(t: torch.Tensor, u32: bool = False) -> np.ndarray:
 _U32_FIELDS = ("object_ids", "object_id")
 
 
-def to_port(src, cls, device):
+def to_port(src, cls, device="cuda"):
     """Reference object (or dict) -> port dataclass ``cls`` on ``device``."""
     get = src.get if isinstance(src, dict) else (lambda k: getattr(src, k, None))
     vals = {}

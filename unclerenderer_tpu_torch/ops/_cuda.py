@@ -11,7 +11,9 @@ multiply-adds: the kernels spell out the reference's contractions with
 Every C entry point takes device pointers, integers and the stream, and
 returns ``cudaGetLastError()``; ``launch`` raises on a non-zero code and
 counts the launch in ``LAUNCHES`` (one count per kernel wrapper, read by
-``chip_smoke.py`` to show which kernels a run went through).
+``chip_smoke.py`` to show which kernels a run went through).  Wrappers that
+share one C entry keep their own counts (``ENTRY``): K9, K11 and K12 are
+the byte copy of ``copy_bytes.cu``.
 """
 
 from __future__ import annotations
@@ -57,11 +59,17 @@ SIGNATURES = {
     "env_select": [_P, _P, _P, _P, _L, _I, _I, _P],
     # atlas, rows_idx, params (7, n), out, n, c, lanes, dtype, stream
     "mat_select": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
-    # src, dst, n (4-byte elements), stream
-    "materialize_rows": [_P, _P, _L, _P],
+    # src, dst, n bytes, stream
+    "copy_bytes": [_P, _P, _L, _P],
+    # a, b, ka, kb, out, n, stream
+    "merge_select": [_P, _P, _P, _P, _P, _L, _P],
 }
 
-LAUNCHES = {name: 0 for name in SIGNATURES}
+# kernel wrapper -> its C entry, where the two names differ
+ENTRY = {"materialize_rows": "copy_bytes", "copy_rows": "copy_bytes", "materialize": "copy_bytes"}
+
+# launches per kernel wrapper (K2/K3 share giant_raster)
+LAUNCHES = {name: 0 for name in [n for n in SIGNATURES if n not in ENTRY.values()] + list(ENTRY)}
 
 
 def reset_launches() -> None:
@@ -133,12 +141,24 @@ def library() -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry ``name`` on the current stream; raise on a launch error."""
+    """Call the C entry of kernel wrapper ``name`` on the current stream;
+    raise on a launch error."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+    err = getattr(library(), ENTRY.get(name, name))(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def copy(name: str, x: torch.Tensor) -> torch.Tensor:
+    """A fresh tensor equal to the contiguous CUDA tensor ``x``, made by the
+    byte copy kernel and counted for wrapper ``name`` (K9, K11, K12)."""
+    check_cuda(name, x)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    nbytes = x.numel() * x.element_size()
+    if nbytes:
+        launch(name, ptr(x), ptr(out), nbytes)
+    return out
 
 
 def ptr(t: torch.Tensor | None):

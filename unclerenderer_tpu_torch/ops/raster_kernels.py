@@ -6,7 +6,7 @@
 * ``giant_raster`` (K2/K3, ``csrc/giant_raster.cu``): the giant level --
   every pixel against the small compacted giant table, skipping chunks
   whose overlap bit for the tile is clear.
-* ``materialize_rows`` (K9, ``csrc/materialize_rows.cu``): the identity
+* ``materialize_rows`` (K9, ``csrc/copy_bytes.cu``): the identity
   copy of the binning's block-aligned index array before the coefficient
   gather, under ``RenderSettings.bin_mat_idx``.
 * ``rasterize_binned``: fine bins + coarse (mid) bins + giant brute force,
@@ -57,12 +57,7 @@ def materialize_rows(x: torch.Tensor) -> torch.Tensor:
         return materialize_rows_ref(x)
     if x.element_size() != 4:
         raise ValueError(f"materialize_rows: expects 4-byte elements, got {x.dtype}")
-    x = x.contiguous()
-    _cuda.check_cuda("materialize_rows", x)
-    out = torch.empty_like(x)
-    if x.numel():
-        _cuda.launch("materialize_rows", _cuda.ptr(x), _cuda.ptr(out), x.numel())
-    return out
+    return _cuda.copy("materialize_rows", x.contiguous())
 
 
 # ---------------------------------------------------------------------------

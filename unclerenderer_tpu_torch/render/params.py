@@ -217,7 +217,7 @@ class FrameState:
     frame_index: torch.Tensor = None      # () i32
 
     @staticmethod
-    def initial(width: int, height: int, device) -> "FrameState":
+    def initial(width: int, height: int, device="cuda") -> "FrameState":
         from ..ops.hzb import hzb_layout
 
         _layout, total = hzb_layout(width // 2, height // 2)

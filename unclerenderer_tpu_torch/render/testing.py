@@ -3,9 +3,9 @@
 The procedural half of ``unclerenderer_tpu/render/testing.py``, JAX-free: a
 grid of cubes/spheres (plus an optional floor and back wall of giant
 triangles) with procedural materials, assembled into the port's
-``DeviceScene`` on an explicit device.  Host-side geometry and texture
-building reuses the reference's numpy modules (``mathlib``, ``scene``,
-``textures``), which import no JAX.
+``DeviceScene`` on the card (or on the device the caller names).  The
+host-side geometry and texture building is the port's own copy of the
+reference's numpy modules (``mathlib``, ``scene``, ``textures``).
 """
 
 from __future__ import annotations
@@ -13,18 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from unclerenderer_tpu import mathlib as m
-from unclerenderer_tpu.scene.build import SceneData, SceneModel
-from unclerenderer_tpu.scene.gltf import GltfMaterial
-from unclerenderer_tpu.scene.mesh import compute_mesh_bounds, create_cube, create_sphere
-from unclerenderer_tpu.textures.atlas import build_pyramid_quad_atlas, build_pyramid_tri_atlas
-from unclerenderer_tpu.textures.image import (
-    combined_chain,
-    default_grid_texture,
-    encode_combined_u8,
-    generate_mips,
-)
-
+from .. import mathlib as m
+from ..scene.build import GltfMaterial, SceneData, SceneModel
+from ..scene.mesh import compute_mesh_bounds, create_cube, create_sphere
+from ..textures.atlas import build_pyramid_quad_atlas, build_pyramid_tri_atlas
+from ..textures.image import combined_chain, default_grid_texture, encode_combined_u8, generate_mips
 from .packing import pack_model_record, pack_tri_geo, pack_tri_mrec
 from .params import SAMPLING, DeviceScene, FrameParams, not_ported, resolve_packed_trilinear
 
@@ -199,9 +192,10 @@ def synthetic_device_scene(
     rich_materials: bool = False,
     packed_trilinear: bool | str = False,
     atlas_u8: bool = False,
-    device="cpu",
+    device="cuda",
 ):
-    """Returns ``(DeviceScene, SceneData)``.  rich_materials gives every
+    """Returns ``(DeviceScene, SceneData)``, the scene on ``device`` (the
+    card unless the caller names another).  rich_materials gives every
     model fused baseColor+MR+normal(+emissive) maps in one combined
     16-channel chain (render with ``combined_material=True``, the only
     material branch the port runs).  packed_trilinear (True, False or
@@ -281,8 +275,11 @@ def _assemble_device_scene(data, tex_ids, has_map, quad_img, tri_geo, tri_mrec, 
 
 def synthetic_frame_params(
     data, width: int, height: int, camera_pos=(0.0, 1.5, -4.0), look_at=None,
-    device="cpu",
+    device="cuda",
 ) -> FrameParams:
+    """The reference's synthetic camera, light and post parameters for
+    ``data``, as tensors on ``device`` (the card unless the caller names
+    another)."""
     cam_pos = np.asarray(camera_pos, np.float32)
     target = data.scene_center if look_at is None else np.asarray(look_at, np.float32)
     view = m.look_at_lh(cam_pos, target, [0, 1, 0])
