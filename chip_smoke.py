@@ -32,7 +32,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    parameters for K6-K9, NaN/signed-zero/equal keys for K10, odd lengths,
    misaligned views and 1-8 byte types for the K9/K11/K12 copy) and on the
    inputs captured from one full-size frame of each path, with both
-   versions timed.
+   versions timed (the kernel over 50 eager calls, in turns with its
+   library call where it has one, and replayed from a CUDA graph).  Then
+   the launch path: every kernel wrapper's host microseconds per call on a
+   tiny input (``launch_us``: 2 x 3 runs of 1000 calls, no synchronisation
+   inside a run) beside ``clone`` of the same input, taken in turns.
 4. cross   -- 256x256 frames (24 objects, 512^2 shadow map) rendered with the
    kernels on the card and with the plain versions on the CPU: depth and
    tri_id bit-equal, color within 1e-3; the default path, then the packed
@@ -66,7 +70,6 @@ import contextlib
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -76,6 +79,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+
+from unclerenderer_tpu_torch.timing import (  # noqa: E402 (the package next to this script)
+    cuda_ms,
+    graph_ms,
+    in_turns,
+    nvidia_smi,
+)
 
 WIDTH, HEIGHT, FRAMES = 1920, 1080, 10
 SHADOW = 4096
@@ -101,44 +111,6 @@ def check(ok, msg: str) -> None:
     """A failed check ends the run (not an assert: those vanish under -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def nvidia_smi() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Device time of one call of ``fn`` without the host's launch cost:
-    ``reps`` calls captured in one CUDA graph, replayed, timed with CUDA
-    events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    ms = cuda_ms(graph.replay, reps=3)
-    del graph
-    return ms / reps
 
 
 def as_tuple(x):
@@ -324,6 +296,55 @@ def random_setup(n, seed, size, device, w=256, h=256):
         CULL_NONE, w, h)
 
 
+def tiny_inputs(dev):
+    """A tiny valid call of every kernel wrapper: name -> (args, kwargs)."""
+    from unclerenderer_tpu_torch.ops import hzb as hzb_mod
+    from unclerenderer_tpu_torch.ops import raster_kernels as rk
+    from unclerenderer_tpu_torch.ops.binning import bin_triangles
+
+    s = random_setup(16, 0, 0.1, dev, w=64, h=16)
+    bins = bin_triangles(s, 64, 16, 16, 64, 32)
+    start, count = rk.tile_block_ranges(bins, 1)
+    with Recorder(rk, "giant_raster") as r:
+        rk.rasterize_giant(s, 64, 16, tile_h=16, tile_w=64, chunk=8)
+    layout, _ = hzb_mod.hzb_layout(2, 2)
+    rng = np.random.default_rng(0)
+    i32 = torch.from_numpy(rng.integers(0, 4, (4, 4)).astype(np.int32)).to(dev)
+    f32 = torch.from_numpy(rng.random((9, 4), np.float32)).to(dev)
+    return {
+        "binned_raster": ((bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 1), {}),
+        "giant_raster": r.calls[0],
+        "shadow_select9": ((torch.zeros((16, 128), dtype=torch.int16, device=dev), i32[0],
+                            i32[1], tuple(range(9))), {}),
+        "gather_rows": ((f32[:4, :2].contiguous().to(torch.bfloat16), i32[0]), {}),
+        "hzb_tail": ((f32[:4].contiguous(), [(w, h) for _o, w, h in layout]), {}),
+        "env_select": ((torch.zeros((4, 128), device=dev), i32[0], f32), {}),
+        "mat_select": ((torch.zeros((4, 256), dtype=torch.uint8, device=dev), i32[0],
+                        f32[:7].contiguous()), {}),
+        "materialize_rows": ((i32,), {}),
+        "merge_select": ((i32[0], i32[1], f32[0], f32[1]), {}),
+        "copy_rows": ((i32,), {}),
+        "materialize": ((i32,), {}),
+    }
+
+
+def launch_costs(kernels, dev):
+    """Host us per call of every kernel wrapper on a tiny input, beside
+    ``clone`` of its first input, taken in turns."""
+    out = {}
+    for name, (args, kw) in tiny_inputs(dev).items():
+        k = kernels[name]
+        wrapper = getattr(k["module"], k["attr"])
+        first = next(a for a in args if isinstance(a, torch.Tensor))
+        us, clone_us = in_turns(lambda: wrapper(*args, **kw), first.clone)
+        k["launch_us"], k["clone_launch_us"] = us, clone_us
+        out[name] = {"us": us, "clone_us": clone_us}
+        log("launch", f"{name}: {us:.2f} us per call, clone of its first input "
+                      f"{tuple(first.shape)} {clone_us:.2f} us (host clock, 2 x 3 x 1000 "
+                      "calls each, in turns)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -413,7 +434,8 @@ def main() -> int:
         k.setdefault("attr", name)
         k.setdefault("library", None)
         k.update(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, graph_ms=0.0,
-                 library_graph_ms=0.0, bytes_s=0.0, ops_s=0.0, calls=[])
+                 library_graph_ms=0.0, bytes_s=0.0, ops_s=0.0, calls=[], launch_us=None,
+                 clone_launch_us=None)
     check(set(kernels) == set(_cuda.LAUNCHES), "every built kernel is checked")
     default_kernels = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
     packed_kernels = ("hzb_tail", "env_select", "mat_select", "materialize_rows")
@@ -490,8 +512,28 @@ def main() -> int:
                      x[:37 * 5].reshape(37, 5)):
             versus_plain("copy_rows", view)
             versus_plain("materialize", view)
+    big = torch.from_numpy(rng.integers(0, 256, 24 * 2**20 + 13, dtype=np.uint8)).to(dev)
+    for off in (0, 1, 2, 4, 8):  # 16-, 1-, 2-, 4- and 8-byte words over many grid strides
+        versus_plain("copy_rows", big[off:].reshape(1, -1))
+        versus_plain("materialize", big[off:])
     log("kernels", "merge_select (NaN, signed-zero and equal keys), copy_rows and materialize "
-                   "(1-8 byte types, aligned, misaligned, odd) bit-equal to plain on random inputs")
+                   "(1-8 byte types, aligned, misaligned, odd, 24 MB at five offsets) bit-equal "
+                   "to plain on random inputs")
+
+    # ---- 3a. K5 vs plain on random inputs
+    table = torch.from_numpy(rng.standard_normal((8192, 5)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 8192, 263_187).astype(np.int32)).to(dev)
+    for rows in (342, 8192):  # the frame's table; one past 48 KB (C > 2, or f32 and C > 1)
+        for c in (1, 2, 3, 4, 5):  # vector variants (C <= 4), one row a thread (C = 5)
+            for dtype in (torch.float32, torch.bfloat16):
+                t = table[:rows, :c].to(dtype).contiguous()
+                for i in (idx % rows, (idx % rows)[1:], (idx % rows)[:1001]):
+                    versus_plain("gather_rows", t, i)  # ragged, misaligned view, odd
+    log("kernels", "gather_rows bit-equal to plain on random inputs (f32 and bf16 tables of "
+                   "342 and 8192 rows, C = 1-5, ragged, misaligned and odd index arrays)")
+
+    # ---- 3c. the launch path: host us per call of every wrapper
+    report["launch"] = launch_costs(kernels, dev)
 
     # ---- full-size scenes (the two paths) and their orbit
     t0 = time.perf_counter()
@@ -535,10 +577,12 @@ def main() -> int:
         bad, err = compare(wrapper(*ca, **ck), k["ref"](*ca, **ck))
         shapes = [tuple(x.shape) for x in ca if isinstance(x, torch.Tensor)]
         check(bad == 0, f"{name} != plain at path shapes {shapes}: {bad} elements")
-        ms = cuda_ms(lambda: wrapper(*ca, **ck), reps=20)
         plain_ms = cuda_ms(lambda: k["ref"](*ca, **ck), reps=1)
-        lib_ms = (cuda_ms(lambda: k["library"](*ca, **ck), reps=20)
-                  if k["library"] is not None else None)
+        if k["library"] is not None:  # in turns: kernel, library, library, kernel
+            ms, lib_ms = in_turns(lambda: wrapper(*ca, **ck), lambda: k["library"](*ca, **ck),
+                                  lambda fn: cuda_ms(fn, reps=50))
+        else:
+            ms, lib_ms = cuda_ms(lambda: wrapper(*ca, **ck), reps=50), None
         # the same calls replayed from a CUDA graph: the device's share alone
         dev_ms = graph_ms(lambda: wrapper(*ca, **ck), reps=10)
         lib_dev_ms = (graph_ms(lambda: k["library"](*ca, **ck), reps=10)
@@ -786,7 +830,9 @@ def main() -> int:
     report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                              "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],
                              "library_graph_ms": k["library_graph_ms"],
-                             "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"])}
+                             "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"]),
+                             "launch_us": k["launch_us"],
+                             "clone_launch_us": k["clone_launch_us"]}
                          for n, k in kernels.items()}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
@@ -802,7 +848,8 @@ def main() -> int:
          "launches": main_path_launches(n), "max_abs_err": k["err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"]),
          "bound_by": "bytes" if k["bytes_s"] >= k["ops_s"] else "operations",
-         "library_ms": k["library_ms"] if k["library"] is not None else None}
+         "library_ms": k["library_ms"] if k["library"] is not None else None,
+         "launch_us": k["launch_us"], "clone_launch_us": k["clone_launch_us"]}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -286,3 +286,91 @@ def test_probe_rows_kernel_paths_match_plain(cuda_device):
         want = [row() for row in rows]
     for g, w in zip(got, want):
         _same(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,))
+
+
+def _kernels_launched(fn, attempts=5):
+    """Names of the device kernels one call of ``fn`` launches (profiler).
+    A trace with no device event at all (the profiler drops one now and
+    then) is taken again, so ``fn`` may run more than once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+# (rows, C): the frame's draw-mask table, the other widths of the vector
+# kernel, a width for the one-row-per-thread kernel, and tables past 48 KB
+# (f32 at C = 2, both types at C = 5), all read from device memory
+@pytest.mark.parametrize("rows,c", [(342, 2), (342, 1), (342, 3), (342, 4), (342, 5),
+                                    (8192, 2), (8192, 5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["ragged", "misaligned", "odd", "table_view"])
+def test_gather_rows_variants_bit_equal_one_launch(cuda_device, rows, c, dtype, case):
+    rng = np.random.default_rng(rows * c)
+    flat = torch.from_numpy(rng.standard_normal(rows * c + 1).astype(np.float32))
+    flat = flat.to(cuda_device, dtype)
+    # a table view one element past a 16-byte boundary
+    table = (flat[1:] if case == "table_view" else flat[:-1]).view(rows, c)
+    idx = torch.from_numpy(rng.integers(0, rows, 263_187).astype(np.int32)).to(cuda_device)
+    idx = {"misaligned": idx[1:], "odd": idx[:1001]}.get(case, idx)  # n mod 4 = 2, 1; else 3
+    before = _cuda.LAUNCHES["gather_rows"]
+    got = []
+    names = _kernels_launched(lambda: got.append(gather_rows(table, idx)))
+    assert torch.equal(got[0], gather_rows_ref(table, idx))
+    assert _cuda.LAUNCHES["gather_rows"] == before + len(got)
+    assert len(names) == 1 and ("gather_vec" if c <= 4 else "gather_row") in names[0], names
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 4, 8])  # 16-, 1-, 2-, 4-, 8-byte words
+@pytest.mark.parametrize("tail", [0, 7, 13])
+def test_copy_kernel_large_one_launch(cuda_device, offset, tail):
+    """24 MB at every word width (a grid of up to 6,144 blocks, more than
+    the card holds at once) with a byte tail: bit-equal, one launch."""
+    rng = np.random.default_rng(offset * 16 + tail)
+    raw = torch.from_numpy(rng.integers(0, 256, 24 * 2**20 + 16 + tail, dtype=np.uint8))
+    x = raw.to(cuda_device)[offset:offset + 24 * 2**20 + tail]
+    for name, fn in (("copy_rows", lambda: probes.copy_rows(x.reshape(1, -1))),
+                     ("materialize", lambda: probes.materialize(x))):
+        before = _cuda.LAUNCHES[name]
+        got = []
+        names = _kernels_launched(lambda: got.append(fn()))
+        assert torch.equal(got[0].reshape(-1), x)
+        assert _cuda.LAUNCHES[name] == before + len(got)
+        assert len(names) == 1 and "copy_words" in names[0], names
+
+
+@pytest.mark.parametrize("case", ["aligned", "misaligned", "odd"])
+def test_copy_kernels_launch_once(cuda_device, case):
+    x = torch.arange(8 * 4100 * 4, dtype=torch.int32, device=cuda_device)
+    x = {"aligned": x[: 4096 * 16].reshape(4096, 16),
+         "misaligned": x[1:1 + 999 * 8].reshape(999, 8),
+         "odd": x[: 37 * 5].reshape(37, 5)}[case]
+    for fn in (rk.materialize_rows, probes.copy_rows, probes.materialize):
+        names = _kernels_launched(lambda: fn(x))
+        assert len(names) == 1 and "copy_words" in names[0], names
+
+
+def test_launch_follows_the_current_stream_and_graph_capture(cuda_device):
+    """The raw stream of each launch is PyTorch's current stream: a side
+    stream, and a CUDA graph's capture stream (replayed equal)."""
+    x = torch.arange(1 << 16, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = probes.materialize(x)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(y, x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        z = probes.materialize(x)
+    x.add_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(z, x)

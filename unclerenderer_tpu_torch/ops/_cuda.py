@@ -1,19 +1,30 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-Each source is compiled by its own ``nvcc`` process for ``sm_90a`` (all
-started together), and the objects are linked into ONE shared library with a
-plain C interface, at first use, into ``unclerenderer_tpu_torch/_build``
-(git-ignored).  The library name carries a hash of the sources and flags, so
-an edited source rebuilds.  ``-fmad=false`` keeps nvcc from contracting
-multiply-adds: the kernels spell out the reference's contractions with
-``__fmaf_rn`` and must not gain others.
+Build.  Each source is compiled by its own ``nvcc`` process for ``sm_90a``
+(all started together), and the objects are linked into ONE shared library
+with a plain C interface, at first use, into ``unclerenderer_tpu_torch/_build``
+(git-ignored).  The library name carries a hash of the sources and flags,
+so an edited source rebuilds.  ``-fmad=false`` keeps nvcc from
+contracting multiply-adds: the kernels spell out the reference's
+contractions with ``__fmaf_rn`` and must not gain others.
 
-Every C entry point takes device pointers, integers and the stream, and
-returns ``cudaGetLastError()``; ``launch`` raises on a non-zero code and
-counts the launch in ``LAUNCHES`` (one count per kernel wrapper, read by
-``chip_smoke.py`` to show which kernels a run went through).  Wrappers that
-share one C entry keep their own counts (``ENTRY``): K9, K11 and K12 are
-the byte copy of ``copy_bytes.cu``.
+Launch path. Every C entry takes device pointers, integers and the stream,
+and returns ``cudaGetLastError()``. ``library()`` loads the library once and
+``bind`` binds it once: ``argtypes``/``restype`` on each entry, and a table
+from every kernel wrapper to its C function (wrappers that share one entry
+keep their own counts: K9, K11 and K12 are the byte copy of
+``copy_bytes.cu``, ``ENTRY``). Per call a wrapper runs ``check_cuda`` -- one
+pass over its tensors (CUDA, one device index, contiguous) that returns the
+device index -- allocates its outputs and calls ``launch``: one dict lookup,
+the device's raw current stream handle
+(``torch._C._cuda_getCurrentRawStream``: it follows PyTorch's current
+stream, CUDA-graph capture included, and builds no ``Stream`` object; the
+stream is never cached across calls) and the ctypes call with pointers as
+plain ints (``c_void_p`` argtypes take ints), holding the GIL. A non-zero
+return raises ``RuntimeError``; a launch is counted in ``LAUNCHES``, one
+count per kernel wrapper, which ``chip_smoke.py`` reads to show which
+kernels a run went through. What each piece costs on the card is in PERF.md
+(``python3 -m unclerenderer_tpu_torch.sweeps.launch_path`` measures it).
 """
 
 from __future__ import annotations
@@ -51,7 +62,7 @@ SIGNATURES = {
     # table, row, base, deltas (host int[9]), out, n, lanes, stream
     "shadow_select9": [_P, _P, _P, _P, _P, _I, _I, _P],
     # table, idx, out, n, c, is_bf16, stream
-    "gather_rows": [_P, _P, _P, _I, _I, _I, _P],
+    "gather_rows": [_P, _P, _P, _L, _I, _I, _P],
     # top, dims (host int[3 * levels]: w, h, offset), out, top_h, top_w,
     # levels, stream
     "hzb_tail": [_P, _P, _P, _I, _I, _I, _P],
@@ -70,6 +81,11 @@ ENTRY = {"materialize_rows": "copy_bytes", "copy_rows": "copy_bytes", "materiali
 
 # launches per kernel wrapper (K2/K3 share giant_raster)
 LAUNCHES = {name: 0 for name in [n for n in SIGNATURES if n not in ENTRY.values()] + list(ENTRY)}
+
+# kernel wrapper -> bound C function, and device index -> raw current
+# stream handle; both set by ``bind``
+_FNS: dict = {}
+_stream = None
 
 
 def reset_launches() -> None:
@@ -130,22 +146,53 @@ def build() -> tuple[Path, float]:
     return out, secs
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+def build_source(name: str, source: str) -> Path:
+    """Compile one stand-alone CUDA source text (a kernel design sweep's)
+    with the kernels' flags into ``_build/<name>.so``; returns its path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src, lib = BUILD_DIR / f"{name}.cu", BUILD_DIR / f"{name}.so"
+    src.write_text(source)
+    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name} ({res.returncode}):\n{res.stderr}")
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call the C entry of kernel wrapper ``name`` on the current stream;
-    raise on a launch error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), ENTRY.get(name, name))(*args, stream)
-    if err != 0:
+def bind(lib, current_stream) -> None:
+    """Bind the C entries of ``lib`` once: each one's ``argtypes`` and
+    ``restype`` set, every kernel wrapper mapped to its entry, and
+    ``current_stream(device index)`` as the source of each launch's stream."""
+    global _stream
+    entries = {name: getattr(lib, name) for name in SIGNATURES}
+    for name, fn in entries.items():
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    _FNS.clear()
+    _FNS.update({w: entries[ENTRY.get(w, w)] for w in LAUNCHES})
+    _stream = current_stream
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.PyDLL:
+    """Build (unless built) and load the kernels, and bind them.  Loaded as
+    a ``PyDLL``: a call keeps the GIL (the entries only enqueue work, a few
+    microseconds) instead of releasing and re-taking it around every launch."""
+    lib = ctypes.PyDLL(str(build()[0]))
+    bind(lib, torch._C._cuda_getCurrentRawStream)
+    return lib
+
+
+def launch(name: str, device: int, *args) -> None:
+    """Call the C entry of kernel wrapper ``name`` with ``args`` (ints,
+    pointers as ints, None for NULL) on the current stream of CUDA device
+    ``device``; raise on a launch error, else count the launch."""
+    fn = _FNS.get(name)
+    if fn is None:
+        library()
+        fn = _FNS[name]
+    err = fn(*args, _stream(device))
+    if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
 
@@ -153,33 +200,36 @@ def launch(name: str, *args) -> None:
 def copy(name: str, x: torch.Tensor) -> torch.Tensor:
     """A fresh tensor equal to the contiguous CUDA tensor ``x``, made by the
     byte copy kernel and counted for wrapper ``name`` (K9, K11, K12)."""
-    check_cuda(name, x)
-    out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    nbytes = x.numel() * x.element_size()
+    dev = check_cuda(name, x)
+    out = torch.empty_like(x)  # x is contiguous, so out is too, with x's strides
+    nbytes = x.nbytes
     if nbytes:
-        launch(name, ptr(x), ptr(out), nbytes)
+        launch(name, dev, x.data_ptr(), out.data_ptr(), nbytes)
     return out
 
 
-def ptr(t: torch.Tensor | None):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer of an optional tensor (None passes NULL)."""
+    return None if t is None else t.data_ptr()
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Kernel inputs must be contiguous tensors on one CUDA device."""
-    dev = tensors[0].device
+def check_cuda(name: str, *tensors: torch.Tensor) -> int:
+    """Kernel inputs must be contiguous tensors on one CUDA device; returns
+    that device's index."""
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    return dev
 
 
 def on_cpu(name: str, t: torch.Tensor) -> bool:
     """Wrapper dispatch: True for CPU tensors (plain version), False for
     CUDA tensors (kernel); any other device raises."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return False
+    if t.is_cpu:
+        return True
     raise ValueError(f"{name}: unsupported device {t.device}")

@@ -61,14 +61,14 @@ def hzb_tail(top: torch.Tensor, dims) -> torch.Tensor:
     if top.dtype != torch.float32 or top.dim() != 2 or not 0 < len(dims) <= 32:
         raise ValueError("hzb_tail: top must be (h, w) f32 with 1..32 output levels")
     top = top.contiguous()
-    _cuda.check_cuda("hzb_tail", top)
+    dev = _cuda.check_cuda("hzb_tail", top)
     table, off = [], 0
     for w, h in dims:
         table += [w, h, off]
         off += w * h
     out = torch.empty(off, dtype=torch.float32, device=top.device)
     host = (ctypes.c_int * len(table))(*table)
-    _cuda.launch("hzb_tail", _cuda.ptr(top), ctypes.cast(host, ctypes.c_void_p), _cuda.ptr(out),
+    _cuda.launch("hzb_tail", dev, top.data_ptr(), ctypes.addressof(host), out.data_ptr(),
                  top.shape[0], top.shape[1], len(dims))
     return out
 

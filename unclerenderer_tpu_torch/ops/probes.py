@@ -68,11 +68,11 @@ def merge_select(a, b, ka, kb):
     if a.dtype != torch.int32 or b.dtype != torch.int32 or ka.dtype != torch.float32 \
             or kb.dtype != torch.float32:
         raise ValueError("merge_select: expects int32 ids and f32 keys")
-    _cuda.check_cuda("merge_select", a, b, ka, kb)
+    dev = _cuda.check_cuda("merge_select", a, b, ka, kb)
     out = torch.empty_like(a)
     if a.numel():
-        _cuda.launch("merge_select", _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(ka), _cuda.ptr(kb),
-                     _cuda.ptr(out), a.numel())
+        _cuda.launch("merge_select", dev, a.data_ptr(), b.data_ptr(), ka.data_ptr(),
+                     kb.data_ptr(), out.data_ptr(), a.numel())
     return out
 
 

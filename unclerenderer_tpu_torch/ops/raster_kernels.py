@@ -57,7 +57,8 @@ def materialize_rows(x: torch.Tensor) -> torch.Tensor:
         return materialize_rows_ref(x)
     if x.element_size() != 4:
         raise ValueError(f"materialize_rows: expects 4-byte elements, got {x.dtype}")
-    return _cuda.copy("materialize_rows", x.contiguous())
+    # .contiguous() costs a dispatcher call even when it returns x itself
+    return _cuda.copy("materialize_rows", x if x.is_contiguous() else x.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -107,14 +108,14 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
         raise ValueError("binned_raster: expects f32 coef/valid and i32 tri_id")
     tile_start = tile_start.to(torch.int32).contiguous()
     tile_count = tile_count.to(torch.int32).contiguous()
-    _cuda.check_cuda("binned_raster", coef, tri_id, valid, tile_start, tile_count)
+    dev = _cuda.check_cuda("binned_raster", coef, tri_id, valid, tile_start, tile_count)
     out_key = torch.empty((n_tiles, pix), dtype=torch.float32, device=coef.device)
     out_id = (torch.empty((n_tiles, pix), dtype=torch.int32, device=coef.device)
               if want_ids else None)
     if n_tiles:
         _cuda.launch(
-            "binned_raster", _cuda.ptr(coef), _cuda.ptr(tri_id), _cuda.ptr(valid),
-            _cuda.ptr(tile_start), _cuda.ptr(tile_count), _cuda.ptr(out_key),
+            "binned_raster", dev, coef.data_ptr(), tri_id.data_ptr(), valid.data_ptr(),
+            tile_start.data_ptr(), tile_count.data_ptr(), out_key.data_ptr(),
             _cuda.ptr(out_id), n_tiles, chunk, tile_h, tile_w, n_tx,
             float(y_offset), int(want_ids), int(ortho),
         )
@@ -201,7 +202,7 @@ def giant_raster(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0,
         raise ValueError("giant_raster: expects f32 coef/valid")
     overlap = overlap.to(torch.int32).contiguous()
     tensors = [coef, valid, overlap] + ([ids] if ids is not None else [])
-    _cuda.check_cuda("giant_raster", *tensors)
+    dev = _cuda.check_cuda("giant_raster", *tensors)
     if ids is not None and ids.dtype != torch.int32:
         raise ValueError("giant_raster: ids must be int32")
     out_key = torch.empty((n_tiles, pix), dtype=torch.float32, device=coef.device)
@@ -209,8 +210,8 @@ def giant_raster(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0,
               if want_ids else None)
     if n_tiles:
         _cuda.launch(
-            "giant_raster", _cuda.ptr(coef), _cuda.ptr(valid), _cuda.ptr(overlap),
-            _cuda.ptr(ids), _cuda.ptr(out_key), _cuda.ptr(out_id),
+            "giant_raster", dev, coef.data_ptr(), valid.data_ptr(), overlap.data_ptr(),
+            _cuda.ptr(ids), out_key.data_ptr(), _cuda.ptr(out_id),
             n_tiles, n_chunks, chunk, tile_h, tile_w, n_tx, float(y_offset),
             int(want_ids), int(ortho),
         )

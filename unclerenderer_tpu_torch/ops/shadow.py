@@ -76,12 +76,12 @@ def select9(table: torch.Tensor, row: torch.Tensor, base: torch.Tensor, deltas) 
         raise ValueError("select9: table must be (rows, lanes) int16 with 9 deltas")
     row = row.to(torch.int32).contiguous()
     base = base.to(torch.int32).contiguous()
-    _cuda.check_cuda("shadow_select9", table, row, base)
+    dev = _cuda.check_cuda("shadow_select9", table, row, base)
     n = row.shape[0]
     out = torch.empty((n, 9), dtype=torch.float32, device=table.device)
     d = (ctypes.c_int * 9)(*[int(x) for x in deltas])
-    _cuda.launch("shadow_select9", _cuda.ptr(table), _cuda.ptr(row), _cuda.ptr(base),
-                 ctypes.cast(d, ctypes.c_void_p), _cuda.ptr(out), n, table.shape[1])
+    _cuda.launch("shadow_select9", dev, table.data_ptr(), row.data_ptr(), base.data_ptr(),
+                 ctypes.addressof(d), out.data_ptr(), n, table.shape[1])
     return out
 
 

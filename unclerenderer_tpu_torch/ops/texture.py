@@ -57,16 +57,21 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     reference's ``gather_rows_onehot_matmul``).  idx: any shape, int32."""
     if _cuda.on_cpu("gather_rows", table):
         return gather_rows_ref(table, idx)
-    if table.dtype not in (torch.float32, torch.bfloat16) or table.dim() != 2:
+    is_bf16 = table.dtype == torch.bfloat16
+    if not (is_bf16 or table.dtype == torch.float32) or table.dim() != 2:
         raise ValueError("gather_rows: table must be a 2-D f32 or bf16 tensor")
-    flat = idx.reshape(-1).to(torch.int32).contiguous()
-    table = table.contiguous()
-    _cuda.check_cuda("gather_rows", table, flat)
-    n, c = flat.shape[0], table.shape[1]
-    out = torch.empty((n, c), dtype=torch.float32, device=table.device)
-    _cuda.launch("gather_rows", _cuda.ptr(table), _cuda.ptr(flat), _cuda.ptr(out),
-                 n, c, int(table.dtype == torch.bfloat16))
-    return out.reshape(*idx.shape, c)
+    # no tensor op for the frame's call: idx contiguous int32, table contiguous
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        idx = idx.to(torch.int32).contiguous()
+    if not table.is_contiguous():
+        table = table.contiguous()
+    dev = _cuda.check_cuda("gather_rows", table, idx)
+    c = table.shape[1]
+    out = torch.empty((*idx.shape, c), dtype=torch.float32, device=table.device)
+    if out.numel():
+        _cuda.launch("gather_rows", dev, table.data_ptr(), idx.data_ptr(),
+                     out.data_ptr(), idx.numel(), c, int(is_bf16))
+    return out
 
 
 def _wrap_index(i, size, mode: int):
@@ -325,10 +330,10 @@ def mat_select(tri_flat: torch.Tensor, rows_idx: torch.Tensor, params7: torch.Te
         raise ValueError("mat_select: params7 must be (7, N) f32")
     rows_idx = rows_idx.to(torch.int32).contiguous()
     tri_flat, params7 = tri_flat.contiguous(), params7.contiguous()
-    _cuda.check_cuda("mat_select", tri_flat, rows_idx, params7)
+    dev = _cuda.check_cuda("mat_select", tri_flat, rows_idx, params7)
     out = torch.empty((n, c), dtype=torch.float32, device=tri_flat.device)
-    _cuda.launch("mat_select", _cuda.ptr(tri_flat), _cuda.ptr(rows_idx), _cuda.ptr(params7),
-                 _cuda.ptr(out), n, c, lanes, _ATLAS_DTYPE_CODE[tri_flat.dtype])
+    _cuda.launch("mat_select", dev, tri_flat.data_ptr(), rows_idx.data_ptr(), params7.data_ptr(),
+                 out.data_ptr(), n, c, lanes, _ATLAS_DTYPE_CODE[tri_flat.dtype])
     return out
 
 
@@ -410,10 +415,10 @@ def env_select(env_tri_flat: torch.Tensor, env_rows: torch.Tensor, params9: torc
         raise ValueError("env_select: params9 must be (9, N) f32")
     env_rows = env_rows.to(torch.int32).contiguous()
     env_tri_flat, params9 = env_tri_flat.contiguous(), params9.contiguous()
-    _cuda.check_cuda("env_select", env_tri_flat, env_rows, params9)
+    dev = _cuda.check_cuda("env_select", env_tri_flat, env_rows, params9)
     out = torch.empty((n, 4), dtype=torch.float32, device=env_tri_flat.device)
-    _cuda.launch("env_select", _cuda.ptr(env_tri_flat), _cuda.ptr(env_rows), _cuda.ptr(params9),
-                 _cuda.ptr(out), n, env_tri_flat.shape[-1],
+    _cuda.launch("env_select", dev, env_tri_flat.data_ptr(), env_rows.data_ptr(),
+                 params9.data_ptr(), out.data_ptr(), n, env_tri_flat.shape[-1],
                  int(env_tri_flat.dtype == torch.bfloat16))
     return out
 
