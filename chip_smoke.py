@@ -33,10 +33,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    misaligned views and 1-8 byte types for the K9/K11/K12 copy) and on the
    inputs captured from one full-size frame of each path, with both
    versions timed (the kernel over 50 eager calls, in turns with its
-   library call where it has one, and replayed from a CUDA graph).  Then
-   the launch path: every kernel wrapper's host microseconds per call on a
-   tiny input (``launch_us``: 2 x 3 runs of 1000 calls, no synchronisation
-   inside a run) beside ``clone`` of the same input, taken in turns.
+   library call where it has one, and replayed from a CUDA graph; K1 and
+   K2 get a line per launch with its level, its live (pixel, row) pairs
+   and those its warp skip keeps, and both bounds below).
+   Then the launch path: every kernel wrapper's host microseconds per call
+   on a tiny input (``launch_us``: 2 x 3 runs of 1000 calls, no
+   synchronisation inside a run) beside ``clone`` of the same input, taken
+   in turns.
 4. cross   -- 256x256 frames (24 objects, 512^2 shadow map) rendered with the
    kernels on the card and with the plain versions on the CPU: depth and
    tri_id bit-equal, color within 1e-3; the default path, then the packed
@@ -56,7 +59,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the f32
 peak of 67 TFLOP/s (H100 SXM data sheet, 700 W), from the inputs of this
-run.
+run.  A raster's operations are its warp skip's corner tests and the edge
+tests of the (pixel, row) pairs that the skip keeps; K1 and K2 also log
+and report the bound that counts every (pixel, valid row) pair
+(``bound_all_pairs_ms``, the count before the kernels skipped rows).
 
 The last three lines of stdout are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
@@ -98,9 +104,12 @@ PROBE_ROWS = 786432  # the probes' packed atlas rows (256 u8 lanes)
 SUM_ATOL = 1e-5  # probe-row sums, kernel vs plain: the same adds over equal inputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-# three edge functions per (pixel, triangle slot), each a multiply, an FMA
-# (2 operations) and an add: the least a raster level evaluates
+# three edge functions, each a multiply, an FMA (2 operations) and an add:
+# a warp's corner test of a row, and a (pixel, row) pair evaluated in full
 EDGE_OPS = 12
+# a (pixel, row) pair that the warp skip keeps: three FMAs and adds, plus
+# the three b*qy multiplies that a thread makes once for its kPix pixels
+PIXEL_EDGE_OPS = 9
 
 
 def log(phase: str, msg: str) -> None:
@@ -147,8 +156,20 @@ def distinct(idx) -> int:
 # (bytes, operations) that one call of each kernel must move and do on its
 # inputs: each input read once, each output written once; a gather reads
 # the distinct rows (or elements) it addresses, in the lanes one request
-# needs; rasters count EDGE_OPS per (pixel, valid triangle slot) of the
-# blocks or chunks the tiles really visit.
+# needs.  A raster's operations are one corner test (EDGE_OPS) per (warp
+# rectangle, valid row) pair and the edge tests of the (pixel, row) pairs
+# that its warp skip keeps; it also returns the live (pixel, valid row)
+# pairs of the blocks or chunks the tiles visit, and the kept ones.
+
+
+def skip_work(name, args):
+    """(operations, kept (pixel, row) pairs) of one K1/K2 call under its
+    warp skip (``sweeps.raster.warp_rows``: the kernels' rule)."""
+    from unclerenderer_tpu_torch.sweeps.raster import BINNED_PIX, GIANT_PIX, warp_rows
+
+    tested, _, kept = warp_rows(name, args)
+    pix = BINNED_PIX if name == "binned_raster" else GIANT_PIX
+    return EDGE_OPS * tested + PIXEL_EDGE_OPS * kept + 3 * kept // pix, kept
 
 
 def work_binned(coef, tri_id, valid, start, count, tile_h, tile_w, n_tx, y_offset=0.0,
@@ -156,12 +177,13 @@ def work_binned(coef, tri_id, valid, start, count, tile_h, tile_w, n_tx, y_offse
     pix, chunk = tile_h * tile_w, coef.shape[-1]
     per_block = (valid[:, 0] > 0).sum(-1)
     csum = torch.cat([per_block.new_zeros(1), torch.cumsum(per_block, 0)])
-    start, count = start.long(), count.long()
-    slots = int((csum[start + count] - csum[start]).sum())
-    blocks = int(count.sum())
-    moved = (blocks * chunk * 4 * (16 + 1 + int(want_ids)) + nbytes(start, count)
+    s, c = start.long(), count.long()
+    slots = int((csum[s + c] - csum[s]).sum())
+    moved = (int(c.sum()) * chunk * 4 * (16 + 1 + int(want_ids)) + nbytes(start, count)
              + start.shape[0] * pix * 4 * (1 + int(want_ids)))
-    return moved, EDGE_OPS * pix * slots
+    ops, kept = skip_work("binned_raster", (coef, tri_id, valid, start, count, tile_h, tile_w,
+                                            n_tx, y_offset))
+    return moved, ops, pix * slots, kept
 
 
 def work_giant(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0, want_ids=True,
@@ -173,7 +195,9 @@ def work_giant(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0, wa
     chunks = int(live.any(0).sum())
     moved = (chunks * chunk * 4 * 17 + nbytes(overlap) + (nbytes(ids) if want_ids else 0)
              + overlap.shape[0] * pix * 4 * (1 + int(want_ids)))
-    return moved, EDGE_OPS * pix * slots
+    ops, kept = skip_work("giant_raster", (coef, valid, overlap, ids, tile_h, tile_w, n_tx,
+                                           y_offset))
+    return moved, ops, pix * slots, kept
 
 
 def work_select9(table, row, base, deltas):
@@ -362,6 +386,7 @@ def main() -> int:
     from unclerenderer_tpu_torch.ops import shadow as shadow_mod
     from unclerenderer_tpu_torch.ops import texture as tex_mod
     from unclerenderer_tpu_torch.ops.binning import bin_triangles
+    from unclerenderer_tpu_torch.ops.raster import normalize_ortho_setup
     from unclerenderer_tpu_torch.render.deferred import deferred_frame
     from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
     from unclerenderer_tpu_torch.render.testing import (
@@ -434,8 +459,8 @@ def main() -> int:
         k.setdefault("attr", name)
         k.setdefault("library", None)
         k.update(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, graph_ms=0.0,
-                 library_graph_ms=0.0, bytes_s=0.0, ops_s=0.0, calls=[], launch_us=None,
-                 clone_launch_us=None)
+                 library_graph_ms=0.0, bytes_s=0.0, ops_s=0.0, all_pairs_ops_s=0.0, calls=[],
+                 launch_us=None, clone_launch_us=None)
     check(set(kernels) == set(_cuda.LAUNCHES), "every built kernel is checked")
     default_kernels = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
     packed_kernels = ("hzb_tail", "env_select", "mat_select", "materialize_rows")
@@ -450,23 +475,33 @@ def main() -> int:
         k["err"] = max(k["err"], err)
 
     # ---- 3a. kernels vs plain on the reference tests' random setups (256^2)
+    modes = [(True, False), (True, True), (False, False), (False, True)]  # (want_ids, ortho)
     for seed, n, size in [(0, 150, 0.04), (2, 60, 0.2), (3, 40, 0.6), (5, 2000, 0.04)]:
-        s = random_setup(n, seed, size, dev)
-        bins = bin_triangles(s, 256, 256, 16, 64, 32)
-        start, count = rk.tile_block_ranges(bins, 64)
-        for want_ids in (True, False):
-            a = (bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 4, 0.0, want_ids, False)
-            bad, err = compare(rk.binned_raster(*a), rk.binned_raster_ref(*a))
-            check(bad == 0, f"binned_raster != plain on random setup {seed}: {bad}")
-            kernels["binned_raster"]["err"] = max(kernels["binned_raster"]["err"], err)
-        for gtile in ((16, 64), (64, 256)):
-            with Recorder(rk, "giant_raster") as r:
-                rk.rasterize_giant(s, 256, 256, tile_h=gtile[0], tile_w=gtile[1], chunk=8)
-            ga, gk = r.calls[0]
-            bad, err = compare(rk.giant_raster(*ga, **gk), rk.giant_raster_ref(*ga, **gk))
-            check(bad == 0, f"giant_raster != plain on random setup {seed}: {bad}")
-            kernels["giant_raster"]["err"] = max(kernels["giant_raster"]["err"], err)
-    log("kernels", "binned_raster and giant_raster bit-equal to plain on the 256^2 random setups")
+        persp = random_setup(n, seed, size, dev)
+        for want_ids, ortho in modes:
+            s = normalize_ortho_setup(persp) if ortho else persp
+            # the frame's two levels, then tiles of partial warp rectangles, one smaller
+            # than a rectangle, and widths of no whole 16-byte store
+            for tile, chunk in (((16, 64), 64), ((32, 128), 32), ((24, 36), 16), ((6, 10), 4)):
+                n_tx = -(-256 // tile[1])
+                bins = bin_triangles(s, 256, 256, *tile, chunk)
+                start, count = rk.tile_block_ranges(bins, n_tx * -(-256 // tile[0]))
+                a = (bins.coef, bins.tri_id, bins.valid, start, count, *tile, n_tx,
+                     0.0, want_ids, ortho)
+                bad, err = compare(rk.binned_raster(*a), rk.binned_raster_ref(*a))
+                check(bad == 0, f"binned_raster != plain on random setup {seed}: {bad}")
+                kernels["binned_raster"]["err"] = max(kernels["binned_raster"]["err"], err)
+            for gtile in ((16, 64), (32, 256), (64, 512), (24, 36), (6, 20)):
+                with Recorder(rk, "giant_raster") as r:
+                    rk.rasterize_giant(s, 256, 256, tile_h=gtile[0], tile_w=gtile[1], chunk=8,
+                                       want_ids=want_ids, ortho=ortho)
+                ga, gk = r.calls[0]
+                bad, err = compare(rk.giant_raster(*ga, **gk), rk.giant_raster_ref(*ga, **gk))
+                check(bad == 0, f"giant_raster != plain on random setup {seed}: {bad}")
+                kernels["giant_raster"]["err"] = max(kernels["giant_raster"]["err"], err)
+    log("kernels", "binned_raster and giant_raster bit-equal to plain on the 256^2 random setups "
+                   "(ids and depth-only, perspective and ortho, the frame's tile sizes and "
+                   "24x36, 6x10 / 6x20 tiles)")
 
     # ---- 3a. K6-K9 vs plain on random inputs
     rng = np.random.default_rng(0)
@@ -569,7 +604,7 @@ def main() -> int:
                   f"({env_mips} mips), built in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3b. kernels vs plain on inputs captured from one full-size frame
-    def measure(name, ca, ck):
+    def measure(name, ca, ck, label=None):
         """One captured call: kernel vs plain bit-equal; kernel, plain and
         library times; the call's bound."""
         k = kernels[name]
@@ -587,23 +622,41 @@ def main() -> int:
         dev_ms = graph_ms(lambda: wrapper(*ca, **ck), reps=10)
         lib_dev_ms = (graph_ms(lambda: k["library"](*ca, **ck), reps=10)
                       if k["library"] is not None else None)
-        moved, ops = k["work"](*ca, **ck)
+        moved, ops, *pairs = k["work"](*ca, **ck)  # pairs: a raster's live and kept pairs
         bytes_s, ops_s = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        # a raster's bound that counts every live (pixel, row) pair in full
+        all_pairs_ops_s = EDGE_OPS * pairs[0] / F32_OPS_PER_S if pairs else 0.0
+        all_pairs_ms = 1e3 * max(bytes_s, all_pairs_ops_s) if pairs else None
         k["err"] = max(k["err"], err)
         k["ms"] += ms
         k["plain_ms"] += plain_ms
         k["library_ms"] += lib_ms or 0.0
         k["bytes_s"] += bytes_s
         k["ops_s"] += ops_s
+        k["all_pairs_ops_s"] += all_pairs_ops_s
         k["graph_ms"] += dev_ms
         k["library_graph_ms"] += lib_dev_ms or 0.0
         k["calls"].append({"shapes": shapes, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                            "graph_ms": dev_ms, "library_graph_ms": lib_dev_ms,
-                           "bytes": moved, "ops": ops, "bound_ms": 1e3 * max(bytes_s, ops_s)})
+                           "bytes": moved, "ops": ops, "bound_ms": 1e3 * max(bytes_s, ops_s),
+                           "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                           "launch": label, "pairs": pairs[0] if pairs else None,
+                           "kept_pairs": pairs[1] if pairs else None,
+                           "bound_all_pairs_ms": all_pairs_ms})
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms (graph {lib_dev_ms:.4f})"
         log("kernels", f"{name} {shapes}: bit-equal, kernel {ms:.4f} ms (graph {dev_ms:.4f}), "
                        f"plain {plain_ms:.3f} ms, library {lib}, bound "
                        f"{1e3 * max(bytes_s, ops_s):.4f} ms ({moved} B, {ops} ops)")
+        if label is not None:  # a raster launch: its level and live pairs
+            binned = name == "binned_raster"
+            th, tw = ca[5:7] if binned else ca[4:6]
+            n_tiles = ca[3 if binned else 2].shape[0]
+            log("raster", f"{name} {label}: coefficients {shapes[0]}, {n_tiles} tiles of "
+                          f"{th}x{tw}, {pairs[0]} live (pixel, row) pairs, {pairs[1]} kept by the "
+                          f"warp skip; eager {ms:.4f} ms, graph {dev_ms:.4f} ms, bound "
+                          f"{1e3 * max(bytes_s, ops_s):.4f} ms "
+                          f"({'B' if bytes_s >= ops_s else 'O'}; every pair in full: "
+                          f"{all_pairs_ms:.4f} ms) (on {smi})")
 
     def capture(names, frame_scene, frame_params, frame_settings):
         with contextlib.ExitStack() as stack:
@@ -613,11 +666,16 @@ def main() -> int:
                            FrameState.initial(WIDTH, HEIGHT, dev), frame_settings)
             torch.cuda.synchronize()
         for name, r in zip(names, recs):
-            k = kernels[name]
             check(r.calls, f"{name}: the frame made no call")
-            wrapper = getattr(k["module"], k["attr"])
+            seen = {}
             for ca, ck in r.calls:
-                measure(name, ca, ck)
+                label = None
+                if name in ("binned_raster", "giant_raster"):  # shadow first, fine before mid
+                    view = "camera" if ca[-2] else "shadow"
+                    level = "giant" if name == "giant_raster" else ("fine", "mid")[seen.get(view, 0)]
+                    seen[view] = seen.get(view, 0) + 1
+                    label = f"{view} {level}"
+                measure(name, ca, ck, label)
 
     capture(default_kernels, scene, params[0], settings)
     capture(packed_kernels, packed, packed_params[0], packed_settings)
@@ -831,6 +889,8 @@ def main() -> int:
                              "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],
                              "library_graph_ms": k["library_graph_ms"],
                              "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"]),
+                             "bound_all_pairs_ms": (1e3 * max(k["bytes_s"], k["all_pairs_ops_s"])
+                                                    if k["all_pairs_ops_s"] else None),
                              "launch_us": k["launch_us"],
                              "clone_launch_us": k["clone_launch_us"]}
                          for n, k in kernels.items()}

@@ -15,7 +15,11 @@ from unclerenderer_tpu_torch.ops import probes
 from unclerenderer_tpu_torch.ops import raster_kernels as rk
 from unclerenderer_tpu_torch.ops import texture as tex_mod
 from unclerenderer_tpu_torch.ops.binning import bin_triangles
-from unclerenderer_tpu_torch.ops.raster import CULL_NONE, triangle_setup_from_components
+from unclerenderer_tpu_torch.ops.raster import (
+    CULL_NONE,
+    normalize_ortho_setup,
+    triangle_setup_from_components,
+)
 from unclerenderer_tpu_torch.ops.shadow import select9, select9_ref
 from unclerenderer_tpu_torch.ops.texture import gather_rows, gather_rows_ref
 
@@ -374,3 +378,118 @@ def test_launch_follows_the_current_stream_and_graph_capture(cuda_device):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(z, x)
+
+
+def _tris_setup(v, dev, w=256, h=256):
+    """Setup of triangles given as (n, 3, 3) pixel x, y and depth z."""
+    v = torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+    n = v.shape[0]
+    one = torch.ones(n, device=dev)
+    return triangle_setup_from_components(
+        v[:, 0, 0], v[:, 0, 1], one, v[:, 1, 0], v[:, 1, 1], one, v[:, 2, 0], v[:, 2, 1], one,
+        v[:, 0, 2], v[:, 1, 2], v[:, 2, 2], torch.ones(n, dtype=torch.bool, device=dev),
+        CULL_NONE, w, h)
+
+
+def _raster_case(case, dev, big=False):
+    """(setup, y_offset) of a K1/K2 card case.
+
+    random     -- the reference tests' random triangles;
+    coplanar   -- 70 copies of a small and 20 of a giant triangle among
+                  others: equal keys with different ids within one bin
+                  block, across the blocks of a tile and across giant chunks;
+    busy_tile  -- 900 tiny triangles in one tile, a few elsewhere: most
+                  tiles have no block, one has many times the mean;
+    windows    -- (K2) 2,100 large triangles: more live rows than one
+                  staged window and more chunks than one scan pass;
+    y_offset   -- random triangles rastered as a slab starting at row 40."""
+    rng = np.random.default_rng(21)
+    if case == "random":
+        return _setup(1500 if not big else 80, 5, 0.04 if not big else 0.3, dev), 0.0
+    if case == "y_offset":
+        return _setup(600 if not big else 80, 6, 0.06 if not big else 0.3, dev), 40.0
+    if case == "coplanar":
+        small = [[70.0, 66.0, 0.5], [82.0, 66.0, 0.5], [70.0, 78.0, 0.5]]  # in one fine tile
+        giant = [[0.0, 0.0, 0.7], [250.0, 0.0, 0.7], [0.0, 250.0, 0.7]]
+        other = rng.uniform(10.0, 240.0, (40, 1, 3)) + rng.normal(0.0, 8.0, (40, 3, 3))
+        other[..., 2] = rng.uniform(0.2, 0.9, (40, 3))
+        v = np.concatenate([other[:20], np.tile(small, (70, 1, 1)), np.tile(giant, (20, 1, 1)),
+                            other[20:]])
+        return _tris_setup(v, dev), 0.0
+    if case == "busy_tile":
+        ctr = np.concatenate([rng.uniform([70.0, 70.0], [120.0, 78.0], (900, 2)),
+                              rng.uniform(0.0, 256.0, (30, 2))])[:, None, :]
+        xy = ctr + rng.normal(0.0, 2.5, (930, 3, 2))
+        v = np.concatenate([xy, rng.uniform(0.1, 0.9, (930, 3, 1))], -1)
+        return _tris_setup(v, dev), 0.0
+    assert case == "windows"
+    ctr = rng.uniform(0.0, 256.0, (2100, 1, 2))
+    xy = ctr + rng.normal(0.0, 120.0, (2100, 3, 2))
+    v = np.concatenate([xy, rng.uniform(0.1, 0.9, (2100, 3, 1))], -1)
+    return _tris_setup(v, dev), 0.0
+
+
+MODES = [(True, False), (True, True), (False, False), (False, True)]
+
+
+# the frame's two levels, then tiles that end in partial warp rectangles
+# (16 x 8), are smaller than one, or are no whole number of 16-byte stores wide
+BINNED_TILES = [((16, 64), 64), ((32, 128), 32), ((8, 20), 16), ((24, 36), 32), ((12, 40), 128),
+                ((6, 10), 4), ((20, 30), 8)]
+# the frame's giant tiles, then the same kinds of tiles for 8 x 32 rectangles
+GIANT_TILES = [(32, 256), (64, 512), (16, 64), (8, 20), (24, 36), (12, 40), (6, 10)]
+
+
+@pytest.mark.parametrize("tile,chunk", BINNED_TILES)
+@pytest.mark.parametrize("want_ids,ortho", MODES)
+@pytest.mark.parametrize("case", ["random", "coplanar", "busy_tile", "y_offset"])
+def test_binned_raster_cases_bit_equal_one_launch(cuda_device, tile, chunk, want_ids, ortho, case):
+    s, y_off = _raster_case(case, cuda_device)
+    if ortho:
+        s = normalize_ortho_setup(s)
+    height = 256 - int(y_off)
+    bins = bin_triangles(s, 256, height, tile[0], tile[1], chunk, y_offset=y_off)
+    n_tiles = -(-256 // tile[1]) * -(-height // tile[0])
+    start, count = rk.tile_block_ranges(bins, n_tiles)
+    if case == "busy_tile":
+        live = count[count > 0].float()
+        assert int((count == 0).sum()) > 0 and float(live.max()) >= 4 * float(live.mean())
+    args = (bins.coef, bins.tri_id, bins.valid, start, count, tile[0], tile[1],
+            -(-256 // tile[1]), y_off, want_ids, ortho)
+    before = _cuda.LAUNCHES["binned_raster"]
+    got = rk.binned_raster(*args)
+    assert _cuda.LAUNCHES["binned_raster"] == before + 1
+    _same(got, rk.binned_raster_ref(*args))
+    if case == "coplanar" and want_ids:
+        won = set(torch.unique(got[1]).tolist()) & set(range(20, 90))
+        # of the 70 equal-key copies only the first wins; at tiles too small
+        # for the copy's span this level does not bin it
+        binned = set(bins.tri_id[bins.valid > 0].tolist()) & set(range(20, 90))
+        assert won == ({20} if binned else set()), won
+        assert binned or tile[0] * tile[1] < 512
+
+
+@pytest.mark.parametrize("tile", GIANT_TILES)
+@pytest.mark.parametrize("want_ids,ortho", MODES)
+@pytest.mark.parametrize("case", ["random", "coplanar", "windows", "y_offset"])
+def test_giant_raster_cases_bit_equal_one_launch(cuda_device, tile, want_ids, ortho, case):
+    s, y_off = _raster_case(case, cuda_device, big=True)
+    if ortho:
+        s = normalize_ortho_setup(s)
+    with pytest.MonkeyPatch.context() as mp:
+        calls = []
+        mp.setattr(rk, "giant_raster", lambda *a: calls.append(a) or rk.giant_raster_ref(*a))
+        rk.rasterize_giant(s, 256, 256 - int(y_off), tile_h=tile[0], tile_w=tile[1], chunk=8,
+                           y_offset=y_off, want_ids=want_ids, ortho=ortho,
+                           ids=torch.arange(s.coef.shape[0], device=cuda_device) + 1000)
+    (args,) = calls
+    if case == "windows":
+        overlap = args[2]
+        assert overlap.shape[1] > 128 and int((overlap != 0).sum(1).max()) * 8 > 256
+    before = _cuda.LAUNCHES["giant_raster"]
+    got = rk.giant_raster(*args)
+    assert _cuda.LAUNCHES["giant_raster"] == before + 1
+    _same(got, rk.giant_raster_ref(*args))
+    if case == "coplanar" and want_ids:
+        won = set(torch.unique(got[1]).tolist()) & set(range(1090, 1110))
+        assert won == {1090}, won  # of the 20 equal-key giant copies only the first wins

@@ -130,3 +130,30 @@ def test_on_cpu_dispatch():
     assert not _cuda.on_cpu("materialize", _tensor_like(0))
     with pytest.raises(ValueError):
         _cuda.on_cpu("materialize", torch.zeros(4, device="meta"))
+
+
+def test_every_local_include_is_a_hashed_header():
+    """A source includes, from ``csrc``, only headers that ``headers()``
+    lists, so every file the build reads is in the library's hash."""
+    hashed = {h.name for h in _cuda.headers()}
+    included = set()
+    for src in _cuda.sources() + _cuda.headers():
+        for line in src.read_text().splitlines():
+            if line.startswith('#include "'):
+                included.add(line.split('"')[1])
+    assert "raster_common.cuh" in included
+    assert included <= hashed, included - hashed
+
+
+@pytest.mark.parametrize("edited", ["raster_common.cuh", "giant_raster.cu"])
+def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch, edited):
+    """An edit to a source or to a header it includes gives the library a
+    new name, so the next build compiles it."""
+    for f in _cuda.sources() + _cuda.headers():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    before = _cuda.library_path()
+    assert _cuda.library_path() == before
+    with open(tmp_path / edited, "a") as f:
+        f.write("\n// edited\n")
+    assert _cuda.library_path() != before

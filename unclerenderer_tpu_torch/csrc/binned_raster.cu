@@ -4,124 +4,237 @@
 // _run_binned_kernel / rasterize_binned).  The TPU kernel walked bin blocks
 // in order on one core and revisited each tile's output block; here every
 // tile is one thread block that walks its own contiguous block range
-// [tile_start, tile_start + tile_count), so blocks need no order and tiles
-// no atomics: max-key / min-id is commutative.
+// [tile_start, tile_start + tile_count), so tiles need no atomics.
 //
-// Bound: ALU -- each (pixel, slot) pair costs three edge functions, the
-// depth numerator and denominator and one IEEE divide (~20 FP ops).  The
-// design keeps the block's 16 x chunk coefficients, ids and valid flags in
-// shared memory (read as warp broadcasts), keeps each pixel's best key and
-// id in registers for the whole tile, and writes every pixel once.  Dead
-// budget blocks belong to no tile and cost nothing.
+// What bounds it: the (pixel, valid slot) pairs whose edge tests run, how
+// evenly they fall on the warps that meet at each barrier (the rows that
+// survive the warp skip crowd into a few rectangles), and a frame's
+// busiest tile (at 1080p a 16 x 64 camera tile holds 29 bin blocks against
+// a mean of 5).  On an H100 the four launches of a 1080p frame take 0.37
+// ms against a bound of 0.058 ms, the 193 MB they move (the corner tests
+// and the edge tests of the 103 M (pixel, row) pairs the skip keeps take
+// 0.016 ms at the f32 peak; chip_smoke.py); ~0.14 ms is launch, staging
+// and the output write (measured with evaluation removed), the rest the
+// kept rows, unevenly spread over a tile's warps
+// (python3 -m unclerenderer_tpu_torch.sweeps.raster).  The design:
+//   * Pixels: a warp owns a 16 x 8 rectangle of the tile (16 rows of 2
+//     threads), a thread 4 pixels of one row (so b*qy is one multiply for
+//     4 pixels): small rectangles let the warp skip drop more rows.
+//     A block covers 2 rectangles (256 pixels), so no pixel slot is dead at
+//     the frame's tiles and a barrier waits on few warps.
+//   * Busy tiles: every tile gets up to 32 warps.  The warps beyond one a
+//     rectangle form G groups that each cover the block's rectangles and
+//     take every G-th bin block of the tile (a 16 x 64 tile: 4 blocks of 4
+//     groups; a 32 x 128 tile of 32 rectangles: 16 blocks of 1); the
+//     groups' winners are merged in shared memory at the end (max key,
+//     then min id: exact in any order).  Groups pay where tiles hold many
+//     blocks (the camera's 16 x 64 fine tiles) and idle where they hold 0-1.
+//   * Staging: a bin block's 16 x chunk coefficients, valid flags and ids
+//     are one contiguous run each, copied with cp.async; block b+1 is in
+//     flight while block b is evaluated.  Each valid slot becomes a record
+//     of raster_common.cuh (invalid slots are compacted away with ballots).
+//   * Skip: each lane tests one of 32 records for its whole warp, and the
+//     warp then evaluates only the records whose edges may pass
+//     (raster_common.cuh, shared with giant_raster.cu).
 //
-// Bit-exactness: the arithmetic is the reference's contraction pattern,
-// written with explicit round-to-nearest intrinsics (built with -fmad=false):
-//   ev  = (a*qx + b*qy) + c   ->  fma(a, qx, b*qy) + c
-//   key = nz / nw              ->  IEEE division (__fdiv_rn)
+// Exactness (the threshold, the warp skip, the min-id tie rule):
+// raster_common.cuh.  The group merge applies the same tie rule, so the
+// order in which groups visit blocks is free.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "raster_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kPixPerThread = 8;  // tiles up to 4096 pixels
+using raster::centre;
 
-__device__ __forceinline__ float lin(float a, float b, float c, float qx, float qy) {
-  return __fadd_rn(__fmaf_rn(a, qx, __fmul_rn(b, qy)), c);
+constexpr int kPix = 4;                 // pixels a thread, one row
+constexpr int kRectH = 16, kRectW = 8;  // a warp's pixels: kRectH rows of kRowThreads x kPix
+constexpr int kRowThreads = 32 / kRectH;
+static_assert(kRowThreads * kPix == kRectW && kPix % 4 == 0, "a warp covers its rectangle");
+constexpr int kPartRects = 2;           // rectangles (256 pixels) a block
+constexpr int kTileWarps = 32;          // warps a tile gets, over blocks and groups
+constexpr int kMaxThreads = 256;
+constexpr int kMaxChunk = 128;          // four ballots of valid flags
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-__device__ __forceinline__ bool inside(float a, float b, float c, float qx, float qy) {
-  const float ev = lin(a, b, c, qx, qy);
-  const bool tl = (a > 0.f) || (a == 0.f && b > 0.f);
-  return (ev > 0.f) || (ev == 0.f && tl);
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 template <bool kWantIds, bool kOrtho>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 binned_raster_kernel(const float* __restrict__ coef, const int* __restrict__ tri_id,
                      const float* __restrict__ valid, const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, float* __restrict__ out_key,
                      int* __restrict__ out_id, int chunk, int tile_h, int tile_w, int n_tx,
-                     float y_off) {
-  extern __shared__ float smem[];
-  float* s_coef = smem;                 // [16][chunk]
-  float* s_valid = smem + 16 * chunk;   // [chunk]
-  int* s_tid = reinterpret_cast<int*>(s_valid + chunk);  // [chunk]
+                     float y_off, int rects_x, int n_rects, int groups) {
+  // float4s a record (raster_common.cuh); its tag is the row's id
+  constexpr int kF4 = (kOrtho && !kWantIds) ? 4 : 5;
+  constexpr int kRaw = kWantIds ? 18 : 17;  // raw floats a slot: 16 coef, valid, id
+  extern __shared__ float4 smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = warp / kPartRects;  // this warp's group
+  const int rect = blockIdx.y * kPartRects + warp % kPartRects;  // of the tile
+  const bool active = rect < n_rects;  // idle warps still stage and meet barriers
+  const int g_threads = 32 * kPartRects, gt = threadIdx.x - g * g_threads;
+  float4* raw = smem + g * (kRaw * chunk / 4 + kF4 * chunk);  // this group's staging
+  float4* rec = raw + kRaw * chunk / 4;
 
   const int tile = blockIdx.x;
-  const int pix = tile_h * tile_w;
+  const int ry = (rect / rects_x) * kRectH, rx = (rect % rects_x) * kRectW;
+  const int py = ry + lane / kRowThreads, px0 = rx + (lane % kRowThreads) * kPix;
   const float x0 = static_cast<float>((tile % n_tx) * tile_w);
   const float y0 = __fadd_rn(static_cast<float>((tile / n_tx) * tile_h), y_off);
-
-  float qx[kPixPerThread], qy[kPixPerThread], best[kPixPerThread];
-  int bid[kPixPerThread];
+  const float qy = centre(y0, py);
+  float qx[kPix], best[kPix];
+  int bid[kPix];
 #pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    qx[k] = __fadd_rn(__fadd_rn(x0, static_cast<float>(p % tile_w)), 0.5f);
-    qy[k] = __fadd_rn(__fadd_rn(y0, static_cast<float>(p / tile_w)), 0.5f);
+  for (int k = 0; k < kPix; ++k) {
+    qx[k] = centre(x0, px0 + k);
     best[k] = -1.f;
     bid[k] = -1;
   }
+  const float2 xs = make_float2(centre(x0, rx), centre(x0, rx + kRectW - 1));
+  const float2 ys = make_float2(centre(y0, ry), centre(y0, ry + kRectH - 1));
 
-  const int b0 = tile_start[tile];
-  const int nb = tile_count[tile];
-  for (int bi = 0; bi < nb; ++bi) {
-    const size_t b = static_cast<size_t>(b0 + bi);
-    __syncthreads();  // previous block's smem is no longer read
-    for (int i = threadIdx.x; i < 16 * chunk; i += kThreads) s_coef[i] = coef[b * 16 * chunk + i];
-    for (int i = threadIdx.x; i < chunk; i += kThreads) {
-      s_valid[i] = valid[b * chunk + i];
-      if (kWantIds) s_tid[i] = tri_id[b * chunk + i];
+  // this group's copy of bin block b: coef [16][chunk], valid [chunk], ids [chunk]
+  auto stage = [&](int b) {
+    const float4* c4 = reinterpret_cast<const float4*>(coef + static_cast<size_t>(b) * 16 * chunk);
+    const float4* v4 = reinterpret_cast<const float4*>(valid + static_cast<size_t>(b) * chunk);
+    const float4* t4 = reinterpret_cast<const float4*>(tri_id + static_cast<size_t>(b) * chunk);
+    for (int i = gt; i < 4 * chunk; i += g_threads) copy16(raw + i, c4 + i);
+    for (int i = gt; i < chunk / 4; i += g_threads) {
+      copy16(raw + 4 * chunk + i, v4 + i);
+      if (kWantIds) copy16(raw + 4 * chunk + chunk / 4 + i, t4 + i);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  const int b0 = tile_start[tile], nb = tile_count[tile];
+  if (g < nb) stage(b0 + g);
+  for (int j = g; j - g < nb; j += groups) {
+    copies_done();
+    __syncthreads();  // block j has landed for every thread; the records are free
+    // valid slots -> records, compacted in slot order
+    const float* rc = reinterpret_cast<const float*>(raw);
+    const float* rv = rc + 16 * chunk;
+    unsigned mk[kMaxChunk / 32];
+    int n = 0;
+#pragma unroll
+    for (int q = 0; q < kMaxChunk / 32; ++q) {
+      const int s = 32 * q + lane;
+      mk[q] = __ballot_sync(0xffffffffu, j < nb && s < chunk && rv[s] > 0.f);
+      n += __popc(mk[q]);
+    }
+    for (int s = gt; s < chunk; s += g_threads) {  // s % 32 == lane
+      const int q = s >> 5;
+      int pos = 0;
+      unsigned mq = 0;
+#pragma unroll
+      for (int u = 0; u < kMaxChunk / 32; ++u) {
+        pos += u < q ? __popc(mk[u]) : 0;
+        mq = u == q ? mk[u] : mq;
+      }
+      if (!((mq >> lane) & 1u)) continue;
+      pos += __popc(mq & ((1u << lane) - 1u));
+      float v[15];
+#pragma unroll
+      for (int i = 0; i < 15; ++i) v[i] = (kOrtho && i >= 12) ? 0.f : rc[i * chunk + s];
+      raster::put_record<kF4>(rec + pos * kF4, v, true, kWantIds ? rv[chunk + s] : 0.f);
+    }
+    __syncthreads();  // records ready; the raw buffer is free
+    if (j + groups < nb) stage(b0 + j + groups);
+    if (!active) continue;
+
+    raster::evaluate<kPix, kF4, kOrtho, kWantIds>(rec, n, lane, xs, ys, qy, qx, best, bid);
+  }
+
+  const int merged = min(groups, nb);  // groups that saw a block
+  if (merged > 1) {
+    // groups 1.. hand their winners to group 0 through shared memory: slot
+    // (h, k, gt) holds pixel k of thread gt of group h (all groups' thread
+    // gt hold the same pixels)
+    float* s_key = reinterpret_cast<float*>(smem);
+    int* s_id = reinterpret_cast<int*>(s_key + (groups - 1) * kPix * g_threads);
+    __syncthreads();
+    if (g > 0 && g < merged) {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        const int i = ((g - 1) * kPix + k) * g_threads + gt;
+        s_key[i] = best[k];
+        if (kWantIds) s_id[i] = bid[k];
+      }
     }
     __syncthreads();
-    for (int s = 0; s < chunk; ++s) {
-      if (!(s_valid[s] > 0.f)) continue;
-      const float a0 = s_coef[0 * chunk + s], a1 = s_coef[1 * chunk + s], a2 = s_coef[2 * chunk + s];
-      const float e0 = s_coef[3 * chunk + s], e1 = s_coef[4 * chunk + s], e2 = s_coef[5 * chunk + s];
-      const float c0 = s_coef[6 * chunk + s], c1 = s_coef[7 * chunk + s], c2 = s_coef[8 * chunk + s];
-      const float za = s_coef[9 * chunk + s], zb = s_coef[10 * chunk + s], zc = s_coef[11 * chunk + s];
-      const float wa = s_coef[12 * chunk + s], wb = s_coef[13 * chunk + s], wc = s_coef[14 * chunk + s];
-      const int t = kWantIds ? s_tid[s] : 0;
+    if (g == 0) {
+      for (int h = 1; h < merged; ++h) {
 #pragma unroll
-      for (int k = 0; k < kPixPerThread; ++k) {
-        if (threadIdx.x + k * kThreads >= pix) continue;
-        if (!(inside(a0, e0, c0, qx[k], qy[k]) && inside(a1, e1, c1, qx[k], qy[k]) &&
-              inside(a2, e2, c2, qx[k], qy[k])))
-          continue;
-        float key = lin(za, zb, zc, qx[k], qy[k]);
-        if (!kOrtho) {
-          const float nw = lin(wa, wb, wc, qx[k], qy[k]);
-          if (!(nw > 0.f)) continue;
-          key = __fdiv_rn(key, nw);
-        }
-        if (!(key >= 0.f && key <= 1.f)) continue;
-        if (key > best[k] || (kWantIds && key == best[k] && t < bid[k])) {
-          best[k] = key;
-          bid[k] = t;
+        for (int k = 0; k < kPix; ++k) {
+          const int i = ((h - 1) * kPix + k) * g_threads + gt;
+          const float key = s_key[i];
+          const int t = kWantIds ? s_id[i] : 0;
+          if (key > best[k] || (kWantIds && key == best[k] && key >= 0.f && t < bid[k])) {
+            best[k] = key;
+            bid[k] = t;
+          }
         }
       }
     }
   }
 
-  const size_t base = static_cast<size_t>(tile) * pix;
+  if (g != 0 || !active || py >= tile_h) return;
+  const size_t o = static_cast<size_t>(tile) * tile_h * tile_w + static_cast<size_t>(py) * tile_w;
+  if (tile_w % kPix == 0) {  // kPix whole pixels, 16-byte aligned
+    if (px0 >= tile_w) return;
 #pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    if (p >= pix) continue;
-    out_key[base + p] = best[k];
-    if (kWantIds) out_id[base + p] = bid[k];
+    for (int v = 0; v < kPix / 4; ++v) {
+      reinterpret_cast<float4*>(out_key + o + px0)[v] =
+          make_float4(best[4 * v], best[4 * v + 1], best[4 * v + 2], best[4 * v + 3]);
+      if (kWantIds)
+        reinterpret_cast<int4*>(out_id + o + px0)[v] =
+            make_int4(bid[4 * v], bid[4 * v + 1], bid[4 * v + 2], bid[4 * v + 3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    if (px0 + k >= tile_w) break;
+    out_key[o + px0 + k] = best[k];
+    if (kWantIds) out_id[o + px0 + k] = bid[k];
   }
 }
 
 template <bool kWantIds, bool kOrtho>
-void launch(const float* coef, const int* tri_id, const float* valid, const int* tile_start,
-            const int* tile_count, float* out_key, int* out_id, int n_tiles, int chunk,
-            int tile_h, int tile_w, int n_tx, float y_off, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (16 * chunk + chunk) + sizeof(int) * chunk;
-  binned_raster_kernel<kWantIds, kOrtho><<<n_tiles, kThreads, smem, stream>>>(
-      coef, tri_id, valid, tile_start, tile_count, out_key, out_id, chunk, tile_h, tile_w,
-      n_tx, y_off);
+int launch(const float* coef, const int* tri_id, const float* valid, const int* tile_start,
+           const int* tile_count, float* out_key, int* out_id, int n_tiles, int chunk,
+           int tile_h, int tile_w, int n_tx, float y_off, cudaStream_t stream) {
+  constexpr int kF4 = (kOrtho && !kWantIds) ? 4 : 5;
+  constexpr int kRaw = kWantIds ? 18 : 17;
+  if (chunk < 4 || chunk > kMaxChunk || chunk % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rects_x = (tile_w + kRectW - 1) / kRectW;
+  const int n_rects = rects_x * ((tile_h + kRectH - 1) / kRectH);
+  // kTileWarps warps a tile, within 256 threads and 4 staged 64-slot blocks (39 KB)
+  int groups = kTileWarps / n_rects;
+  const int by_threads = kMaxThreads / 32 / kPartRects, by_smem = 256 / chunk;
+  groups = groups < by_threads ? groups : by_threads;
+  groups = groups < by_smem ? groups : by_smem;
+  groups = groups > 1 ? groups : 1;
+  const int threads = 32 * kPartRects * groups;
+  const size_t stage = static_cast<size_t>(groups) * chunk * (4 * kRaw + 16 * kF4);
+  const size_t merge = static_cast<size_t>(groups - 1) * threads / groups * kPix * 4 *
+                       (kWantIds ? 2 : 1);
+  const dim3 grid(n_tiles, (n_rects + kPartRects - 1) / kPartRects);
+  binned_raster_kernel<kWantIds, kOrtho><<<grid, threads, stage > merge ? stage : merge, stream>>>(
+      coef, tri_id, valid, tile_start, tile_count, out_key, out_id, chunk, tile_h, tile_w, n_tx,
+      y_off, rects_x, n_rects, groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -130,22 +243,14 @@ extern "C" int binned_raster(const float* coef, const int* tri_id, const float* 
                              const int* tile_start, const int* tile_count, float* out_key,
                              int* out_id, int n_tiles, int chunk, int tile_h, int tile_w,
                              int n_tx, float y_off, int want_ids, int ortho, void* stream) {
-  if (tile_h * tile_w > kThreads * kPixPerThread) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  if (want_ids) {
-    if (ortho)
-      launch<true, true>(coef, tri_id, valid, tile_start, tile_count, out_key, out_id, n_tiles,
-                         chunk, tile_h, tile_w, n_tx, y_off, s);
-    else
-      launch<true, false>(coef, tri_id, valid, tile_start, tile_count, out_key, out_id, n_tiles,
-                          chunk, tile_h, tile_w, n_tx, y_off, s);
-  } else {
-    if (ortho)
-      launch<false, true>(coef, tri_id, valid, tile_start, tile_count, out_key, out_id, n_tiles,
-                          chunk, tile_h, tile_w, n_tx, y_off, s);
-    else
-      launch<false, false>(coef, tri_id, valid, tile_start, tile_count, out_key, out_id,
-                           n_tiles, chunk, tile_h, tile_w, n_tx, y_off, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (want_ids)
+    return ortho ? launch<true, true>(coef, tri_id, valid, tile_start, tile_count, out_key,
+                                      out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off, s)
+                 : launch<true, false>(coef, tri_id, valid, tile_start, tile_count, out_key,
+                                       out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off, s);
+  return ortho ? launch<false, true>(coef, tri_id, valid, tile_start, tile_count, out_key,
+                                     out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off, s)
+               : launch<false, false>(coef, tri_id, valid, tile_start, tile_count, out_key,
+                                      out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off, s);
 }

@@ -3,10 +3,11 @@
 Build.  Each source is compiled by its own ``nvcc`` process for ``sm_90a``
 (all started together), and the objects are linked into ONE shared library
 with a plain C interface, at first use, into ``unclerenderer_tpu_torch/_build``
-(git-ignored).  The library name carries a hash of the sources and flags,
-so an edited source rebuilds.  ``-fmad=false`` keeps nvcc from
-contracting multiply-adds: the kernels spell out the reference's
-contractions with ``__fmaf_rn`` and must not gain others.
+(git-ignored).  The library name carries a hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags, so an edit rebuilds.
+``-fmad=false`` keeps nvcc from contracting multiply-adds: the kernels
+spell out the reference's contractions with ``__fmaf_rn`` and must not
+gain others.
 
 Launch path. Every C entry takes device pointers, integers and the stream,
 and returns ``cudaGetLastError()``. ``library()`` loads the library once and
@@ -97,6 +98,11 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """Headers the sources include (from their own directory)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def nvcc_path() -> str:
     for cand in (
         os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
@@ -109,7 +115,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -18,6 +18,8 @@ launches the kernel for CUDA tensors; there is no fallback between the two.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import _cuda
@@ -35,9 +37,14 @@ from .raster import (
     untile,
 )
 
-# pixels per tile the binned kernel holds in registers (512 threads x 8)
-BINNED_MAX_PIX = 4096
-BINNED_MAX_CHUNK = 128
+BINNED_MAX_CHUNK = 128  # K1 stages a block with cp.async: chunk % 4 == 0
+GIANT_MAX_CHUNK = 256  # one K2 window of staged rows holds a chunk
+
+
+def _check_y_offset(name, y_offset):
+    # the kernels' warp skip needs finite pixel centres (source notes)
+    if not math.isfinite(y_offset):
+        raise ValueError(f"{name}: y_offset must be finite, got {y_offset}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,13 +109,16 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
     n_tiles = tile_start.shape[0]
     chunk = coef.shape[-1]
     pix = tile_h * tile_w
-    if pix > BINNED_MAX_PIX or chunk > BINNED_MAX_CHUNK:
-        raise ValueError(f"binned_raster: tile {tile_h}x{tile_w} / chunk {chunk} too large")
-    if coef.dtype != torch.float32 or tri_id.dtype != torch.int32 or valid.dtype != torch.float32:
-        raise ValueError("binned_raster: expects f32 coef/valid and i32 tri_id")
-    tile_start = tile_start.to(torch.int32).contiguous()
-    tile_count = tile_count.to(torch.int32).contiguous()
+    if chunk > BINNED_MAX_CHUNK or chunk % 4:
+        raise ValueError(f"binned_raster: chunk {chunk} is not a multiple of 4 up to "
+                         f"{BINNED_MAX_CHUNK}")
+    if (coef.dtype != torch.float32 or valid.dtype != torch.float32 or tri_id.dtype != torch.int32
+            or tile_start.dtype != torch.int32 or tile_count.dtype != torch.int32):
+        raise ValueError("binned_raster: expects f32 coef/valid and i32 tri_id/tile_start/tile_count")
+    _check_y_offset("binned_raster", y_offset)
     dev = _cuda.check_cuda("binned_raster", coef, tri_id, valid, tile_start, tile_count)
+    if (coef.data_ptr() | tri_id.data_ptr() | valid.data_ptr()) % 16:
+        raise ValueError("binned_raster: coef, tri_id and valid must be 16-byte aligned")
     out_key = torch.empty((n_tiles, pix), dtype=torch.float32, device=coef.device)
     out_id = (torch.empty((n_tiles, pix), dtype=torch.int32, device=coef.device)
               if want_ids else None)
@@ -198,9 +208,11 @@ def giant_raster(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0,
     n_tiles, n_chunks = overlap.shape
     chunk = coef.shape[-1]
     pix = tile_h * tile_w
-    if coef.dtype != torch.float32 or valid.dtype != torch.float32:
-        raise ValueError("giant_raster: expects f32 coef/valid")
-    overlap = overlap.to(torch.int32).contiguous()
+    if chunk > GIANT_MAX_CHUNK:
+        raise ValueError(f"giant_raster: chunk {chunk} > {GIANT_MAX_CHUNK}")
+    if coef.dtype != torch.float32 or valid.dtype != torch.float32 or overlap.dtype != torch.int32:
+        raise ValueError("giant_raster: expects f32 coef/valid and i32 overlap")
+    _check_y_offset("giant_raster", y_offset)
     tensors = [coef, valid, overlap] + ([ids] if ids is not None else [])
     dev = _cuda.check_cuda("giant_raster", *tensors)
     if ids is not None and ids.dtype != torch.int32:
