@@ -28,9 +28,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (one nvcc per source, all at once).
 3. kernels -- every kernel against its plain PyTorch version on the same
    CUDA inputs, bit-equal: on random inputs (the random-triangle setups of
-   the reference's raster tests at 256x256 for K1/K2, random tables and
-   parameters for K6-K9, NaN/signed-zero/equal keys for K10, odd lengths,
-   misaligned views and 1-8 byte types for the K9/K11/K12 copy) and on the
+   the reference's raster tests at 256x256 for K1/K2, also at chunks the
+   kernels take only after fitting -- K1 66 and 256, K2 512 --; random
+   tables and parameters for K4 (block widths 4, 6, 8) and K6-K9,
+   NaN/signed-zero/equal keys for K10, odd lengths, misaligned views and 1-8
+   byte types for the K9/K11/K12 copy) and on the
    inputs captured from one full-size frame of each path, with both
    versions timed (the kernel over 50 eager calls, in turns with its
    library call where it has one, and replayed from a CUDA graph; K1 and
@@ -41,8 +43,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    synchronisation inside a run) beside ``clone`` of the same input, taken
    in turns.
 4. cross   -- 256x256 frames (24 objects, 512^2 shadow map) rendered with the
-   kernels on the card and with the plain versions on the CPU: depth and
-   tri_id bit-equal, color within 1e-3; the default path, then the packed
+   kernels on the card and with the plain versions on the CPU: depth,
+   tri_id and object_id (uint32) bit-equal, color within 1e-3; the default
+   path, then the packed
    path under the trilinear and the anisotropic filter.
 5. slice   -- per path, 10 carried frames at 1920x1080 over the
    263,184-triangle synthetic scene with a 4096^2 shadow map, on a slow
@@ -200,12 +203,6 @@ def work_giant(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0, wa
     return moved, ops, pix * slots, kept
 
 
-def work_select9(table, row, base, deltas):
-    d = torch.as_tensor(deltas, device=table.device)
-    el = distinct(row.long()[:, None] * table.shape[1] + base.long()[:, None] + d[None, :])
-    return el * table.element_size() + nbytes(row, base) + row.shape[0] * 9 * 4, 0
-
-
 def work_gather_rows(table, idx):
     n, c = idx.numel(), table.shape[1]
     return distinct(idx) * c * table.element_size() + nbytes(idx) + n * c * 4, 0
@@ -219,11 +216,6 @@ def work_env_select(env, rows, params9):
     # the two taps' 2x2 footprints: 8 groups of 4 channels per request
     n = rows.shape[0]
     return distinct(rows) * 32 * env.element_size() + nbytes(rows, params9) + n * 16, 0
-
-
-def work_mat_select(atlas, rows, params7):
-    n, c = rows.shape[0], atlas.shape[-1] // 16
-    return distinct(rows) * 8 * c * atlas.element_size() + nbytes(rows, params7) + n * c * 4, 0
 
 
 def work_copy(x):
@@ -325,6 +317,7 @@ def tiny_inputs(dev):
     from unclerenderer_tpu_torch.ops import hzb as hzb_mod
     from unclerenderer_tpu_torch.ops import raster_kernels as rk
     from unclerenderer_tpu_torch.ops.binning import bin_triangles
+    from unclerenderer_tpu_torch.ops.shadow import pcf_deltas
 
     s = random_setup(16, 0, 0.1, dev, w=64, h=16)
     bins = bin_triangles(s, 64, 16, 16, 64, 32)
@@ -339,7 +332,7 @@ def tiny_inputs(dev):
         "binned_raster": ((bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 1), {}),
         "giant_raster": r.calls[0],
         "shadow_select9": ((torch.zeros((16, 128), dtype=torch.int16, device=dev), i32[0],
-                            i32[1], tuple(range(9))), {}),
+                            i32[1], pcf_deltas(8)), {}),
         "gather_rows": ((f32[:4, :2].contiguous().to(torch.bfloat16), i32[0]), {}),
         "hzb_tail": ((f32[:4].contiguous(), [(w, h) for _o, w, h in layout]), {}),
         "env_select": ((torch.zeros((4, 128), device=dev), i32[0], f32), {}),
@@ -393,6 +386,7 @@ def main() -> int:
         synthetic_device_scene,
         synthetic_frame_params,
     )
+    from unclerenderer_tpu_torch.sweeps.select import work_mat_select, work_select9
 
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -482,7 +476,8 @@ def main() -> int:
             s = normalize_ortho_setup(persp) if ortho else persp
             # the frame's two levels, then tiles of partial warp rectangles, one smaller
             # than a rectangle, and widths of no whole 16-byte store
-            for tile, chunk in (((16, 64), 64), ((32, 128), 32), ((24, 36), 16), ((6, 10), 4)):
+            for tile, chunk in (((16, 64), 64), ((32, 128), 32), ((24, 36), 16), ((6, 10), 4),
+                                ((16, 64), 66), ((16, 64), 256)):
                 n_tx = -(-256 // tile[1])
                 bins = bin_triangles(s, 256, 256, *tile, chunk)
                 start, count = rk.tile_block_ranges(bins, n_tx * -(-256 // tile[0]))
@@ -491,17 +486,18 @@ def main() -> int:
                 bad, err = compare(rk.binned_raster(*a), rk.binned_raster_ref(*a))
                 check(bad == 0, f"binned_raster != plain on random setup {seed}: {bad}")
                 kernels["binned_raster"]["err"] = max(kernels["binned_raster"]["err"], err)
-            for gtile in ((16, 64), (32, 256), (64, 512), (24, 36), (6, 20)):
+            for gtile, gchunk in (((16, 64), 8), ((32, 256), 8), ((64, 512), 8), ((24, 36), 8),
+                                  ((6, 20), 8), ((32, 256), 512)):
                 with Recorder(rk, "giant_raster") as r:
-                    rk.rasterize_giant(s, 256, 256, tile_h=gtile[0], tile_w=gtile[1], chunk=8,
-                                       want_ids=want_ids, ortho=ortho)
+                    rk.rasterize_giant(s, 256, 256, tile_h=gtile[0], tile_w=gtile[1],
+                                       chunk=gchunk, want_ids=want_ids, ortho=ortho)
                 ga, gk = r.calls[0]
                 bad, err = compare(rk.giant_raster(*ga, **gk), rk.giant_raster_ref(*ga, **gk))
                 check(bad == 0, f"giant_raster != plain on random setup {seed}: {bad}")
                 kernels["giant_raster"]["err"] = max(kernels["giant_raster"]["err"], err)
     log("kernels", "binned_raster and giant_raster bit-equal to plain on the 256^2 random setups "
                    "(ids and depth-only, perspective and ortho, the frame's tile sizes and "
-                   "24x36, 6x10 / 6x20 tiles)")
+                   "24x36, 6x10 / 6x20 tiles; K1 chunks 66 and 256, K2 chunk 512)")
 
     # ---- 3a. K6-K9 vs plain on random inputs
     rng = np.random.default_rng(0)
@@ -517,18 +513,32 @@ def main() -> int:
     ]).astype(np.float32)).to(dev)
     for table in (env, env.to(torch.bfloat16)):
         versus_plain("env_select", table, rows, params9)
-    params7 = torch.from_numpy(np.concatenate([
-        rng.random((5, n)), rng.integers(0, 2, (2, n))]).astype(np.float32)).to(dev)
     atlas = torch.from_numpy(rng.integers(0, 256, (8192, 256), dtype=np.uint8)).to(dev)
-    rows = torch.from_numpy(rng.integers(0, 8192, n).astype(np.int32)).to(dev)
-    for table in (atlas, atlas.float() / 255.0, (atlas.float() / 255.0).to(torch.bfloat16)):
-        versus_plain("mat_select", table, rows, params7)
+    for m in (n, n + 1, 33):  # even, odd and less than one block of pixels
+        params7 = torch.from_numpy(np.concatenate([
+            rng.random((5, m)), rng.integers(0, 2, (2, m))]).astype(np.float32)).to(dev)
+        rows = torch.from_numpy(rng.integers(0, 8192, m).astype(np.int32)).to(dev)
+        rows[-1] = 8191  # the atlas's last row
+        for table in (atlas, atlas.float() / 255.0, (atlas.float() / 255.0).to(torch.bfloat16)):
+            versus_plain("mat_select", table, rows, params7)
     ids = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, 7936 * 64 + 1,
                                         dtype=np.int64).astype(np.int32)).to(dev)
     for x in (ids[:-1].reshape(7936, 64), ids[1:1002], ids[:37 * 5].reshape(37, 5)):
         versus_plain("materialize_rows", x)  # aligned, misaligned by 4 B, odd length
-    log("kernels", "hzb_tail, env_select, mat_select and materialize_rows bit-equal to plain "
-                   "on random inputs (mat_select: u8, f32 and bf16 atlases)")
+    # K4 at block widths 4, 6 and 8; receivers not a multiple of a block or of 4
+    table = torch.from_numpy(rng.integers(0, 65536, (4096, 128)).astype(np.uint16)
+                             .view(np.int16)).to(dev)
+    for bw in (4, 6, 8):
+        deltas = shadow_mod.pcf_deltas(bw)
+        for m in (100_003, 257, 31):
+            row = torch.from_numpy(rng.integers(0, 4096, m).astype(np.int32)).to(dev)
+            base = torch.from_numpy(rng.integers(0, 128 - deltas[-1], m).astype(np.int32)).to(dev)
+            row[-1], base[-1] = 4095, 127 - deltas[-1]  # the table's last lane
+            versus_plain("shadow_select9", table, row, base, deltas)
+    log("kernels", "hzb_tail, env_select, mat_select, materialize_rows and shadow_select9 "
+                   "bit-equal to plain on random inputs (mat_select: u8, f32 and bf16 atlases at "
+                   "even, odd and sub-block pixel counts; shadow_select9: block widths 4, 6, 8 at "
+                   "receiver counts that are no multiple of a block or of 4)")
 
     # ---- 3a. K10-K12 vs plain on random inputs
     special = np.array([np.nan, 0.0, -0.0, 1.0, -1.0, np.inf, -np.inf], np.float32)
@@ -697,6 +707,8 @@ def main() -> int:
                 p_g.env_mip_count = torch.tensor(float(mips), device=dev)
             out_c, st_c = deferred_frame(sc_cpu, p_c, st_c, frame_settings)
             out_g, st_g = deferred_frame(sc_gpu, p_g, st_g, frame_settings)
+            check(out_g["object_id"].dtype == out_c["object_id"].dtype == torch.uint32,
+                  f"object_id is {out_g['object_id'].dtype}, the reference's is uint32")
             for key in ("depth", "tri_id", "object_id"):
                 bad = int((out_g[key].cpu() != out_c[key]).sum())
                 check(bad == 0, f"cross-device {label} frame {i}: {key} differs at {bad} pixels")
@@ -706,7 +718,7 @@ def main() -> int:
             cdiff = float((out_g["color"].cpu() - out_c["color"]).abs().max())
             hdiff = float((out_g["hdr"].cpu() - out_c["hdr"]).abs().max())
             check(cdiff <= COLOR_ATOL, f"cross-device {label} frame {i}: color differs by {cdiff}")
-            log("cross", f"{label} frame {i}: depth/tri_id/object_id bit-equal, "
+            log("cross", f"{label} frame {i}: depth/tri_id/object_id (uint32) bit-equal, "
                          f"|color| {cdiff:.2e}, |hdr| {hdiff:.2e}, "
                          f"{int((out_g['tri_id'] >= 0).sum())} covered pixels")
         return cdiff

@@ -20,7 +20,7 @@ from unclerenderer_tpu_torch.ops.raster import (
     normalize_ortho_setup,
     triangle_setup_from_components,
 )
-from unclerenderer_tpu_torch.ops.shadow import select9, select9_ref
+from unclerenderer_tpu_torch.ops.shadow import pcf_deltas, select9, select9_ref
 from unclerenderer_tpu_torch.ops.texture import gather_rows, gather_rows_ref
 
 pytestmark = pytest.mark.cuda
@@ -82,6 +82,39 @@ def test_giant_raster_kernel_bit_equal(cuda_device, tile, want_ids):
     _same(got, want)
 
 
+@pytest.mark.parametrize("chunk", [66, 256, 512])
+@pytest.mark.parametrize("want_ids,ortho", [(True, False), (False, True)])
+def test_binned_raster_fitted_chunks_bit_equal(cuda_device, chunk, want_ids, ortho):
+    """K1 at chunks it takes after ``fit_binned_blocks``: bit-equal to the
+    plain version on the raw inputs, one launch."""
+    s = _setup(2000, 5, 0.04, cuda_device)
+    if ortho:
+        s = normalize_ortho_setup(s)
+    bins = bin_triangles(s, 256, 256, 16, 64, chunk)
+    start, count = rk.tile_block_ranges(bins, 64)
+    args = (bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 4, 0.0, want_ids, ortho)
+    before = _cuda.LAUNCHES["binned_raster"]
+    _same(rk.binned_raster(*args), rk.binned_raster_ref(*args))
+    assert _cuda.LAUNCHES["binned_raster"] == before + 1
+
+
+@pytest.mark.parametrize("chunk", [66, 256, 512])
+@pytest.mark.parametrize("want_ids,ids", [(True, True), (True, False), (False, False)])
+def test_giant_raster_fitted_chunks_bit_equal(cuda_device, chunk, want_ids, ids):
+    """K2 at chunks up to one window and past it (``fit_giant_chunks``):
+    bit-equal to the plain version on the raw inputs, one launch."""
+    s = _setup(1100, 2, 0.3, cuda_device)
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rk, "giant_raster", lambda *a: calls.append(a) or rk.giant_raster_ref(*a))
+        rk.rasterize_giant(s, 256, 256, tile_h=32, tile_w=256, chunk=chunk, want_ids=want_ids,
+                           ids=torch.arange(1100, device=cuda_device) * 2 + 5 if ids else None)
+    (args,) = calls
+    before = _cuda.LAUNCHES["giant_raster"]
+    _same(rk.giant_raster(*args), rk.giant_raster_ref(*args))
+    assert _cuda.LAUNCHES["giant_raster"] == before + 1
+
+
 def test_rasterize_binned_kernels_match_plain(cuda_device):
     s = _setup(300, 7, 0.15, cuda_device)
     kw = dict(tile_h=16, tile_w=64, chunk=32, mid_divisor=2, giant_divisor=4)
@@ -93,14 +126,21 @@ def test_rasterize_binned_kernels_match_plain(cuda_device):
     _same(got[:2], want[:2])
 
 
-def test_select9_kernel_bit_equal(cuda_device):
-    rng = np.random.default_rng(0)
+# receiver counts: one, under and over a warp, the frame's kind of count
+# (no multiple of a block or of 4), and one past a power of two
+@pytest.mark.parametrize("n", [1, 31, 33, 50000, 2**20 + 3])
+@pytest.mark.parametrize("bw", [4, 5, 6, 7, 8])  # ops/shadow.py shadow_block_shape's range
+def test_select9_kernel_bit_equal(cuda_device, bw, n):
+    rng = np.random.default_rng(bw * n)
+    deltas = pcf_deltas(bw)
     table = torch.from_numpy(rng.integers(0, 65536, (4096, 128)).astype(np.uint16).view(np.int16))
-    row = torch.from_numpy(rng.integers(0, 4096, 50000).astype(np.int32))
-    base = torch.from_numpy(rng.integers(0, 78, 50000).astype(np.int32))
-    deltas = tuple(dy * 10 + dx for dy in range(3) for dx in range(3))
+    row = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32))
+    base = torch.from_numpy(rng.integers(0, 128 - deltas[-1], n).astype(np.int32))
+    row[-1], base[-1] = 4095, 127 - deltas[-1]  # the 3x3 ends on the table's last lane
     args = [t.to(cuda_device) for t in (table, row, base)]
+    before = _cuda.LAUNCHES["shadow_select9"]
     assert torch.equal(select9(*args, deltas), select9_ref(*args, deltas))
+    assert _cuda.LAUNCHES["shadow_select9"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -138,18 +178,52 @@ def test_env_select_kernel_bit_equal(cuda_device, dtype):
     assert torch.equal(got, tex_mod.env_select_ref(env, rows, params9))
 
 
+@pytest.mark.parametrize("n", [1, 31, 33, 200_000, 2**20 + 3])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32, torch.bfloat16])
-def test_mat_select_kernel_bit_equal(cuda_device, dtype):
-    rng = np.random.default_rng(3)
-    n = 200_000
+def test_mat_select_kernel_bit_equal(cuda_device, dtype, n):
+    rng = np.random.default_rng(3 + n)
     atlas = torch.from_numpy(rng.integers(0, 256, (4096, 256), dtype=np.uint8)).to(cuda_device)
     if dtype != torch.uint8:
         atlas = (atlas.float() / 255.0).to(dtype)
     rows = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32)).to(cuda_device)
+    rows[-1] = 4095  # the atlas's last row
     params7 = torch.from_numpy(np.concatenate([
         rng.random((5, n)), rng.integers(0, 2, (2, n))]).astype(np.float32)).to(cuda_device)
+    before = _cuda.LAUNCHES["mat_select"]
     got = tex_mod.mat_select(atlas, rows, params7)
+    assert _cuda.LAUNCHES["mat_select"] == before + 1
     assert torch.equal(got, tex_mod.mat_select_ref(atlas, rows, params7))
+
+
+@pytest.mark.parametrize("case", ["atlas_u8", "atlas_f32", "table", "params_view"])
+def test_select_kernels_take_aligned_views_only(cuda_device, case):
+    """K8's atlas and K4's table are read with vector loads: a view off a
+    16-byte boundary is refused (ValueError, no launch); K8's params7 and
+    rows_idx take scalar loads, so a params7 view 4 bytes off is fine."""
+    rng = np.random.default_rng(9)
+    n = 1001
+    rows = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(cuda_device)
+    flat = torch.from_numpy(np.concatenate([
+        rng.random(1), rng.random((5, n)).ravel(), rng.integers(0, 2, 2 * n)]).astype(np.float32))
+    params7 = flat.to(cuda_device)[1:].view(7, n)
+    atlas = torch.from_numpy(rng.integers(0, 256, 64 * 256 + 16, dtype=np.uint8)).to(cuda_device)
+    before = dict(_cuda.LAUNCHES)
+    if case == "params_view":
+        atlas = atlas[:64 * 256].view(64, 256)
+        assert params7.data_ptr() % 16 == 4
+        got = tex_mod.mat_select(atlas, rows, params7)
+        assert torch.equal(got, tex_mod.mat_select_ref(atlas, rows, params7))
+        return
+    with pytest.raises(ValueError, match="aligned"):
+        if case == "table":
+            table = torch.zeros(16 * 128 + 1, dtype=torch.int16, device=cuda_device)[1:]
+            select9(table.view(16, 128), rows % 16, rows % 10, pcf_deltas(8))
+        else:
+            a = atlas[1:1 + 64 * 256].view(64, 256)
+            if case == "atlas_f32":
+                a = torch.zeros(64 * 256 + 1, device=cuda_device)[1:].view(64, 256)
+            tex_mod.mat_select(a, rows, params7.contiguous())
+    assert _cuda.LAUNCHES == before
 
 
 def test_packed_samplers_kernel_paths_match_plain_paths(cuda_device):

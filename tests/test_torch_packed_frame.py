@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from unclerenderer_tpu.render import testing as j_testing
 from unclerenderer_tpu.render.deferred import deferred_frame as j_frame
@@ -112,6 +113,7 @@ def test_packed_frame_matches_reference(case, packed_scene, monkeypatch):
         j_out, j_state = step(scene, params, j_state)
         t_out, t_state = deferred_frame(t_scene, interop.to_port(params, FrameParams, "cpu"),
                                         t_state, t_settings)
+        assert t_out["object_id"].dtype == torch.uint32  # the reference's dtype
         got = interop.to_numpy(t_out)
         for k in EXACT:
             np.testing.assert_array_equal(got[k], np.asarray(j_out[k]), err_msg=f"frame {i} {k}")

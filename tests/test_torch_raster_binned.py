@@ -95,6 +95,24 @@ def test_rasterize_binned_bit_equal(case, want_ids, depth_mode):
         assert set(np.unique(ti.numpy()).tolist()) <= {-1, 0, 3}
 
 
+# fine chunks that the K1 kernel takes only after ``fit_binned_blocks`` (66:
+# no multiple of 4; 256: over 128), and a mid and giant chunk of 66
+@pytest.mark.parametrize("chunk,big_chunk", [(66, 32), (256, 32), (66, 66)])
+@pytest.mark.parametrize("want_ids,depth_mode", [(True, jr.DEPTH_MAX), (False, jr.DEPTH_MIN)])
+def test_rasterize_binned_chunks_bit_equal(chunk, big_chunk, want_ids, depth_mode):
+    s = _random_setup(60, seed=2, size=0.2)
+    kw = dict(KW, chunk=chunk, big_chunk=big_chunk, mid_divisor=2, giant_divisor=4,
+              depth_mode=depth_mode, want_ids=want_ids)
+    jd, ji, js = j_binned(s, 256, 256, **kw, interpret=True)
+    td, ti, ts = rk.rasterize_binned(_port(s), 256, 256, **kw)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    if want_ids:
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        assert (ti >= 0).sum() > 100
+    for k in ("pair_overflow", "giant_truncated"):
+        assert int(ts[k]) == int(js[k]), k
+
+
 @pytest.mark.parametrize("onepass", [True, False])
 @pytest.mark.parametrize("size,depth_mode", [(0.05, jr.DEPTH_MAX), (0.3, jr.DEPTH_MAX),
                                              (0.05, jr.DEPTH_MIN)])

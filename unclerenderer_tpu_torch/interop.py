@@ -12,7 +12,8 @@ numpy arrays in the reference's dtypes.
 Dtypes: bf16 leaves travel as their 16-bit patterns (ml_dtypes bfloat16 ->
 uint16 view -> ``torch.bfloat16``), u8 atlases as they are, int32 stays
 int32, bool stays bool; u32 (``object_ids``) widens to int64 because torch
-has no general uint32 arithmetic.
+has no general uint32 arithmetic.  The frame's ``object_id`` image is
+uint32, as in the reference.
 """
 
 from __future__ import annotations

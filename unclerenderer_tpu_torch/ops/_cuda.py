@@ -60,8 +60,8 @@ SIGNATURES = {
     # coef, valid, overlap, ids, out_key, out_id,
     # n_tiles, n_chunks, chunk, tile_h, tile_w, n_tx, y_off, want_ids, ortho, stream
     "giant_raster": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    # table, row, base, deltas (host int[9]), out, n, lanes, stream
-    "shadow_select9": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # table, row, base, out, n, lanes, bw (block width: the 3x3's deltas), stream
+    "shadow_select9": [_P, _P, _P, _P, _I, _I, _I, _P],
     # table, idx, out, n, c, is_bf16, stream
     "gather_rows": [_P, _P, _P, _L, _I, _I, _P],
     # top, dims (host int[3 * levels]: w, h, offset), out, top_h, top_w,
@@ -69,8 +69,8 @@ SIGNATURES = {
     "hzb_tail": [_P, _P, _P, _I, _I, _I, _P],
     # env, env_rows, params (9, n), out, n, lanes, is_bf16, stream
     "env_select": [_P, _P, _P, _P, _L, _I, _I, _P],
-    # atlas, rows_idx, params (7, n), out, n, c, lanes, dtype, stream
-    "mat_select": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # atlas (rows, 256), rows_idx, params (7, n), out (n, 16), n, dtype, stream
+    "mat_select": [_P, _P, _P, _P, _L, _I, _P],
     # src, dst, n bytes, stream
     "copy_bytes": [_P, _P, _L, _P],
     # a, b, ka, kb, out, n, stream

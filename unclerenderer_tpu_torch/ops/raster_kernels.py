@@ -47,6 +47,56 @@ def _check_y_offset(name, y_offset):
         raise ValueError(f"{name}: y_offset must be finite, got {y_offset}")
 
 
+def _split_last(x: torch.Tensor, pieces: int, width: int) -> torch.Tensor:
+    """(B, R, chunk) -> (B * pieces, R, width): the last axis zero-padded to
+    ``pieces * width`` and cut into ``pieces`` runs, each block's runs kept
+    together in order."""
+    b, r, chunk = x.shape
+    x = torch.nn.functional.pad(x, (0, pieces * width - chunk))
+    # contiguous: for b == 1 a reshape alone would return a strided view
+    return x.reshape(b, r, pieces, width).transpose(1, 2).contiguous().view(b * pieces, r, width)
+
+
+def fit_binned_blocks(coef, tri_id, valid, tile_start, tile_count):
+    """K1's inputs at any chunk -> the same bins in blocks of at most
+    ``BINNED_MAX_CHUNK`` slots, a multiple of 4 (what K1 stages), returned
+    untouched when the chunk already fits.  Each block becomes ``k`` runs
+    of its slots, zero-padded (``valid = 0``: such a slot never wins), and a
+    tile's block range scales by ``k`` and stays contiguous.  Exact: a
+    tile's winner is the max key, then the min id among those at it, over
+    all its valid slots -- the same whatever blocks hold them and in
+    whatever order they are visited."""
+    chunk = coef.shape[-1]
+    if chunk % 4 == 0 and 4 <= chunk <= BINNED_MAX_CHUNK:
+        return coef, tri_id, valid, tile_start, tile_count
+    k = -(-chunk // BINNED_MAX_CHUNK)
+    width = -(-chunk // (4 * k)) * 4
+    return (_split_last(coef, k, width), _split_last(tri_id, k, width),
+            _split_last(valid, k, width), tile_start * k, tile_count * k)
+
+
+def fit_giant_chunks(coef, valid, overlap, ids):
+    """K2's inputs at any chunk -> chunks of at most ``GIANT_MAX_CHUNK`` rows
+    (one staged window), returned untouched when the chunk already fits.
+    Chunk c becomes ``k`` pieces c*k .. c*k + k-1, each with c's overlap
+    bit, so every tile visits the same rows in the same ascending order.
+    Local row c*chunk + s becomes (c*k + s // w)*w + s % w for pieces of w
+    rows: where k*w == chunk that is the same number and ``ids`` is kept;
+    otherwise the pieces are zero-padded (``valid = 0``) and ``ids`` is laid
+    out to match, the identity map made explicit where it was None."""
+    n_chunks, chunk = valid.shape
+    if chunk <= GIANT_MAX_CHUNK:
+        return coef, valid, overlap, ids
+    k = -(-chunk // GIANT_MAX_CHUNK)
+    width = -(-chunk // k)
+    if k * width != chunk:
+        if ids is None:
+            ids = torch.arange(n_chunks * chunk, dtype=torch.int32, device=coef.device)
+        ids = _split_last(ids.reshape(n_chunks, 1, chunk), k, width).reshape(-1)
+    return (_split_last(coef, k, width), _split_last(valid[:, None], k, width)[:, 0],
+            overlap.repeat_interleave(k, dim=1), ids)
+
+
 # ---------------------------------------------------------------------------
 # K9: identity copy of the block index array
 # ---------------------------------------------------------------------------
@@ -106,12 +156,11 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
     if _cuda.on_cpu("binned_raster", coef):
         return binned_raster_ref(coef, tri_id, valid, tile_start, tile_count,
                                  tile_h, tile_w, n_tx, y_offset, want_ids, ortho)
+    coef, tri_id, valid, tile_start, tile_count = fit_binned_blocks(
+        coef, tri_id, valid, tile_start, tile_count)
     n_tiles = tile_start.shape[0]
     chunk = coef.shape[-1]
     pix = tile_h * tile_w
-    if chunk > BINNED_MAX_CHUNK or chunk % 4:
-        raise ValueError(f"binned_raster: chunk {chunk} is not a multiple of 4 up to "
-                         f"{BINNED_MAX_CHUNK}")
     if (coef.dtype != torch.float32 or valid.dtype != torch.float32 or tri_id.dtype != torch.int32
             or tile_start.dtype != torch.int32 or tile_count.dtype != torch.int32):
         raise ValueError("binned_raster: expects f32 coef/valid and i32 tri_id/tile_start/tile_count")
@@ -205,11 +254,10 @@ def giant_raster(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0,
     if _cuda.on_cpu("giant_raster", coef):
         return giant_raster_ref(coef, valid, overlap, ids, tile_h, tile_w, n_tx,
                                 y_offset, want_ids, ortho)
+    coef, valid, overlap, ids = fit_giant_chunks(coef, valid, overlap, ids)
     n_tiles, n_chunks = overlap.shape
     chunk = coef.shape[-1]
     pix = tile_h * tile_w
-    if chunk > GIANT_MAX_CHUNK:
-        raise ValueError(f"giant_raster: chunk {chunk} > {GIANT_MAX_CHUNK}")
     if coef.dtype != torch.float32 or valid.dtype != torch.float32 or overlap.dtype != torch.int32:
         raise ValueError("giant_raster: expects f32 coef/valid and i32 overlap")
     _check_y_offset("giant_raster", y_offset)

@@ -10,8 +10,6 @@ the compare and the deferred 4-tap PCF blend stay plain tensor code
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _cuda
@@ -68,20 +66,39 @@ def select9_ref(table: torch.Tensor, row: torch.Tensor, base: torch.Tensor, delt
     return u16_values(table.reshape(-1)[idx]).to(torch.float32)
 
 
+def pcf_deltas(bw: int) -> tuple:
+    """Lane offsets of a 3x3 neighbourhood in rows of blocks ``bw`` wide
+    with their +2 apron, in (dy*3 + dx) order."""
+    return tuple(dy * (bw + 2) + dx for dy in range(3) for dx in range(3))
+
+
+# the 3x3 deltas of every block width shadow_block_shape gives -> that width
+_PCF_BW = {pcf_deltas(bw): bw for bw in range(4, 9)}
+
+
 def select9(table: torch.Tensor, row: torch.Tensor, base: torch.Tensor, deltas) -> torch.Tensor:
-    """K4 wrapper (same contract as ``select9_ref``)."""
+    """K4 wrapper (same contract as ``select9_ref``) for the 3x3 deltas
+    ``pcf_deltas(bw)``, bw = 4..8, that the frame uses; the same on both
+    devices."""
+    bw = _PCF_BW.get(tuple(deltas))
+    if bw is None:
+        raise ValueError(f"select9: deltas {tuple(deltas)} are not a 3x3 of pcf_deltas(4..8)")
+    if table.dtype != torch.int16 or table.dim() != 2 or table.shape[1] % 8:
+        raise ValueError("select9: table must be (rows, lanes) int16 with lanes % 8 == 0")
     if _cuda.on_cpu("shadow_select9", table):
         return select9_ref(table, row, base, deltas)
-    if table.dtype != torch.int16 or table.dim() != 2 or len(deltas) != 9:
-        raise ValueError("select9: table must be (rows, lanes) int16 with 9 deltas")
-    row = row.to(torch.int32).contiguous()
-    base = base.to(torch.int32).contiguous()
+    # .contiguous() costs a dispatcher call even when it returns its tensor
+    if row.dtype != torch.int32 or not row.is_contiguous():
+        row = row.to(torch.int32).contiguous()
+    if base.dtype != torch.int32 or not base.is_contiguous():
+        base = base.to(torch.int32).contiguous()
     dev = _cuda.check_cuda("shadow_select9", table, row, base)
+    if table.data_ptr() % 16:  # aligned word loads of its rows
+        raise ValueError("select9: the table must be 16-byte aligned")
     n = row.shape[0]
     out = torch.empty((n, 9), dtype=torch.float32, device=table.device)
-    d = (ctypes.c_int * 9)(*[int(x) for x in deltas])
     _cuda.launch("shadow_select9", dev, table.data_ptr(), row.data_ptr(), base.data_ptr(),
-                 ctypes.addressof(d), out.data_ptr(), n, table.shape[1])
+                 out.data_ptr(), n, table.shape[1], bw)
     return out
 
 
@@ -161,8 +178,7 @@ def shadow_factor_blocks(blocks_flat, size: int, world_pos, light_view_proj,
         world_pos, light_view_proj, size, shadow_bias)
     row = torch.div(yi0, bh, rounding_mode="floor") * nbx + torch.div(xi0, bw, rounding_mode="floor")
     base = torch.remainder(yi0, bh) * (bw + 2) + torch.remainder(xi0, bw)
-    deltas = tuple(dy * (bw + 2) + dx for dy in range(3) for dx in range(3))
-    nb = select9(blocks_flat, row.reshape(-1), base.reshape(-1), deltas)
+    nb = select9(blocks_flat, row.reshape(-1), base.reshape(-1), pcf_deltas(bw))
     nb = nb.reshape(compare.shape + (9,))
     nb9 = [nb[..., k] for k in range(9)]
     compare = torch.clamp(torch.ceil(compare * 65535.0), 0.0, 65536.0)

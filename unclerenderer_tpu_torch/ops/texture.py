@@ -316,24 +316,29 @@ _ATLAS_DTYPE_CODE = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def mat_select(tri_flat: torch.Tensor, rows_idx: torch.Tensor, params7: torch.Tensor):
-    """K8 wrapper (same contract as ``mat_select_ref``)."""
-    if _cuda.on_cpu("mat_select", tri_flat):
-        return mat_select_ref(tri_flat, rows_idx, params7)
-    lanes = tri_flat.shape[-1]
-    c = lanes // 16
-    if tri_flat.dim() != 2 or lanes % 16 or tri_flat.dtype not in _ATLAS_DTYPE_CODE:
-        raise ValueError("mat_select: atlas must be (rows, 16C) u8, f32 or bf16")
-    if tri_flat.dtype == torch.uint8 and c != 16:
-        raise ValueError(f"mat_select: the u8 decode needs C=16 material rows, got C={c}")
+    """K8 wrapper (same contract as ``mat_select_ref``) for the C = 16
+    material rows at which the reference reaches its kernel
+    (``sample_pyramid_tri``); the same on both devices."""
+    if tri_flat.dim() != 2 or tri_flat.shape[-1] != 256 or tri_flat.dtype not in _ATLAS_DTYPE_CODE:
+        raise ValueError("mat_select: atlas must be (rows, 256) u8, f32 or bf16 (C = 16)")
     n = rows_idx.shape[0]
     if params7.shape != (7, n) or params7.dtype != torch.float32:
         raise ValueError("mat_select: params7 must be (7, N) f32")
-    rows_idx = rows_idx.to(torch.int32).contiguous()
-    tri_flat, params7 = tri_flat.contiguous(), params7.contiguous()
+    if _cuda.on_cpu("mat_select", tri_flat):
+        return mat_select_ref(tri_flat, rows_idx, params7)
+    # .contiguous() costs a dispatcher call even when it returns its tensor
+    if rows_idx.dtype != torch.int32 or not rows_idx.is_contiguous():
+        rows_idx = rows_idx.to(torch.int32).contiguous()
+    if not params7.is_contiguous():
+        params7 = params7.contiguous()
+    if not tri_flat.is_contiguous():
+        tri_flat = tri_flat.contiguous()
     dev = _cuda.check_cuda("mat_select", tri_flat, rows_idx, params7)
-    out = torch.empty((n, c), dtype=torch.float32, device=tri_flat.device)
+    if tri_flat.data_ptr() % 16:  # vector loads of its lane groups
+        raise ValueError("mat_select: the atlas must be 16-byte aligned")
+    out = torch.empty((n, 16), dtype=torch.float32, device=tri_flat.device)
     _cuda.launch("mat_select", dev, tri_flat.data_ptr(), rows_idx.data_ptr(), params7.data_ptr(),
-                 out.data_ptr(), n, c, lanes, _ATLAS_DTYPE_CODE[tri_flat.dtype])
+                 out.data_ptr(), n, _ATLAS_DTYPE_CODE[tri_flat.dtype])
     return out
 
 

@@ -170,8 +170,10 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     if settings.enable_cas:
         color = torch.clamp(cas_sharpen(color, params.cas_sharpness), 0.0, 1.0)
 
-    object_id = torch.where(g["valid"], g["object_id_f"].to(torch.int64),
-                            torch.zeros_like(tri_id, dtype=torch.int64))
+    # uint32 as in the reference; ids ride an f32 record column, so they are
+    # exact integers below 2^24 and the int32 bits are the uint32 value
+    object_id = torch.where(g["valid"], g["object_id_f"].to(torch.int32),
+                            torch.zeros_like(tri_id, dtype=torch.int32)).view(torch.uint32)
     new_state = FrameState(
         taa_history=new_history,
         taa_valid=new_taa_valid,
