@@ -2,17 +2,22 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Three paths of the port are driven: two through ``deferred_frame``,
+Four paths of the port are driven: three through ``deferred_frame``,
 
-* default -- the reference's default frame (u8 combined quad atlas), which
-  runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF select) and K5
-  (draw-mask gather);
+* default -- the default frame of the combined material (u8 combined quad
+  atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
+  select) and K5 (draw-mask gather);
 * packed  -- the packed-trilinear material configuration: the u8 combined
   PACKED atlas (256 lanes), a procedural seamless env cube built here, and
   the four kernel flags on, which adds K6 (HZB tail), K7 (env select), K8
   (material select) and K9 (block-index copy);
+* masked  -- the reference's own ``RenderSettings()`` (alpha-masked models
+  on, per-slot material taps) on its masked scene (every 4th model a MASK
+  material; per-map quad atlas), with the Renderer's ``masked_tri_cap``:
+  K1, K2, K4 and K5 over the whole table (compaction is off with masked
+  models) and the masked raster in plain PyTorch (it has no kernel);
 
-and a third through ``ops/probes.py``:
+and a fourth through ``ops/probes.py``:
 
 * probes  -- the rows of the reference's TPU measurement probes that hold
   its last three kernels, at the probes' 1080p shapes: a (tc, 128) record
@@ -30,14 +35,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    CUDA inputs, bit-equal: on random inputs (the random-triangle setups of
    the reference's raster tests at 256x256 for K1/K2, also at chunks the
    kernels take only after fitting -- K1 66 and 256, K2 512 --; random
-   tables and parameters for K4 (block widths 4, 6, 8) and K6-K9,
+   tables and parameters for K4 (block widths 4, 6, 8) and K6-K9 -- K6 at
+   tops of every shape kind, three launches in a row and 10 replays of one
+   CUDA graph, so a ticket counter left non-zero shows --,
    NaN/signed-zero/equal keys for K10, odd lengths, misaligned views and 1-8
    byte types for the K9/K11/K12 copy) and on the
-   inputs captured from one full-size frame of each path, with both
-   versions timed (the kernel over 50 eager calls, in turns with its
-   library call where it has one, and replayed from a CUDA graph; K1 and
+   inputs captured from one full-size frame of the default and the packed
+   path, with both versions timed (the kernel over 50 eager calls, in turns
+   with its library call where it has one, and replayed from a CUDA graph; K1 and
    K2 get a line per launch with its level, its live (pixel, row) pairs
    and those its warp skip keeps, and both bounds below).
+   The masked path's K1, K2, K4 and K5 calls, captured from one of its
+   full-size frames (the camera raster over the whole table), are held
+   bit-equal too, untimed.
    Then the launch path: every kernel wrapper's host microseconds per call
    on a tiny input (``launch_us``: 2 x 3 runs of 1000 calls, no
    synchronisation inside a run) beside ``clone`` of the same input, taken
@@ -45,14 +55,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 4. cross   -- 256x256 frames (24 objects, 512^2 shadow map) rendered with the
    kernels on the card and with the plain versions on the CPU: depth,
    tri_id and object_id (uint32) bit-equal, color within 1e-3; the default
-   path, then the packed
-   path under the trilinear and the anisotropic filter.
+   path, the packed path under the trilinear and the anisotropic filter,
+   and the masked path (24 objects, per-slot masked scene) at
+   ``masked_tri_cap`` 0, -1 and the Renderer's value, each with more than
+   50 pixels won by masked models.
 5. slice   -- per path, 10 carried frames at 1920x1080 over the
    263,184-triangle synthetic scene with a 4096^2 shadow map, on a slow
    orbit, with the launch counts set to 0 just before and read just after:
    every kernel of the path launched, all drop counters 0, finite color;
    then 3 timed runs of 10 frames.  The packed configuration is also timed
-   with the four flags off (the reference's XLA-equivalent branches).
+   with the four flags off (the reference's XLA-equivalent branches).  The
+   masked path also logs the pixels won by masked models, the masked
+   raster's stage ms and its alpha tap's ms (CUDA events), the (pixel,
+   candidate) pairs of each masked level, and
+   the pairs and triangles the masked levels drop past their bin budgets,
+   which the reference does not count (logged, not gated).
 6. probes  -- the probe rows once with the launch counts set to 0 just
    before and read just after (K10, K11 and K12 each launched); every
    output equal to the same rows with the plain versions; each kernel
@@ -77,6 +94,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import sys
@@ -263,6 +281,12 @@ def to_device(obj, device):
         for f in dataclasses.fields(obj) if isinstance(getattr(obj, f.name), torch.Tensor)})
 
 
+def renderer_masked_cap(data) -> int:
+    """The Renderer's ``masked_tri_cap``: the scene's masked triangle count
+    rounded up to 64 (reference ``render/renderer.py:390-394``)."""
+    return -(-int(((data.alpha_mode == 1)[data.tri_model]).sum()) // 64) * 64
+
+
 def seamless_env_cube(scene, size, seed, device):
     """``scene`` with a procedural seamless env cube: 6 seeded faces (a
     smooth sky-to-ground gradient with a bright sun lobe and texel noise),
@@ -380,6 +404,7 @@ def main() -> int:
     from unclerenderer_tpu_torch.ops import texture as tex_mod
     from unclerenderer_tpu_torch.ops.binning import bin_triangles
     from unclerenderer_tpu_torch.ops.raster import normalize_ortho_setup
+    from unclerenderer_tpu_torch.render import common as common_mod
     from unclerenderer_tpu_torch.render.deferred import deferred_frame
     from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
     from unclerenderer_tpu_torch.render.testing import (
@@ -501,10 +526,29 @@ def main() -> int:
 
     # ---- 3a. K6-K9 vs plain on random inputs
     rng = np.random.default_rng(0)
-    for h, w in ((270, 480), (67, 31), (3, 2), (1, 1)):
+    for h, w in ((270, 480), (67, 31), (3, 2), (1, 1), (1, 7), (3, 1), (135, 240), (541, 961),
+                 (1080, 1920)):
         top = torch.from_numpy(rng.uniform(0.0, 1.0, (h, w)).astype(np.float32)).to(dev)
         layout, _ = hzb_mod.hzb_layout(max(1, w // 2), max(1, h // 2))
-        versus_plain("hzb_tail", top, [(lw, lh) for _o, lw, lh in layout])
+        dims = [(lw, lh) for _o, lw, lh in layout]
+        versus_plain("hzb_tail", top, dims)
+        if (h, w) not in ((270, 480), (541, 961)):
+            continue
+        # the ticket counter is back at 0 after each launch: in a row, and
+        # replayed from one CUDA graph (on new tops)
+        want = hzb_mod.hzb_tail_ref(top, dims)
+        for _ in range(3):
+            check(torch.equal(hzb_mod.hzb_tail(top, dims), want), "hzb_tail != plain in a row")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = hzb_mod.hzb_tail(top, dims)
+        for k in range(10):
+            top.copy_(torch.roll(top, k + 1, dims=0))
+            graph.replay()
+            torch.cuda.synchronize()
+            check(torch.equal(replayed, hzb_mod.hzb_tail_ref(top, dims)),
+                  f"hzb_tail != plain at graph replay {k} of a {h}x{w} top")
+        del graph
     env = torch.from_numpy(rng.uniform(0.0, 4.0, (4096, 128)).astype(np.float32)).to(dev)
     n = 100_000
     rows = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32)).to(dev)
@@ -536,7 +580,9 @@ def main() -> int:
             row[-1], base[-1] = 4095, 127 - deltas[-1]  # the table's last lane
             versus_plain("shadow_select9", table, row, base, deltas)
     log("kernels", "hzb_tail, env_select, mat_select, materialize_rows and shadow_select9 "
-                   "bit-equal to plain on random inputs (mat_select: u8, f32 and bf16 atlases at "
+                   "bit-equal to plain on random inputs (hzb_tail: tops 1x1 to 1080x1920, sides "
+                   "of 1, 3 launches in a row and 10 graph replays; mat_select: u8, f32 and bf16 "
+                   "atlases at "
                    "even, odd and sub-block pixel counts; shadow_select9: block widths 4, 6, 8 at "
                    "receiver counts that are no multiple of a block or of 4)")
 
@@ -668,7 +714,9 @@ def main() -> int:
                           f"({'B' if bytes_s >= ops_s else 'O'}; every pair in full: "
                           f"{all_pairs_ms:.4f} ms) (on {smi})")
 
-    def capture(names, frame_scene, frame_params, frame_settings):
+    def recorded(names, frame_scene, frame_params, frame_settings):
+        """The calls of kernels ``names`` in one full-size frame: name ->
+        [(args, kwargs)]."""
         with contextlib.ExitStack() as stack:
             recs = [stack.enter_context(Recorder(kernels[n]["module"], kernels[n]["attr"]))
                     for n in names]
@@ -677,8 +725,12 @@ def main() -> int:
             torch.cuda.synchronize()
         for name, r in zip(names, recs):
             check(r.calls, f"{name}: the frame made no call")
+        return {name: r.calls for name, r in zip(names, recs)}
+
+    def capture(names, frame_scene, frame_params, frame_settings):
+        for name, calls in recorded(names, frame_scene, frame_params, frame_settings).items():
             seen = {}
-            for ca, ck in r.calls:
+            for ca, ck in calls:
                 label = None
                 if name in ("binned_raster", "giant_raster"):  # shadow first, fine before mid
                     view = "camera" if ca[-2] else "shadow"
@@ -694,7 +746,12 @@ def main() -> int:
     small = RenderSettings(width=256, height=256, shadow_map_size=512,
                            has_masked_models=False, combined_material=True)
 
-    def cross(label, sc_cpu, sdata, frame_settings, mips=None):
+    def masked_pixels(frame_scene, tri_id):
+        """Pixels whose winning triangle is a masked model's."""
+        am = frame_scene.alpha_mode[frame_scene.tri_model.long()] == 1
+        return int(((tri_id >= 0) & am[tri_id.clamp(min=0).long()]).sum())
+
+    def cross(label, sc_cpu, sdata, frame_settings, mips=None, masked_min=None):
         sc_gpu = to_device(sc_cpu, dev)
         st_c = FrameState.initial(256, 256, "cpu")
         st_g = FrameState.initial(256, 256, dev)
@@ -718,9 +775,15 @@ def main() -> int:
             cdiff = float((out_g["color"].cpu() - out_c["color"]).abs().max())
             hdiff = float((out_g["hdr"].cpu() - out_c["hdr"]).abs().max())
             check(cdiff <= COLOR_ATOL, f"cross-device {label} frame {i}: color differs by {cdiff}")
+            won = ""
+            if masked_min is not None:
+                n_won = masked_pixels(sc_gpu, out_g["tri_id"])
+                check(n_won > masked_min, f"cross-device {label} frame {i}: only {n_won} pixels "
+                                          "won by masked models")
+                won = f", {n_won} won by masked models"
             log("cross", f"{label} frame {i}: depth/tri_id/object_id (uint32) bit-equal, "
                          f"|color| {cdiff:.2e}, |hdr| {hdiff:.2e}, "
-                         f"{int((out_g['tri_id'] >= 0).sum())} covered pixels")
+                         f"{int((out_g['tri_id'] >= 0).sum())} covered pixels{won}")
         return cdiff
 
     sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True, device="cpu")
@@ -733,6 +796,14 @@ def main() -> int:
             f"packed {filt}", sc_cpu, sdata,
             dataclasses.replace(small, texture_filter=filt, material_packed_trilinear=True,
                                 **KERNEL_FLAGS), mips)
+    # the masked path: the reference's RenderSettings() on the per-slot
+    # masked scene, exhaustive, binned over the table and compacted
+    sc_cpu, sdata = synthetic_device_scene(24, with_masked=True, device="cpu")
+    for cap in (0, -1, renderer_masked_cap(sdata)):
+        report[f"cross_color_max_abs_masked_cap{cap}"] = cross(
+            f"masked cap {cap}", sc_cpu, sdata,
+            RenderSettings(width=256, height=256, shadow_map_size=512, masked_tri_cap=cap),
+            masked_min=50)
     del sc_cpu
 
     # ---- 6. the probe path (defined here, run after the default path)
@@ -842,30 +913,72 @@ def main() -> int:
 
     def timed(label, frame_scene, frame_params, frame_settings, state):
         per_frame = []
+        frames = len(frame_params)
         torch.cuda.reset_peak_memory_stats()
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, state = run(frame_scene, frame_params, frame_settings, state)
             torch.cuda.synchronize()
-            per_frame.append((time.perf_counter() - t0) * 1000.0 / FRAMES)
+            per_frame.append((time.perf_counter() - t0) * 1000.0 / frames)
         med = statistics.median(per_frame)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         log(label, f"ms/frame median {med:.2f} min {min(per_frame):.2f} max {max(per_frame):.2f} "
-                   f"(3 runs x {FRAMES} frames, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2, {n_tris} tris) "
+                   f"(3 runs x {frames} frames, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2, {n_tris} tris) "
                    f"peak {peak_gb:.1f} GiB on {smi}")
         return {"ms_per_frame": per_frame, "median_ms": med, "peak_gib": peak_gb}
 
-    def counted(label, names, frame_scene, frame_params, frame_settings):
-        """The main-path run of one path: counts set to 0 just before the 10
-        frames and read just after; then the gates and 3 timed runs."""
+    def masked_stage(frame_scene, frame_params, frame_settings):
+        """One masked frame with CUDA events around the masked raster and
+        around each alpha tap; the pair counts and drops of each masked
+        level."""
+        stage, taps = [], []  # (start, end, output, rows of the 4th argument: a tap's uv)
+
+        def timed_call(fn, into):
+            def call(*a, **kw):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                into.append((e0, e1, out, a[3].shape[0]))
+                return out
+            return call
+
+        with patched(common_mod, "raster_masked_combine",
+                     timed_call(functools.partial(common_mod.raster_masked_combine, stats=True),
+                                stage)), \
+                patched(common_mod, "_alpha_tap", timed_call(common_mod._alpha_tap, taps)):
+            deferred_frame(frame_scene, frame_params, FrameState.initial(WIDTH, HEIGHT, dev),
+                           frame_settings)
+            torch.cuda.synchronize()
+        stage_ms = sum(e0.elapsed_time(e1) for e0, e1, _, _ in stage)
+        tap_ms = sum(e0.elapsed_time(e1) for e0, e1, _, _ in taps)
+        tap_pairs = sum(n for _, _, _, n in taps)
+        levels = [{k: int(v) for k, v in c.items()} for _, _, out, _ in stage for c in out[2]]
+        for k, lv in enumerate(levels):
+            log("masked", f"level {k + 1}: {lv['blocks']} live blocks, {lv['pairs']} (pixel, slot) "
+                          f"pairs, {lv['candidates']} within a pixel of their triangle's bbox, "
+                          f"{lv['covered']} covered and in depth range (alpha-tapped); dropped, "
+                          f"not counted by the reference: {lv.get('bin_overflow', 0)} pairs past "
+                          f"the bin budget" + (f", {lv['big_dropped']} triangles too big for "
+                                               "level 2" if k == 1 else ""))
+        log("masked", f"masked raster {stage_ms:.2f} ms of one frame, of which the alpha taps "
+                      f"{tap_ms:.2f} ms for {tap_pairs} (pixel, candidate) pairs "
+                      f"({1e6 * tap_ms / max(tap_pairs, 1):.3f} ns a pair; CUDA events, on {smi})")
+        return {"masked_raster_ms": stage_ms, "alpha_tap_ms": tap_ms, "alpha_tap_pairs": tap_pairs,
+                "levels": levels}
+
+    def counted(label, names, frame_scene, frame_params, frame_settings, extra=None):
+        """The main-path run of one path: counts set to 0 just before its
+        frames and read just after; then the gates (``extra(last output)``
+        adds its own and returns what it measured) and 3 timed runs."""
         state = FrameState.initial(WIDTH, HEIGHT, dev)
         torch.cuda.synchronize()
         _cuda.reset_launches()
         outs, state = run(frame_scene, frame_params, frame_settings, state)
         torch.cuda.synchronize()
         launches = dict(_cuda.LAUNCHES)
-        log(label, f"launches in {FRAMES} frames: {launches}")
+        log(label, f"launches in {len(frame_params)} frames: {launches}")
         for name in names:
             check(launches[name] > 0, f"kernel {name} was not launched by the {label} path")
         drops = {k: max(int(o["raster_stats"][k]) for o in outs) for k in outs[0]["raster_stats"]}
@@ -881,8 +994,9 @@ def main() -> int:
         log(label, f"color finite {tuple(color.shape)}, mean {float(color.mean()):.4f}, "
                    f"{covered} covered pixels, visible models "
                    f"{int(outs[-1]['model_visible'].sum())}/{data.num_models}")
+        more = extra(outs[-1]) if extra is not None else {}
         del outs
-        return {"launches": launches, "drops": drops,
+        return {"launches": launches, "drops": drops, **more,
                 **timed(label, frame_scene, frame_params, frame_settings, state)}
 
     report["slice"] = counted("slice", default_kernels, scene, params, settings)
@@ -896,6 +1010,42 @@ def main() -> int:
     log("packed", f"ms/frame median: kernel flags on {report['packed']['median_ms']:.2f}, "
                   f"off {report['packed_flags_off']['median_ms']:.2f}; default path "
                   f"{report['slice']['median_ms']:.2f} (on {smi})")
+    del packed
+
+    # ---- 5. the masked path: the reference's RenderSettings() on its masked scene
+    t0 = time.perf_counter()
+    m_scene, m_data = synthetic_device_scene(N_OBJECTS, sphere_res=SPHERE_RES, ground=True,
+                                             with_masked=True, device=dev)
+    m_settings = RenderSettings(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW,
+                                masked_tri_cap=renderer_masked_cap(m_data))
+    m_params = params  # the same geometry, so the same orbit
+    log("masked", f"scene: {m_data.num_models} models ({int((m_data.alpha_mode == 1).sum())} "
+                  f"masked, {int(((m_data.alpha_mode == 1)[m_data.tri_model]).sum())} masked "
+                  f"triangles), per-slot atlas {tuple(m_scene.quad_img.shape)} "
+                  f"{m_scene.quad_img.dtype}, masked_tri_cap {m_settings.masked_tri_cap}, built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 3b. the masked path's K1/K2/K4/K5 calls vs plain at its shapes
+    # (bit-equal only: the kernels line keeps the default path's calls)
+    m_calls = recorded(default_kernels, m_scene, m_params[0], m_settings)
+    for name, calls in m_calls.items():
+        for ca, ck in calls:
+            versus_plain(name, *ca, **ck)
+    shapes = {name: [tuple(next(x for x in ca if torch.is_tensor(x)).shape) for ca, _ in calls]
+              for name, calls in m_calls.items()}
+    log("kernels", f"masked 1080p frame: every call bit-equal to plain (first input of each "
+                   f"call: {shapes})")
+    del m_calls
+
+    def masked_checks(out):
+        n_won = masked_pixels(m_scene, out["tri_id"])
+        check(n_won > 0, "masked: no pixel won by a masked model")
+        log("masked", f"{n_won} pixels won by masked models")
+        return {"masked_pixels": n_won, **masked_stage(m_scene, m_params[0], m_settings)}
+
+    report["masked"] = counted("masked", default_kernels, m_scene, m_params, m_settings,
+                               extra=masked_checks)
+    del m_scene
 
     report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                              "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],

@@ -165,6 +165,65 @@ def test_hzb_tail_kernel_bit_equal(cuda_device, shape):
     assert _cuda.LAUNCHES["hzb_tail"] == before + (len(layout) > 2)
 
 
+# tops with a side of 1, odd sides, one tile and less, the 1080p top, tops
+# past a tile row or column, and one whose levels outgrow the finishing
+# block's shared buffers
+HZB_TOPS = [(1, 1), (1, 7), (3, 1), (1, 300), (300, 1), (5, 9), (31, 63), (135, 240),
+            (270, 480), (541, 961), (1080, 1920), (4100, 4100)]
+
+
+def _hzb_top(shape, levels=None):
+    h, w = shape
+    top = np.random.default_rng(h * 7 + w).uniform(0.0, 1.0, (h, w)).astype(np.float32)
+    top[np.random.default_rng(w).random((h, w)) < 0.2] = 0.0
+    n = len(hzb_mod.hzb_layout(max(1, w // 2), max(1, h // 2))[0]) if levels is None else levels
+    return torch.from_numpy(top), list(hzb_mod.tail_dims(h, w, n))
+
+
+@pytest.mark.parametrize("shape", HZB_TOPS)
+def test_hzb_tail_tops_bit_equal_one_launch(cuda_device, shape):
+    """K6 at every level count of a top: bit-equal to the plain version, one
+    kernel launch a call."""
+    top, dims = _hzb_top(shape)
+    top = top.to(cuda_device)
+    for n in sorted({1, 2, len(dims) // 2 + 1, len(dims)}):
+        before = _cuda.LAUNCHES["hzb_tail"]
+        got = []
+        names = _kernels_launched(lambda: got.append(hzb_mod.hzb_tail(top, dims[:n])))
+        assert torch.equal(got[0], hzb_mod.hzb_tail_ref(top, dims[:n])), n
+        assert _cuda.LAUNCHES["hzb_tail"] == before + len(got)
+        assert len(names) == 1 and "hzb_tail" in names[0], names
+
+
+@pytest.mark.parametrize("shape", [(270, 480), (541, 961), (7, 5)])
+def test_hzb_tail_back_to_back_and_graph_replays(cuda_device, shape):
+    """The ticket counter is back at 0 after every launch: three launches in
+    a row and 10 replays of one CUDA graph (on new inputs) stay bit-equal."""
+    top, dims = _hzb_top(shape)
+    top = top.to(cuda_device)
+    want = hzb_mod.hzb_tail_ref(top, dims)
+    outs = [hzb_mod.hzb_tail(top, dims) for _ in range(3)]
+    assert all(torch.equal(o, want) for o in outs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = hzb_mod.hzb_tail(top, dims)
+    for k in range(10):
+        top.copy_(torch.roll(top, k + 1, dims=1))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, hzb_mod.hzb_tail_ref(top, dims)), k
+
+
+@pytest.mark.parametrize("dims", [[(240, 134)], [(240, 135), (121, 67)], [(480, 270)],
+                                  [(240, 135)] * 2, []])
+def test_hzb_tail_refuses_other_levels(cuda_device, dims):
+    top = torch.zeros((270, 480), device=cuda_device)
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="halving"):
+        hzb_mod.hzb_tail(top, dims)
+    assert _cuda.LAUNCHES == before
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_env_select_kernel_bit_equal(cuda_device, dtype):
     rng = np.random.default_rng(2)

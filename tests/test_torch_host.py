@@ -125,6 +125,9 @@ def test_image_helpers_copy_is_byte_equal():
     img = _img((16, 8, 4), 4)
     for th, tw in ((16, 8), (32, 16), (4, 4), (24, 5)):
         _same(timage.resize_bilinear(img, th, tw), jimage.resize_bilinear(img, th, tw))
+    for rgba, size in (([1.0, 1.0, 1.0, 1.0], 1), ([0.2, 0.4, 0.6, 0.8], 4), ((0, 1, 0, 1), 3)):
+        _same(timage.solid_color_texture(rgba, size), jimage.solid_color_texture(rgba, size))
+    _same(timage.solid_color_texture([0.5] * 4), jimage.solid_color_texture([0.5] * 4))
     _same(timage.COMBINED_NEUTRAL, jimage.COMBINED_NEUTRAL)
     assert timage.COMBINED_C == jimage.COMBINED_C
     assert timage.COMBINED_SLOT_CH == jimage.COMBINED_SLOT_CH
@@ -180,6 +183,27 @@ def test_pyramid_tri_atlas_copy_is_byte_equal(case):
 def test_cube_extend_copy_is_byte_equal():
     faces = [_img((8, 8, 4), 20 + f) for f in range(6)]
     _same(tatlas._cube_extend(faces), jatlas._cube_extend(faces))
+
+
+# ----------------------------------------------------------- per-slot scene
+
+
+@pytest.mark.parametrize("kw", [dict(with_masked=True), dict(), dict(with_texture=False),
+                                dict(with_masked=True, sphere_res=(6, 4), ground=True)])
+def test_per_slot_scene_equals_reference(kw):
+    """The per-slot scene (quad atlas of the solid, grid and alpha-checker
+    chains; MASK models with masked): every record byte-equal."""
+    from unclerenderer_tpu.render.testing import synthetic_device_scene as j_scene
+
+    j, jdata = j_scene(9, **kw)
+    t, tdata = ttesting.synthetic_device_scene(9, device="cpu", **kw)
+    got = interop.to_numpy(t)
+    for f in dataclasses.fields(tparams.DeviceScene):
+        w = np.asarray(getattr(j, f.name))
+        assert got[f.name].dtype == w.dtype and got[f.name].shape == w.shape, f.name
+        np.testing.assert_array_equal(got[f.name].view(np.uint8), w.view(np.uint8), err_msg=f.name)
+    _same(tdata.alpha_mode, jdata.alpha_mode)
+    assert ((tdata.alpha_mode == 1).sum() > 0) == bool(kw.get("with_masked"))
 
 
 # ------------------------------------------------------- the card by default

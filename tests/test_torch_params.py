@@ -127,9 +127,7 @@ def test_port_imports_no_jax():
 
 UNPORTED = [
     {"renderer_type": "forward"},
-    {"has_masked_models": True},
     {"lod_derivatives": "forward"},
-    {"combined_material": False},
     {"soa_vertex": False},
     {"fused_resolve": "on"},
     {"shadow_table_u16": False},
@@ -171,9 +169,6 @@ def test_not_ported_messages_name_a_roadmap_queue_entry(rich_scenes):
         with pytest.raises(NotImplementedError) as exc:
             _render(t, tdata, **override)
         msgs.append(str(exc.value))
-    with pytest.raises(NotImplementedError) as exc:
-        synthetic_device_scene(2, rich_materials=False, device="cpu")
-    msgs.append(str(exc.value))
     for msg in msgs:
         m = re.search(r"\(ROADMAP\.md, modules queue: ([^)]+)\)$", msg)
         assert m and m.group(1) in titles, msg
@@ -208,6 +203,44 @@ def test_formerly_unported_settings_render(override, packed_scene):
     assert int((out["tri_id"] >= 0).sum()) > 100
     assert ("aniso_tap_overflow" in out["raster_stats"]) == (
         override.get("texture_filter") == "anisotropic")
+
+
+@pytest.fixture(scope="module")
+def per_slot_scene():
+    """The port's per-slot masked scene (rich_materials=False, with_masked)."""
+    return synthetic_device_scene(8, with_masked=True, device="cpu")
+
+
+# the settings that raised before the masked-raster slice, each now rendered:
+# masked models on the rich scene (none of its models is masked) and on the
+# per-slot masked scene; per-slot taps on the per-slot scene
+MASKED_NOW_PORTED = [
+    ({"has_masked_models": True}, "rich"),
+    ({"has_masked_models": True, "combined_material": False}, "per_slot"),
+    ({"combined_material": False}, "per_slot"),
+]
+
+
+@pytest.mark.parametrize("override,scene", MASKED_NOW_PORTED,
+                         ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items())
+                         if isinstance(o, dict) else o)
+def test_masked_and_per_slot_settings_render(override, scene, rich_scenes, per_slot_scene):
+    t, tdata = per_slot_scene if scene == "per_slot" else rich_scenes[2:]
+    out, state = _render(t, tdata, **override)
+    assert tuple(out["color"].shape) == (64, 64, 3)
+    assert bool(torch.isfinite(out["color"]).all()) and bool(torch.isfinite(state.hzb).all())
+    assert int((out["tri_id"] >= 0).sum()) > 100
+    if scene == "per_slot":
+        assert t.quad_img.shape[-1] == 16 and int((t.alpha_mode == 1).sum()) == 2
+
+
+def test_per_slot_scene_builds_and_refuses_masked_rich_materials(per_slot_scene):
+    """rich_materials=False builds the per-slot atlas (it raised before);
+    rich materials model no MASK material, as the reference asserts."""
+    t, _ = per_slot_scene
+    assert t.quad_img.dtype == torch.bfloat16 and t.has_map[1::4, 0].all()
+    with pytest.raises(ValueError, match="MASK"):
+        synthetic_device_scene(2, rich_materials=True, with_masked=True, device="cpu")
 
 
 def test_unknown_texture_filter_is_refused(rich_scenes):

@@ -68,6 +68,23 @@ def test_hzb_tail_matches_pallas_tail(shape):
     assert len(layout) > 2
 
 
+@pytest.mark.parametrize("size", [(1920, 1080), (1280, 720), (961, 541), (7, 1), (1, 1)])
+def test_hzb_tail_dims_are_the_layout_levels(size):
+    """K6 derives its levels by the halving rule: they are hzb_layout's tail
+    after any of its levels."""
+    layout, _ = jhzb.hzb_layout(*size)
+    for k in range(len(layout)):
+        _off, w, h = layout[k]
+        rest = [(lw, lh) for _o, lw, lh in layout[k + 1:]]
+        assert list(thzb.tail_dims(h, w, len(rest))) == rest
+
+
+@pytest.mark.parametrize("dims", [[(240, 134)], [(240, 135), (121, 67)], [(480, 270)], []])
+def test_hzb_tail_refuses_other_levels_on_the_cpu(dims):
+    with pytest.raises(ValueError, match="halving"):
+        thzb.hzb_tail(torch.zeros((270, 480)), dims)
+
+
 # --------------------------------------------------------------------- K7
 
 

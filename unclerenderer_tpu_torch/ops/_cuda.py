@@ -64,8 +64,8 @@ SIGNATURES = {
     "shadow_select9": [_P, _P, _P, _P, _I, _I, _I, _P],
     # table, idx, out, n, c, is_bf16, stream
     "gather_rows": [_P, _P, _P, _L, _I, _I, _P],
-    # top, dims (host int[3 * levels]: w, h, offset), out, top_h, top_w,
-    # levels, stream
+    # top, out, counter (one u32, 0 between launches), top_h, top_w, levels,
+    # stream
     "hzb_tail": [_P, _P, _P, _I, _I, _I, _P],
     # env, env_rows, params (9, n), out, n, lanes, is_bf16, stream
     "env_select": [_P, _P, _P, _P, _L, _I, _I, _P],

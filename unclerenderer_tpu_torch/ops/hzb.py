@@ -6,7 +6,7 @@ past the first two in one launch, under ``RenderSettings.hzb_pallas_tail``."""
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
@@ -54,21 +54,46 @@ def hzb_tail_ref(top: torch.Tensor, dims) -> torch.Tensor:
     return torch.cat(parts)
 
 
+@functools.lru_cache(maxsize=64)
+def tail_dims(top_h: int, top_w: int, n_levels: int) -> tuple:
+    """The ``n_levels`` (w, h) after a (top_h, top_w) level by
+    ``hzb_layout``'s halving rule, the only levels K6 derives."""
+    dims, w, h = [], top_w, top_h
+    for _ in range(n_levels):
+        w, h = max(1, w // 2), max(1, h // 2)
+        dims.append((w, h))
+    return tuple(dims)
+
+
+# device index -> K6's ticket counter (one unsigned int, 0 between launches)
+_COUNTERS: dict = {}
+
+
+def _counter(top: torch.Tensor, dev: int) -> torch.Tensor:
+    c = _COUNTERS.get(dev)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("hzb_tail: call it once outside CUDA-graph capture first "
+                               "(its counter is made then)")
+        c = _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=top.device)
+    return c
+
+
 def hzb_tail(top: torch.Tensor, dims) -> torch.Tensor:
-    """K6 wrapper (same contract as ``hzb_tail_ref``)."""
+    """K6 wrapper (same contract as ``hzb_tail_ref``) for the levels that
+    follow ``top`` by the halving rule (``tail_dims``); others are refused
+    on both devices."""
+    if top.dim() != 2 or not dims or tuple(map(tuple, dims)) != tail_dims(*top.shape, len(dims)):
+        raise ValueError("hzb_tail: dims must be the halving-rule levels after top (h, w)")
     if _cuda.on_cpu("hzb_tail", top):
         return hzb_tail_ref(top, dims)
-    if top.dtype != torch.float32 or top.dim() != 2 or not 0 < len(dims) <= 32:
-        raise ValueError("hzb_tail: top must be (h, w) f32 with 1..32 output levels")
-    top = top.contiguous()
+    if top.dtype != torch.float32:
+        raise ValueError("hzb_tail: top must be f32")
+    if not top.is_contiguous():
+        top = top.contiguous()
     dev = _cuda.check_cuda("hzb_tail", top)
-    table, off = [], 0
-    for w, h in dims:
-        table += [w, h, off]
-        off += w * h
-    out = torch.empty(off, dtype=torch.float32, device=top.device)
-    host = (ctypes.c_int * len(table))(*table)
-    _cuda.launch("hzb_tail", dev, top.data_ptr(), ctypes.addressof(host), out.data_ptr(),
+    out = torch.empty(sum(w * h for w, h in dims), dtype=torch.float32, device=top.device)
+    _cuda.launch("hzb_tail", dev, top.data_ptr(), out.data_ptr(), _counter(top, dev).data_ptr(),
                  top.shape[0], top.shape[1], len(dims))
     return out
 

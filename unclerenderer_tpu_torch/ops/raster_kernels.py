@@ -339,7 +339,7 @@ def rasterize_giant(setup: RasterSetup, width: int, height: int, tile_h: int = 3
 # ---------------------------------------------------------------------------
 
 
-def _merge(key_img, id_img, key2, id2):
+def merge_levels(key_img, id_img, key2, id2):
     """Max key; on equal (hit) keys the smaller id wins."""
     take = key2 > key_img
     tie = (key2 == key_img) & (key2 >= 0.0)
@@ -391,7 +391,7 @@ def rasterize_binned(
     mid_key, mid_id = _run_binned_kernel(mid_bins, width, height, big_tile_h, big_tile_w,
                                          y_offset, want_ids, ortho)
     if want_ids:
-        key_img, id_img = _merge(key_img, id_img, mid_key, mid_id)
+        key_img, id_img = merge_levels(key_img, id_img, mid_key, mid_id)
     else:
         key_img = torch.maximum(key_img, mid_key)
 
@@ -427,7 +427,7 @@ def rasterize_binned(
     if want_ids:
         big_depth, big_id = big_out
         big_key = torch.where(big_id >= 0, big_depth, torch.full_like(big_depth, -1.0))
-        key_img, id_img = _merge(key_img, id_img, big_key, big_id)
+        key_img, id_img = merge_levels(key_img, id_img, big_key, big_id)
     else:
         key_img = torch.maximum(key_img, big_out[0])
 

@@ -1,8 +1,9 @@
 """Frame building blocks (``unclerenderer_tpu/render/common.py``): vertex
-stage, draw masks, the opaque and shadow visibility rasters, and the
-material resolve (combined material on the quad or the packed-trilinear
-atlas; trilinear, bilinear and anisotropic filters with quad-derivative
-LOD; compact id space)."""
+stage, draw masks, the opaque, alpha-masked and shadow visibility rasters,
+and the material resolve (the combined material on the quad or the
+packed-trilinear atlas, or per-slot taps on the per-map quad atlas;
+trilinear, bilinear and anisotropic filters with quad-derivative LOD;
+compact id space)."""
 
 from __future__ import annotations
 
@@ -11,22 +12,28 @@ import torch
 from ..ops import pbr
 from ..ops import texture as tex
 from ..ops.fma import fdiff, fdot, fma
+from ..ops.binning import bin_triangles
 from ..ops.raster import (
+    COEF_COLS,
     CULL_BACK,
     CULL_FRONT,
     DEPTH_MAX,
     DEPTH_MIN,
+    INT32_MAX,
+    RasterSetup,
     VertexSoA,
     compact_mask,
     compact_setup,
+    eval_keys,
     normalize_ortho_setup,
     triangle_setup_from_soa,
 )
-from ..ops.raster_kernels import rasterize_binned
+from ..ops.raster_kernels import merge_levels, rasterize_binned
 from . import packing as PK
 from .params import SAMPLING, DeviceScene, RenderSettings, not_ported
 
-SLOT_NORMAL = 2  # material slot of the normal map (has_map column)
+# material texture slots (has_map columns)
+SLOT_BASE, SLOT_MR, SLOT_NORMAL, SLOT_EMISSIVE = 0, 1, 2, 3
 
 
 def vertex_stage_soa(pos_soa, view_proj, width: int, height: int) -> VertexSoA:
@@ -142,6 +149,306 @@ def raster_shadow(scene: DeviceScene, light_view_proj, tri_mask, settings: Rende
     return depth, overflow
 
 
+# ---------------------------------------------------------------------------
+# Alpha-masked raster
+# ---------------------------------------------------------------------------
+
+# (pixel, slot) pairs one group of blocks holds at once: the groups are
+# sized to memory (any size gives the same result)
+ALPHA_PAIR_BUDGET = 1 << 24
+
+
+def _alpha_lod(u, v, au, bu, av, bv, a1, b1, denom, tw_, th_):
+    """Analytic per-(pixel, candidate) LOD of the in-raster alpha test: u =
+    U/D with U = au*qx + bu*qy + cu, D = a1*qx + b1*qy + c1, so du/dx =
+    (au - u*a1)/D; the footprint rule of ``tex.footprint_lod`` (max axis
+    length in texels, squared).  Contracted as the reference is; its log2
+    differs from PyTorch's by an ulp now and then."""
+    inv_d = 1.0 / denom
+    dudx = fma(-u, a1, au) * inv_d
+    dudy = fma(-u, b1, bu) * inv_d
+    dvdx = fma(-v, a1, av) * inv_d
+    dvdy = fma(-v, b1, bv) * inv_d
+    px, qx = dudx * tw_, dvdx * th_
+    py, qy = dudy * tw_, dvdy * th_
+    lx = fma(px, px, qx * qx)
+    ly = fma(py, py, qy * qy)
+    return 0.5 * torch.log2(torch.clamp(torch.maximum(lx, ly), min=1e-12))
+
+
+def _alpha_tap(quad_flat, atlas_width, rect0, uv, lod, settings: RenderSettings):
+    """Alpha-test texture tap at the analytic LOD, honouring the material
+    filter: nearest-mip bilinear under "bilinear", trilinear otherwise."""
+    if settings.texture_filter == "bilinear":
+        level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
+        return _sample_level_any(quad_flat, atlas_width, rect0, uv, level)
+    return _sample_trilinear_any(quad_flat, atlas_width, rect0, uv, lod)
+
+
+def _alpha_records(scene: DeviceScene, setup: RasterSetup):
+    """The (T, 19) alpha record of every triangle: the interpolation
+    numerators (a, b, c) of u, v, vertex alpha and 1 (columns 0:12), the
+    base-colour rect (12:16), has a base-colour map, alpha scale and cutoff
+    (16, 17, 18).  The KHR transform of the base slot is affine in uv, so it
+    folds into the per-vertex uvs; the weight of vertex k is edge function
+    k, so each numerator is sum_k e_k(q) * x_k per (a, b, c) column."""
+    model = scene.tri_model.long()
+    uv_os = scene.uv_transform[model, SLOT_BASE]
+    uv_rot = scene.uv_rotation[model, SLOT_BASE]
+    t_count = scene.uv.shape[0] // 3
+    uv_tri = scene.uv.reshape(t_count, 3, 2)
+    uvk = [tex.apply_texture_transform(uv_tri[:, k], uv_os, uv_rot) for k in range(3)]
+    ca = scene.color.reshape(t_count, 3, 4)[..., 3]
+    coef = setup.coef
+
+    def interp_coef(x0, x1, x2):
+        return torch.stack([fdot([(coef[:, 3 * r], x0), (coef[:, 3 * r + 1], x1),
+                                  (coef[:, 3 * r + 2], x2)]) for r in range(3)], dim=1)
+
+    ones = torch.ones_like(ca[:, 0])
+    return torch.cat([
+        interp_coef(uvk[0][:, 0], uvk[1][:, 0], uvk[2][:, 0]),
+        interp_coef(uvk[0][:, 1], uvk[1][:, 1], uvk[2][:, 1]),
+        interp_coef(ca[:, 0], ca[:, 1], ca[:, 2]),
+        interp_coef(ones, ones, ones),
+        scene.tri_mrec[:, PK.M_RECT + SLOT_BASE * 4:PK.M_RECT + SLOT_BASE * 4 + 4],
+        scene.has_map[model, SLOT_BASE].to(torch.float32)[:, None],
+        scene.base_color_alpha[model][:, None],
+        scene.alpha_cutoff[model][:, None],
+    ], dim=1)
+
+
+def _alpha_candidates(tiles, rows, valid, bbox, tile_h, tile_w, n_tx, width, height):
+    """The (block, pixel, slot) triples of a group of blocks whose pixel
+    lies in the image and within one pixel of the slot's triangle bbox.
+    Exact: a pixel centre that the edge tests cover lies within the
+    triangle's screen bounds (the bbox floors and ceils them), and the f32
+    edge functions stray from the true edges by far less than the pixel of
+    margin; the reference crops the padded tiles' pixels.
+    tiles (G,), rows/valid (G, C) -> (g, p, c, pixel x, pixel y)."""
+    pix = tile_h * tile_w
+    col = torch.arange(pix, device=tiles.device)
+    px = ((tiles % n_tx) * tile_w)[:, None] + col % tile_w
+    py = ((tiles // n_tx) * tile_h)[:, None] + col // tile_w
+    bb = bbox[:, rows]  # (4, G, C)
+    xf, yf = px.to(torch.float32)[:, :, None], py.to(torch.float32)[:, :, None]
+    cand = ((xf >= bb[0][:, None, :] - 1.0) & (xf <= bb[2][:, None, :] + 1.0)
+            & (yf >= bb[1][:, None, :] - 1.0) & (yf <= bb[3][:, None, :] + 1.0)
+            & valid[:, None, :] & ((px < width) & (py < height))[:, :, None])
+    g, p, c = cand.nonzero(as_tuple=True)
+    return g, p, c, px[g, p], py[g, p]
+
+
+def _alpha_eval(coef, arec, x, y, quad_flat, atlas_width, settings: RenderSettings):
+    """Depth key of candidate (pixel, triangle) pairs that the triangle
+    covers, whose depth is in [0, 1] and whose alpha passes the cutoff, -1
+    for the others.  coef (N, 16), arec (N, 19), x/y (N,) pixel ints.  The
+    edge tests and depth are the opaque raster's (``eval_keys``); the
+    interpolation is the reference's ``a*qx + b*qy + c`` contracted as
+    ``fma(a, qx, b*qy) + c``, like them.  The alpha tap runs only for the
+    pairs that are covered and in depth range (it enters only through
+    ``ok &``).  Returns (key (N,), covered pairs)."""
+    qx, qy = x.to(torch.float32) + 0.5, y.to(torch.float32) + 0.5
+    key, ok = eval_keys(coef[:, :, None], torch.ones_like(qx, dtype=torch.bool)[:, None],
+                        qx[:, None], qy[:, None])
+    key, ok = key.reshape(-1), ok.reshape(-1)
+    idx = ok.nonzero(as_tuple=True)[0]
+    ar, qx, qy = arec[idx], qx[idx], qy[idx]
+
+    def form(a, b, c):
+        return fma(a, qx, b * qy) + c
+
+    denom = form(ar[:, 9], ar[:, 10], ar[:, 11])
+    denom = torch.where(denom != 0.0, denom, torch.ones_like(denom))
+    u = form(ar[:, 0], ar[:, 1], ar[:, 2]) / denom
+    v = form(ar[:, 3], ar[:, 4], ar[:, 5]) / denom
+    ca = form(ar[:, 6], ar[:, 7], ar[:, 8]) / denom
+    lod = _alpha_lod(u, v, ar[:, 0], ar[:, 1], ar[:, 3], ar[:, 4], ar[:, 9], ar[:, 10], denom,
+                     ar[:, 14], ar[:, 15])
+    texel = _alpha_tap(quad_flat, atlas_width, ar[:, 12:16], torch.stack([u, v], dim=-1), lod,
+                       settings)
+    tex_a = torch.where(ar[:, 16] > 0.5, texel[:, 3], torch.ones_like(u))
+    passed = ar[:, 17] * ca * tex_a >= ar[:, 18]
+    ok[idx] = passed
+    return torch.where(ok, key, torch.full_like(key, -1.0)), int(idx.shape[0])
+
+
+def _alpha_level(blocks, scene: DeviceScene, arec, bbox, tile_h, tile_w, width, height,
+                 settings: RenderSettings):
+    """One masked raster level: per pixel the max key of the candidates that
+    pass, and the min triangle id among those at it -- per block, then per
+    tile in the reference (its segment merges); the order of such merges
+    does not matter.  ``blocks`` = (coef (B, 16, C), rows (B, C) into
+    arec/bbox, ids (B, C), valid (B, C) bool, tile (B,)).  Returns (key
+    image, id image, pair counts): keys -1 and ids -1 where nothing won."""
+    coef, rows, ids, valid, tiles = blocks
+    n_tx = -(-width // tile_w)
+    dev = coef.device
+    quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
+    atlas_width = scene.quad_img.shape[1]
+    per_block = tile_h * tile_w * coef.shape[-1]
+    pix_i = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    keys = [torch.zeros(0, dtype=torch.float32, device=dev)]
+    kids = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    counts = {"blocks": int(tiles.shape[0]), "pairs": int(tiles.shape[0]) * per_block,
+              "candidates": 0, "covered": 0}
+    step = max(1, ALPHA_PAIR_BUDGET // per_block)
+    for b0 in range(0, tiles.shape[0], step):
+        sl = slice(b0, b0 + step)
+        g, p, c, x, y = _alpha_candidates(tiles[sl], rows[sl], valid[sl], bbox, tile_h, tile_w,
+                                          n_tx, width, height)
+        cr = rows[sl][g, c]
+        key, covered = _alpha_eval(coef[sl].transpose(1, 2)[g, c], arec[cr], x, y, quad_flat,
+                                   atlas_width, settings)
+        won = key >= 0.0
+        pix_i.append((y * width + x)[won])
+        keys.append(key[won])
+        kids.append(ids[sl][g, c][won])
+        counts["candidates"] += int(g.shape[0])
+        counts["covered"] += covered
+    pix_i, keys, kids = torch.cat(pix_i), torch.cat(keys), torch.cat(kids)
+    n = width * height
+    key_img = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+    key_img = key_img.scatter_reduce(0, pix_i, keys, reduce="amax", include_self=True)
+    at = keys == key_img[pix_i]
+    id_img = torch.full((n,), INT32_MAX, dtype=torch.int32, device=dev)
+    id_img = id_img.scatter_reduce(0, pix_i[at], kids[at].to(torch.int32), reduce="amin",
+                                   include_self=True)
+    id_img = torch.where(key_img >= 0.0, id_img, torch.full_like(id_img, -1))
+    return key_img.reshape(height, width), id_img.reshape(height, width), counts
+
+
+def _rasterize_alpha(setup: RasterSetup, arec, scene: DeviceScene, settings: RenderSettings):
+    """Exhaustive masked raster (``masked_tri_cap == 0``): every tile
+    against every chunk of the table, as the reference's scan; a pixel
+    takes the max key, then (argmax's first index within a chunk, a strict
+    ``>`` across chunks) the min triangle id.  Only (tile, chunk) blocks
+    with a valid triangle whose bbox overlaps the tile are evaluated (the
+    others cannot cover a pixel of it).  Returns (key image, tri_id,
+    counts): key -1 and id -1 where nothing won."""
+    width, height = settings.width, settings.height
+    tile_h, tile_w, chunk = min(settings.tile_h, height), settings.tile_w, settings.chunk
+    n_tx, n_ty = -(-width // tile_w), -(-height // tile_h)
+    dev = setup.coef.device
+    t = setup.coef.shape[0]
+    n_chunks = max(1, -(-t // chunk))
+    rows = torch.arange(n_chunks * chunk, device=dev).reshape(n_chunks, chunk)
+    valid = (rows < t) & setup.valid[rows.clamp(max=t - 1)]
+    rows = rows.clamp(max=t - 1)
+    bb = setup.bbox[:, rows]  # (4, n_chunks, chunk)
+    tile = torch.arange(n_tx * n_ty, device=dev)
+    tx0 = ((tile % n_tx) * tile_w).to(torch.float32)[:, None]
+    ty0 = ((tile // n_tx) * tile_h).to(torch.float32)[:, None]
+    live = []
+    for c in range(n_chunks):
+        ov = ((bb[0, c] <= tx0 + (tile_w - 1)) & (bb[2, c] >= tx0)
+              & (bb[1, c] <= ty0 + (tile_h - 1)) & (bb[3, c] >= ty0) & valid[c])
+        live.append(ov.any(dim=1))
+    b_tile, b_chunk = torch.stack(live, dim=1).nonzero(as_tuple=True)
+    coef = torch.zeros((n_chunks * chunk, COEF_COLS), dtype=torch.float32, device=dev)
+    coef[:t] = setup.coef
+    coef = coef.reshape(n_chunks, chunk, COEF_COLS).transpose(1, 2)
+    blocks = (coef[b_chunk], rows[b_chunk], rows[b_chunk], valid[b_chunk], b_tile)
+    key, ids, counts = _alpha_level(blocks, scene, arec, setup.bbox, tile_h, tile_w, width,
+                                    height, settings)
+    return key, ids, [counts]
+
+
+def _compact_chunks(mask, cap: int, chunk: int):
+    """Order-preserving packed-sort compaction to ``cap`` rounded up to
+    whole chunks: (ids i32, ok bool) -- the first rows of ``mask`` in
+    ascending order, then the others."""
+    n = mask.shape[0]
+    idx_bits = max((n - 1).bit_length(), 1)
+    packed = torch.where(mask, 0, 1 << idx_bits) + torch.arange(n, device=mask.device)
+    sp = torch.sort(packed).values[:-(-cap // chunk) * chunk]
+    return (sp & ((1 << idx_bits) - 1)).to(torch.int32), sp < (1 << idx_bits)
+
+
+def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
+                            settings: RenderSettings, stats: bool = False):
+    """Binned masked raster (``masked_tri_cap != 0``): with 0 < cap < T the
+    masked triangles first compact to a list of ``cap`` rows (rounded up to
+    whole chunks); level 1 bins them to the scene tiles (span 4, budget
+    4.0), level 2 bins level 1's big triangles to 32 x 128 tiles (span 8,
+    budget 2.0), and the levels merge by max key, min id on ties.  Only
+    the blocks in use are evaluated (an unused block's slots are all
+    invalid).  As in the reference, pairs past a level's bin budget and
+    triangles too big for level 2 are dropped; with ``stats`` the counts
+    report them (``bin_overflow``, ``big_dropped``) beside the pair counts
+    of each level.  Returns (key image, tri_id, counts) as
+    ``_rasterize_alpha``."""
+    width, height = settings.width, settings.height
+    chunk = min(settings.chunk, 64)
+    t_count = setup.coef.shape[0]
+    cap = settings.masked_tri_cap
+    if 0 < cap < t_count:
+        sel, sel_valid = _compact_chunks(setup.valid, cap, chunk)
+        li = sel.long()
+        lvl_setup = RasterSetup(coef=setup.coef[li], valid=sel_valid, bbox=setup.bbox[:, li])
+        # searchsorted keys must ascend: the invalid tail of sel restarts at
+        # small ids, so it maps to an out-of-range sentinel
+        arec_ids = torch.where(sel_valid, sel, torch.full_like(sel, t_count))
+        arec = arec[li]
+        tri_ids = sel
+    else:
+        lvl_setup, arec_ids, tri_ids = setup, None, None
+
+    def level(bins, tile_h, tile_w):
+        live = bins.blk_live.nonzero(as_tuple=True)[0]
+        ids = bins.tri_id[live, 0]
+        rows = ids.long()
+        if arec_ids is not None:
+            rows = torch.clamp(torch.searchsorted(arec_ids, ids), 0, arec.shape[0] - 1)
+        blocks = (bins.coef[live], rows, ids, bins.valid[live, 0] > 0.0, bins.blk_tile[live].long())
+        return _alpha_level(blocks, scene, arec, lvl_setup.bbox, tile_h, tile_w, width, height,
+                            settings)
+
+    tile_h = min(settings.tile_h, height)
+    bins = bin_triangles(lvl_setup, width, height, tile_h, settings.tile_w, chunk, max_span=4,
+                         budget_factor=4.0, tri_ids=tri_ids)
+    key_img, id_img, counts1 = level(bins, tile_h, settings.tile_w)
+
+    t1 = lvl_setup.coef.shape[0]
+    cap2 = min(t1, max(chunk, -(-(t1 // 4) // chunk) * chunk))
+    sel2, sel2_valid = _compact_chunks(bins.big_mask, cap2, chunk)
+    l2 = sel2.long()
+    big_setup = RasterSetup(coef=lvl_setup.coef[l2], valid=sel2_valid, bbox=lvl_setup.bbox[:, l2])
+    g2 = tri_ids[l2] if tri_ids is not None else sel2
+    big_th = min(32, height)
+    bins2 = bin_triangles(big_setup, width, height, big_th, 128, chunk, max_span=8,
+                          budget_factor=2.0, tri_ids=g2)
+    key2, id2, counts2 = level(bins2, big_th, 128)
+    key_img, id_img = merge_levels(key_img, id_img, key2, id2)
+    if stats:
+        counts1["bin_overflow"] = bins.overflow
+        counts2["bin_overflow"] = bins2.overflow
+        counts2["big_dropped"] = ((bins.big_mask.sum() - sel2_valid.sum())
+                                  + bins2.big_mask.sum()).to(torch.int32)
+    return key_img, id_img, [counts1, counts2]
+
+
+def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
+                          settings: RenderSettings, vsoa: VertexSoA, stats: bool = False):
+    """Rasterize the alpha-masked geometry with an in-raster alpha test (the
+    base-colour tap at the analytic LOD, ``_alpha_lod``), then depth-combine
+    with the opaque visibility buffer: a masked pixel wins only with a
+    strictly greater key, so opaque wins ties.  Returns (depth, tri_id,
+    counts); with ``stats`` counts holds the pair counts and drops of each
+    masked level (the reference counts neither), else None."""
+    setup = triangle_setup_from_soa(vsoa, masked_mask, CULL_BACK, settings.width,
+                                    settings.height)
+    arec = _alpha_records(scene, setup)
+    if settings.masked_tri_cap != 0:
+        m_key, m_tri, counts = _rasterize_alpha_binned(setup, arec, scene, settings, stats)
+    else:
+        m_key, m_tri, counts = _rasterize_alpha(setup, arec, scene, settings)
+    m_depth = torch.where(m_key >= 0.0, m_key, torch.zeros_like(m_key))
+    take = m_depth > depth
+    return (torch.where(take, m_depth, depth), torch.where(take, m_tri, tri_id),
+            counts if stats else None)
+
+
 def build_resolve_records(scene: DeviceScene, pix9, ids=None):
     """(T or cap, 128) per-triangle resolve record
     [9 pix_h | 48 tri_geo | 64 tri_mrec | 7 pad]; ``ids`` builds it for the
@@ -203,9 +510,7 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy, base_w, base_h
     compacted list of the anisotropic pixels (extent > 0; static cap =
     that fraction of the image, at least 1024) and every other pixel takes
     one centre tap, which equals its N coincident taps; pixels past the cap
-    keep the centre tap and are counted.  With one combined material slot
-    the count is written once, so the reference's per-slot overwrite of it
-    (render/common.py:1219) cannot arise here."""
+    keep the centre tap and are counted."""
     n = settings.max_anisotropy
     sk = settings.mat_select_kernel
     lod, dmaj, extent = tex.footprint_lod_aniso(d_dx, d_dy, base_w, base_h, n)
@@ -244,12 +549,14 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy, base_w, base_h
 def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings,
                       compact_ids=None):
     """Visibility buffer -> interpolated attributes + sampled materials:
-    ONE per-pixel gather of the 128-wide record, then the combined-material
-    tap (``settings.texture_filter``) at the quad-derivative LOD.  The
-    result carries ``aniso_tap_overflow`` (0 unless the compacted
-    anisotropic taps overflowed their cap)."""
-    if settings.lod_derivatives != "quad" or not settings.combined_material:
-        raise not_ported("this material resolve branch", SAMPLING)
+    ONE per-pixel gather of the 128-wide record, then the material taps
+    (``settings.texture_filter``) at the quad-derivative LOD: one
+    combined-material tap (``combined_material``), else one tap per enabled
+    slot (``slot_enabled``) on the per-map atlas.  The result carries
+    ``aniso_tap_overflow`` (0 unless the compacted anisotropic taps
+    overflowed their cap; per-slot, the last slot's count)."""
+    if settings.lod_derivatives != "quad":
+        raise not_ported("lod_derivatives='forward'", SAMPLING)
     width, height = settings.width, tri_id.shape[0]
     dev = tri_id.device
     rec = build_resolve_records(scene, pix9, ids=compact_ids)
@@ -306,48 +613,75 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
 
     quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
     atlas_width = scene.quad_img.shape[1]
+    # the anisotropic sampler's overflow count; with per-slot taps each slot
+    # overwrites it, as the reference does (render/common.py:1219)
+    aniso_overflow = [torch.zeros((), dtype=torch.int32, device=dev)]
 
-    # combined material: all maps fused into one 16-channel texture; the
-    # shared rect + transform live in slot 0
-    slot = 0
-    t_os = uv_os[..., slot * 4:slot * 4 + 4]
-    t_rot = uv_rot[..., slot * 2:slot * 2 + 2]
-    suv = tex.apply_texture_transform(uv, t_os, t_rot)
-    rect0 = rects[..., slot * 4:slot * 4 + 4]
-    scale = uv_os[..., slot * 4 + 2:slot * 4 + 4]
-    base_w = rect0[..., 2] * scale[..., 0].abs()
-    base_h = rect0[..., 3] * scale[..., 1].abs()
-    s_tl = tex.apply_texture_transform(uv_tl, t_os, t_rot)
-    d_dx = tex.apply_texture_transform(uv_tr, t_os, t_rot) - s_tl
-    d_dy = tex.apply_texture_transform(uv_bl, t_os, t_rot) - s_tl
-    aniso_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    if settings.texture_filter == "anisotropic":
-        s, aniso_overflow = _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy,
-                                          base_w, base_h, valid, settings)
-    elif settings.texture_filter == "bilinear":
+    def sample_slot(slot):
+        """The material tap of ``slot`` (``settings.texture_filter``) with
+        the slot's own rect and KHR transform."""
+        t_os = uv_os[..., slot * 4:slot * 4 + 4]
+        t_rot = uv_rot[..., slot * 2:slot * 2 + 2]
+        suv = tex.apply_texture_transform(uv, t_os, t_rot)
+        rect0 = rects[..., slot * 4:slot * 4 + 4]
+        scale = uv_os[..., slot * 4 + 2:slot * 4 + 4]
+        base_w = rect0[..., 2] * scale[..., 0].abs()
+        base_h = rect0[..., 3] * scale[..., 1].abs()
+        s_tl = tex.apply_texture_transform(uv_tl, t_os, t_rot)
+        d_dx = tex.apply_texture_transform(uv_tr, t_os, t_rot) - s_tl
+        d_dy = tex.apply_texture_transform(uv_bl, t_os, t_rot) - s_tl
+        if settings.texture_filter == "anisotropic":
+            s, aniso_overflow[0] = _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy,
+                                                 base_w, base_h, valid, settings)
+            return s
         lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
-        level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
-        s = _sample_level_any(quad_flat, atlas_width, rect0, suv, level)
+        if settings.texture_filter == "bilinear":
+            level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
+            return _sample_level_any(quad_flat, atlas_width, rect0, suv, level)
+        return _sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod,
+                                     select_kernel=settings.mat_select_kernel)
+
+    albedo = M(PK.M_BCF, 3) * v_color[..., :3]
+    alpha = M(PK.M_ALPHA) * v_color[..., 3]
+    metallic, roughness, emissive = M(PK.M_METAL), M(PK.M_ROUGH), M(PK.M_EMISSIVE, 3)
+    if settings.combined_material:
+        # all maps fused into one 16-channel texture, neutral where a map is
+        # absent; the shared rect + transform live in slot 0
+        s = sample_slot(0)
+        albedo = albedo * s[..., 0:3]
+        alpha = alpha * s[..., 3]
+        roughness = roughness * s[..., 4]
+        metallic = metallic * s[..., 5]
+        emissive = emissive * s[..., 8:11]
+        nm_rg = s[..., 6:8]
     else:
-        lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
-        s = _sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod,
-                                  select_kernel=settings.mat_select_kernel)
+        # one tap per enabled slot, applied where the model has that map
+        on = settings.slot_enabled
+        if on[SLOT_BASE]:
+            s = sample_slot(SLOT_BASE)
+            albedo = torch.where(has[..., SLOT_BASE:SLOT_BASE + 1], albedo * s[..., :3], albedo)
+            alpha = torch.where(has[..., SLOT_BASE], alpha * s[..., 3], alpha)
+        if on[SLOT_MR]:
+            s = sample_slot(SLOT_MR)
+            metallic = torch.where(has[..., SLOT_MR], metallic * s[..., 2], metallic)
+            roughness = torch.where(has[..., SLOT_MR], roughness * s[..., 1], roughness)
+        if on[SLOT_EMISSIVE]:
+            s = sample_slot(SLOT_EMISSIVE)
+            emissive = torch.where(has[..., SLOT_EMISSIVE:SLOT_EMISSIVE + 1],
+                                   emissive * s[..., :3], emissive)
+        nm_rg = sample_slot(SLOT_NORMAL)[..., :2] if on[SLOT_NORMAL] else None
 
-    albedo = M(PK.M_BCF, 3) * v_color[..., :3] * s[..., 0:3]
-    alpha = M(PK.M_ALPHA) * v_color[..., 3] * s[..., 3]
-    roughness = M(PK.M_ROUGH) * s[..., 4]
-    metallic = M(PK.M_METAL) * s[..., 5]
-    emissive = M(PK.M_EMISSIVE, 3) * s[..., 8:11]
-    nm_rg = s[..., 6:8]
-
-    rg = nm_rg * 2.0 - 1.0
-    tangent_normal = torch.cat([rg, pbr.reconstruct_normal_z(rg)[..., None]], dim=-1)
-    mapped = pbr.apply_normal_map(v_normal, tangent4, tangent_normal)
-    shading_normal = torch.where(has[..., SLOT_NORMAL:SLOT_NORMAL + 1], mapped,
-                                 pbr.normalize(v_normal))
+    if nm_rg is None:
+        shading_normal = pbr.normalize(v_normal)
+    else:
+        rg = nm_rg * 2.0 - 1.0
+        tangent_normal = torch.cat([rg, pbr.reconstruct_normal_z(rg)[..., None]], dim=-1)
+        mapped = pbr.apply_normal_map(v_normal, tangent4, tangent_normal)
+        shading_normal = torch.where(has[..., SLOT_NORMAL:SLOT_NORMAL + 1], mapped,
+                                     pbr.normalize(v_normal))
     return {
         "valid": valid,
-        "aniso_tap_overflow": aniso_overflow,
+        "aniso_tap_overflow": aniso_overflow[0],
         "model_id": model_id,
         "object_id_f": M(PK.M_OBJID),
         "world_pos": world_pos,

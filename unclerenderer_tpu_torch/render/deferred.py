@@ -1,5 +1,6 @@
 """The deferred frame (``unclerenderer_tpu/render/deferred.py``), single
-device: culling -> shadow map -> visibility raster -> material resolve ->
+device: culling -> shadow map -> visibility raster (opaque, then the
+alpha-masked models merged in) -> material resolve ->
 HZB -> lighting (GGX, superblock PCF, IBL) -> sky -> TAA -> auto-exposure
 -> tonemap -> CAS.  Frames are carried as in the reference:
 ``deferred_frame(scene, params, state, settings) -> (out, new_state)``."""
@@ -60,7 +61,7 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
             model_visible = model_visible & ~occluded
 
     # --- 2. shadow map: casters are not camera-culled
-    opaque_mask, _masked_mask = common.tri_draw_masks(scene, model_visible)
+    opaque_mask, masked_mask = common.tri_draw_masks(scene, model_visible)
     shadow_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     shadow9 = None
     if settings.enable_shadows:
@@ -74,6 +75,9 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     pix9 = vsoa.pix9()
     depth, tri_id, raster_stats, compact_ids = common.raster_opaque(
         scene, opaque_mask, settings, vsoa)
+    if settings.has_masked_models:
+        depth, tri_id, _ = common.raster_masked_combine(scene, masked_mask, depth, tri_id,
+                                                        settings, vsoa)
     raster_stats["shadow_compact_overflow"] = shadow_overflow
 
     g = common.resolve_materials(scene, pix9, tri_id, settings, compact_ids=compact_ids)

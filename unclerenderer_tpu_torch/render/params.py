@@ -103,7 +103,6 @@ def resolve_packed_trilinear(setting, n_materials: int) -> bool:
 
 
 # titles of the ROADMAP.md modules-queue entries that still raise
-MASKED_RASTER = "masked raster"
 FORWARD_PATH = "forward path"
 SAMPLING = "non-default sampling and storage"
 FUSED_RESOLVE = "fused resolve"
@@ -126,10 +125,7 @@ def check_supported(settings: RenderSettings) -> None:
         raise ValueError(f"unknown texture_filter {settings.texture_filter!r}")
     unsupported = [
         (settings.renderer_type != "deferred", "renderer_type='forward'", FORWARD_PATH),
-        (settings.has_masked_models, "has_masked_models=True", MASKED_RASTER),
         (settings.lod_derivatives != "quad", "lod_derivatives='forward'", SAMPLING),
-        (not settings.combined_material,
-         "per-slot material taps (combined_material=False)", SAMPLING),
         (not settings.soa_vertex, "soa_vertex=False (AoS vertex stage)", SAMPLING),
         (settings.fused_resolve == "on", "fused_resolve='on'", FUSED_RESOLVE),
         (not settings.shadow_table_u16, "shadow_table_u16=False", SAMPLING),

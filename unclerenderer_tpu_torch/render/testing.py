@@ -17,9 +17,15 @@ from .. import mathlib as m
 from ..scene.build import GltfMaterial, SceneData, SceneModel
 from ..scene.mesh import compute_mesh_bounds, create_cube, create_sphere
 from ..textures.atlas import build_pyramid_quad_atlas, build_pyramid_tri_atlas
-from ..textures.image import combined_chain, default_grid_texture, encode_combined_u8, generate_mips
+from ..textures.image import (
+    combined_chain,
+    default_grid_texture,
+    encode_combined_u8,
+    generate_mips,
+    solid_color_texture,
+)
 from .packing import pack_model_record, pack_tri_geo, pack_tri_mrec
-from .params import SAMPLING, DeviceScene, FrameParams, not_ported, resolve_packed_trilinear
+from .params import DeviceScene, FrameParams, resolve_packed_trilinear
 
 
 def _append_mesh(parts, mesh, world, normalize_normals):
@@ -187,6 +193,8 @@ def _rich_material_chains(n_combos: int, tex_size: int):
 def synthetic_device_scene(
     n_objects: int = 4,
     seed: int = 0,
+    with_texture: bool = True,
+    with_masked: bool = False,
     sphere_res: tuple = (12, 8),
     ground: bool = False,
     rich_materials: bool = False,
@@ -195,15 +203,58 @@ def synthetic_device_scene(
     device="cuda",
 ):
     """Returns ``(DeviceScene, SceneData)``, the scene on ``device`` (the
-    card unless the caller names another).  rich_materials gives every
-    model fused baseColor+MR+normal(+emissive) maps in one combined
-    16-channel chain (render with ``combined_material=True``, the only
-    material branch the port runs).  packed_trilinear (True, False or
-    "auto", resolved against the 6 materials) builds the 256-lane
-    packed-trilinear atlas instead of the 64-lane quad atlas."""
-    if not rich_materials:
-        raise not_ported("per-slot material atlases (rich_materials=False)", SAMPLING)
+    card unless the caller names another).
+
+    Without rich_materials: the per-slot quad atlas (16 lanes, f32 chains
+    stored as bf16) of a solid white map, the grid map as every 2nd model's
+    base colour (with_texture) and, with_masked, a 32^2 alpha-checker map as
+    every 4th model's base colour from model 1, in MASK alpha mode (render
+    with ``combined_material=False``).  rich_materials gives every model
+    fused baseColor+MR+normal(+emissive) maps in one combined 16-channel
+    chain (render with ``combined_material=True``); it models no MASK
+    material.  packed_trilinear (True, False or "auto", resolved against the
+    6 materials) builds the 256-lane packed-trilinear atlas instead of the
+    64-lane quad atlas."""
     data = synthetic_scene_data(n_objects, seed, sphere_res=sphere_res, ground=ground)
+    if rich_materials:
+        if with_masked:
+            raise ValueError("rich_materials does not model MASK materials")
+        tex_ids, has_map, quad_img, slot_rect0 = _rich_materials(data, packed_trilinear, atlas_u8)
+    else:
+        tex_ids, has_map, quad_img, slot_rect0 = _per_slot_materials(data, with_texture,
+                                                                     with_masked)
+    model_rec = pack_model_record(data, has_map, slot_rect0)
+    scene = _assemble_device_scene(data, tex_ids, has_map, quad_img, pack_tri_geo(data),
+                                   pack_tri_mrec(data, model_rec), device)
+    return scene, data
+
+
+def _per_slot_materials(data, with_texture: bool, with_masked: bool):
+    """(tex_ids, has_map, atlas, per-slot rects) of the per-map quad atlas;
+    sets the MASK models' alpha mode."""
+    n = data.num_models
+    chains = [generate_mips(solid_color_texture([1.0, 1.0, 1.0, 1.0], 1))]
+    tex_ids = np.zeros((n, 4), np.int32)
+    has_map = np.zeros((n, 4), bool)
+    if with_texture:
+        chains.append(generate_mips(default_grid_texture(64)))
+        tex_ids[::2, 0] = 1
+        has_map[::2, 0] = True
+    if with_masked and n > 1:
+        cut = default_grid_texture(32)
+        yy, xx = np.mgrid[0:32, 0:32]
+        cut[..., 3] = (((yy // 8) + (xx // 8)) % 2).astype(np.float32)
+        chains.append(generate_mips(cut))
+        tex_ids[1::4, 0] = len(chains) - 1
+        has_map[1::4, 0] = True
+        data.alpha_mode[1::4] = 1
+    quad_img, rect0 = build_pyramid_quad_atlas(chains)
+    return tex_ids, has_map, quad_img, rect0[tex_ids].astype(np.float32)
+
+
+def _rich_materials(data, packed_trilinear, atlas_u8: bool):
+    """(tex_ids, has_map, atlas, per-slot rects) of the 6 combined
+    materials; sets the emissive factors."""
     n = data.num_models
     n_combos = 6
     combo_chains = _rich_material_chains(n_combos, tex_size=256)
@@ -222,11 +273,7 @@ def synthetic_device_scene(
         (model_combo == 0)[:, None], np.float32(1.0), np.float32(0.0)
     ) * np.ones((n, 3), np.float32)
     slot_rect0 = np.repeat(rect0[model_combo].astype(np.float32)[:, None, :], 4, axis=1)
-    model_rec = pack_model_record(data, has_map, slot_rect0)
-    tri_geo = pack_tri_geo(data)
-    tri_mrec = pack_tri_mrec(data, model_rec)
-    scene = _assemble_device_scene(data, tex_ids, has_map, quad_img, tri_geo, tri_mrec, device)
-    return scene, data
+    return tex_ids, has_map, quad_img, slot_rect0
 
 
 def _assemble_device_scene(data, tex_ids, has_map, quad_img, tri_geo, tri_mrec, device) -> DeviceScene:

@@ -1,5 +1,5 @@
 """Host-side texture building (``unclerenderer_tpu/textures/image.py``):
-mip chains, the procedural grid texture, and the combined material
+mip chains, the procedural grid and solid-colour textures, and the combined material
 texture (every map of a material fused into one 16-channel texel) with its
 u8 storage encoding.  The reference's numbers exactly; its file loaders
 (DDS, PNG, JPEG) and texture cache are not part of the port yet.
@@ -41,6 +41,11 @@ def default_grid_texture(size: int = 256, cells: int = 8) -> np.ndarray:
     light = np.array([200, 200, 200, 255], np.float32) / 255.0
     dark = np.array([80, 80, 80, 255], np.float32) / 255.0
     return np.where(checker[..., None] == 0, light, dark).astype(np.float32)
+
+
+def solid_color_texture(rgba, size: int = 4) -> np.ndarray:
+    c = np.asarray(rgba, np.float32).reshape(1, 1, 4)
+    return np.broadcast_to(c, (size, size, 4)).copy()
 
 
 # Combined material texture: every map of a material resampled to one
