@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Four paths of the port are driven: three through ``deferred_frame``,
+Five paths of the port are driven: three through ``deferred_frame``,
 
 * default -- the default frame of the combined material (u8 combined quad
   atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
@@ -17,14 +17,23 @@ Four paths of the port are driven: three through ``deferred_frame``,
   K1, K2, K4 and K5 over the whole table (compaction is off with masked
   models) and the masked raster in plain PyTorch (it has no kernel);
 
-and a fourth through ``ops/probes.py``:
+a fourth through ``ops/probes.py``, and a fifth through the entry points a
+user calls, ``render/renderer.py Renderer`` and ``python -m
+unclerenderer_tpu_torch``:
 
 * probes  -- the rows of the reference's TPU measurement probes that hold
   its last three kernels, at the probes' 1080p shapes: a (tc, 128) record
   gather fed by K10 (merge select) or by K12 (identity copy) of a merged
   (1080, 1920) id image, a packed-atlas row gather whose rows K11 (row
   copy) copies before a bilinear blend, and the camera and shadow binning
-  whose block index array K12 copies before the coefficient gather.
+  whose block index array K12 copies before the coefficient gather;
+* renderer -- the headline's geometry written as scene files
+  (``render/testing.py write_scene``: scene JSON, glTF with a .bin buffer,
+  six 256^2 PNG materials, an RGBA16F env cube and an RG16 BRDF LUT as
+  DDS), loaded, decoded (``native/*.cpp`` built by ``textures/native.py``),
+  fused into the u8 quad atlas and rendered by the Renderer at the default
+  ``RendererConfig`` (stats overlay and TAA on): its cached shadow map and
+  K1, K2, K4 and K5.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -76,6 +85,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    call bit-equal to its plain version; kernel, plain and library times
    per kernel and each row's time with and without its kernel.
 
+7. renderer -- the Renderer path: the scene written and loaded at
+   1920x1080 with a 4096^2 shadow map (342 models, 263,184 triangles, the
+   (768, 1024, 64) u8 atlas, no texture substituted, the native library
+   built; init phases logged); 10 ``render_frame`` calls on a slow orbit
+   with the launch counts set to 0 just before and read just after (K1,
+   K2, K4, K5 launched; the first frame's and the cached frames' counts
+   logged), then 10 frames of ``render_frames``: drop counters 0, models
+   visible, finite colour, more than 30% covered; one Renderer frame held
+   against ``deferred_frame`` called directly (the cached map bit-equal to
+   the frame's own shadow raster; depth, ids, counters bit-equal, colour
+   within 1e-3) and against the frame without the stats block (its text
+   rows differ, nothing else); card and CPU Renderers at 256x256 from the
+   same files, at the defaults and with the four kernel flags on the packed
+   atlas (depth, ids, counters bit-equal, colour within 1e-3);
+   Renderer ms/frame in turns with direct ``deferred_frame`` calls on the
+   cached map and prebuilt params (host clock around
+   ``torch.cuda.synchronize()``, 3 runs of 10 frames each) and peak memory;
+   the CLI at 1080p, ``--frames 3`` and ``--orbit 4``, whose PNGs decode
+   with the port's ``load_png``.
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the f32
 peak of 67 TFLOP/s (H100 SXM data sheet, 700 W), from the inputs of this
@@ -84,7 +113,9 @@ tests of the (pixel, row) pairs that the skip keeps; K1 and K2 also log
 and report the bound that counts every (pixel, valid row) pair
 (``bound_all_pairs_ms``, the count before the kernels skipped rows).
 
-The last three lines of stdout are the kernels JSON, the card's
+The kernels JSON gives each kernel's ``launches`` on its path's counted run
+and ``renderer_launches`` on the Renderer's.  The last three lines of stdout
+are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
 one CUDA card and imports no JAX.
 """
@@ -98,6 +129,7 @@ import functools
 import json
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -293,19 +325,10 @@ def seamless_env_cube(scene, size, seed, device):
     packed like the reference's Renderer packs a real one
     (``build_pyramid_tri_atlas(cube=True)``, bf16 rows of 128 lanes).
     Returns (scene, mip count)."""
+    from unclerenderer_tpu_torch.render.testing import env_cube_faces
     from unclerenderer_tpu_torch.textures.atlas import build_pyramid_tri_atlas
-    from unclerenderer_tpu_torch.textures.image import generate_mips
 
-    rng = np.random.default_rng(seed)
-    t = (np.arange(size, dtype=np.float32) + 0.5) / size
-    yy, xx = np.meshgrid(t, t, indexing="ij")
-    chains = []
-    for f in range(6):
-        sky = np.stack([0.3 + 0.4 * (1 - yy), 0.4 + 0.4 * (1 - yy), 0.6 + 0.6 * (1 - yy)], -1)
-        sun = 4.0 * np.exp(-((xx - 0.3 - 0.1 * f) ** 2 + (yy - 0.35) ** 2) * 60.0)[..., None]
-        rgb = sky * (0.6 + 0.1 * f) + sun + rng.uniform(0.0, 0.2, (size, size, 3))
-        face = np.concatenate([rgb, np.ones((size, size, 1))], -1).astype(np.float32)
-        chains.append(generate_mips(face))
+    chains = env_cube_faces(size, seed)
     env, rect0 = build_pyramid_tri_atlas(chains, dtype=np.float32, cube=True)
     tail = np.stack([chain[-1][..., :4] for chain in chains])
     scene = dataclasses.replace(
@@ -384,6 +407,257 @@ def launch_costs(kernels, dev):
                       f"{tuple(first.shape)} {clone_us:.2f} us (host clock, 2 x 3 x 1000 "
                       "calls each, in turns)")
     return out
+
+RENDERER_SMALL = 256  # the card/CPU Renderer pair: 256x256, 512^2 shadow map
+OVERLAY_ROWS = 80  # the stats block's four lines end above this row (origin 8, 18 rows a line)
+
+
+def renderer_phase(dev, smi, scene_dir: Path) -> dict:
+    """The Renderer path (``render/renderer.py``) from scene files, as a
+    user runs it: phase 7 of the module docstring.  Returns what it
+    measured; any failed gate raises."""
+    import subprocess
+
+    from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.render import common as common_mod
+    from unclerenderer_tpu_torch.render.deferred import deferred_frame
+    from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+    from unclerenderer_tpu_torch.render.testing import write_scene
+    from unclerenderer_tpu_torch.textures import native
+    from unclerenderer_tpu_torch.textures.png import load_png
+
+    rep = {}
+    # ---- the scene files: the headline's geometry as glTF, PNG maps, DDS env + LUT
+    t0 = time.perf_counter()
+    scene = write_scene(scene_dir, N_OBJECTS, sphere_res=SPHERE_RES, ground=True, n_materials=6,
+                        tex_size=256, env_size=ENV_SIZE, name="headline")
+    log("renderer", f"wrote {scene.relative_to(scene_dir)} with Models/headline.gltf + .bin, "
+                    f"18 PNG maps and 2 DDS files in {time.perf_counter() - t0:.2f} s")
+
+    # ---- build at full size, default RendererConfig (stats overlay and TAA on)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = Renderer(scene, settings=RenderSettings(width=WIDTH, height=HEIGHT,
+                                                shadow_map_size=SHADOW), device=dev)
+    init_s = time.perf_counter() - t0
+    data, quad = r.scene_data, r.device_scene.quad_img
+    log("renderer", f"scene: {data.num_models} models, {data.num_triangles} triangles from glTF "
+                    f"(the synthetic headline scene has 342 and 263184)")
+    check((data.num_models, data.num_triangles) == (342, 263184),
+          f"glTF scene has {data.num_models} models, {data.num_triangles} triangles")
+    log("renderer", f"init {init_s:.2f} s, phases {r.setup_phase_s}; atlas {tuple(quad.shape)} "
+                    f"{quad.dtype}; env_mip_count {r.env_mip_count}; texture substitutions "
+                    f"{r.texture_substitutions}; native library {native.build_info} (on {smi})")
+    check(tuple(quad.shape) == (768, 1024, 64) and quad.dtype == torch.uint8,
+          f"atlas {tuple(quad.shape)} {quad.dtype}, expected the (768, 1024, 64) u8 quad atlas")
+    check(r.texture_substitutions == [], f"textures substituted: {r.texture_substitutions}")
+    check(native.build_info.get("path"), f"textures/native.py built no library: {native.build_info}")
+    check(r.env_mip_count == float(ENV_SIZE.bit_length()), f"env mips {r.env_mip_count}")
+    check(r.settings.gpu_debug_print and r.settings.enable_taa, "overlay and TAA must be on")
+    rep.update(init_s=init_s, setup_phase_s=dict(r.setup_phase_s), native=dict(native.build_info),
+               atlas=[list(quad.shape), str(quad.dtype)], env_mip_count=r.env_mip_count)
+
+    center = np.asarray(data.scene_center, np.float32)
+    cam0 = np.asarray(r.camera.position, np.float32)
+
+    def orbit(rr, i):
+        """A slow orbit of the scene's camera about the scene centre."""
+        a = 0.0035 * rr._frame_counter
+        off = cam0 - center
+        rr.camera.position = center + np.array(
+            [off[0] * np.cos(a) - off[2] * np.sin(a), off[1], off[0] * np.sin(a) + off[2] * np.cos(a)],
+            np.float32)
+        rr.camera.set_look_at(center)
+
+    def gate_stats(label):
+        st = r.stats()
+        for key in ("bin_pair_overflow", "bin_giant_truncated", "compact_overflow",
+                    "shadow_compact_overflow"):
+            check(st[key] == 0, f"renderer {label}: drop counter {key} = {st[key]}")
+        check(st["models_visible"] > 0, f"renderer {label}: no model visible")
+        return st
+
+    # ---- 10 frames with render_frame: the main-path run of this phase, counted
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    for i in range(FRAMES):
+        orbit(r, i)
+        out = r.render_frame()
+        if i == 0:
+            first = dict(_cuda.LAUNCHES)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    cached = {k: (launches[k] - first[k]) / (FRAMES - 1) for k in launches}
+    log("renderer", f"launches in {FRAMES} render_frame calls: {launches}; first frame (renders "
+                    f"the shadow map) {first}; per frame after it (cached map) {cached}")
+    for name in ("binned_raster", "giant_raster", "shadow_select9", "gather_rows"):
+        check(launches[name] > 0, f"kernel {name} was not launched by Renderer.render_frame")
+    color = out["color"]
+    check(tuple(color.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(color).all()),
+          f"renderer color {tuple(color.shape)} not finite")
+    covered = int((out["tri_id"] >= 0).sum())
+    check(covered > 0.3 * WIDTH * HEIGHT, f"renderer: only {covered} covered pixels")
+    st = gate_stats("render_frame")
+    log("renderer", f"render_frame: {covered} covered pixels, stats {st}")
+    colors = r.render_frames(FRAMES, mutate=orbit)
+    check(tuple(colors.shape) == (FRAMES, HEIGHT, WIDTH, 3) and bool(torch.isfinite(colors).all()),
+          "render_frames colors")
+    st_chain = gate_stats("render_frames")
+    log("renderer", f"render_frames({FRAMES}): worst-frame drop counters "
+                    f"{ {k: int(v) for k, v in r._chain_drop_counters.items()} }")
+    rep.update(launches=launches, first_frame_launches=first, cached_frame_launches=cached,
+               covered=covered, stats=st, stats_after_render_frames=st_chain)
+    del colors
+
+    # ---- one Renderer frame against deferred_frame called directly
+    params = r.frame_params()
+    state = FrameState(**{f.name: getattr(r.frame_state, f.name).clone()
+                          for f in dataclasses.fields(FrameState)})
+    cached_map = r._shadow_map(params)
+    opaque, masked = common_mod.tri_draw_masks(r.device_scene, params.model_visible)
+    own_map, own_over = common_mod.raster_shadow(r.device_scene, params.light_view_proj,
+                                                 opaque | masked, r.settings)
+    check(torch.equal(cached_map, own_map) and int(own_over) == 0,
+          "the cached shadow map differs from the frame's own shadow raster")
+    out_r = r.render_frame()
+    direct, _ = deferred_frame(r.device_scene, params, state, r.settings)
+    for k in ("depth", "tri_id", "model_visible", "frustum_culled", "hzb_occluded"):
+        check(torch.equal(out_r[k], direct[k]), f"renderer vs direct deferred_frame: {k} differs")
+    check(torch.equal(out_r["object_id"].view(torch.int32), direct["object_id"].view(torch.int32)),
+          "renderer vs direct deferred_frame: object_id differs")
+    check({k: int(v) for k, v in out_r["raster_stats"].items()}
+          == {k: int(v) for k, v in direct["raster_stats"].items()},
+          "renderer vs direct deferred_frame: counters differ")
+    color_err = float((out_r["color"] - direct["color"]).abs().max())
+    check(color_err <= COLOR_ATOL, f"renderer vs direct deferred_frame: color err {color_err}")
+    plain, _ = deferred_frame(r.device_scene, params, state,
+                              dataclasses.replace(r.settings, gpu_debug_print=False),
+                              shadow_map=cached_map)
+    differ = (out_r["color"] != plain["color"]).any(-1)
+    in_text = int(differ[8:OVERLAY_ROWS].sum())
+    check(in_text > 100 and not bool(differ[OVERLAY_ROWS:].any()),
+          f"stats overlay: {in_text} differing pixels in its rows, some below them")
+    log("renderer", f"Renderer frame vs direct deferred_frame(shadow_map=None): cached map "
+                    f"bit-equal to the frame's own, depth/ids/counters bit-equal, color max err "
+                    f"{color_err:.3g}; overlay: {in_text} pixels of its text rows differ from the "
+                    f"frame with gpu_debug_print=False, none below")
+    rep.update(direct_color_err=color_err, overlay_pixels=in_text)
+    del direct, plain, out_r, own_map
+
+    # ---- card vs CPU Renderers at 256^2 from the same scene files
+    small = RenderSettings(width=RENDERER_SMALL, height=RENDERER_SMALL, shadow_map_size=512)
+    flags = dataclasses.replace(small, material_packed_trilinear=True, **KERNEL_FLAGS)
+    rep["cross"] = {}
+    for label, settings in (("defaults", small), ("kernel flags, packed atlas", flags)):
+        g = Renderer(scene, settings=settings, device=dev)
+        c = Renderer(scene, settings=settings, device="cpu")
+        _cuda.reset_launches()
+        err = 0.0
+        for i in range(2):
+            orbit(g, i)
+            orbit(c, i)
+            og, oc = g.render_frame(), c.render_frame()
+            for k in ("depth", "tri_id", "model_visible"):
+                check(torch.equal(og[k].cpu(), oc[k]), f"renderer cross {label} frame {i}: {k}")
+            check(torch.equal(og["object_id"].view(torch.int32).cpu(),
+                              oc["object_id"].view(torch.int32)),
+                  f"renderer cross {label} frame {i}: object_id")
+            check({k: int(v) for k, v in og["raster_stats"].items()}
+                  == {k: int(v) for k, v in oc["raster_stats"].items()},
+                  f"renderer cross {label} frame {i}: counters")
+            err = max(err, float((og["color"].cpu() - oc["color"]).abs().max()))
+        check(err <= COLOR_ATOL, f"renderer cross {label}: color err {err}")
+        used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        if settings is flags:
+            for name in ("hzb_tail", "env_select", "mat_select", "materialize_rows"):
+                check(used.get(name, 0) > 0, f"renderer cross {label}: {name} not launched")
+        log("renderer", f"card vs CPU Renderer {RENDERER_SMALL}^2 ({label}): 2 carried frames, "
+                        f"depth/ids/counters bit-equal, color max err {err:.3g}; card launches "
+                        f"{used}")
+        rep["cross"][label] = {"color_err": err, "launches": used}
+        del g, c
+
+    # ---- Renderer ms/frame in turns with direct deferred_frame calls
+    plist = []
+    for i in range(FRAMES):
+        orbit(r, i)
+        plist.append(r.frame_params())
+    cached_map = r._shadow_map(plist[0])
+
+    def renderer_run():
+        for i in range(FRAMES):
+            orbit(r, i)
+            r.render_frame()
+
+    def direct_run():
+        st = r.frame_state
+        for p in plist:
+            _, st = deferred_frame(r.device_scene, p, st, r.settings, shadow_map=cached_map)
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1000.0 / FRAMES
+
+    runs = {"renderer": [], "direct": []}
+    for which in ("renderer", "direct", "direct", "renderer", "renderer", "direct"):
+        runs[which].append(timed_run(renderer_run if which == "renderer" else direct_run))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    # what the Renderer adds to a frame on the host: its params (camera,
+    # light, one pinned non-blocking copy) and the shadow-cache lookup
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        p = r.frame_params()
+    params_ms = (time.perf_counter() - t0) * 10.0
+    t0 = time.perf_counter()
+    for _ in range(100):
+        r._shadow_map(p)
+    lookup_ms = (time.perf_counter() - t0) * 10.0
+    torch.cuda.synchronize()
+    log("renderer", f"host ms a call: frame_params {params_ms:.4f}, cached shadow-map lookup "
+                    f"{lookup_ms:.4f} (100 calls each, host clock)")
+    rep.update(frame_params_host_ms=params_ms, shadow_lookup_host_ms=lookup_ms)
+    log("renderer", f"ms/frame median: Renderer.render_frame {med['renderer']:.2f} "
+                    f"(runs {[round(x, 2) for x in runs['renderer']]}), direct deferred_frame with "
+                    f"the cached map and prebuilt params {med['direct']:.2f} "
+                    f"(runs {[round(x, 2) for x in runs['direct']]}); 3 runs x {FRAMES} frames "
+                    f"each in turns, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2; peak {peak:.2f} GiB "
+                    f"since the Renderer's build, on {smi}")
+    rep.update(ms_per_frame=runs, median_ms=med, peak_gib=peak)
+    del r
+
+    # ---- the CLI, as a user runs it
+    out_png = scene_dir / "out.png"
+    cmd = [sys.executable, "-m", "unclerenderer_tpu_torch", "--scene", str(scene),
+           "--width", str(WIDTH), "--height", str(HEIGHT)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd + ["--frames", "3", "--output", str(out_png)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"CLI exited {res.returncode}:\n{res.stderr[-3000:]}")
+    img = load_png(out_png)
+    check(img is not None and img.shape == (HEIGHT, WIDTH, 4), "CLI PNG does not decode to 1080p")
+    check(len(np.unique(img[..., :3].reshape(-1, 3), axis=0)) > 100, "CLI PNG is constant")
+    steady = [ln for ln in res.stderr.splitlines() if "steady-state" in ln]
+    log("renderer", f"CLI --frames 3: exit 0 in {cli_s:.1f} s, {out_png.name} decodes to "
+                    f"{img.shape} ({steady[-1].split('] ')[-1] if steady else 'no timing line'})")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd + ["--orbit", "4", "--output", str(scene_dir / "orbit.png")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"CLI --orbit exited {res.returncode}:\n{res.stderr[-3000:]}")
+    for i in range(4):
+        img = load_png(scene_dir / f"orbit_{i:03d}.png")
+        check(img is not None and img.shape == (HEIGHT, WIDTH, 4), f"orbit PNG {i}")
+    log("renderer", f"CLI --orbit 4: exit 0 in {time.perf_counter() - t0:.1f} s, 4 PNGs of "
+                    f"{HEIGHT}x{WIDTH}")
+    rep["cli_s"] = cli_s
+    return rep
 
 
 def main() -> int:
@@ -1047,6 +1321,10 @@ def main() -> int:
                                extra=masked_checks)
     del m_scene
 
+    # ---- 7. the Renderer path from scene files, and the CLI
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as scene_dir:
+        report["renderer"] = renderer_phase(dev, smi, Path(scene_dir))
+
     report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                              "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],
                              "library_graph_ms": k["library_graph_ms"],
@@ -1071,7 +1349,8 @@ def main() -> int:
          "plain_ms": k["plain_ms"], "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"]),
          "bound_by": "bytes" if k["bytes_s"] >= k["ops_s"] else "operations",
          "library_ms": k["library_ms"] if k["library"] is not None else None,
-         "launch_us": k["launch_us"], "clone_launch_us": k["clone_launch_us"]}
+         "launch_us": k["launch_us"], "clone_launch_us": k["clone_launch_us"],
+         "renderer_launches": report["renderer"]["launches"][n]}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,99 @@
+"""The port's CLI, ``python -m unclerenderer_tpu_torch``: on a scene written
+to files, ``--device cpu`` at 64x64 writes a PNG (stdlib encoder) that
+decodes, with the port's own ``load_png``, to exactly the port Renderer's
+``render_to_u8`` of the same first frame; ``--orbit 2`` writes 2 PNGs,
+each the u8 of ``render_frames``' colour; the flags not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md queue entry.
+
+The reference CLI's PNG is not compared: it has no ``raster_backend``
+flag and on the CPU takes its XLA path, whose PCF table differs from the
+Pallas path the port is held to (``tests/test_torch_renderer.py`` holds the
+Renderer to the reference)."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from unclerenderer_tpu_torch.app import main
+from unclerenderer_tpu_torch.render.params import RenderSettings
+from unclerenderer_tpu_torch.render.renderer import Renderer
+from unclerenderer_tpu_torch.render.testing import write_scene
+from unclerenderer_tpu_torch.textures.png import load_png
+
+ROOT = Path(__file__).resolve().parents[1]
+SIZE = 64
+
+
+@pytest.fixture(scope="module")
+def scene(tmp_path_factory):
+    return write_scene(tmp_path_factory.mktemp("cli"), 2, masked=True, n_materials=2,
+                       tex_size=32)
+
+
+def _cli(*args):
+    res = subprocess.run([sys.executable, "-m", "unclerenderer_tpu_torch", *map(str, args)],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return res
+
+
+def _renderer(scene):
+    return Renderer(scene, settings=RenderSettings(width=SIZE, height=SIZE,
+                                                   shadow_map_size=SIZE), device="cpu")
+
+
+def test_cli_png_equals_render_to_u8(scene, tmp_path):
+    out = tmp_path / "out.png"
+    res = _cli("--scene", scene, "--width", SIZE, "--height", SIZE, "--shadow-size", SIZE,
+               "--device", "cpu", "--frames", 2, "--output", out)
+    assert "steady-state" in res.stderr and "on cpu" in res.stderr
+    got = load_png(out)
+    want = _renderer(scene).render_to_u8()
+    assert got.shape == (SIZE, SIZE, 4) and (got[..., 3] == 255).all()
+    np.testing.assert_array_equal(got[..., :3], want)
+    assert len(np.unique(want.reshape(-1, 3), axis=0)) > 10
+
+
+def test_cli_orbit_writes_every_frame(scene, tmp_path):
+    out = tmp_path / "orbit.png"
+    _cli("--scene", scene, "--width", SIZE, "--height", SIZE, "--shadow-size", SIZE,
+         "--device", "cpu", "--orbit", 2, "--output", out)
+    r = _renderer(scene)
+    c = np.asarray(r.scene_data.scene_center)
+    rad = 2.5 * float(r.scene_data.scene_radius)
+
+    def orbit(rr, i):  # the CLI's orbit
+        a = 2.0 * np.pi * rr._frame_counter / 2
+        rr.camera.position = (c[0] + rad * np.sin(a), c[1] + 0.4 * rad, c[2] - rad * np.cos(a))
+        rr.camera.set_look_at(c)
+
+    colors = r.render_frames(2, mutate=orbit).numpy()
+    for i in range(2):
+        got = load_png(tmp_path / f"orbit_{i:03d}.png")
+        want = np.clip(np.rint(colors[i] * 255.0), 0, 255).astype(np.uint8)
+        np.testing.assert_array_equal(got[..., :3], want)
+    assert not (tmp_path / "orbit_002.png").exists()
+
+
+@pytest.mark.parametrize("flag,title", [(["--interactive"], "viewer and bench"),
+                                        (["--trace", "tr"], "observability"),
+                                        (["--profile-passes"], "observability")])
+def test_cli_unported_flags_raise(scene, flag, title):
+    with pytest.raises(NotImplementedError, match=rf"modules queue: {title}\)$"):
+        main(["--scene", str(scene), "--device", "cpu", *flag])
+
+
+def test_cli_defaults_to_the_card(scene):
+    """Without ``--device`` the CLI renders on the card; with no CUDA device
+    it fails rather than rendering on the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        main(["--scene", str(scene), "--width", "32", "--height", "32", "--shadow-size", "32",
+              "--output", str(scene.parent / "never.png")])
+    assert not (scene.parent / "never.png").exists()

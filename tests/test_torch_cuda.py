@@ -626,3 +626,81 @@ def test_giant_raster_cases_bit_equal_one_launch(cuda_device, tile, want_ids, or
     if case == "coplanar" and want_ids:
         won = set(torch.unique(got[1]).tolist()) & set(range(1090, 1110))
         assert won == {1090}, won  # of the 20 equal-key giant copies only the first wins
+
+
+# ------------------------------------------------------- the Renderer on the card
+
+
+@pytest.fixture(scope="module")
+def card_renderers(cuda_device, tmp_path_factory):
+    """A Renderer of a small scene written to files on the card and one on
+    the CPU (64x64, 64^2 shadow map)."""
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+    from unclerenderer_tpu_torch.render.testing import write_scene
+
+    scene = write_scene(tmp_path_factory.mktemp("card_scene"), 2, masked=True, n_materials=2,
+                        tex_size=32)
+    settings = RenderSettings(width=64, height=64, shadow_map_size=64)
+    return (Renderer(scene, settings=settings, device=cuda_device),
+            Renderer(scene, settings=settings, device="cpu"))
+
+
+def test_renderer_cached_shadow_map_equals_the_frames_own(card_renderers):
+    """The Renderer's cached map is the frame's own shadow raster, and the
+    frame given it equals the frame that renders it, bit for bit."""
+    import dataclasses
+
+    from unclerenderer_tpu_torch.render.deferred import deferred_frame
+
+    r, _ = card_renderers
+    r.render_frame()
+    params = r.frame_params()
+    cached = r._shadow_map(params)
+    state = dataclasses.replace(r.frame_state)
+    _cuda.reset_launches()
+    own, _ = deferred_frame(r.device_scene, params, state, r.settings)
+    assert _cuda.LAUNCHES["binned_raster"] == 4 and _cuda.LAUNCHES["giant_raster"] == 2
+    _cuda.reset_launches()
+    given, _ = deferred_frame(r.device_scene, params, state, r.settings, shadow_map=cached)
+    assert _cuda.LAUNCHES["binned_raster"] == 2 and _cuda.LAUNCHES["giant_raster"] == 1
+    for k, v in own.items():
+        if k == "raster_stats":
+            assert {n: int(x) for n, x in v.items()} == {n: int(x) for n, x in given[k].items()}
+        else:
+            assert torch.equal(v, given[k]), k
+
+
+def test_renderer_pick_reads_uint32_ids_on_the_card(card_renderers):
+    r, c = card_renderers
+    out = r.render_frame()
+    ids = out["object_id"]
+    assert ids.dtype == torch.uint32 and ids.device.type == "cuda"
+    host = ids.view(torch.int32).cpu().numpy()
+    y, x = np.argwhere(host > 0)[0]
+    got = r.pick(int(x), int(y))
+    names = {m.object_id: m.name for m in r.scene_data.models}
+    assert got == (int(host[y, x]), names[int(host[y, x])])
+    y0, x0 = np.argwhere(host == 0)[0]
+    assert r.pick(int(x0), int(y0)) == (0, "")
+    assert r.stats()["hbm_bytes_in_use"] > 0
+
+
+def test_renderer_card_frames_equal_cpu_frames(card_renderers):
+    """3 carried frames of the scene: depth, ids and counters bit-equal
+    between the card (kernels) and the CPU (plain versions), colour within
+    1e-3 (the cross-device bar)."""
+    from unclerenderer_tpu_torch.render.params import FrameState
+
+    r, c = card_renderers
+    for rr in (r, c):
+        rr.frame_state = FrameState.initial(64, 64, rr.device)
+        rr._frame_counter, rr._taa_history_ready = 0, False
+    for _ in range(3):
+        g, h = r.render_frame(), c.render_frame()
+        for k in ("depth", "tri_id", "model_visible"):
+            assert torch.equal(g[k].cpu(), h[k]), k
+        assert torch.equal(g["object_id"].view(torch.int32).cpu(), h["object_id"].view(torch.int32))
+        assert {k: int(v) for k, v in g["raster_stats"].items()} == \
+            {k: int(v) for k, v in h["raster_stats"].items()}
+        assert float((g["color"].cpu() - h["color"]).abs().max()) <= 1e-3

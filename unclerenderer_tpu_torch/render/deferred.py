@@ -2,8 +2,10 @@
 device: culling -> shadow map -> visibility raster (opaque, then the
 alpha-masked models merged in) -> material resolve ->
 HZB -> lighting (GGX, superblock PCF, IBL) -> sky -> TAA -> auto-exposure
--> tonemap -> CAS.  Frames are carried as in the reference:
-``deferred_frame(scene, params, state, settings) -> (out, new_state)``."""
+-> tonemap -> CAS -> the debug-print stats block.  Frames are carried as in
+the reference: ``deferred_frame(scene, params, state, settings,
+shadow_map=None) -> (out, new_state)``; the Renderer passes the shadow map
+it caches."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from ..ops import texture as tex
 from ..ops.cull import frustum_cull, occlusion_cull
 from ..ops.fma import fma
 from ..ops.hzb import build_hzb, hzb_layout
+from ..ops.overlay import device_stats_overlay
 from ..ops.post import auto_exposure_ev, cas_sharpen, temporal_aa, tonemap
 from ..ops.shadow import pack_shadow_blocks_u16, shadow_factor_blocks
 from ..ops.sky import apply_atmosphere, sky_view_directions
@@ -38,7 +41,11 @@ def frustum_planes(view_proj):
 
 
 def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
-                   settings: RenderSettings):
+                   settings: RenderSettings, shadow_map: torch.Tensor | None = None):
+    """One frame.  ``shadow_map``: a light-space depth map the caller
+    rendered (``Renderer._shadow_map``: light and geometry are static); the
+    frame then packs it and runs no shadow raster of its own, and its
+    ``shadow_compact_overflow`` stays 0."""
     check_supported(settings)
     dev = scene.tri_geo.device
     width, height = settings.width, settings.height
@@ -65,9 +72,10 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     shadow_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     shadow9 = None
     if settings.enable_shadows:
-        cast_o, cast_m = common.tri_draw_masks(scene, params.model_visible)
-        shadow_map, shadow_overflow = common.raster_shadow(
-            scene, params.light_view_proj, cast_o | cast_m, settings)
+        if shadow_map is None:
+            cast_o, cast_m = common.tri_draw_masks(scene, params.model_visible)
+            shadow_map, shadow_overflow = common.raster_shadow(
+                scene, params.light_view_proj, cast_o | cast_m, settings)
         shadow9 = pack_shadow_blocks_u16(shadow_map)
 
     # --- 3/4/5. visibility raster
@@ -173,6 +181,13 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
                     settings.enable_auto_exposure, params.tonemap_gamma)
     if settings.enable_cas:
         color = torch.clamp(cas_sharpen(color, params.cas_sharpness), 0.0, 1.0)
+
+    # --- 13. the debug-print stats block, drawn from device counters
+    if settings.gpu_debug_print:
+        color = device_stats_overlay(
+            color, models_visible=model_visible.sum().to(torch.int32),
+            models_total=int(model_visible.shape[0]), frustum_culled=frustum_culled,
+            hzb_occluded=hzb_occluded, exposure_ev=new_ev)
 
     # uint32 as in the reference; ids ride an f32 record column, so they are
     # exact integers below 2^24 and the int32 bits are the uint32 value

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .params import bf16_bits
+
 MREC = 64
 GEO = 48
 
@@ -79,3 +81,44 @@ def pack_tri_geo(data) -> np.ndarray:
 def pack_tri_mrec(data, model_rec: np.ndarray) -> np.ndarray:
     """(M, 64) model records broadcast per triangle -> (T, 64)."""
     return model_rec[data.tri_model]
+
+
+def scene_host_arrays(data, tex_ids, has_map, quad_img, tri_geo, tri_mrec, brdf_lut, env_quad,
+                      env_rect0, env_tail) -> dict:
+    """Every ``DeviceScene`` field of a scene as numpy, byte-equal to the
+    reference Renderer's host arrays (``render/renderer.py:252-286``), with
+    bfloat16 as its uint16 bit patterns (``params.bf16_bits``; the caller
+    passes bf16 fields as such or as float32).  ``params.upload_scene``
+    puts them on a device."""
+    return dict(
+        position=data.position,
+        # lane-dense [vertex slot][x/y/z][tri] for the SoA vertex stage
+        pos_soa=np.ascontiguousarray(data.position.reshape(-1, 3, 3).transpose(1, 2, 0)),
+        normal=data.normal,
+        tangent=data.tangent,
+        uv=data.uv,
+        color=data.color,
+        tris=data.tri_indices.astype(np.int32),
+        tri_model=data.tri_model.astype(np.int32),
+        base_color_factor=data.base_color_factor,
+        base_color_alpha=data.base_color_alpha,
+        metallic_factor=data.metallic_factor,
+        roughness_factor=data.roughness_factor,
+        emissive_factor=data.emissive_factor,
+        alpha_mode=data.alpha_mode.astype(np.int32),
+        alpha_cutoff=data.alpha_cutoff,
+        uv_transform=data.uv_transform,
+        uv_rotation=data.uv_rotation,
+        tex_ids=tex_ids,
+        has_map=has_map,
+        object_ids=data.object_ids,
+        bounds_min=data.bounds_min_arr,
+        bounds_max=data.bounds_max_arr,
+        quad_img=quad_img if quad_img.dtype in (np.uint8, np.uint16) else bf16_bits(quad_img),
+        brdf_lut=np.asarray(brdf_lut)[..., :2],
+        env_quad=env_quad if env_quad.dtype == np.uint16 else bf16_bits(env_quad),
+        env_rect0=np.asarray(env_rect0).astype(np.float32),
+        env_tail=np.asarray(env_tail),
+        tri_geo=tri_geo,
+        tri_mrec=tri_mrec,
+    )

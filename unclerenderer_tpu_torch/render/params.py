@@ -13,13 +13,15 @@
   raise ``NotImplementedError`` naming their ROADMAP queue entry
   (``check_supported``).
 * FrameParams / DeviceScene / FrameState: dataclasses of tensors, all on one
-  explicit device.
+  explicit device; ``upload_scene`` puts a scene's host arrays there
+  (bfloat16 carried as uint16 bits, ``bf16_bits``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -107,6 +109,7 @@ FORWARD_PATH = "forward path"
 SAMPLING = "non-default sampling and storage"
 FUSED_RESOLVE = "fused resolve"
 OBSERVABILITY = "observability"
+VIEWER_AND_BENCH = "viewer and bench"
 
 
 def not_ported(what: str, entry: str) -> NotImplementedError:
@@ -129,7 +132,6 @@ def check_supported(settings: RenderSettings) -> None:
         (not settings.soa_vertex, "soa_vertex=False (AoS vertex stage)", SAMPLING),
         (settings.fused_resolve == "on", "fused_resolve='on'", FUSED_RESOLVE),
         (not settings.shadow_table_u16, "shadow_table_u16=False", SAMPLING),
-        (settings.gpu_debug_print, "gpu_debug_print", OBSERVABILITY),
         (settings.kernel_debug_print, "kernel_debug_print", OBSERVABILITY),
     ]
     for bad, what, entry in unsupported:
@@ -198,6 +200,33 @@ class DeviceScene:
     tri_geo: torch.Tensor = None            # (T, 48) f32 vertex attributes
     tri_mrec: torch.Tensor = None           # (T, 64) f32 model constants
     pos_soa: torch.Tensor = None            # (3, 3, T) f32 [slot][xyz][tri]
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> the uint16 bit patterns of bfloat16, rounded to nearest
+    even by torch (as ``ml_dtypes`` rounds the reference's casts)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def upload_scene(host: dict, device) -> DeviceScene:
+    """A scene's host arrays (every ``DeviceScene`` field, numpy) -> the
+    ``DeviceScene`` on ``device``.  The one way a scene reaches the card:
+    the Renderer's loaded scenes and ``render/testing.py``'s synthetic ones.
+    uint16 arrays are bfloat16 bit patterns (``bf16_bits``); uint32
+    (``object_ids``) widens to int64, as the port keeps ids."""
+    def tensor(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint16:
+            return torch.from_numpy(a.view(np.int16)).to(device).view(torch.bfloat16)
+        if a.dtype == np.uint32:
+            a = a.astype(np.int64)
+        return torch.from_numpy(a).to(device)
+
+    missing = {f.name for f in dataclasses.fields(DeviceScene)} ^ set(host)
+    if missing:
+        raise ValueError(f"upload_scene: host arrays do not match DeviceScene: {sorted(missing)}")
+    return DeviceScene(**{k: tensor(v) for k, v in host.items()})
 
 
 @dataclasses.dataclass

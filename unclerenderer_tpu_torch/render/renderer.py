@@ -1,0 +1,795 @@
+"""The Renderer shell (``unclerenderer_tpu/render/renderer.py``): scene load,
+texture decode, material fuse, atlas and device-scene build, then frames.
+
+The analog of the D3D12 renderer's ``FApplication`` and renderer
+``Initialize`` (scene build, texture loads, descriptor heap), with the frame
+loop replaced by calls to ``deferred_frame`` on the Renderer's device (the
+card unless the caller names another).
+
+Deliberately not carried over from the reference:
+
+* the forward fallback ladder (``renderer.py:662-681``: a first deferred
+  frame that raises is re-rendered by the forward renderer).  Here it would
+  hide a kernel that fails to build or launch; a failing frame raises.
+* the on-disk built-scene cache (``core/scenecache.py``): nothing is read or
+  written, ``scene_cache_hit`` is False (ROADMAP.md, modules queue: Renderer
+  shell and CLI).
+* the forward path, per-pass GPU timing, graph dumps and the profilers:
+  they raise ``NotImplementedError`` naming their ROADMAP.md queue entry,
+  never silently doing nothing.
+
+Host vectors are never read back from the device per frame: the shadow-map
+cache is keyed on the host light vector and visibility, the frame's
+parameters travel in one non-blocking copy, and ``render_frames`` keeps
+the worst-frame drop counters on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import mathlib as m
+from ..core.config import RendererConfig
+from ..core.logging import log_error, log_info, log_warning
+from ..core.tasks import parallel_map, schedule_task, set_task_system_enabled
+from ..scene.build import SceneData, build_scene
+from ..scene.camera import Camera
+from ..scene.scene_json import SceneLightDesc, load_scene_json
+from ..textures.atlas import build_pyramid_quad_atlas, build_pyramid_tri_atlas
+from ..textures.dds import load_dds
+from ..textures.image import (
+    TextureCache,
+    combined_chain,
+    encode_combined_u8,
+    generate_mips,
+    solid_color_texture,
+)
+from . import common
+from .deferred import deferred_frame
+from .packing import M_UVOS, M_UVROT, pack_model_record, pack_tri_geo, pack_tri_mrec
+from .packing import scene_host_arrays
+from .params import (
+    FORWARD_PATH,
+    OBSERVABILITY,
+    DeviceScene,
+    FrameParams,
+    FrameState,
+    RenderSettings,
+    not_ported,
+    resolve_packed_trilinear,
+    upload_scene,
+)
+
+_SLOT_SRGB = (True, False, False, True)  # base, mr, normal, emissive
+
+
+def _build_device_scene(
+    data: SceneData, assets_root: Path, allow_combined: bool = True,
+    packed_trilinear: bool | str = False, substitutions_out: list | None = None,
+    files_out: list | None = None, host_out: dict | None = None,
+    atlas_u8: bool = False, device="cuda",
+) -> tuple[DeviceScene, float, bool]:
+    """Every device array of a scene: geometry, material tables, atlases,
+    the env cube and the BRDF LUT, on ``device``.  Returns (scene, env mip
+    count, whether the combined material was built).
+
+    ``substitutions_out`` receives the paths of textures that fell back to
+    the default grid; ``files_out`` every asset file the build read;
+    ``host_out`` the host arrays (``packing.scene_host_arrays``, bf16 as
+    uint16 bits), byte-equal to the reference's.  Atlases are built in
+    float32 or u8 and cast to bf16 by torch at the end (round to nearest
+    even, as the reference's ``ml_dtypes`` stores)."""
+    cache = TextureCache()
+    chains = [generate_mips(solid_color_texture([1.0, 1.0, 1.0, 1.0], 1))]  # 0 = white
+    path_to_id: dict[str, int] = {}
+    n_models = data.num_models
+    tex_ids = np.zeros((n_models, 4), np.int32)
+    has_map = np.zeros((n_models, 4), bool)
+
+    # unique (path, srgb) requests, decoded in parallel on the task pool
+    # (LoadTexturesParallel, TextureLoader.cpp:746-841), atlas slots
+    # assigned in request order
+    requests: list[tuple[str, bool]] = []
+    for slots in data.texture_paths:
+        for si, path in enumerate(slots):
+            if path and (path, _SLOT_SRGB[si]) not in requests:
+                requests.append((path, _SLOT_SRGB[si]))
+    decoded = parallel_map(lambda req: cache.load_or_default(req[0], srgb=req[1]), requests)
+    for (path, srgb), mips in zip(requests, decoded):
+        path_to_id[f"{path}|{srgb}"] = len(chains)
+        chains.append(mips)
+    if substitutions_out is not None:
+        substitutions_out.extend(sorted(cache.substitutions))
+    if files_out is not None:
+        files_out.extend(p for (p, _s) in requests if p and Path(p).is_file())
+
+    for mi, slots in enumerate(data.texture_paths):
+        for si, path in enumerate(slots):
+            if not path:
+                continue
+            tex_ids[mi, si] = path_to_id[f"{path}|{_SLOT_SRGB[si]}"]
+            has_map[mi, si] = True
+
+    def _pow2ify(mips):
+        """Power-of-two guard for the pyramid layout: odd sizes get a
+        nearest resample."""
+        h, w = mips[0].shape[:2]
+        if (w & (w - 1)) == 0 and (h & (h - 1)) == 0:
+            return mips
+        nw = 1 << int(np.ceil(np.log2(max(w, 1))))
+        nh = 1 << int(np.ceil(np.log2(max(h, 1))))
+        yi = (np.arange(nh) * h // nh).clip(0, h - 1)
+        xi = (np.arange(nw) * w // nw).clip(0, w - 1)
+        return generate_mips(mips[0][yi][:, xi])
+
+    chains = [_pow2ify(c) for c in chains]
+
+    # environment cube (prefiltered mip chain): packed-trilinear rows with
+    # the seamless cross-face borders baked in
+    env_path = assets_root / "Textures" / "output_pmrem.dds"
+    env_mip_count = 1.0
+    env_dds = load_dds(env_path) if env_path.is_file() else None
+    if files_out is not None and env_path.is_file():
+        files_out.append(str(env_path))
+    if env_dds is not None and env_dds.is_cube:
+        env_mip_count = float(env_dds.mip_count)
+        face_chains = [[lvl.astype(np.float32) for lvl in env_dds.mips[face]]
+                       for face in range(6)]
+        env_img, env_rect0 = build_pyramid_tri_atlas(face_chains, cube=True)
+        env_tail = np.stack([chain[-1][..., :4] for chain in face_chains])
+    else:
+        if env_dds is None:
+            log_warning(f"environment cube not found at {env_path}; IBL will be flat")
+        env_img = np.full((8, 128, 128), 0.1, np.float32)
+        env_rect0 = np.zeros((6, 4), np.int32)
+        env_rect0[:, 2:] = 1
+        env_tail = np.full((6, 1, 1, 4), 0.1, np.float32)
+
+    lut_path = assets_root / "Textures" / "PreintegratedGF.dds"
+    lut_dds = load_dds(lut_path) if lut_path.is_file() else None
+    if files_out is not None and lut_path.is_file():
+        files_out.append(str(lut_path))
+    if lut_dds is not None:
+        brdf_img = lut_dds.mips[0][0].astype(np.float32)
+    else:
+        log_warning(f"BRDF LUT not found at {lut_path}; using analytic fallback")
+        # Karis' analytic approximation keeps IBL usable without the asset
+        nv = np.linspace(0.0, 1.0, 128, dtype=np.float32)[None, :]
+        rough = np.linspace(0.0, 1.0, 32, dtype=np.float32)[:, None]
+        a = rough * rough
+        brdf_img = np.zeros((32, 128, 4), np.float32)
+        brdf_img[..., 0] = 1.0 - a * 0.5 - 0.25 * (1.0 - nv)
+        brdf_img[..., 1] = a * 0.25 * nv
+
+    # combined-material eligibility: every model's present slots share one
+    # KHR texture transform (one tap, one uv); otherwise per-slot taps
+    ut, ur = data.uv_transform, data.uv_rotation
+    combined = allow_combined and bool(has_map.any())
+    shared_os = np.tile(np.array([0, 0, 1, 1], np.float32), (n_models, 1))
+    shared_rot = np.tile(np.array([1, 0], np.float32), (n_models, 1))
+    for mi in range(n_models):
+        slots = np.nonzero(has_map[mi])[0]
+        if len(slots) == 0:
+            continue
+        s0 = slots[0]
+        shared_os[mi], shared_rot[mi] = ut[mi, s0], ur[mi, s0]
+        if any(
+            not (np.allclose(ut[mi, s], ut[mi, s0]) and np.allclose(ur[mi, s], ur[mi, s0]))
+            for s in slots[1:]
+        ):
+            combined = False
+
+    if combined:
+        # one fused 16-channel chain per distinct slot-id combination
+        combo_of: dict[tuple, int] = {}
+        model_combo = np.zeros(n_models, np.int32)
+        combo_keys: list[tuple] = []
+        for mi in range(n_models):
+            key = tuple(int(tex_ids[mi, s]) if has_map[mi, s] else -1 for s in range(4))
+            if key not in combo_of:
+                combo_of[key] = len(combo_keys)
+                combo_keys.append(key)
+            model_combo[mi] = combo_of[key]
+        combo_chains = parallel_map(
+            lambda key: combined_chain([chains[key[s]] if key[s] >= 0 else None
+                                        for s in range(4)]),
+            combo_keys,
+        )
+        mat_dtype = np.float32  # stored bf16 (scene_host_arrays)
+        if atlas_u8:
+            combo_chains = parallel_map(lambda ch: [encode_combined_u8(lv) for lv in ch],
+                                        combo_chains)
+            mat_dtype = np.uint8
+        build = (build_pyramid_tri_atlas
+                 if resolve_packed_trilinear(packed_trilinear, len(combo_chains))
+                 else build_pyramid_quad_atlas)
+        quad_img, rect0 = build(combo_chains, wrap=True, dtype=mat_dtype)
+        slot_rect0 = np.repeat(rect0[model_combo].astype(np.float32)[:, None, :], 4, axis=1)
+    else:
+        quad_img, rect0 = build_pyramid_quad_atlas(chains, wrap=True)
+        # per-(model, slot) base rects; absent slots point at the white texture
+        slot_rect0 = rect0[tex_ids].astype(np.float32)
+
+    model_rec = pack_model_record(data, has_map, slot_rect0)
+    if combined:
+        # the combined resolve reads slot 0's transform as the shared one
+        model_rec[:, M_UVOS:M_UVOS + 4] = shared_os
+        model_rec[:, M_UVROT:M_UVROT + 2] = shared_rot
+    host = scene_host_arrays(data, tex_ids, has_map, quad_img, pack_tri_geo(data),
+                             pack_tri_mrec(data, model_rec), brdf_img, env_img, env_rect0,
+                             env_tail)
+    if host_out is not None:
+        host_out.update(host)
+    return upload_scene(host, device), env_mip_count, combined
+
+
+def _params_on_device(fields: dict, device) -> FrameParams:
+    """FrameParams from host values: packed into one float32 buffer and
+    copied in one transfer (pinned and non-blocking on the card, so the host
+    never waits for the frames already queued); ``model_visible`` travels
+    as 0/1 and becomes bool on the device."""
+    arrays = {k: np.asarray(v, np.float32) for k, v in fields.items()}
+    flat = torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays.values()]))
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    else:
+        flat = flat.to(device)
+    out, at = {}, 0
+    for k, a in arrays.items():
+        out[k] = flat[at:at + a.size].view(a.shape)
+        at += a.size
+    out["model_visible"] = out["model_visible"] != 0
+    return FrameParams(**out)
+
+
+class Renderer:
+    """Owns the device scene, camera, light, settings and frame state, on
+    ``device`` (the card unless the caller names another: there is no
+    fallback to the CPU)."""
+
+    def __init__(
+        self,
+        scene_path: str | Path,
+        settings: RenderSettings | None = None,
+        config: RendererConfig | None = None,
+        assets_root: str | Path | None = None,
+        device="cuda",
+    ):
+        scene_path = Path(scene_path)
+        self.scene_path = scene_path
+        self.device = torch.device(device)
+        cfg = config or RendererConfig()
+        if settings is None:
+            settings = RenderSettings(
+                width=cfg.window_width,
+                height=cfg.window_height,
+                renderer_type=cfg.renderer_type,
+                enable_shadows=cfg.enable_shadows,
+                enable_tonemap=cfg.enable_tonemap,
+                enable_auto_exposure=cfg.enable_auto_exposure,
+                enable_taa=cfg.enable_taa,
+                enable_cas=cfg.enable_cas,
+                # IndirectDraw: the reference's GPU-driven culled draws; here
+                # the frame's frustum and HZB culling mask
+                enable_gpu_culling=cfg.enable_indirect_draw,
+            )
+        if settings.renderer_type != "deferred":
+            raise not_ported(f"renderer_type={settings.renderer_type!r}", FORWARD_PATH)
+        self.settings = settings
+        self.config = cfg
+        self._apply_config_side_effects(cfg)
+
+        if assets_root is None:
+            assets_root = scene_path.parent.parent
+        self.assets_root = Path(assets_root)
+
+        t0 = time.monotonic()
+        # per-phase init seconds; no built-scene cache (module docstring)
+        self.setup_phase_s: dict[str, float] = {}
+        self.scene_cache_hit = False
+        _t_ph = time.monotonic()
+        self.scene_data = build_scene(scene_path, self.assets_root)
+        self.setup_phase_s["scene_build"] = round(time.monotonic() - _t_ph, 2)
+        if self.scene_data is None:
+            # scene fallback ladder (DeferredRenderer.cpp:259-293): a
+            # procedural cube/sphere scene keeps the renderer alive
+            log_error(f"failed to load scene {scene_path}; falling back to the "
+                      "procedural default scene")
+            from .testing import synthetic_scene_data
+
+            self.scene_data = synthetic_scene_data(4)
+        self._sync_scene_settings()
+
+        _models, light, camera_desc = load_scene_json(scene_path)
+        self.light = light or SceneLightDesc()
+        self.camera = Camera()
+        self.camera.set_perspective(np.radians(60.0), settings.width / settings.height, 0.1,
+                                    1000.0)
+        if camera_desc is not None:
+            self.camera.position = camera_desc.position
+            self.camera.set_perspective(np.radians(camera_desc.fov_y_degrees),
+                                        settings.width / settings.height, 0.1, 1000.0)
+            if camera_desc.look_at is not None:
+                self.camera.set_look_at(camera_desc.look_at)
+            elif camera_desc.rotation_euler is not None:
+                self.camera.set_rotation_euler_degrees(camera_desc.rotation_euler)
+
+        try:
+            doc = json.loads(Path(scene_path).read_text())
+            self.background = np.asarray(
+                doc.get("environment", {}).get("background", [0.1, 0.1, 0.15]), np.float32)
+        except (OSError, ValueError):
+            self.background = np.array([0.1, 0.1, 0.15], np.float32)
+
+        self.texture_substitutions: list[str] = []
+        _t_ph = time.monotonic()
+        self.device_scene, self.env_mip_count, combined = _build_device_scene(
+            self.scene_data, self.assets_root, self.settings.enable_combined_material,
+            packed_trilinear=self.settings.material_packed_trilinear,
+            substitutions_out=self.texture_substitutions,
+            atlas_u8=self.settings.material_atlas_u8,
+            device=self.device,
+        )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.setup_phase_s["build_and_upload"] = round(time.monotonic() - _t_ph, 2)
+        self._sync_atlas_settings(combined)
+        self.frame_state = FrameState.initial(self.settings.width, self.settings.height,
+                                              self.device)
+        log_info(
+            f"renderer init: {self.scene_data.num_models} models, "
+            f"{self.scene_data.num_triangles} triangles in {time.monotonic() - t0:.2f}s "
+            f"on {self.device}"
+        )
+        self._taa_history_ready = False
+        self._frame_counter = 0
+        self._shadow_cache = None
+        self._shadow_overflow = 0
+        self._shadow_key = None
+        self._chain_drop_counters = None
+        self._last_out = None
+        self._pending_reload = None
+        self.selected_object_id = 0
+        self.selected_name = ""
+
+    def _sync_scene_settings(self) -> None:
+        """Settings that follow the scene (renderer.py:387-410): the masked
+        raster only when a model needs it, compacted to the exact masked
+        triangle count rounded up to 64, and the slots any model maps."""
+        data = self.scene_data
+        masked_model = data.alpha_mode == 1
+        has_masked = bool(masked_model.any())
+        masked_cap = -(-int(masked_model[data.tri_model].sum()) // 64) * 64 if has_masked else 0
+        slot_enabled = tuple(bool(any(tp[si] for tp in data.texture_paths)) for si in range(4))
+        s = self.settings
+        if (s.has_masked_models, s.slot_enabled, s.masked_tri_cap) != (
+                has_masked, slot_enabled, masked_cap):
+            self.settings = dataclasses.replace(s, has_masked_models=has_masked,
+                                                slot_enabled=slot_enabled,
+                                                masked_tri_cap=masked_cap)
+
+    def _sync_atlas_settings(self, combined: bool) -> None:
+        """Packed-trilinear rows and u8 storage exist only for the combined
+        atlas; the packed choice ("auto" included) is read off the atlas
+        itself, whose packed rows carry 256 lanes (renderer.py:486-502)."""
+        s = self.settings
+        packed = combined and int(self.device_scene.quad_img.shape[-1]) == 256
+        u8 = s.material_atlas_u8 and combined
+        if (s.combined_material, s.material_packed_trilinear, s.material_atlas_u8) != (
+                combined, packed, u8):
+            self.settings = dataclasses.replace(s, combined_material=combined,
+                                                material_packed_trilinear=packed,
+                                                material_atlas_u8=u8)
+
+    def _apply_config_side_effects(self, cfg: RendererConfig) -> None:
+        """Honour, refuse or log every RendererConfig key: no toggle silently
+        does nothing."""
+        set_task_system_enabled(cfg.use_task_system)
+        if cfg.enable_gpu_timing:
+            raise not_ported("RendererConfig.enable_gpu_timing (per-pass GPU timing)",
+                             OBSERVABILITY)
+        if cfg.enable_graph_dump:
+            raise not_ported("RendererConfig.enable_graph_dump (frame graph dump)",
+                             OBSERVABILITY)
+        # GpuDebugPrint (RendererConfig.h:38): the stats block drawn inside
+        # the deferred frame (ops/overlay.py) plus the host overlays of
+        # render_overlay_u8
+        self.debug_print_enabled = bool(cfg.enable_gpu_debug_print)
+        if self.debug_print_enabled and self.settings.renderer_type == "deferred":
+            self.settings = dataclasses.replace(self.settings, gpu_debug_print=True)
+        inherent = {
+            "FramesInFlight": "a frame's kernels queue on one CUDA stream ahead of the device",
+            "FrameOverlap": "a frame's kernels queue on one CUDA stream ahead of the device",
+            "LogResourceBarriers": "one CUDA stream orders every kernel; there are no barriers",
+            "UseDepthPrepass": "the visibility raster is a fused depth prepass",
+        }
+        for key, why in inherent.items():
+            log_info(f"config {key}: inherent in the CUDA port ({why}); value ignored")
+
+    def frame_params(self, delta_time: float = 1.0 / 60.0) -> FrameParams:
+        view = self.camera.view_matrix()
+        proj_base = self.camera.projection_matrix()
+        # TAA jitter only once history is valid (DeferredRenderer.cpp:398-411)
+        if self.settings.enable_taa and self._taa_history_ready:
+            jitter = m.taa_jitter(self._frame_counter)
+            proj = m.jittered_projection(proj_base, jitter, self.settings.width,
+                                         self.settings.height)
+        else:
+            proj = proj_base
+        light_vec = m.light_vector_from_scene_direction(self.light.direction)
+        light_vp = m.build_directional_light_view_proj(
+            self.scene_data.scene_center, self.scene_data.scene_radius, light_vec)
+        cfg = self.config
+        return _params_on_device(dict(
+            view=view,
+            proj=proj,
+            proj_unjittered=proj_base,
+            view_proj=view @ proj,
+            camera_pos=self.camera.position,
+            light_dir=light_vec,
+            light_intensity=self.light.intensity,
+            light_color=self.light.color,
+            light_view_proj=light_vp,
+            shadow_strength=1.0 if self.settings.enable_shadows else 0.0,
+            shadow_bias=cfg.shadow_bias if cfg.shadow_bias else 0.002,
+            background=self.background,
+            model_visible=self.scene_data.visible_mask,
+            env_mip_count=self.env_mip_count,
+            tonemap_exposure=cfg.tonemap_exposure,
+            tonemap_gamma=cfg.tonemap_gamma,
+            cas_sharpness=cfg.cas_sharpness,
+            taa_history_weight=cfg.taa_history_weight,
+            auto_exposure_key=cfg.auto_exposure_key,
+            auto_exposure_min=cfg.auto_exposure_min,
+            auto_exposure_max=cfg.auto_exposure_max,
+            auto_exposure_speed_up=cfg.auto_exposure_speed_up,
+            auto_exposure_speed_down=cfg.auto_exposure_speed_down,
+            delta_time=delta_time,
+        ), self.device)
+
+    def _shadow_map(self, params: FrameParams) -> torch.Tensor | None:
+        """Cached shadow map: geometry and light are static, so the map
+        re-renders only when the light or the visibility changes (the D3D12
+        renderer re-renders it every frame).  Keyed on the host vectors the
+        params were built from; the drop count is read back only when the
+        map re-renders."""
+        if not self.settings.enable_shadows:
+            return None
+        key = (tuple(m.light_vector_from_scene_direction(self.light.direction).tolist()),
+               tuple(np.asarray(self.scene_data.visible_mask).tolist()))
+        if self._shadow_cache is None or key != self._shadow_key:
+            opaque, masked = common.tri_draw_masks(self.device_scene, params.model_visible)
+            self._shadow_cache, overflow = common.raster_shadow(
+                self.device_scene, params.light_view_proj, opaque | masked, self.settings)
+            self._shadow_overflow = int(overflow)
+            if self._shadow_overflow:
+                log_warning(f"shadow compaction dropped {self._shadow_overflow} casters -- "
+                            "raise RenderSettings.shadow_compact_cap")
+            self._shadow_key = key
+        return self._shadow_cache
+
+    def render_frame(self, delta_time: float = 1.0 / 60.0) -> dict:
+        """One deferred frame.  No fallback: a frame that fails (a kernel
+        that does not build or launch included) raises; the reference's
+        retry with the forward renderer is not carried over."""
+        params = self.frame_params(delta_time)
+        shadow_map = self._shadow_map(params)
+        out, self.frame_state = deferred_frame(self.device_scene, params, self.frame_state,
+                                               self.settings, shadow_map)
+        if self.settings.enable_taa:
+            self._taa_history_ready = True
+        self._frame_counter += 1
+        self._last_out = out
+        return out
+
+    def render_frames(self, n: int, delta_time: float = 1.0 / 60.0, mutate=None) -> torch.Tensor:
+        """Render ``n`` carried frames back to back and return their stacked
+        (n, H, W, 3) colour.  ``mutate(renderer, i)`` may move the camera per
+        frame; the light and visibility stay fixed, so the shadow map is
+        rendered at most once.  The worst frame's value of each drop counter
+        stays on the device until ``stats()`` reads it (the reference scans
+        the frames in one device program, ``renderer.py:695-763``)."""
+        if n < 1:
+            raise ValueError(f"render_frames: n must be >= 1, got {n}")
+        params_list = []
+        for i in range(n):
+            if mutate is not None:
+                mutate(self, i)
+            params_list.append(self.frame_params(delta_time))
+            self._frame_counter += 1
+            if self.settings.enable_taa:
+                self._taa_history_ready = True
+        shadow_map = self._shadow_map(params_list[0])
+        colors, drops = [], None
+        for params in params_list:
+            out, self.frame_state = deferred_frame(self.device_scene, params, self.frame_state,
+                                                   self.settings, shadow_map)
+            colors.append(out["color"])
+            rs = out["raster_stats"]
+            drops = dict(rs) if drops is None else {k: torch.maximum(drops[k], v)
+                                                    for k, v in rs.items()}
+        # stats()/pick() re-render on demand; the chain's drops stay visible
+        self._chain_drop_counters = drops
+        self._last_out = None
+        return torch.stack(colors)
+
+    def _latest_out(self) -> dict:
+        """The last rendered frame's outputs (one frame is rendered if there
+        is none): stats() and pick() read the frame already shown."""
+        if self._last_out is None:
+            self.render_frame()
+        return self._last_out
+
+    def render_to_u8(self, delta_time: float = 1.0 / 60.0) -> np.ndarray:
+        """Render and convert to (H, W, 3) uint8 as the UNORM backbuffer
+        stores it."""
+        color = self.render_frame(delta_time)["color"].cpu().numpy()
+        return np.clip(np.rint(color * 255.0), 0, 255).astype(np.uint8)
+
+    # ------------------------------------------------------------------
+    # introspection, picking, state
+
+    def update_settings(self, **changes) -> None:
+        """Live settings change (the reference's ImGui setters): swaps
+        RenderSettings fields and drops what was keyed on the old ones; an
+        atlas change rebuilds the device scene, a resolution change resets
+        the frame state, otherwise only TAA history is invalidated."""
+        new = dataclasses.replace(self.settings, **changes)
+        if new == self.settings:
+            return
+        if new.renderer_type != "deferred":
+            raise not_ported(f"renderer_type={new.renderer_type!r}", FORWARD_PATH)
+        old = self.settings
+        self.settings = new
+        if ("enable_combined_material" in changes or "material_packed_trilinear" in changes
+                or "material_atlas_u8" in changes):
+            self.texture_substitutions = []
+            self.device_scene, self.env_mip_count, combined = _build_device_scene(
+                self.scene_data, self.assets_root, new.enable_combined_material,
+                packed_trilinear=new.material_packed_trilinear,
+                substitutions_out=self.texture_substitutions,
+                atlas_u8=new.material_atlas_u8, device=self.device,
+            )
+            self._sync_atlas_settings(combined)
+        self._shadow_cache = None
+        self._shadow_overflow = 0
+        self._shadow_key = None
+        self._taa_history_ready = False
+        self._last_out = None
+        if (new.width, new.height) != (old.width, old.height):
+            self.frame_state = FrameState.initial(new.width, new.height, self.device)
+        else:
+            self.frame_state = dataclasses.replace(
+                self.frame_state, taa_valid=torch.tensor(False, device=self.device))
+        log_info(f"settings updated: {changes}")
+
+    def pick(self, x: int, y: int) -> tuple[int, str]:
+        """The object id at pixel (x, y) of the last rendered frame and its
+        model's name; id 0 is the background.  The uint32 id image is read
+        through its int32 view (ids are below 2^24)."""
+        out = self._latest_out()
+        object_id = int(out["object_id"].view(torch.int32)[y, x])
+        name = ""
+        if object_id > 0:
+            for model in self.scene_data.models:
+                if model.object_id == object_id:
+                    name = model.name
+                    break
+        self.selected_object_id = object_id
+        self.selected_name = name
+        return object_id, name
+
+    def selected_bounds(self):
+        """World AABB of the selected model, or None."""
+        if self.selected_object_id <= 0:
+            return None
+        ids = np.asarray(self.scene_data.object_ids)
+        idx = np.nonzero(ids == self.selected_object_id)[0]
+        if idx.size == 0:
+            return None
+        i = int(idx[0])
+        return (np.asarray(self.scene_data.bounds_min_arr[i]),
+                np.asarray(self.scene_data.bounds_max_arr[i]))
+
+    def stats(self) -> dict:
+        """Scene and culling counts of the last rendered frame, its drop
+        counters (the worst frame of the last ``render_frames`` folded in),
+        exposure, TAA state and device memory.  Does not advance the frames."""
+        out = self._latest_out()
+        total = self.scene_data.num_models
+        n_visible = int(out["model_visible"].sum())
+        rs = {k: int(v) for k, v in out["raster_stats"].items()}
+        for k, v in (self._chain_drop_counters or {}).items():
+            rs[k] = max(rs.get(k, 0), int(v))
+        return {
+            "models_total": total,
+            "models_visible": n_visible,
+            "models_culled": total - n_visible,
+            "frustum_culled": int(out["frustum_culled"]),
+            "hzb_occluded": int(out["hzb_occluded"]),
+            "triangles_total": self.scene_data.num_triangles,
+            "bin_pair_overflow": rs.get("pair_overflow", 0),
+            "bin_giant_truncated": rs.get("giant_truncated", 0),
+            # valid triangles dropped past the compaction cap
+            "compact_overflow": rs.get("compact_overflow", 0),
+            # casters dropped past the light-space cap: frames take the
+            # cached map, so the cache build's count is the real one
+            "shadow_compact_overflow": max(rs.get("shadow_compact_overflow", 0),
+                                           int(self._shadow_overflow)),
+            "exposure_ev": float(self.frame_state.exposure_ev),
+            "taa_history_valid": bool(self.frame_state.taa_valid),
+            **self.memory_stats(),
+        }
+
+    def memory_stats(self) -> dict:
+        """Device memory in use, total and peak in bytes; empty on the CPU."""
+        if self.device.type != "cuda":
+            return {}
+        _free, total = torch.cuda.mem_get_info(self.device)
+        return {
+            "hbm_bytes_in_use": int(torch.cuda.memory_allocated(self.device)),
+            "hbm_bytes_limit": int(total),
+            "hbm_peak_bytes_in_use": int(torch.cuda.max_memory_allocated(self.device)),
+        }
+
+    def profile_passes(self, iterations: int = 3):
+        raise not_ported("Renderer.profile_passes", OBSERVABILITY)
+
+    def profile_trace_passes(self, frames: int = 3, trace_dir=None):
+        raise not_ported("Renderer.profile_trace_passes", OBSERVABILITY)
+
+    def profile_trace(self, trace_dir, frames: int = 3):
+        raise not_ported("Renderer.profile_trace", OBSERVABILITY)
+
+    def save_state(self, path) -> None:
+        """Checkpoint the camera and the frame-carried state (an .npz the
+        reference's ``load_state`` reads too)."""
+        st = self.frame_state
+
+        def host(t):
+            return t.cpu().numpy()
+
+        np.savez(
+            path,
+            camera_position=self.camera.position,
+            camera_forward=self.camera.forward,
+            camera_up=self.camera.up,
+            camera_fov_y=self.camera.fov_y,
+            taa_history=host(st.taa_history),
+            taa_valid=host(st.taa_valid),
+            exposure_ev=host(st.exposure_ev),
+            exposure_valid=host(st.exposure_valid),
+            hzb=host(st.hzb),
+            hzb_valid=host(st.hzb_valid),
+            frame_index=host(st.frame_index),
+            frame_counter=self._frame_counter,
+        )
+
+    def load_state(self, path) -> None:
+        with np.load(path) as data:
+            self.camera.position = data["camera_position"]
+            self.camera.forward = data["camera_forward"]
+            self.camera.up = data["camera_up"]
+            self.camera.fov_y = float(data["camera_fov_y"])
+
+            def dev(name):
+                return torch.from_numpy(np.array(data[name])).to(self.device)
+
+            self.frame_state = FrameState(
+                taa_history=dev("taa_history"),
+                taa_valid=dev("taa_valid"),
+                exposure_ev=dev("exposure_ev"),
+                exposure_valid=dev("exposure_valid"),
+                hzb=dev("hzb"),
+                hzb_valid=dev("hzb_valid"),
+                frame_index=dev("frame_index"),
+            )
+            self._frame_counter = int(data["frame_counter"])
+            self._taa_history_ready = bool(data["taa_valid"])
+        self._last_out = None
+
+    def reload_scene(self, scene_path, background: bool = True):
+        """Scene reload (the reference's StartAsyncSceneReload,
+        ``Application.cpp:1011-1135``): the new scene and its atlases are
+        built on the task pool and swapped in by ``poll_reload`` (call it
+        per frame); ``background=False`` builds and swaps now.
+        The build takes the current atlas settings (the reference's drops
+        ``material_atlas_u8``), and the scene-dependent settings are synced
+        as at construction."""
+        scene_path = Path(scene_path)
+        settings = self.settings
+
+        def build():
+            data = build_scene(scene_path, self.assets_root)
+            if data is None:
+                raise ValueError(f"failed to load scene {scene_path}")
+            subs: list[str] = []
+            dev, mips, combined = _build_device_scene(
+                data, self.assets_root, settings.enable_combined_material,
+                packed_trilinear=settings.material_packed_trilinear,
+                substitutions_out=subs, atlas_u8=settings.material_atlas_u8,
+                device=self.device,
+            )
+            return scene_path, data, dev, mips, combined, subs
+
+        if not background:
+            self._apply_reload(build())
+            return None
+        future = schedule_task(build)
+        self._pending_reload = future
+        return future
+
+    def _apply_reload(self, built) -> None:
+        scene_path, data, dev, mips, combined, subs = built
+        self.texture_substitutions = subs
+        self.scene_data = data
+        self.device_scene = dev
+        self.env_mip_count = mips
+        self._sync_scene_settings()
+        self._sync_atlas_settings(combined)
+        self.frame_state = FrameState.initial(self.settings.width, self.settings.height,
+                                              self.device)
+        self._taa_history_ready = False
+        self._shadow_cache = None
+        self._shadow_overflow = 0
+        self._shadow_key = None
+        self._last_out = None
+        _models, light, camera_desc = load_scene_json(scene_path)
+        if light is not None:
+            self.light = light
+        if camera_desc is not None:
+            self.camera.position = camera_desc.position
+            if camera_desc.look_at is not None:
+                self.camera.set_look_at(camera_desc.look_at)
+            elif camera_desc.rotation_euler is not None:
+                self.camera.set_rotation_euler_degrees(camera_desc.rotation_euler)
+        log_info(f"scene reloaded: {scene_path}")
+
+    def poll_reload(self) -> bool:
+        """Swap in a finished background reload; True once swapped.  A
+        reload that failed raises here."""
+        future = self._pending_reload
+        if future is None or not future.done():
+            return False
+        self._pending_reload = None
+        self._apply_reload(future.result())
+        return True
+
+    def render_overlay_u8(self, delta_time: float = 1.0 / 60.0) -> np.ndarray:
+        """Render with the debug overlays (the stats block, the selection
+        box, the axis gizmo) as (H, W, 3) uint8.  The stats block is drawn
+        in the frame when ``gpu_debug_print`` is on; otherwise, with the
+        GpuDebugPrint toggle on, it is composited here."""
+        from ..core.debugprint import stats_overlay
+
+        out = self.render_frame(delta_time)
+        img = np.array(np.clip(out["color"].cpu().numpy(), 0, 1), copy=True)
+        if self.debug_print_enabled and not self.settings.gpu_debug_print:
+            visible = int(out["model_visible"].sum())
+            img = stats_overlay(img, {
+                "models_total": self.scene_data.num_models,
+                "models_visible": visible,
+                "models_culled": self.scene_data.num_models - visible,
+                "triangles_total": self.scene_data.num_triangles,
+                "exposure_ev": float(self.frame_state.exposure_ev),
+            })
+        self.composite_overlays(img)
+        return np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+
+    def composite_overlays(self, img: np.ndarray) -> np.ndarray:
+        """Selection AABB wireframe and corner axis gizmo onto an (H, W, 3)
+        float image, in place (``Application.cpp:754-820``, ``:59-96``)."""
+        from ..core.debugprint import axis_gizmo, selection_overlay
+
+        sel = self.selected_bounds()
+        if sel is not None:
+            vp = np.asarray(self.camera.view_matrix() @ self.camera.projection_matrix())
+            selection_overlay(img, sel[0], sel[1], vp, self.selected_name)
+        axis_gizmo(img, self.camera.view_matrix())
+        return img

@@ -1,14 +1,22 @@
-"""Synthetic scenes for tests, smoke runs and benchmarks -- no asset files.
+"""Synthetic scenes for tests, smoke runs and benchmarks.
 
 The procedural half of ``unclerenderer_tpu/render/testing.py``, JAX-free: a
 grid of cubes/spheres (plus an optional floor and back wall of giant
 triangles) with procedural materials, assembled into the port's
-``DeviceScene`` on the card (or on the device the caller names).  The
-host-side geometry and texture building is the port's own copy of the
-reference's numpy modules (``mathlib``, ``scene``, ``textures``).
+``DeviceScene`` on the card (or on the device the caller names) through
+the Renderer's upload (``params.upload_scene``).  The host-side geometry
+and texture building is the port's own copy of the reference's numpy
+modules (``mathlib``, ``scene``, ``textures``).  ``write_scene`` writes the
+same geometry as scene files (scene JSON, glTF, PNG, DDS) for the
+Renderer's loaders.
 """
 
 from __future__ import annotations
+
+import base64
+import json
+import struct
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -24,8 +32,9 @@ from ..textures.image import (
     generate_mips,
     solid_color_texture,
 )
-from .packing import pack_model_record, pack_tri_geo, pack_tri_mrec
-from .params import DeviceScene, FrameParams, resolve_packed_trilinear
+from ..textures.png import encode_png
+from .packing import pack_model_record, pack_tri_geo, pack_tri_mrec, scene_host_arrays
+from .params import DeviceScene, FrameParams, resolve_packed_trilinear, upload_scene
 
 
 def _append_mesh(parts, mesh, world, normalize_normals):
@@ -152,41 +161,46 @@ def synthetic_scene_data(
     return data
 
 
+def _material_maps(ci: int, tex_size: int):
+    """The source maps of procedural material ``ci`` (same numbers as the
+    reference): float32 RGBA base colour (a tinted grid), metallic-roughness
+    (G rough, B metal) and normal maps, and on material 0 an emissive map a
+    quarter the size (None on the others)."""
+    rng = np.random.default_rng(1000 + ci)
+    base = default_grid_texture(tex_size, cells=4 + 2 * (ci % 3))
+    tint = rng.uniform(0.4, 1.0, 3).astype(np.float32)
+    base[..., :3] *= tint
+    yy, xx = np.mgrid[0:tex_size, 0:tex_size].astype(np.float32) / tex_size
+    mr = np.zeros((tex_size, tex_size, 4), np.float32)
+    mr[..., 1] = 0.3 + 0.6 * (0.5 + 0.5 * np.sin(6.28 * (xx * (1 + ci) + yy)))
+    mr[..., 2] = (np.sin(12.56 * yy * (1 + ci % 2)) > 0.3).astype(np.float32)
+    mr[..., 3] = 1.0
+    freq = 8.0 + 4.0 * ci
+    nx = 0.25 * np.sin(freq * 6.28 * xx) * np.cos(freq * 3.14 * yy)
+    ny = 0.25 * np.cos(freq * 6.28 * yy)
+    nz = np.sqrt(np.maximum(1.0 - nx * nx - ny * ny, 0.0))
+    nm = np.stack([nx, ny, nz, np.ones_like(nx)], axis=-1) * 0.5 + 0.5
+    nm[..., 3] = 1.0
+    emis = None
+    if ci == 0:
+        emis = np.zeros((tex_size // 4, tex_size // 4, 4), np.float32)
+        ys, xs = np.mgrid[0 : tex_size // 4, 0 : tex_size // 4]
+        glow = ((ys // 8 + xs // 8) % 4 == 0).astype(np.float32)
+        emis[..., 0] = glow * 1.0
+        emis[..., 1] = glow * 0.8
+        emis[..., 2] = glow * 0.4
+    return base, mr, nm.astype(np.float32), emis
+
+
 def _rich_material_chains(n_combos: int, tex_size: int):
     """Procedural Sponza-like material set: baseColor + metallic-roughness +
     normal maps (emissive on combo 0) fused into combined 16-channel chains
     (same numbers as the reference)."""
     combos = []
     for ci in range(n_combos):
-        rng = np.random.default_rng(1000 + ci)
-        base = default_grid_texture(tex_size, cells=4 + 2 * (ci % 3))
-        tint = rng.uniform(0.4, 1.0, 3).astype(np.float32)
-        base[..., :3] *= tint
-        yy, xx = np.mgrid[0:tex_size, 0:tex_size].astype(np.float32) / tex_size
-        mr = np.zeros((tex_size, tex_size, 4), np.float32)
-        mr[..., 1] = 0.3 + 0.6 * (0.5 + 0.5 * np.sin(6.28 * (xx * (1 + ci) + yy)))
-        mr[..., 2] = (np.sin(12.56 * yy * (1 + ci % 2)) > 0.3).astype(np.float32)
-        mr[..., 3] = 1.0
-        freq = 8.0 + 4.0 * ci
-        nx = 0.25 * np.sin(freq * 6.28 * xx) * np.cos(freq * 3.14 * yy)
-        ny = 0.25 * np.cos(freq * 6.28 * yy)
-        nz = np.sqrt(np.maximum(1.0 - nx * nx - ny * ny, 0.0))
-        nm = np.stack([nx, ny, nz, np.ones_like(nx)], axis=-1) * 0.5 + 0.5
-        nm[..., 3] = 1.0
-        emis = None
-        if ci == 0:
-            e = np.zeros((tex_size // 4, tex_size // 4, 4), np.float32)
-            ys, xs = np.mgrid[0 : tex_size // 4, 0 : tex_size // 4]
-            glow = ((ys // 8 + xs // 8) % 4 == 0).astype(np.float32)
-            e[..., 0] = glow * 1.0
-            e[..., 1] = glow * 0.8
-            e[..., 2] = glow * 0.4
-            emis = generate_mips(e)
-        combos.append(
-            combined_chain(
-                [generate_mips(base), generate_mips(mr), generate_mips(nm.astype(np.float32)), emis]
-            )
-        )
+        base, mr, nm, emis = _material_maps(ci, tex_size)
+        combos.append(combined_chain([generate_mips(base), generate_mips(mr), generate_mips(nm),
+                                      None if emis is None else generate_mips(emis)]))
     return combos
 
 
@@ -277,47 +291,17 @@ def _rich_materials(data, packed_trilinear, atlas_u8: bool):
 
 
 def _assemble_device_scene(data, tex_ids, has_map, quad_img, tri_geo, tri_mrec, device) -> DeviceScene:
-    def t(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    if quad_img.dtype == np.uint8:
-        quad = t(quad_img)
-    else:
-        # f32 -> bf16 rounds to nearest even, like the reference's conversion
-        quad = t(quad_img.astype(np.float32)).to(torch.bfloat16)
-    env_rect0 = torch.zeros((6, 4), dtype=torch.float32, device=device)
+    """The scene on ``device`` through the Renderer's upload
+    (``params.upload_scene``), with the reference's synthetic stand-ins for
+    the BRDF LUT and the flat env cube."""
+    env_rect0 = np.zeros((6, 4), np.float32)
     env_rect0[:, 2:] = 1.0
-    return DeviceScene(
-        position=t(data.position),
-        pos_soa=t(data.position.reshape(-1, 3, 3).transpose(1, 2, 0)),
-        normal=t(data.normal),
-        tangent=t(data.tangent),
-        uv=t(data.uv),
-        color=t(data.color),
-        tris=t(data.tri_indices.astype(np.int32)),
-        tri_model=t(data.tri_model.astype(np.int32)),
-        base_color_factor=t(data.base_color_factor),
-        base_color_alpha=t(data.base_color_alpha),
-        metallic_factor=t(data.metallic_factor),
-        roughness_factor=t(data.roughness_factor),
-        emissive_factor=t(data.emissive_factor),
-        alpha_mode=t(data.alpha_mode.astype(np.int32)),
-        alpha_cutoff=t(data.alpha_cutoff),
-        uv_transform=t(data.uv_transform),
-        uv_rotation=t(data.uv_rotation),
-        tex_ids=t(tex_ids),
-        has_map=t(has_map),
-        object_ids=t(data.object_ids.astype(np.int64)),
-        bounds_min=t(data.bounds_min_arr),
-        bounds_max=t(data.bounds_max_arr),
-        quad_img=quad,
-        brdf_lut=torch.full((32, 128, 2), 0.5, dtype=torch.float32, device=device),
-        env_quad=torch.full((8, 128, 128), 0.1, dtype=torch.bfloat16, device=device),
-        env_rect0=env_rect0,
-        env_tail=torch.full((6, 1, 1, 4), 0.1, dtype=torch.float32, device=device),
-        tri_geo=t(tri_geo),
-        tri_mrec=t(tri_mrec),
-    )
+    host = scene_host_arrays(
+        data, tex_ids, has_map, quad_img, tri_geo, tri_mrec,
+        brdf_lut=np.full((32, 128, 2), 0.5, np.float32),
+        env_quad=np.full((8, 128, 128), 0.1, np.float32), env_rect0=env_rect0,
+        env_tail=np.full((6, 1, 1, 4), 0.1, np.float32))
+    return upload_scene(host, device)
 
 
 def synthetic_frame_params(
@@ -363,3 +347,204 @@ def synthetic_frame_params(
         auto_exposure_speed_down=t(1.0),
         delta_time=t(np.float32(1 / 60)),
     )
+
+
+# ------------------------------------------------------------ scene files
+
+
+def encode_dds(items, dxgi: int, width: int, height: int, cube: bool = False,
+               legacy: bool = False) -> bytes:
+    """DDS file bytes for ``textures/dds.py``: ``items`` holds one list of
+    mips per cube face (or the one 2D image), each mip an array in the
+    format's memory layout (RGBA16F float16 (h, w, 4), RG16 uint16 (h, w,
+    2), R32F float32 (h, w), BGRA8 uint8 in B, G, R, A order, ...) or raw
+    block bytes for BC formats.  A DX10 header unless ``legacy``: a FOURCC
+    for BC1/BC3/BC4/BC5, RGB masks for RGBA8/BGRA8/RG16."""
+    mips = len(items[0])
+    fourcc = {71: b"DXT1", 77: b"DXT5", 80: b"ATI1", 83: b"ATI2"}
+    masks = {28: (0xFF, 0xFF00, 0xFF0000, 0xFF000000), 87: (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+             35: (0xFFFF, 0xFFFF0000, 0, 0)}
+    if not legacy:
+        pf = struct.pack("<II4s5I", 32, 0x4, b"DX10", 0, 0, 0, 0, 0)
+    elif dxgi in fourcc:
+        pf = struct.pack("<II4s5I", 32, 0x4, fourcc[dxgi], 0, 0, 0, 0, 0)
+    elif dxgi in masks:
+        pf = struct.pack("<II4s5I", 32, 0x41 if dxgi != 35 else 0x40, b"\0\0\0\0", 32,
+                         *masks[dxgi])
+    else:
+        raise ValueError(f"encode_dds: no legacy header for dxgi {dxgi}")
+    caps2 = 0xFE00 if cube else 0
+    header = (b"DDS " + struct.pack("<7I", 124, 0x1 | 0x2 | 0x4 | 0x1000 | 0x20000, height,
+                                    width, 0, 0, mips)
+              + bytes(44) + pf + struct.pack("<4I", 0x1000 | 0x8 | 0x400000, caps2, 0, 0)
+              + bytes(4))
+    if not legacy:
+        header += struct.pack("<5I", dxgi, 3, 0x4 if cube else 0, 1, 0)
+    payload = b"".join(m if isinstance(m, bytes) else np.ascontiguousarray(m).tobytes()
+                       for item in items for m in item)
+    return header + payload
+
+
+def env_cube_faces(size: int, seed: int) -> list:
+    """Six seeded env-cube faces with their mips (HDR, float32 RGBA): a
+    sky-to-ground gradient, a bright sun lobe and texel noise."""
+    rng = np.random.default_rng(seed)
+    t = (np.arange(size, dtype=np.float32) + 0.5) / size
+    yy, xx = np.meshgrid(t, t, indexing="ij")
+    faces = []
+    for f in range(6):
+        sky = np.stack([0.3 + 0.4 * (1 - yy), 0.4 + 0.4 * (1 - yy), 0.6 + 0.6 * (1 - yy)], -1)
+        sun = 4.0 * np.exp(-((xx - 0.3 - 0.1 * f) ** 2 + (yy - 0.35) ** 2) * 60.0)[..., None]
+        rgb = sky * (0.6 + 0.1 * f) + sun + rng.uniform(0.0, 0.2, (size, size, 3))
+        faces.append(generate_mips(np.concatenate([rgb, np.ones((size, size, 1))], -1)))
+    return faces
+
+
+def write_scene(root, n_objects: int = 4, seed: int = 0, sphere_res: tuple = (12, 8),
+                ground: bool = True, n_materials: int = 6, tex_size: int = 256,
+                masked: bool = False, emissive: bool = False, texture_transform: bool = False,
+                env_size: int = 32, embed_buffer: bool = False, name: str = "scene"):
+    """Write a scene the Renderer loads from files, under ``root``:
+    ``Scenes/<name>.json`` (one glTF model, camera, light, background),
+    ``Models/<name>.gltf`` with its ``.bin`` buffer (or a base64 data URI
+    with ``embed_buffer``), PNG maps under ``Textures/``, the env cube
+    ``Textures/output_pmrem.dds`` (RGBA16F, every mip) and the BRDF LUT
+    ``Textures/PreintegratedGF.dds`` (RG16).  Returns the scene JSON path.
+
+    The geometry is ``synthetic_scene_data(n_objects, seed, sphere_res,
+    ground)``: cubes and UV spheres in turn and the two giant ground boxes,
+    one glTF node each, written right-handed so the loader's mirror-Z gives
+    back the same worlds (340 objects at (32, 24) with the ground are the
+    headline's 342 models and 263,184 triangles).  Model i takes material
+    ``i % n_materials``: the procedural maps of ``rich_materials`` as u8
+    PNGs (base colour, metallic-roughness and normal; material 0 also its
+    emissive map with ``emissive``, and a KHR_texture_transform shared by
+    its maps with ``texture_transform``); with ``masked`` every 4th object
+    from 1 takes an alpha-checker MASK material instead.  The env cube is
+    ``env_cube_faces(env_size, seed)``."""
+    root = Path(root)
+    for sub in ("Scenes", "Models", "Textures"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    data = synthetic_scene_data(n_objects, seed, sphere_res=sphere_res, ground=ground)
+    flip = np.array([1.0, 1.0, -1.0], np.float32)
+    mirror = np.diag([1.0, 1.0, -1.0, 1.0]).astype(np.float32)
+
+    # ---- buffer: the cube (u16 indices) and the sphere (u32), right-handed
+    blob, views, accessors = bytearray(), [], []
+
+    def add(arr, gltf_type, component, target=None):
+        arr = np.ascontiguousarray(arr)
+        while len(blob) % 4:
+            blob.append(0)
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": arr.nbytes,
+                      **({"target": target} if target else {})})
+        blob.extend(arr.tobytes())
+        acc = {"bufferView": len(views) - 1, "componentType": component,
+               "count": int(arr.shape[0]), "type": gltf_type}
+        if gltf_type == "VEC3" and component == 5126:
+            acc["min"], acc["max"] = arr.min(0).tolist(), arr.max(0).tolist()
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    geoms = []
+    for mesh, idx_dtype, comp in ((create_cube(1.0), np.uint16, 5123),
+                                  (create_sphere(0.6, *sphere_res), np.uint32, 5125)):
+        tan = mesh.tangent.copy()
+        tan[:, 2:] = -tan[:, 2:]
+        geoms.append({
+            "attributes": {"POSITION": add(mesh.position * flip, "VEC3", 5126, 34962),
+                           "NORMAL": add(mesh.normal * flip, "VEC3", 5126, 34962),
+                           "TEXCOORD_0": add(mesh.uv, "VEC2", 5126, 34962),
+                           "TANGENT": add(tan, "VEC4", 5126, 34962)},
+            "indices": add(mesh.indices.astype(idx_dtype), "SCALAR", comp, 34963)})
+
+    # ---- materials and their maps
+    images, materials = [], []
+
+    def texture(img, stem, transform):
+        (root / "Textures" / f"{stem}.png").write_bytes(encode_png(img))
+        images.append({"uri": f"../Textures/{stem}.png"})
+        info = {"index": len(images) - 1}
+        if transform:
+            info["extensions"] = {"KHR_texture_transform": {
+                "offset": [0.25, 0.5], "scale": [2.0, 1.5], "rotation": 0.3}}
+        return info
+
+    def u8(img, channels):
+        return np.round(np.clip(img[..., :channels], 0.0, 1.0) * 255.0).astype(np.uint8)
+
+    for k in range(n_materials):
+        base, mr, nm, emis = (u8(m, 4 if i == 0 else 3) if m is not None else None
+                              for i, m in enumerate(_material_maps(k, tex_size)))
+        tt = texture_transform and k == 0
+        mat = {"name": f"mat_{k}",
+               "pbrMetallicRoughness": {
+                   "baseColorTexture": texture(base, f"{name}_mat{k}_base", tt),
+                   "metallicRoughnessTexture": texture(mr, f"{name}_mat{k}_mr", tt),
+                   "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
+                   "metallicFactor": 1.0, "roughnessFactor": 1.0},
+               "normalTexture": texture(nm, f"{name}_mat{k}_normal", tt)}
+        if emissive and emis is not None:
+            mat["emissiveTexture"] = texture(emis, f"{name}_mat0_emissive", tt)
+            mat["emissiveFactor"] = [1.0, 1.0, 1.0]
+        materials.append(mat)
+    if masked:
+        cut = np.full((32, 32, 4), 255, np.uint8)
+        yy, xx = np.mgrid[0:32, 0:32]
+        cut[..., :3] = np.where(((yy // 4 + xx // 4) % 2 == 0)[..., None], 220, 90)
+        cut[..., 3] = np.where(((yy // 8) + (xx // 8)) % 2 == 0, 0, 255)
+        materials.append({"name": "masked", "alphaMode": "MASK", "alphaCutoff": 0.5,
+                          "pbrMetallicRoughness": {
+                              "baseColorTexture": texture(cut, f"{name}_masked_base", False),
+                              "metallicFactor": 0.0, "roughnessFactor": 0.7}})
+
+    # ---- one mesh per (geometry, material), one node per model
+    meshes, mesh_of, nodes = [], {}, []
+    for i, model in enumerate(data.models):
+        geom = 1 if (i < n_objects and i % 2 == 1) else 0
+        mat = n_materials if (masked and i < n_objects and i % 4 == 1) else i % n_materials
+        if (geom, mat) not in mesh_of:
+            mesh_of[(geom, mat)] = len(meshes)
+            meshes.append({"name": f"{('cube', 'sphere')[geom]}_{mat}",
+                           "primitives": [{**geoms[geom], "material": mat}]})
+        local = mirror @ model.world @ mirror  # column-major column-vector matrix
+        nodes.append({"name": model.name, "mesh": mesh_of[(geom, mat)],
+                      "matrix": [float(v) for v in local.reshape(-1)]})
+
+    bin_name = f"{name}.bin"
+    if embed_buffer:
+        uri = "data:application/octet-stream;base64," + base64.b64encode(bytes(blob)).decode()
+    else:
+        (root / "Models" / bin_name).write_bytes(bytes(blob))
+        uri = bin_name
+    gltf = {"asset": {"version": "2.0"}, "scene": 0,
+            "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes, "meshes": meshes,
+            "materials": materials, "textures": [{"source": i} for i in range(len(images))],
+            "images": images, "buffers": [{"uri": uri, "byteLength": len(blob)}],
+            "bufferViews": views, "accessors": accessors}
+    (root / "Models" / f"{name}.gltf").write_text(json.dumps(gltf))
+
+    # ---- the env cube and the BRDF LUT
+    faces = env_cube_faces(env_size, seed)
+    (root / "Textures" / "output_pmrem.dds").write_bytes(encode_dds(
+        [[lv.astype(np.float16) for lv in chain] for chain in faces], 10, env_size, env_size,
+        cube=True))
+    nv = np.linspace(0.0, 1.0, 128, dtype=np.float32)[None, :]
+    a = np.linspace(0.0, 1.0, 32, dtype=np.float32)[:, None] ** 2
+    lut = np.stack([1.0 - a * 0.5 - 0.25 * (1.0 - nv), a * 0.25 * nv], -1)
+    (root / "Textures" / "PreintegratedGF.dds").write_bytes(encode_dds(
+        [[np.round(np.clip(lut, 0.0, 1.0) * 65535.0).astype(np.uint16)]], 35, 128, 32,
+        legacy=True))
+
+    center = data.scene_center
+    scene = {
+        "models": [{"path": f"Models/{name}.gltf", "id": name}],
+        "lights": [{"direction": [0.4, -0.8, 0.3], "intensity": 3.0,
+                    "color": [1.0, 0.95, 0.9]}],
+        "camera": {"position": [0.0, 1.5, -4.0], "look_at": [float(v) for v in center],
+                   "fov_y": 60.0},
+        "environment": {"background": [0.05, 0.05, 0.07]},
+    }
+    path = root / "Scenes" / f"{name}.json"
+    path.write_text(json.dumps(scene, indent=1))
+    return path

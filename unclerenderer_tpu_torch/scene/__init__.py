@@ -1,1 +1,2 @@
-"""Host-side scene records and procedural meshes (numpy)."""
+"""Host-side scene loading and assembly: glTF, scene JSON, camera,
+procedural meshes and the flat scene records (numpy)."""

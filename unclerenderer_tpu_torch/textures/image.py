@@ -1,15 +1,25 @@
-"""Host-side texture building (``unclerenderer_tpu/textures/image.py``):
-mip chains, the procedural grid and solid-colour textures, and the combined material
-texture (every map of a material fused into one 16-channel texel) with its
-u8 storage encoding.  The reference's numbers exactly; its file loaders
-(DDS, PNG, JPEG) and texture cache are not part of the port yet.
+"""Texture loading and building (``unclerenderer_tpu/textures/image.py``):
+mip chains, the procedural grid and solid-colour textures, the combined
+material texture (every map of a material fused into one 16-channel texel)
+with its u8 storage encoding, and the file loader (DDS, PNG, JPEG) with the
+D3D12 renderer's path-keyed cache and LoadOrDefault / LoadOrSolidColor
+fallbacks (``TextureLoader.cpp:66-135``, ``:497-744``).  The reference's
+numbers exactly.  Textures land as float32 linear RGBA mip chains.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
+from pathlib import Path
 
 import numpy as np
+
+from ..core.logging import log_error, log_warning
+from ..core.paths import resolve_path_case_insensitive
+from ..mathlib import srgb_to_linear
+from .dds import load_dds
+from .png import load_png
 
 _log = logging.getLogger(__name__)
 
@@ -121,3 +131,108 @@ def combined_chain(slot_chains: list) -> list[np.ndarray]:
             img[..., dst_sl] = resize_bilinear(src, h, w)[..., src_sl]
         out.append(img)
     return out
+
+
+def load_image(path: str | Path, srgb: bool = False) -> list[np.ndarray] | None:
+    """Load any supported image -> list of float32 linear RGBA mips, or None.
+
+    DDS files keep their baked mip chain; PNG/JPG get a generated chain
+    (reference: DDS full chain ``TextureLoader.cpp:178-363``, stb 1 mip
+    ``:365-495`` -- we improve on the 1-mip PNG path since minification
+    without mips aliases badly in a software sampler).
+    """
+    p = resolve_path_case_insensitive(Path(path))
+    suffix = p.suffix.lower()
+    if suffix == ".dds":
+        dds = load_dds(p)
+        if dds is None:
+            return None
+        face = dds.mips[0]
+        mips = []
+        for level in face:
+            if level.dtype == np.uint8:
+                f = level.astype(np.float32) / 255.0
+            else:
+                f = level.astype(np.float32)
+            if srgb and not dds.is_hdr:
+                f = np.concatenate([srgb_to_linear(f[..., :3]), f[..., 3:4]], axis=-1)
+            mips.append(f)
+        # Extend a partial chain down to 1x1 for uniform sampling math.
+        if mips[-1].shape[0] > 1 or mips[-1].shape[1] > 1:
+            mips = mips[:-1] + generate_mips(mips[-1])
+        return mips
+    if suffix == ".png":
+        img = load_png(p)
+        if img is None:
+            return None
+        f = img.astype(np.float32) / 255.0
+        if srgb:
+            f = np.concatenate([srgb_to_linear(f[..., :3]), f[..., 3:4]], axis=-1)
+        return generate_mips(f)
+    if suffix in (".jpg", ".jpeg"):
+        try:
+            from PIL import Image
+
+            img = np.asarray(Image.open(p).convert("RGBA"), np.uint8)
+        except ImportError:
+            log_error(f"JPEG decode requires PIL: {path}")
+            return None
+        except OSError as e:
+            log_error(f"failed to read JPEG {path}: {e}")
+            return None
+        f = img.astype(np.float32) / 255.0
+        if srgb:
+            f = np.concatenate([srgb_to_linear(f[..., :3]), f[..., 3:4]], axis=-1)
+        return generate_mips(f)
+    log_error(f"unsupported texture format: {path}")
+    return None
+
+
+class TextureCache:
+    """Path-keyed cache with LoadOrDefault / LoadOrSolidColor semantics."""
+
+    def __init__(self) -> None:
+        self._cache: dict[str, list[np.ndarray]] = {}
+        self._lock = threading.Lock()
+        # Paths that fell back to the default grid (the reference's
+        # default-texture fallback, TextureLoader.cpp:497-744).  Recorded so
+        # benchmarks can report machine-readable asset substitutions instead
+        # of only a log line.
+        self.substitutions: list[str] = []
+
+    def _key(self, path: str, srgb: bool) -> str:
+        return f"{path}|srgb" if srgb else str(path)
+
+    def load_or_default(self, path: str, srgb: bool = False) -> list[np.ndarray]:
+        key = self._key(path, srgb)
+        with self._lock:
+            if key in self._cache:
+                return self._cache[key]
+        mips = load_image(path, srgb=srgb) if path else None
+        if mips is None:
+            if path:
+                log_warning(f"texture load failed, using default grid: {path}")
+                with self._lock:
+                    if str(path) not in self.substitutions:
+                        self.substitutions.append(str(path))
+            grid = default_grid_texture()
+            if srgb:
+                grid = np.concatenate(
+                    [srgb_to_linear(grid[..., :3]), grid[..., 3:4]], axis=-1
+                )
+            mips = generate_mips(grid)
+        with self._lock:
+            self._cache[key] = mips
+        return mips
+
+    def load_or_solid(self, path: str, rgba, srgb: bool = False) -> list[np.ndarray]:
+        key = self._key(path, srgb)
+        with self._lock:
+            if key in self._cache:
+                return self._cache[key]
+        mips = load_image(path, srgb=srgb) if path else None
+        if mips is None:
+            mips = generate_mips(solid_color_texture(rgba))
+        with self._lock:
+            self._cache[key] = mips
+        return mips
