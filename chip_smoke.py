@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Five paths of the port are driven: three through ``deferred_frame``,
+Six paths of the port are driven: four through ``deferred_frame``,
 
 * default -- the default frame of the combined material (u8 combined quad
   atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
@@ -16,6 +16,11 @@ Five paths of the port are driven: three through ``deferred_frame``,
   material; per-map quad atlas), with the Renderer's ``masked_tri_cap``:
   K1, K2, K4 and K5 over the whole table (compaction is off with masked
   models) and the masked raster in plain PyTorch (it has no kernel);
+* fused   -- the default path with ``fused_resolve="on"``: the camera
+  raster's K1 and K2 launches emit each pixel's resolve record
+  (``binned_raster_attrs``, ``giant_raster_attrs``), which the resolve takes
+  in place of its record gather; the shadow map's K1/K2, K4 and K5 as on
+  the default path;
 
 a fourth through ``ops/probes.py``, and a fifth through the entry points a
 user calls, ``render/renderer.py Renderer`` and ``python -m
@@ -33,7 +38,8 @@ unclerenderer_tpu_torch``:
   DDS), loaded, decoded (``native/*.cpp`` built by ``textures/native.py``),
   fused into the u8 quad atlas and rendered by the Renderer at the default
   ``RendererConfig`` (stats overlay and TAA on): its cached shadow map and
-  K1, K2, K4 and K5.
+  K1, K2, K4 and K5; then the same files rendered by the forward Renderer
+  (``renderer_type="forward"``: ``render/forward.py forward_frame``).
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -57,6 +63,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    The masked path's K1, K2, K4 and K5 calls, captured from one of its
    full-size frames (the camera raster over the whole table), are held
    bit-equal too, untimed.
+   K1 and K2 given records (the want_attrs branches) on the random setups
+   at R = 1, 7 and 128 (K1 chunks 64, 66, 256, 512; K2 chunks 8, 66, 256,
+   512): keys and ids those of the launch without records, records
+   ``where(ids >= 0, records[ids], 0)``, bit-equal to the plain versions;
+   the fused frame's three record-emitting launches timed as the others,
+   and also without records and beside ``records.index_select(0, ids)`` on
+   the same winner ids (their library call); the masked path's fused calls
+   held bit-equal.
    Then the launch path: every kernel wrapper's host microseconds per call
    on a tiny input (``launch_us``: 2 x 3 runs of 1000 calls, no
    synchronisation inside a run) beside ``clone`` of the same input, taken
@@ -79,6 +93,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    candidate) pairs of each masked level, and
    the pairs and triangles the masked levels drop past their bin budgets,
    which the reference does not count (logged, not gated).
+   The fused path: one fused frame equal to the unfused frame from the same
+   state (every output and the carried state bit-equal, colour exactly
+   equal), on the default and the masked geometry; 10 counted fused frames
+   with the gates above; then fused and unfused ms/frame in turns (3 runs of
+   10 frames each) with each one's peak memory.
 6. probes  -- the probe rows once with the launch counts set to 0 just
    before and read just after (K10, K11 and K12 each launched); every
    output equal to the same rows with the plain versions; each kernel
@@ -102,8 +121,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    Renderer ms/frame in turns with direct ``deferred_frame`` calls on the
    cached map and prebuilt params (host clock around
    ``torch.cuda.synchronize()``, 3 runs of 10 frames each) and peak memory;
-   the CLI at 1080p, ``--frames 3`` and ``--orbit 4``, whose PNGs decode
-   with the port's ``load_png``.
+   the CLI at 1080p, ``--frames 3``, ``--orbit 4`` and ``--renderer
+   forward``, whose PNGs decode with the port's ``load_png``.  The forward
+   Renderer on the same files at 1080p: 10 counted ``render_frame`` calls
+   (K1, K2, K4, K5 launched), drop counters 0, more than 30% covered, colour
+   in [0, 1], no frame state carried (also by ``render_frames``); ms/frame
+   in turns with the deferred Renderer; card/CPU forward Renderers at
+   256x256 with fused resolve off and on (depth, ids, counters bit-equal,
+   colour within 1e-3).
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the f32
@@ -114,7 +139,8 @@ and report the bound that counts every (pixel, valid row) pair
 (``bound_all_pairs_ms``, the count before the kernels skipped rows).
 
 The kernels JSON gives each kernel's ``launches`` on its path's counted run
-and ``renderer_launches`` on the Renderer's.  The last three lines of stdout
+(the record-emitting entries: the fused path's), ``renderer_launches`` on
+the Renderer's and ``forward_renderer_launches`` on the forward Renderer's.  The last three lines of stdout
 are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
 one CUDA card and imports no JAX.
@@ -253,6 +279,37 @@ def work_giant(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0, wa
     return moved, ops, pix * slots, kept
 
 
+def records_work(records, ids):
+    """Bytes of a record emission: the (tiles, pix, R) image written and the
+    distinct winning rows read."""
+    r_bytes = records.shape[1] * 4
+    return ids.numel() * r_bytes + distinct(ids[ids >= 0]) * r_bytes
+
+
+def work_binned_attrs(*args, records):
+    """K1 with records: K1's own work plus the record emission of its ids."""
+    from unclerenderer_tpu_torch.ops import raster_kernels as rk
+
+    moved, ops, pairs, kept = work_binned(*args)
+    return moved + records_work(records, rk.binned_raster(*args)[1]), ops, pairs, kept
+
+
+def work_giant_attrs(*args, records):
+    from unclerenderer_tpu_torch.ops import raster_kernels as rk
+
+    moved, ops, pairs, kept = work_giant(*args)
+    return moved + records_work(records, rk.giant_raster(*args)[1]), ops, pairs, kept
+
+
+def index_select_records(wrapper, args, kwargs):
+    """The library call of a record emission: ``records.index_select(0,
+    ids)`` on the call's winner ids (found once, outside the timing; a miss
+    takes row 0, which the kernel writes as zeros)."""
+    ids = wrapper(*args)[1].clamp(min=0).reshape(-1)
+    records = kwargs["records"]
+    return lambda: torch.index_select(records, 0, ids)
+
+
 def work_gather_rows(table, idx):
     n, c = idx.numel(), table.shape[1]
     return distinct(idx) * c * table.element_size() + nbytes(idx) + n * c * 4, 0
@@ -371,6 +428,7 @@ def tiny_inputs(dev):
     start, count = rk.tile_block_ranges(bins, 1)
     with Recorder(rk, "giant_raster") as r:
         rk.rasterize_giant(s, 64, 16, tile_h=16, tile_w=64, chunk=8)
+    rec = torch.zeros((16, 128), dtype=torch.float32, device=dev)
     layout, _ = hzb_mod.hzb_layout(2, 2)
     rng = np.random.default_rng(0)
     i32 = torch.from_numpy(rng.integers(0, 4, (4, 4)).astype(np.int32)).to(dev)
@@ -378,6 +436,9 @@ def tiny_inputs(dev):
     return {
         "binned_raster": ((bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 1), {}),
         "giant_raster": r.calls[0],
+        "binned_raster_attrs": ((bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 1),
+                                {"records": rec}),
+        "giant_raster_attrs": (r.calls[0][0], {"records": rec}),
         "shadow_select9": ((torch.zeros((16, 128), dtype=torch.int16, device=dev), i32[0],
                             i32[1], pcf_deltas(8)), {}),
         "gather_rows": ((f32[:4, :2].contiguous().to(torch.bfloat16), i32[0]), {}),
@@ -410,6 +471,106 @@ def launch_costs(kernels, dev):
 
 RENDERER_SMALL = 256  # the card/CPU Renderer pair: 256x256, 512^2 shadow map
 OVERLAY_ROWS = 80  # the stats block's four lines end above this row (origin 8, 18 rows a line)
+
+
+def forward_renderer(deferred, scene, orbit, dev, smi) -> dict:
+    """The forward Renderer (``renderer_type="forward"``) at 1920x1080 with
+    a 4096^2 map on the scene files ``deferred`` renders: 10 counted
+    ``render_frame`` calls (K1, K2, K4, K5 launched), drop counters 0, more
+    than 30% covered, colour finite in [0, 1], ``render_frames`` leaving the
+    frame state as it is; ms/frame in turns with the deferred Renderer;
+    card/CPU pairs at 256x256 with fused resolve off and on."""
+    from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+
+    rep = {}
+    f = Renderer(scene, settings=RenderSettings(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW,
+                                                renderer_type="forward"), device=dev)
+    check(not f.settings.gpu_debug_print, "forward: the stats block is the deferred frame's")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    for i in range(FRAMES):
+        orbit(f, i)
+        out = f.render_frame()
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    log("forward", f"launches in {FRAMES} forward render_frame calls: {launches}")
+    for name in ("binned_raster", "giant_raster", "shadow_select9", "gather_rows"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the forward Renderer")
+    color = out["color"]
+    check(tuple(color.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(color).all())
+          and float(color.min()) >= 0.0 and float(color.max()) <= 1.0,
+          "forward color not finite in [0, 1]")
+    check("hdr" not in out and int(f.frame_state.frame_index) == 0,
+          "a forward frame carries no frame state")
+    covered = int((out["tri_id"] >= 0).sum())
+    check(covered > 0.3 * WIDTH * HEIGHT, f"forward: only {covered} covered pixels")
+    st = f.stats()
+    for key in ("bin_pair_overflow", "bin_giant_truncated", "compact_overflow",
+                "shadow_compact_overflow"):
+        check(st[key] == 0, f"forward: drop counter {key} = {st[key]}")
+    state = f.frame_state
+    colors = f.render_frames(FRAMES, mutate=orbit)
+    check(tuple(colors.shape) == (FRAMES, HEIGHT, WIDTH, 3) and bool(torch.isfinite(colors).all())
+          and f.frame_state is state and f._chain_drop_counters == {},
+          "forward render_frames: colours, frame state or chain counters")
+    del colors
+    log("forward", f"forward frame: {covered} covered pixels, colour in [0, 1], no frame state, "
+                   f"drop counters 0; render_frames({FRAMES}) leaves the state as it is")
+    rep.update(launches=launches, covered=covered, stats=st)
+
+    def run(rr):
+        def frames():
+            for i in range(FRAMES):
+                orbit(rr, i)
+                rr.render_frame()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1000.0 / FRAMES
+
+    runs = {"forward": [], "deferred": []}
+    for which in ("forward", "deferred", "deferred", "forward", "forward", "deferred"):
+        runs[which].append(run(f if which == "forward" else deferred))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    log("forward", f"ms/frame median: forward Renderer {med['forward']:.2f} (runs "
+                   f"{[round(x, 2) for x in runs['forward']]}), deferred Renderer "
+                   f"{med['deferred']:.2f} (runs {[round(x, 2) for x in runs['deferred']]}); 3 "
+                   f"runs x {FRAMES} frames each in turns, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2, "
+                   f"on {smi}")
+    rep.update(ms_per_frame=runs, median_ms=med)
+    del f
+
+    # card vs CPU forward Renderers at 256^2, fused resolve off and on
+    rep["cross"] = {}
+    for fused in ("auto", "on"):
+        settings = RenderSettings(width=RENDERER_SMALL, height=RENDERER_SMALL,
+                                  shadow_map_size=512, renderer_type="forward",
+                                  fused_resolve=fused)
+        g = Renderer(scene, settings=settings, device=dev)
+        c = Renderer(scene, settings=settings, device="cpu")
+        _cuda.reset_launches()
+        og, oc = g.render_frame(), c.render_frame()
+        for k in ("depth", "tri_id"):
+            check(torch.equal(og[k].cpu(), oc[k]), f"forward cross fused={fused}: {k}")
+        check(torch.equal(og["object_id"].view(torch.int32).cpu(),
+                          oc["object_id"].view(torch.int32)), f"forward cross fused={fused}: ids")
+        check({k: int(v) for k, v in og["raster_stats"].items()}
+              == {k: int(v) for k, v in oc["raster_stats"].items()},
+              f"forward cross fused={fused}: counters")
+        err = float((og["color"].cpu() - oc["color"]).abs().max())
+        check(err <= COLOR_ATOL, f"forward cross fused={fused}: color err {err}")
+        used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        check((used.get("binned_raster_attrs", 0) > 0) == (fused == "on"),
+              f"forward cross fused={fused}: record-emitting launches {used}")
+        log("forward", f"card vs CPU forward Renderer {RENDERER_SMALL}^2, fused_resolve={fused}: "
+                       f"depth/ids/counters bit-equal, color max err {err:.3g}; card launches "
+                       f"{used}")
+        rep["cross"][fused] = {"color_err": err, "launches": used}
+        del g, c
+    return rep
 
 
 def renderer_phase(dev, smi, scene_dir: Path) -> dict:
@@ -630,6 +791,9 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
                     f"each in turns, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2; peak {peak:.2f} GiB "
                     f"since the Renderer's build, on {smi}")
     rep.update(ms_per_frame=runs, median_ms=med, peak_gib=peak)
+
+    # ---- the forward Renderer on the same files: counted frames, gates, turns
+    rep["forward"] = forward_renderer(r, scene, orbit, dev, smi)
     del r
 
     # ---- the CLI, as a user runs it
@@ -657,6 +821,18 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
     log("renderer", f"CLI --orbit 4: exit 0 in {time.perf_counter() - t0:.1f} s, 4 PNGs of "
                     f"{HEIGHT}x{WIDTH}")
     rep["cli_s"] = cli_s
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd + ["--renderer", "forward", "--output", str(scene_dir / "fwd.png")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"CLI --renderer forward exited {res.returncode}:\n"
+                               f"{res.stderr[-3000:]}")
+    img = load_png(scene_dir / "fwd.png")
+    check(img is not None and img.shape == (HEIGHT, WIDTH, 4)
+          and len(np.unique(img[..., :3].reshape(-1, 3), axis=0)) > 100,
+          "CLI --renderer forward PNG")
+    rep["cli_forward_s"] = time.perf_counter() - t0
+    log("renderer", f"CLI --renderer forward: exit 0 in {rep['cli_forward_s']:.1f} s, fwd.png "
+                    f"decodes to {img.shape}")
     return rep
 
 
@@ -720,6 +896,15 @@ def main() -> int:
         "giant_raster": dict(module=rk, ref=rk.giant_raster_ref, work=work_giant,
                              source=csrc + "giant_raster.cu",
                              replaces="unclerenderer_tpu/ops/pallas_raster.py:170"),
+        # the want_attrs branches (fused resolve): the same wrappers given records
+        "binned_raster_attrs": dict(module=rk, attr="binned_raster", ref=rk.binned_raster_ref,
+                                    work=work_binned_attrs, library_for=index_select_records,
+                                    source=csrc + "binned_raster.cu",
+                                    replaces="unclerenderer_tpu/ops/pallas_raster.py:610"),
+        "giant_raster_attrs": dict(module=rk, attr="giant_raster", ref=rk.giant_raster_ref,
+                                   work=work_giant_attrs, library_for=index_select_records,
+                                   source=csrc + "giant_raster.cu",
+                                   replaces="unclerenderer_tpu/ops/pallas_raster.py:242"),
         "shadow_select9": dict(module=shadow_mod, attr="select9", ref=shadow_mod.select9_ref,
                                work=work_select9, source=csrc + "shadow_select9.cu",
                                replaces="unclerenderer_tpu/ops/shadow.py:335"),
@@ -751,11 +936,14 @@ def main() -> int:
     for name, k in kernels.items():
         k.setdefault("attr", name)
         k.setdefault("library", None)
+        k.setdefault("library_for", None)
         k.update(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, graph_ms=0.0,
                  library_graph_ms=0.0, bytes_s=0.0, ops_s=0.0, all_pairs_ops_s=0.0, calls=[],
-                 launch_us=None, clone_launch_us=None)
+                 launch_us=None, clone_launch_us=None, no_records_ms=0.0,
+                 no_records_graph_ms=0.0)
     check(set(kernels) == set(_cuda.LAUNCHES), "every built kernel is checked")
     default_kernels = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
+    attr_kernels = ("binned_raster_attrs", "giant_raster_attrs")
     packed_kernels = ("hzb_tail", "env_select", "mat_select", "materialize_rows")
     probe_kernels = ("merge_select", "copy_rows", "materialize")
     report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -797,6 +985,40 @@ def main() -> int:
     log("kernels", "binned_raster and giant_raster bit-equal to plain on the 256^2 random setups "
                    "(ids and depth-only, perspective and ortho, the frame's tile sizes and "
                    "24x36, 6x10 / 6x20 tiles; K1 chunks 66 and 256, K2 chunk 512)")
+
+    # ---- 3a. the want_attrs branches: K1 and K2 given records
+    def versus_records(name, a, records):
+        """Kernel ``name`` with records: bit-equal to its plain version, keys
+        and ids those of the launch without records, the records those of
+        ``where(ids >= 0, records[ids], 0)``."""
+        wrapper = getattr(rk, kernels[name]["attr"])
+        got, (key, ids) = wrapper(*a, records=records), wrapper(*a)
+        check(torch.equal(got[0], key) and torch.equal(got[1], ids),
+              f"{name}: keys or ids differ from the launch without records")
+        check(torch.equal(got[2], rk.records_ref(records, ids)),
+              f"{name}: records != where(ids >= 0, records[ids], 0)")
+        versus_plain(name, *a, records=records)
+
+    gen = torch.Generator().manual_seed(0)
+    for seed, n, size in [(0, 150, 0.04), (3, 40, 0.6), (5, 2000, 0.04)]:
+        s = random_setup(n, seed, size, dev)
+        for r_cols in (1, 7, 128):
+            records = torch.randn((n, r_cols), generator=gen).to(dev)
+            for chunk in (64, 66, 256, 512):
+                bins = bin_triangles(s, 256, 256, 16, 64, chunk)
+                start, count = rk.tile_block_ranges(bins, 64)
+                versus_records("binned_raster_attrs",
+                               (bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 4),
+                               records)
+            gids = torch.randperm(n, generator=gen).to(dev)
+            for gchunk in (8, 66, 256, 512):
+                with Recorder(rk, "giant_raster") as r:
+                    rk.rasterize_giant(s, 256, 256, tile_h=32, tile_w=256, chunk=gchunk, ids=gids)
+                versus_records("giant_raster_attrs", r.calls[0][0], records)
+    log("kernels", "binned_raster_attrs and giant_raster_attrs bit-equal to plain on the 256^2 "
+                   "random setups (R = 1, 7, 128; K1 chunks 64, 66, 256, 512; K2 chunks 8, 66, "
+                   "256, 512 over a permuted id map): keys and ids those of the launch without "
+                   "records, records where(ids >= 0, records[ids], 0)")
 
     # ---- 3a. K6-K9 vs plain on random inputs
     rng = np.random.default_rng(0)
@@ -943,15 +1165,22 @@ def main() -> int:
         shapes = [tuple(x.shape) for x in ca if isinstance(x, torch.Tensor)]
         check(bad == 0, f"{name} != plain at path shapes {shapes}: {bad} elements")
         plain_ms = cuda_ms(lambda: k["ref"](*ca, **ck), reps=1)
-        if k["library"] is not None:  # in turns: kernel, library, library, kernel
-            ms, lib_ms = in_turns(lambda: wrapper(*ca, **ck), lambda: k["library"](*ca, **ck),
+        library = (k["library_for"](wrapper, ca, ck) if k["library_for"] is not None else
+                   None if k["library"] is None else lambda: k["library"](*ca, **ck))
+        if library is not None:  # in turns: kernel, library, library, kernel
+            ms, lib_ms = in_turns(lambda: wrapper(*ca, **ck), library,
                                   lambda fn: cuda_ms(fn, reps=50))
         else:
             ms, lib_ms = cuda_ms(lambda: wrapper(*ca, **ck), reps=50), None
         # the same calls replayed from a CUDA graph: the device's share alone
         dev_ms = graph_ms(lambda: wrapper(*ca, **ck), reps=10)
-        lib_dev_ms = (graph_ms(lambda: k["library"](*ca, **ck), reps=10)
-                      if k["library"] is not None else None)
+        lib_dev_ms = graph_ms(library, reps=10) if library is not None else None
+        base = {}
+        if ck.get("records") is not None:  # the same launch without records
+            base = {"no_records_ms": cuda_ms(lambda: wrapper(*ca), reps=50),
+                    "no_records_graph_ms": graph_ms(lambda: wrapper(*ca), reps=10)}
+            k["no_records_ms"] += base["no_records_ms"]
+            k["no_records_graph_ms"] += base["no_records_graph_ms"]
         moved, ops, *pairs = k["work"](*ca, **ck)  # pairs: a raster's live and kept pairs
         bytes_s, ops_s = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         # a raster's bound that counts every live (pixel, row) pair in full
@@ -972,13 +1201,18 @@ def main() -> int:
                            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
                            "launch": label, "pairs": pairs[0] if pairs else None,
                            "kept_pairs": pairs[1] if pairs else None,
-                           "bound_all_pairs_ms": all_pairs_ms})
+                           "bound_all_pairs_ms": all_pairs_ms, **base})
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms (graph {lib_dev_ms:.4f})"
         log("kernels", f"{name} {shapes}: bit-equal, kernel {ms:.4f} ms (graph {dev_ms:.4f}), "
                        f"plain {plain_ms:.3f} ms, library {lib}, bound "
                        f"{1e3 * max(bytes_s, ops_s):.4f} ms ({moved} B, {ops} ops)")
+        if base:
+            log("raster", f"{name} {label}: without records eager {base['no_records_ms']:.4f} "
+                          f"ms, graph {base['no_records_graph_ms']:.4f} ms; with records "
+                          f"{ms:.4f} / {dev_ms:.4f}; index_select of its winner ids {lib} "
+                          f"(on {smi})")
         if label is not None:  # a raster launch: its level and live pairs
-            binned = name == "binned_raster"
+            binned = name.startswith("binned_raster")
             th, tw = ca[5:7] if binned else ca[4:6]
             n_tiles = ca[3 if binned else 2].shape[0]
             log("raster", f"{name} {label}: coefficients {shapes[0]}, {n_tiles} tiles of "
@@ -997,18 +1231,24 @@ def main() -> int:
             deferred_frame(frame_scene, frame_params,
                            FrameState.initial(WIDTH, HEIGHT, dev), frame_settings)
             torch.cuda.synchronize()
-        for name, r in zip(names, recs):
-            check(r.calls, f"{name}: the frame made no call")
-        return {name: r.calls for name, r in zip(names, recs)}
+        # a wrapper's record-emitting calls belong to its *_attrs entry
+        calls = {name: [c for c in r.calls
+                        if (c[1].get("records") is not None) == name.endswith("_attrs")]
+                 for name, r in zip(names, recs)}
+        for name, c in calls.items():
+            check(c, f"{name}: the frame made no call")
+        return calls
 
     def capture(names, frame_scene, frame_params, frame_settings):
         for name, calls in recorded(names, frame_scene, frame_params, frame_settings).items():
             seen = {}
             for ca, ck in calls:
                 label = None
-                if name in ("binned_raster", "giant_raster"):  # shadow first, fine before mid
+                if name in ("binned_raster", "giant_raster") + attr_kernels:
+                    # shadow first, fine before mid
                     view = "camera" if ca[-2] else "shadow"
-                    level = "giant" if name == "giant_raster" else ("fine", "mid")[seen.get(view, 0)]
+                    level = ("giant" if name.startswith("giant") else
+                             ("fine", "mid")[seen.get(view, 0)])
                     seen[view] = seen.get(view, 0) + 1
                     label = f"{view} {level}"
                 measure(name, ca, ck, label)
@@ -1231,7 +1471,7 @@ def main() -> int:
         levels = [{k: int(v) for k, v in c.items()} for _, _, out, _ in stage for c in out[2]]
         for k, lv in enumerate(levels):
             log("masked", f"level {k + 1}: {lv['blocks']} live blocks, {lv['pairs']} (pixel, slot) "
-                          f"pairs, {lv['candidates']} within a pixel of their triangle's bbox, "
+                          f"pairs, {lv['candidates']} that may pass their edge tests, "
                           f"{lv['covered']} covered and in depth range (alpha-tapped); dropped, "
                           f"not counted by the reference: {lv.get('bin_overflow', 0)} pairs past "
                           f"the bin budget" + (f", {lv['big_dropped']} triangles too big for "
@@ -1242,10 +1482,12 @@ def main() -> int:
         return {"masked_raster_ms": stage_ms, "alpha_tap_ms": tap_ms, "alpha_tap_pairs": tap_pairs,
                 "levels": levels}
 
-    def counted(label, names, frame_scene, frame_params, frame_settings, extra=None):
+    def counted(label, names, frame_scene, frame_params, frame_settings, extra=None,
+                time_it=True):
         """The main-path run of one path: counts set to 0 just before its
         frames and read just after; then the gates (``extra(last output)``
-        adds its own and returns what it measured) and 3 timed runs."""
+        adds its own and returns what it measured) and, with ``time_it``,
+        3 timed runs."""
         state = FrameState.initial(WIDTH, HEIGHT, dev)
         torch.cuda.synchronize()
         _cuda.reset_launches()
@@ -1270,11 +1512,67 @@ def main() -> int:
                    f"{int(outs[-1]['model_visible'].sum())}/{data.num_models}")
         more = extra(outs[-1]) if extra is not None else {}
         del outs
-        return {"launches": launches, "drops": drops, **more,
-                **timed(label, frame_scene, frame_params, frame_settings, state)}
+        if time_it:
+            more.update(timed(label, frame_scene, frame_params, frame_settings, state))
+        return {"launches": launches, "drops": drops, **more}
+
+    def timed_turns(variants, frame_scene, frame_params):
+        """ms/frame of (label, settings) variants a and b in turns (a b b a
+        a b), each run 10 carried frames from the variant's own carried
+        state; peak GiB of each variant's runs."""
+        runs = {label: [] for label, _ in variants}
+        peak = {label: 0.0 for label, _ in variants}
+        states = {label: FrameState.initial(WIDTH, HEIGHT, dev) for label, _ in variants}
+        for i in (0, 1, 1, 0, 0, 1):
+            label, frame_settings = variants[i]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, states[label] = run(frame_scene, frame_params, frame_settings, states[label])
+            torch.cuda.synchronize()
+            runs[label].append((time.perf_counter() - t0) * 1000.0 / len(frame_params))
+            peak[label] = max(peak[label], torch.cuda.max_memory_allocated() / 2**30)
+        return {label: {"ms_per_frame": runs[label], "median_ms": statistics.median(runs[label]),
+                        "peak_gib": peak[label]} for label in runs}
+
+    def same_frames(label, frame_scene, frame_params, a_settings, b_settings):
+        """One frame of each settings from the same state: every output and
+        the carried state bit-equal (colour exactly equal)."""
+        st = FrameState.initial(WIDTH, HEIGHT, dev)
+        a_out, a_state = deferred_frame(frame_scene, frame_params, st, a_settings)
+        b_out, b_state = deferred_frame(frame_scene, frame_params, st, b_settings)
+        for k, v in a_out.items():
+            if k == "raster_stats":
+                check({n: int(x) for n, x in v.items()} == {n: int(x) for n, x in b_out[k].items()},
+                      f"{label}: counters differ")
+            else:
+                check(torch.equal(v.view(torch.int32) if v.dtype == torch.uint32 else v,
+                                  b_out[k].view(torch.int32) if v.dtype == torch.uint32
+                                  else b_out[k]), f"{label}: {k} differs")
+        for f in dataclasses.fields(FrameState):
+            check(torch.equal(getattr(a_state, f.name), getattr(b_state, f.name)),
+                  f"{label}: carried {f.name} differs")
+        log(label, f"fused frame == unfused frame: {sorted(k for k in a_out)} and the carried "
+                   f"state bit-equal, colour exactly equal")
 
     report["slice"] = counted("slice", default_kernels, scene, params, settings)
     report["probes"] = probe_path(scene, params[0])
+
+    # ---- 5. the fused path: the default settings with fused_resolve="on"
+    fused_settings = dataclasses.replace(settings, fused_resolve="on")
+    fused_kernels = attr_kernels + default_kernels  # K1/K2 without records: the shadow map
+    same_frames("fused", scene, params[0], fused_settings, settings)
+    capture(attr_kernels, scene, params[0], fused_settings)
+    report["fused"] = counted("fused", fused_kernels, scene, params, fused_settings,
+                              time_it=False)
+    turns = timed_turns([("fused", fused_settings), ("unfused", settings)], scene, params)
+    report["fused"]["turns"] = turns
+    log("fused", f"ms/frame median in turns: fused {turns['fused']['median_ms']:.2f} (runs "
+                 f"{[round(x, 2) for x in turns['fused']['ms_per_frame']]}), unfused "
+                 f"{turns['unfused']['median_ms']:.2f} (runs "
+                 f"{[round(x, 2) for x in turns['unfused']['ms_per_frame']]}); peak GiB fused "
+                 f"{turns['fused']['peak_gib']:.2f}, unfused {turns['unfused']['peak_gib']:.2f} "
+                 f"({WIDTH}x{HEIGHT}, shadow {SHADOW}^2, on {smi})")
     del scene
     report["packed"] = counted("packed", default_kernels + packed_kernels, packed,
                                packed_params, packed_settings)
@@ -1319,6 +1617,14 @@ def main() -> int:
 
     report["masked"] = counted("masked", default_kernels, m_scene, m_params, m_settings,
                                extra=masked_checks)
+    # fused resolve on the masked path: masked-won pixels take their records
+    # from the compacted masked list; the record-emitting calls vs plain
+    m_fused = dataclasses.replace(m_settings, fused_resolve="on")
+    same_frames("masked-fused", m_scene, m_params[0], m_fused, m_settings)
+    for name, calls in recorded(attr_kernels, m_scene, m_params[0], m_fused).items():
+        for ca, ck in calls:
+            versus_plain(name, *ca, **ck)
+    log("kernels", "masked fused 1080p frame: every record-emitting K1/K2 call bit-equal to plain")
     del m_scene
 
     # ---- 7. the Renderer path from scene files, and the CLI
@@ -1332,14 +1638,16 @@ def main() -> int:
                              "bound_all_pairs_ms": (1e3 * max(k["bytes_s"], k["all_pairs_ops_s"])
                                                     if k["all_pairs_ops_s"] else None),
                              "launch_us": k["launch_us"],
-                             "clone_launch_us": k["clone_launch_us"]}
+                             "clone_launch_us": k["clone_launch_us"],
+                             "no_records_ms": k["no_records_ms"],
+                             "no_records_graph_ms": k["no_records_graph_ms"]}
                          for n, k in kernels.items()}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
 
     def main_path_launches(name):
-        path = ("slice" if name in default_kernels else
+        path = ("slice" if name in default_kernels else "fused" if name in attr_kernels else
                 "probes" if name in probe_kernels else "packed")
         return report[path]["launches"][name]
 
@@ -1348,9 +1656,12 @@ def main() -> int:
          "launches": main_path_launches(n), "max_abs_err": k["err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"]),
          "bound_by": "bytes" if k["bytes_s"] >= k["ops_s"] else "operations",
-         "library_ms": k["library_ms"] if k["library"] is not None else None,
+         "library_ms": (k["library_ms"] if k["library"] is not None or k["library_for"]
+                        is not None else None),
          "launch_us": k["launch_us"], "clone_launch_us": k["clone_launch_us"],
-         "renderer_launches": report["renderer"]["launches"][n]}
+         "renderer_launches": report["renderer"]["launches"][n],
+         "forward_renderer_launches": report["renderer"]["forward"]["launches"][n],
+         **({"no_records_ms": k["no_records_ms"]} if n in attr_kernels else {})}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -628,6 +628,90 @@ def test_giant_raster_cases_bit_equal_one_launch(cuda_device, tile, want_ids, or
         assert won == {1090}, won  # of the 20 equal-key giant copies only the first wins
 
 
+# ------------------------------------------- fused resolve: K1 and K2 with records
+
+
+def _records(rows, r_cols, dev, misaligned=False):
+    """A (rows, r_cols) f32 table; ``misaligned``: a contiguous view 4 bytes
+    past a 16-byte boundary (the kernels' float path)."""
+    g = torch.Generator().manual_seed(rows * 1000 + r_cols)
+    flat = torch.randn(rows * r_cols + 1, generator=g).to(dev)
+    return flat[1:].view(rows, r_cols) if misaligned else flat[:-1].view(rows, r_cols)
+
+
+@pytest.mark.parametrize("r_cols,misaligned", [(1, False), (7, False), (128, False),
+                                               (128, True), (12, True)])
+@pytest.mark.parametrize("chunk", [32, 66, 256, 512])
+@pytest.mark.parametrize("case", ["random", "coplanar"])
+def test_binned_raster_attrs_bit_equal_one_launch(cuda_device, r_cols, misaligned, chunk, case):
+    """K1 with records: keys and ids those of the launch without, the
+    records ``records_ref`` of the ids (zeros where none won), one launch of
+    ``binned_raster_attrs``."""
+    s, _ = _raster_case(case, cuda_device)
+    bins = bin_triangles(s, 256, 256, 16, 64, chunk)
+    start, count = rk.tile_block_ranges(bins, 64)
+    args = (bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 4)
+    records = _records(s.coef.shape[0], r_cols, cuda_device, misaligned)
+    key, ids = rk.binned_raster(*args)
+    before = _cuda.LAUNCHES["binned_raster_attrs"]
+    got = rk.binned_raster(*args, records=records)
+    assert _cuda.LAUNCHES["binned_raster_attrs"] == before + 1
+    assert torch.equal(got[0], key) and torch.equal(got[1], ids)
+    assert torch.equal(got[2], rk.records_ref(records, ids))
+    _same(got, rk.binned_raster_ref(*args, records=records))
+    assert int((ids >= 0).sum()) > 1000 and int((ids < 0).sum()) > 0
+
+
+@pytest.mark.parametrize("r_cols,misaligned", [(1, False), (7, False), (128, False),
+                                               (128, True)])
+@pytest.mark.parametrize("chunk,tile", [(8, (32, 256)), (8, (16, 64)), (8, (24, 36)),
+                                        (512, (32, 256))])
+@pytest.mark.parametrize("case", ["random", "windows"])
+def test_giant_raster_attrs_bit_equal_one_launch(cuda_device, r_cols, misaligned, chunk, tile,
+                                                 case):
+    """K2/K3 with records read through the global ids: keys and ids those of
+    the launch without, records ``records_ref`` of the global ids; tables
+    past one staged window (the K3 case) included."""
+    s, _ = _raster_case(case, cuda_device, big=True)
+    n = s.coef.shape[0]
+    gids = torch.randperm(n, generator=torch.Generator().manual_seed(n)).to(cuda_device)
+    with pytest.MonkeyPatch.context() as mp:
+        calls = []
+        mp.setattr(rk, "giant_raster", lambda *a: calls.append(a) or rk.giant_raster_ref(*a))
+        rk.rasterize_giant(s, 256, 256, tile_h=tile[0], tile_w=tile[1], chunk=chunk, ids=gids)
+    (args,) = calls
+    records = _records(n, r_cols, cuda_device, misaligned)
+    key, ids = rk.giant_raster(*args)
+    before = _cuda.LAUNCHES["giant_raster_attrs"]
+    got = rk.giant_raster(*args, records=records)
+    assert _cuda.LAUNCHES["giant_raster_attrs"] == before + 1
+    assert torch.equal(got[0], key) and torch.equal(got[1], ids)
+    assert torch.equal(got[2], rk.records_ref(records, ids))
+    _same(got, rk.giant_raster_ref(*args, records=records))
+    assert int((ids >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("chunk,big_chunk", [(32, 32), (64, 32), (66, 66), (256, 32)])
+def test_rasterize_binned_records_match_plain(cuda_device, chunk, big_chunk):
+    """The three levels with records on the card: depth, ids, counters and
+    the merged record image equal the plain versions', and the image is
+    ``where(ids >= 0, records[ids], 0)``."""
+    s = _setup(512, 5, 0.4, cuda_device)
+    records = _records(512, 128, cuda_device)
+    kw = dict(tile_h=16, tile_w=64, chunk=chunk, big_chunk=big_chunk, records=records)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rk, "giant_raster", rk.giant_raster_ref)
+        mp.setattr(rk, "binned_raster", rk.binned_raster_ref)
+        want = rk.rasterize_binned(s, 256, 256, **kw)
+    _cuda.reset_launches()
+    got = rk.rasterize_binned(s, 256, 256, **kw)
+    assert _cuda.LAUNCHES["binned_raster_attrs"] == 2 and _cuda.LAUNCHES["giant_raster_attrs"] == 1
+    assert _cuda.LAUNCHES["binned_raster"] == _cuda.LAUNCHES["giant_raster"] == 0
+    _same(got[:2], want[:2])
+    assert {k: int(v) for k, v in got[2].items()} == {k: int(v) for k, v in want[2].items()}
+    assert torch.equal(got[3], want[3]) and torch.equal(got[3], rk.records_ref(records, got[1]))
+
+
 # ------------------------------------------------------- the Renderer on the card
 
 
@@ -704,3 +788,34 @@ def test_renderer_card_frames_equal_cpu_frames(card_renderers):
         assert {k: int(v) for k, v in g["raster_stats"].items()} == \
             {k: int(v) for k, v in h["raster_stats"].items()}
         assert float((g["color"].cpu() - h["color"]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("renderer_type,fused", [("forward", "auto"), ("forward", "on"),
+                                                 ("deferred", "on")])
+def test_renderer_forward_and_fused_card_frames_equal_cpu_frames(cuda_device, tmp_path,
+                                                                 renderer_type, fused):
+    """The forward Renderer, and fused resolve on either frame, at 64x64:
+    card (kernels, the record-emitting entries under fused resolve) and CPU
+    (plain versions) frames with depth, ids and counters bit-equal, colour
+    within 1e-3."""
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+    from unclerenderer_tpu_torch.render.testing import write_scene
+
+    scene = write_scene(tmp_path, 2, masked=True, n_materials=2, tex_size=32)
+    settings = RenderSettings(width=64, height=64, shadow_map_size=64,
+                              renderer_type=renderer_type, fused_resolve=fused)
+    r, c = (Renderer(scene, settings=settings, device=d) for d in (cuda_device, "cpu"))
+    for i in range(2):
+        _cuda.reset_launches()
+        g, h = r.render_frame(), c.render_frame()
+        attrs = _cuda.LAUNCHES["binned_raster_attrs"], _cuda.LAUNCHES["giant_raster_attrs"]
+        assert attrs == ((2, 1) if fused == "on" else (0, 0))
+        assert ("hdr" in g) == (renderer_type == "deferred")
+        for k in ("depth", "tri_id"):
+            assert torch.equal(g[k].cpu(), h[k]), k
+        assert torch.equal(g["object_id"].view(torch.int32).cpu(), h["object_id"].view(torch.int32))
+        assert {k: int(v) for k, v in g["raster_stats"].items()} == \
+            {k: int(v) for k, v in h["raster_stats"].items()}
+        assert float((g["color"].cpu() - h["color"]).abs().max()) <= 1e-3
+        assert int((h["tri_id"] >= 0).sum()) > 100

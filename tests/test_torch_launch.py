@@ -11,9 +11,9 @@ import torch
 
 from unclerenderer_tpu_torch.ops import _cuda
 
-WRAPPERS = ["binned_raster", "giant_raster", "shadow_select9", "gather_rows", "hzb_tail",
-            "env_select", "mat_select", "materialize_rows", "merge_select", "copy_rows",
-            "materialize"]
+WRAPPERS = ["binned_raster", "giant_raster", "binned_raster_attrs", "giant_raster_attrs",
+            "shadow_select9", "gather_rows", "hzb_tail", "env_select", "mat_select",
+            "materialize_rows", "merge_select", "copy_rows", "materialize"]
 
 
 class StubEntry:

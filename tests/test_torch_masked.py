@@ -92,7 +92,7 @@ def _inputs(masked, settings):
     p = interop.to_port(params, FrameParams, "cpu")
     vsoa = tcommon.vertex_stage_soa(t_scene.pos_soa, p.view_proj, SIZE, SIZE)
     opaque, masked_mask = tcommon.tri_draw_masks(t_scene, p.model_visible)
-    depth, tri_id, _, _ = tcommon.raster_opaque(t_scene, opaque, settings, vsoa)
+    depth, tri_id = tcommon.raster_opaque(t_scene, opaque, settings, vsoa)[:2]
     m_depth, _, _ = tcommon.raster_masked_combine(
         t_scene, masked_mask, torch.zeros_like(depth), torch.full_like(tri_id, -1), settings, vsoa)
     tie = (m_depth > 0.0) & (torch.arange(SIZE * SIZE).reshape(SIZE, SIZE) % 7 == 0)

@@ -134,11 +134,15 @@ def test_port_imports_no_jax():
     assert loaded == "[]"
 
 
-UNPORTED = [
+# every setting that raised once: the ones ported since (the forward path
+# and fused resolve, one slice) render, the others still raise
+NOW_RENDER = [
     {"renderer_type": "forward"},
+    {"fused_resolve": "on"},
+]
+UNPORTED = [
     {"lod_derivatives": "forward"},
     {"soa_vertex": False},
-    {"fused_resolve": "on"},
     {"shadow_table_u16": False},
     {"kernel_debug_print": True},
 ]
@@ -152,9 +156,26 @@ def _render(scene, data, **override):
                           tparams.FrameState.initial(64, 64, "cpu"), settings)
 
 
-@pytest.mark.parametrize("override", UNPORTED, ids=lambda o: next(iter(o)))
-def test_unported_settings_raise(override, rich_scenes):
+@pytest.fixture(scope="module")
+def plain_frame(rich_scenes):
+    """The rich scene's frame at ``BASE`` (output, state)."""
+    return _render(*rich_scenes[2:])
+
+
+@pytest.mark.parametrize("override", NOW_RENDER + UNPORTED, ids=lambda o: next(iter(o)))
+def test_unported_settings_raise(override, rich_scenes, plain_frame):
+    """A branch not ported raises naming ROADMAP; a ported one renders:
+    ``deferred_frame`` ignores ``renderer_type`` as the reference's does,
+    and fused resolve renders the unfused frame bit for bit."""
     _, _, t, tdata = rich_scenes
+    if override in NOW_RENDER:
+        out, state = _render(t, tdata, **override)
+        plain, plain_state = plain_frame
+        for k in ("color", "hdr", "depth", "tri_id", "object_id"):
+            assert torch.equal(out[k], plain[k]), k
+        assert torch.equal(state.hzb, plain_state.hzb)
+        assert int((out["tri_id"] >= 0).sum()) > 100
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _render(t, tdata, **override)
 

@@ -2,8 +2,10 @@
 device-scene build from files (every host array byte-equal, bfloat16 bits
 included, for each atlas layout and without the env cube and BRDF LUT),
 carried frames with the config's GpuDebugPrint off, ``render_frames``,
-``update_settings``, scene reloads, the fallback scene, and the branches
-that raise ``NotImplementedError`` naming their ROADMAP.md queue entry.
+``update_settings``, scene reloads, the fallback scene, the branches
+that raise ``NotImplementedError`` naming their ROADMAP.md queue entry, and
+the forward renderer built from settings, from the config and by
+``update_settings``.
 Scene, sizes and tolerances as ``tests/test_torch_renderer.py``."""
 
 import dataclasses
@@ -252,17 +254,39 @@ def _raises_naming_queue_entry(fn, title):
     assert m and m.group(1) == title and title in _roadmap_queue_titles(), str(exc.value)
 
 
+def _renders_forward(r):
+    """A forward Renderer renders: a forward frame (no hdr, no frame state
+    carried), finite colour in [0, 1], pixels covered."""
+    assert r.settings.renderer_type == "forward"
+    state = r.frame_state
+    out = r.render_frame()
+    assert "hdr" not in out and r.frame_state is state
+    assert tuple(out["color"].shape) == (r.settings.height, r.settings.width, 3)
+    assert bool(torch.isfinite(out["color"]).all())
+    assert 0.0 <= float(out["color"].min()) and float(out["color"].max()) <= 1.0
+    assert int((out["tri_id"] >= 0).sum()) > 100
+
+
 @pytest.mark.parametrize("case", ["settings_forward", "config_forward", "gpu_timing",
                                   "graph_dump", "update_forward", "profile_passes",
                                   "profile_trace", "profile_trace_passes"])
 def test_unported_renderer_branches_raise(scene, case):
+    """The branches not ported raise naming their ROADMAP queue entry; the
+    forward renderer, once among them, renders from settings, from the
+    config and after ``update_settings``."""
     small = dict(width=W, height=H, shadow_map_size=SHADOW)
+    if case == "settings_forward":
+        _renders_forward(Renderer(scene, RenderSettings(renderer_type="forward", **small),
+                                  device="cpu"))
+        return
+    if case == "config_forward":
+        r = Renderer(scene, config=RendererConfig(renderer_type="forward", window_width=W,
+                                                  window_height=H), device="cpu")
+        assert not r.settings.gpu_debug_print  # the stats block is the deferred frame's
+        r.update_settings(shadow_map_size=SHADOW)
+        _renders_forward(r)
+        return
     make = {
-        "settings_forward": (lambda: Renderer(scene, RenderSettings(renderer_type="forward",
-                                                                    **small), device="cpu"),
-                             "forward path"),
-        "config_forward": (lambda: Renderer(scene, config=RendererConfig(renderer_type="forward"),
-                                            device="cpu"), "forward path"),
         "gpu_timing": (lambda: Renderer(scene, config=RendererConfig(enable_gpu_timing=True),
                                         device="cpu"), "observability"),
         "graph_dump": (lambda: Renderer(scene, config=RendererConfig(enable_graph_dump=True),
@@ -272,8 +296,12 @@ def test_unported_renderer_branches_raise(scene, case):
         fn, title = make[case]
     else:
         r = Renderer(scene, RenderSettings(**small), device="cpu")
+        if case == "update_forward":
+            r.render_frame()
+            r.update_settings(renderer_type="forward")
+            _renders_forward(r)
+            return
         fn, title = {
-            "update_forward": (lambda: r.update_settings(renderer_type="forward"), "forward path"),
             "profile_passes": (r.profile_passes, "observability"),
             "profile_trace": (lambda: r.profile_trace("x"), "observability"),
             "profile_trace_passes": (r.profile_trace_passes, "observability"),

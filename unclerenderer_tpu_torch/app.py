@@ -6,8 +6,10 @@ Usage::
     python -m unclerenderer_tpu_torch --scene Assets/Scenes/Duck.json \\
         --width 512 --height 512 --output out.png
 
-``--orbit N`` renders an N-frame camera orbit with ``Renderer.render_frames``
-and writes ``out_000.png`` .. ``out_<N-1>.png``.  PNGs are written with the
+``--renderer forward`` renders with the forward renderer
+(``render/forward.py``), ``deferred`` (the config's default) with the
+deferred one.  ``--orbit N`` renders an N-frame camera orbit with
+``Renderer.render_frames`` and writes ``out_000.png`` .. ``out_<N-1>.png``.  PNGs are written with the
 stdlib (``textures/png.py save_png``).  ``--interactive``, ``--trace`` and
 ``--profile-passes`` are not ported yet and raise ``NotImplementedError``
 naming their ROADMAP.md queue entry.

@@ -37,6 +37,19 @@
 //     warp then evaluates only the records whose edges may pass
 //     (raster_common.cuh, shared with giant_raster.cu).
 //
+// want_attrs (fused resolve; replaces the want_attrs branch of
+// _binned_kernel, its _emit_records one-hot dot): with a (T, R) f32 record
+// table indexed by the slots' ids, each pixel's winning row's record is
+// copied to a (tiles, pix, R) output, zeros where no row won.  The TPU
+// kernel gathered a record for every (block, slot) pair and selected the
+// winner's with a one-hot matmul per block; here the record is read only
+// for the final winner, after the group merge (raster_common.cuh
+// emit_records): R * 4 bytes a pixel read and written, nothing per slot.
+// The writes bound it: at R = 128 the fused 1080p frame's two camera
+// launches write 2.1 GB; on an H100 they take 0.89 ms (0.18 without
+// records) against a 0.66 ms bound, and index_select of the same winners'
+// rows takes 2.52 ms (chip_smoke.py).
+//
 // Exactness (the threshold, the warp skip, the min-id tie rule):
 // raster_common.cuh.  The group merge applies the same tie rule, so the
 // order in which groups visit blocks is free.
@@ -67,13 +80,15 @@ __device__ __forceinline__ void copies_done() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <bool kWantIds, bool kOrtho>
+template <bool kWantIds, bool kOrtho, bool kWantAttrs>
 __global__ void __launch_bounds__(kMaxThreads)
 binned_raster_kernel(const float* __restrict__ coef, const int* __restrict__ tri_id,
                      const float* __restrict__ valid, const int* __restrict__ tile_start,
-                     const int* __restrict__ tile_count, float* __restrict__ out_key,
-                     int* __restrict__ out_id, int chunk, int tile_h, int tile_w, int n_tx,
-                     float y_off, int rects_x, int n_rects, int groups) {
+                     const int* __restrict__ tile_count, const float* __restrict__ records,
+                     float* __restrict__ out_key, int* __restrict__ out_id,
+                     float* __restrict__ out_attr, int r_cols, int chunk, int tile_h,
+                     int tile_w, int n_tx, float y_off, int rects_x, int n_rects, int groups) {
+  static_assert(kWantIds || !kWantAttrs, "records follow the winning ids");
   // float4s a record (raster_common.cuh); its tag is the row's id
   constexpr int kF4 = (kOrtho && !kWantIds) ? 4 : 5;
   constexpr int kRaw = kWantIds ? 18 : 17;  // raw floats a slot: 16 coef, valid, id
@@ -188,8 +203,14 @@ binned_raster_kernel(const float* __restrict__ coef, const int* __restrict__ tri
     }
   }
 
-  if (g != 0 || !active || py >= tile_h) return;
+  if (g != 0 || !active) return;
   const size_t o = static_cast<size_t>(tile) * tile_h * tile_w + static_cast<size_t>(py) * tile_w;
+  if (kWantAttrs) {
+    const int n_in = py < tile_h ? max(0, min(kPix, tile_w - px0)) : 0;
+    raster::emit_records<kPix>(records, r_cols, out_attr, lane, bid,
+                               static_cast<long long>(o + px0), n_in);
+  }
+  if (py >= tile_h) return;
   if (tile_w % kPix == 0) {  // kPix whole pixels, 16-byte aligned
     if (px0 >= tile_w) return;
 #pragma unroll
@@ -210,10 +231,11 @@ binned_raster_kernel(const float* __restrict__ coef, const int* __restrict__ tri
   }
 }
 
-template <bool kWantIds, bool kOrtho>
+template <bool kWantIds, bool kOrtho, bool kWantAttrs = false>
 int launch(const float* coef, const int* tri_id, const float* valid, const int* tile_start,
            const int* tile_count, float* out_key, int* out_id, int n_tiles, int chunk,
-           int tile_h, int tile_w, int n_tx, float y_off, cudaStream_t stream) {
+           int tile_h, int tile_w, int n_tx, float y_off, cudaStream_t stream,
+           const float* rec = nullptr, float* out_attr = nullptr, int r_cols = 0) {
   constexpr int kF4 = (kOrtho && !kWantIds) ? 4 : 5;
   constexpr int kRaw = kWantIds ? 18 : 17;
   if (chunk < 4 || chunk > kMaxChunk || chunk % 4 != 0)
@@ -231,9 +253,10 @@ int launch(const float* coef, const int* tri_id, const float* valid, const int* 
   const size_t merge = static_cast<size_t>(groups - 1) * threads / groups * kPix * 4 *
                        (kWantIds ? 2 : 1);
   const dim3 grid(n_tiles, (n_rects + kPartRects - 1) / kPartRects);
-  binned_raster_kernel<kWantIds, kOrtho><<<grid, threads, stage > merge ? stage : merge, stream>>>(
-      coef, tri_id, valid, tile_start, tile_count, out_key, out_id, chunk, tile_h, tile_w, n_tx,
-      y_off, rects_x, n_rects, groups);
+  binned_raster_kernel<kWantIds, kOrtho, kWantAttrs>
+      <<<grid, threads, stage > merge ? stage : merge, stream>>>(
+          coef, tri_id, valid, tile_start, tile_count, rec, out_key, out_id, out_attr, r_cols,
+          chunk, tile_h, tile_w, n_tx, y_off, rects_x, n_rects, groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -253,4 +276,23 @@ extern "C" int binned_raster(const float* coef, const int* tri_id, const float* 
                                      out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off, s)
                : launch<false, false>(coef, tri_id, valid, tile_start, tile_count, out_key,
                                       out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off, s);
+}
+
+// want_attrs: keys and ids as binned_raster with want_ids, plus each pixel's
+// winning row's record (r_cols floats of rec, the row of its id; zeros where
+// no row won) in out_attr (n_tiles, tile_h * tile_w, r_cols)
+extern "C" int binned_raster_attrs(const float* coef, const int* tri_id, const float* valid,
+                                   const int* tile_start, const int* tile_count,
+                                   const float* rec, float* out_key, int* out_id,
+                                   float* out_attr, int n_tiles, int chunk, int tile_h,
+                                   int tile_w, int n_tx, float y_off, int r_cols, int ortho,
+                                   void* stream) {
+  if (r_cols < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return ortho ? launch<true, true, true>(coef, tri_id, valid, tile_start, tile_count, out_key,
+                                          out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off,
+                                          s, rec, out_attr, r_cols)
+               : launch<true, false, true>(coef, tri_id, valid, tile_start, tile_count, out_key,
+                                           out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off,
+                                           s, rec, out_attr, r_cols);
 }

@@ -36,6 +36,16 @@
 // go to the smallest row.  Output: raw key (-1 = miss) and the
 // winner's int32 GLOBAL id via the ids map (the TPU kernel emitted it as an
 // f32 record column, exact only below 2^24; here it is an integer load).
+//
+// want_attrs (fused resolve; replaces the wide-record branch of both TPU
+// kernels, _emit_records' one-hot dot over records[g_idx]): each pixel's
+// winning row's record, read through its global id from a (T, R) f32
+// table, copied to a (tiles, pix, R) output, zeros where no row won
+// (raster_common.cuh emit_records).  Tables of any size take the same path
+// (the TPU's grid form K3 took over above 4,096 rows with wide records).
+// The 1.1 GB image write bounds it: the fused 1080p frame's launch takes
+// 0.38 ms on an H100 (0.027 without records) against a 0.35 ms bound,
+// index_select of the same winners' rows 1.35 ms (chip_smoke.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,13 +64,15 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kScan = kThreads;        // overlap words a pass
 constexpr int kWindow = 256;           // rows staged at once
 
-template <bool kWantIds, bool kOrtho>
+template <bool kWantIds, bool kOrtho, bool kWantAttrs>
 __global__ void __launch_bounds__(kThreads)
 giant_raster_kernel(const float* __restrict__ coef, const float* __restrict__ valid,
                     const int* __restrict__ overlap, const int* __restrict__ ids,
-                    float* __restrict__ out_key, int* __restrict__ out_id, int n_chunks,
-                    int chunk, int tile_h, int tile_w, int n_tx, float y_off, int rects_x,
-                    int n_rects) {
+                    const float* __restrict__ rec, float* __restrict__ out_key,
+                    int* __restrict__ out_id, float* __restrict__ out_attr, int r_cols,
+                    int n_chunks, int chunk, int tile_h, int tile_w, int n_tx, float y_off,
+                    int rects_x, int n_rects) {
+  static_assert(kWantIds || !kWantAttrs, "records follow the winning ids");
   // float4s a record (raster_common.cuh); its tag is the table row
   constexpr int kF4 = (kOrtho && !kWantIds) ? 4 : 5;
   __shared__ float4 s_rec[kWindow * kF4];
@@ -124,12 +136,18 @@ giant_raster_kernel(const float* __restrict__ coef, const float* __restrict__ va
     __syncthreads();  // s_count and s_live are rewritten by the next pass
   }
 
-  if (!active || py >= tile_h) return;
+  if (!active) return;
   const size_t o = static_cast<size_t>(tile) * tile_h * tile_w + static_cast<size_t>(py) * tile_w;
   int gid[kPix];
 #pragma unroll
   for (int k = 0; k < kPix; ++k)
     gid[k] = brow[k] < 0 ? -1 : (ids != nullptr ? ids[brow[k]] : brow[k]);
+  if (kWantAttrs) {
+    const int n_in = py < tile_h ? max(0, min(kPix, tile_w - px0)) : 0;
+    raster::emit_records<kPix>(rec, r_cols, out_attr, lane, gid,
+                               static_cast<long long>(o + px0), n_in);
+  }
+  if (py >= tile_h) return;
   if (tile_w % kPix == 0) {  // kPix whole pixels, 16-byte aligned
     if (px0 >= tile_w) return;
 #pragma unroll
@@ -150,16 +168,17 @@ giant_raster_kernel(const float* __restrict__ coef, const float* __restrict__ va
   }
 }
 
-template <bool kWantIds, bool kOrtho>
+template <bool kWantIds, bool kOrtho, bool kWantAttrs = false>
 void launch(const float* coef, const float* valid, const int* overlap, const int* ids,
             float* out_key, int* out_id, int n_tiles, int n_chunks, int chunk, int tile_h,
-            int tile_w, int n_tx, float y_off, cudaStream_t stream) {
+            int tile_w, int n_tx, float y_off, cudaStream_t stream,
+            const float* rec = nullptr, float* out_attr = nullptr, int r_cols = 0) {
   const int rects_x = (tile_w + kRectW - 1) / kRectW;
   const int n_rects = rects_x * ((tile_h + kRectH - 1) / kRectH);
   const dim3 grid(n_tiles, (n_rects + kWarps - 1) / kWarps);
-  giant_raster_kernel<kWantIds, kOrtho><<<grid, kThreads, 0, stream>>>(
-      coef, valid, overlap, ids, out_key, out_id, n_chunks, chunk, tile_h, tile_w, n_tx, y_off,
-      rects_x, n_rects);
+  giant_raster_kernel<kWantIds, kOrtho, kWantAttrs><<<grid, kThreads, 0, stream>>>(
+      coef, valid, overlap, ids, rec, out_key, out_id, out_attr, r_cols, n_chunks, chunk, tile_h,
+      tile_w, n_tx, y_off, rects_x, n_rects);
 }
 
 }  // namespace
@@ -185,5 +204,24 @@ extern "C" int giant_raster(const float* coef, const float* valid, const int* ov
       launch<false, false>(coef, valid, overlap, ids, out_key, out_id, n_tiles, n_chunks, chunk,
                            tile_h, tile_w, n_tx, y_off, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// want_attrs: keys and global ids as giant_raster with want_ids, plus each
+// pixel's winning row's record (r_cols floats of rec, the row of its global
+// id; zeros where no row won) in out_attr (n_tiles, tile_h * tile_w, r_cols)
+extern "C" int giant_raster_attrs(const float* coef, const float* valid, const int* overlap,
+                                  const int* ids, const float* rec, float* out_key, int* out_id,
+                                  float* out_attr, int n_tiles, int n_chunks, int chunk,
+                                  int tile_h, int tile_w, int n_tx, float y_off, int r_cols,
+                                  int ortho, void* stream) {
+  if (chunk < 1 || chunk > kWindow || r_cols < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (ortho)
+    launch<true, true, true>(coef, valid, overlap, ids, out_key, out_id, n_tiles, n_chunks, chunk,
+                             tile_h, tile_w, n_tx, y_off, s, rec, out_attr, r_cols);
+  else
+    launch<true, false, true>(coef, valid, overlap, ids, out_key, out_id, n_tiles, n_chunks,
+                              chunk, tile_h, tile_w, n_tx, y_off, s, rec, out_attr, r_cols);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,9 @@
 //     is smaller (K1: min id, in any visiting order).  Without it an equal
 //     key never displaces an earlier one (K2: rows ascend, so equal keys go
 //     to the smallest row).
+//   * Records (want_attrs): copied only after each pixel's final winner is
+//     known (K1: after the group merge), so a row that loses a later tie
+//     never writes its record (emit_records).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -108,6 +111,52 @@ __device__ __forceinline__ void evaluate(const float4* rec, int n, int lane, flo
           best[k] = key;
           win[k] = t;
         }
+      }
+    }
+  }
+}
+
+// want_attrs (fused resolve): each pixel's winning row's record -- r_cols
+// floats of rec, row win[k], zeros where no row won -- copied to rows
+// o .. o + n_in - 1 of out (this thread's n_in pixels inside the tile).
+// The whole warp copies one pixel's record at a time, lane l taking its l-th,
+// (l+32)-th, ... 16-byte piece (floats when r_cols % 4 != 0 or a pointer is
+// not 16-byte aligned): a 128-float record is one coalesced 512-byte load and
+// store, and the kPix records of a thread are loaded before any is stored.
+// A copy of the row's bits, so exactly what the reference's one-hot f32 dot
+// gives (one nonzero term a column).  Called by every lane of the warp.
+template <int kPix>
+__device__ __forceinline__ void emit_records(const float* __restrict__ rec, int r_cols,
+                                             float* __restrict__ out, int lane,
+                                             const int (&win)[kPix], long long o, int n_in) {
+  const bool vec = (r_cols & 3) == 0 && ((reinterpret_cast<size_t>(rec) |
+                                          reinterpret_cast<size_t>(out)) & 15) == 0;
+  const int pieces = vec ? r_cols >> 2 : r_cols;
+  for (int src = 0; src < 32; ++src) {
+    const long long so = __shfl_sync(0xffffffffu, o, src);
+    const int sn = __shfl_sync(0xffffffffu, n_in, src);
+    int id[kPix];
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) id[k] = __shfl_sync(0xffffffffu, win[k], src);
+    for (int c = lane; c < pieces; c += 32) {
+      if (vec) {
+        float4 v[kPix];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k)
+          v[k] = (k < sn && id[k] >= 0)
+                     ? reinterpret_cast<const float4*>(rec + static_cast<size_t>(id[k]) * r_cols)[c]
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int k = 0; k < kPix; ++k)
+          if (k < sn) reinterpret_cast<float4*>(out + static_cast<size_t>(so + k) * r_cols)[c] = v[k];
+      } else {
+        float v[kPix];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k)
+          v[k] = (k < sn && id[k] >= 0) ? rec[static_cast<size_t>(id[k]) * r_cols + c] : 0.f;
+#pragma unroll
+        for (int k = 0; k < kPix; ++k)
+          if (k < sn) out[static_cast<size_t>(so + k) * r_cols + c] = v[k];
       }
     }
   }

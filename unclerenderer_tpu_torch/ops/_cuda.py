@@ -60,6 +60,14 @@ SIGNATURES = {
     # coef, valid, overlap, ids, out_key, out_id,
     # n_tiles, n_chunks, chunk, tile_h, tile_w, n_tx, y_off, want_ids, ortho, stream
     "giant_raster": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # coef, tri_id, valid, tile_start, tile_count, rec, out_key, out_id,
+    # out_attr, n_tiles, chunk, tile_h, tile_w, n_tx, y_off, r_cols, ortho, stream
+    "binned_raster_attrs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                            _P],
+    # coef, valid, overlap, ids, rec, out_key, out_id, out_attr,
+    # n_tiles, n_chunks, chunk, tile_h, tile_w, n_tx, y_off, r_cols, ortho, stream
+    "giant_raster_attrs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                           _P],
     # table, row, base, out, n, lanes, bw (block width: the 3x3's deltas), stream
     "shadow_select9": [_P, _P, _P, _P, _I, _I, _I, _P],
     # table, idx, out, n, c, is_bf16, stream
@@ -80,7 +88,8 @@ SIGNATURES = {
 # kernel wrapper -> its C entry, where the two names differ
 ENTRY = {"materialize_rows": "copy_bytes", "copy_rows": "copy_bytes", "materialize": "copy_bytes"}
 
-# launches per kernel wrapper (K2/K3 share giant_raster)
+# launches per kernel wrapper (K2/K3 share giant_raster; with records, K1 and
+# K2/K3 count under binned_raster_attrs and giant_raster_attrs)
 LAUNCHES = {name: 0 for name in [n for n in SIGNATURES if n not in ENTRY.values()] + list(ENTRY)}
 
 # kernel wrapper -> bound C function, and device index -> raw current

@@ -12,6 +12,12 @@
 * ``rasterize_binned``: fine bins + coarse (mid) bins + giant brute force,
   merged by depth key with min-id tie-breaks.
 
+Fused resolve (``records=``, the reference's ``want_attrs``): K1 and K2 also
+emit each pixel's winning row's record from a (T, R) f32 table indexed by
+the rows' ids -- a (tiles, pix, R) image, zeros where no row won, equal to
+``records_ref`` -- through their ``*_attrs`` C entries, counted as
+``binned_raster_attrs`` / ``giant_raster_attrs``.
+
 Each kernel wrapper runs its plain version (``*_ref``) for CPU tensors and
 launches the kernel for CUDA tensors; there is no fallback between the two.
 """
@@ -45,6 +51,24 @@ def _check_y_offset(name, y_offset):
     # the kernels' warp skip needs finite pixel centres (source notes)
     if not math.isfinite(y_offset):
         raise ValueError(f"{name}: y_offset must be finite, got {y_offset}")
+
+
+def records_ref(records: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernels' record emission: row ``ids`` of the
+    (T, R) table, zeros where ``ids < 0`` -- what the reference's one-hot f32
+    dot selects (one nonzero term a column, so exact)."""
+    rows = records[ids.clamp(min=0).long()]
+    return torch.where((ids >= 0)[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                device=rows.device))
+
+
+def _check_records(name, records, want_ids):
+    if records is None:
+        return
+    if not want_ids:
+        raise ValueError(f"{name}: records requires want_ids=True")
+    if records.dtype != torch.float32 or records.dim() != 2 or records.shape[1] < 1:
+        raise ValueError(f"{name}: records must be a (T, R) float32 table")
 
 
 def _split_last(x: torch.Tensor, pieces: int, width: int) -> torch.Tensor:
@@ -124,11 +148,14 @@ def materialize_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def binned_raster_ref(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
-                      n_tx, y_offset=0.0, want_ids=True, ortho=False):
+                      n_tx, y_offset=0.0, want_ids=True, ortho=False, records=None):
     """Plain version of K1.  coef (n_blocks, 16, chunk), tri_id/valid
     (n_blocks, 1, chunk), tile_start/tile_count (n_tiles,) i32: tile t owns
     blocks [tile_start[t], tile_start[t] + tile_count[t]).  Returns raw
-    keys (n_tiles, pix) f32 (-1 = miss) and ids (n_tiles, pix) i32."""
+    keys (n_tiles, pix) f32 (-1 = miss) and ids (n_tiles, pix) i32; with
+    ``records`` ((T, R) f32, row = id) also the winners' records (n_tiles,
+    pix, R), zeros where no row won."""
+    _check_records("binned_raster", records, want_ids)
     n_tiles = tile_start.shape[0]
     dev = coef.device
     counts = tile_count.long()
@@ -147,15 +174,21 @@ def binned_raster_ref(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_
     empty = torch.empty((0, pix), dtype=torch.float32, device=dev)
     blk_key = torch.cat(keys) if keys else empty
     blk_id = (torch.cat(ids) if ids else empty.to(torch.int32)) if want_ids else None
-    return merge_blocks(blk_key, blk_id, blk_tile, n_tiles)
+    key, win = merge_blocks(blk_key, blk_id, blk_tile, n_tiles)
+    if records is None:
+        return key, win
+    return key, win, records_ref(records, win)
 
 
 def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
-                  n_tx, y_offset=0.0, want_ids=True, ortho=False):
-    """K1 wrapper (same contract as ``binned_raster_ref``)."""
-    if _cuda.on_cpu("binned_raster", coef):
+                  n_tx, y_offset=0.0, want_ids=True, ortho=False, records=None):
+    """K1 wrapper (same contract as ``binned_raster_ref``); with
+    ``records`` it launches the ``binned_raster_attrs`` entry, whose keys
+    and ids are those of the launch without."""
+    _check_records("binned_raster", records, want_ids)
+    if _cuda.on_cpu("binned_raster" if records is None else "binned_raster_attrs", coef):
         return binned_raster_ref(coef, tri_id, valid, tile_start, tile_count,
-                                 tile_h, tile_w, n_tx, y_offset, want_ids, ortho)
+                                 tile_h, tile_w, n_tx, y_offset, want_ids, ortho, records)
     coef, tri_id, valid, tile_start, tile_count = fit_binned_blocks(
         coef, tri_id, valid, tile_start, tile_count)
     n_tiles = tile_start.shape[0]
@@ -171,6 +204,19 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
     out_key = torch.empty((n_tiles, pix), dtype=torch.float32, device=coef.device)
     out_id = (torch.empty((n_tiles, pix), dtype=torch.int32, device=coef.device)
               if want_ids else None)
+    if records is not None:
+        _cuda.check_cuda("binned_raster", coef, records)
+        out_attr = torch.empty((n_tiles, pix, records.shape[1]), dtype=torch.float32,
+                               device=coef.device)
+        if n_tiles:
+            _cuda.launch(
+                "binned_raster_attrs", dev, coef.data_ptr(), tri_id.data_ptr(),
+                valid.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+                records.data_ptr(), out_key.data_ptr(), out_id.data_ptr(), out_attr.data_ptr(),
+                n_tiles, chunk, tile_h, tile_w, n_tx, float(y_offset), records.shape[1],
+                int(ortho),
+            )
+        return out_key, out_id, out_attr
     if n_tiles:
         _cuda.launch(
             "binned_raster", dev, coef.data_ptr(), tri_id.data_ptr(), valid.data_ptr(),
@@ -192,21 +238,30 @@ def tile_block_ranges(bins: BinnedTriangles, n_tiles: int):
 
 
 def _run_binned_kernel(bins: BinnedTriangles, width, height, tile_h, tile_w,
-                       y_offset=0.0, want_ids=True, ortho=False):
+                       y_offset=0.0, want_ids=True, ortho=False, records=None):
     """One binned level -> (key_img, id_img) cropped to (height, width),
-    key = -1 where empty."""
+    key = -1 where empty; with ``records`` also the (height, width, R)
+    record image.  An unused tile has no live block, so K1 leaves its
+    records zero as the reference's mask does."""
     n_tx = -(-width // tile_w)
     n_tiles = n_tx * (-(-height // tile_h))
     start, count = tile_block_ranges(bins, n_tiles)
-    key, ids = binned_raster(bins.coef, bins.tri_id, bins.valid, start, count,
-                             tile_h, tile_w, n_tx, y_offset, want_ids, ortho)
+    # records by keyword, and only when given: a call without is the K1 call
+    # as it always was (callers that record calls read its positions)
+    rec_kw = {} if records is None else {"records": records}
+    out = binned_raster(bins.coef, bins.tri_id, bins.valid, start, count,
+                        tile_h, tile_w, n_tx, y_offset, want_ids, ortho, **rec_kw)
+    key, ids = out[0], out[1]
     used = bins.tile_used[:, None]
     key = torch.where(used, key, torch.full_like(key, -1.0))
     key_img = untile(key, width, height, tile_h, tile_w)
     if not want_ids:
         return key_img, None
     ids = torch.where(used, ids, torch.full_like(ids, -1))
-    return key_img, untile(ids, width, height, tile_h, tile_w)
+    id_img = untile(ids, width, height, tile_h, tile_w)
+    if records is None:
+        return key_img, id_img
+    return key_img, id_img, untile(out[2], width, height, tile_h, tile_w)
 
 
 # ---------------------------------------------------------------------------
@@ -215,13 +270,16 @@ def _run_binned_kernel(bins: BinnedTriangles, width, height, tile_h, tile_w,
 
 
 def giant_raster_ref(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0,
-                     want_ids=True, ortho=False):
+                     want_ids=True, ortho=False, records=None):
     """Plain version of K2/K3.  coef (n_chunks, 16, chunk), valid
     (n_chunks, chunk) f32, overlap (n_tiles, n_chunks) i32 work bits, ids
     (n_chunks*chunk,) i32 local -> global id map (None = local ids).
     Only (tile, chunk) pairs with their bit set are evaluated, and every
     row of such a chunk is -- the reference kernels' skip granularity.
-    Returns raw keys (n_tiles, pix) and global ids (n_tiles, pix)."""
+    Returns raw keys (n_tiles, pix) and global ids (n_tiles, pix); with
+    ``records`` ((T, R) f32, row = global id) also the winners' records
+    (n_tiles, pix, R), zeros where no row won."""
+    _check_records("giant_raster", records, want_ids)
     n_tiles, n_chunks = overlap.shape
     chunk = coef.shape[-1]
     pair = torch.nonzero(overlap != 0)
@@ -240,20 +298,24 @@ def giant_raster_ref(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0
     empty = torch.empty((0, pix), dtype=torch.float32, device=dev)
     blk_key = torch.cat(keys) if keys else empty
     blk_id = (torch.cat(lids) if lids else empty.to(torch.int32)) if want_ids else None
-    key, lid = merge_blocks(blk_key, blk_id, p_tile, n_tiles)
-    if not want_ids or ids is None:
-        return key, lid
-    gid = ids[lid.clamp(min=0).long()]
-    return key, torch.where(lid >= 0, gid, torch.full_like(gid, -1))
+    key, win = merge_blocks(blk_key, blk_id, p_tile, n_tiles)
+    if want_ids and ids is not None:
+        gid = ids[win.clamp(min=0).long()]
+        win = torch.where(win >= 0, gid, torch.full_like(gid, -1))
+    if records is None:
+        return key, win
+    return key, win, records_ref(records, win)
 
 
 def giant_raster(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0,
-                 want_ids=True, ortho=False):
+                 want_ids=True, ortho=False, records=None):
     """K2/K3 wrapper (same contract as ``giant_raster_ref``); emits int32
-    global ids directly."""
-    if _cuda.on_cpu("giant_raster", coef):
+    global ids directly, and with ``records`` launches the
+    ``giant_raster_attrs`` entry."""
+    _check_records("giant_raster", records, want_ids)
+    if _cuda.on_cpu("giant_raster" if records is None else "giant_raster_attrs", coef):
         return giant_raster_ref(coef, valid, overlap, ids, tile_h, tile_w, n_tx,
-                                y_offset, want_ids, ortho)
+                                y_offset, want_ids, ortho, records)
     coef, valid, overlap, ids = fit_giant_chunks(coef, valid, overlap, ids)
     n_tiles, n_chunks = overlap.shape
     chunk = coef.shape[-1]
@@ -268,6 +330,18 @@ def giant_raster(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0,
     out_key = torch.empty((n_tiles, pix), dtype=torch.float32, device=coef.device)
     out_id = (torch.empty((n_tiles, pix), dtype=torch.int32, device=coef.device)
               if want_ids else None)
+    if records is not None:
+        _cuda.check_cuda("giant_raster", coef, records)
+        out_attr = torch.empty((n_tiles, pix, records.shape[1]), dtype=torch.float32,
+                               device=coef.device)
+        if n_tiles:
+            _cuda.launch(
+                "giant_raster_attrs", dev, coef.data_ptr(), valid.data_ptr(),
+                overlap.data_ptr(), _cuda.ptr(ids), records.data_ptr(), out_key.data_ptr(),
+                out_id.data_ptr(), out_attr.data_ptr(), n_tiles, n_chunks, chunk, tile_h,
+                tile_w, n_tx, float(y_offset), records.shape[1], int(ortho),
+            )
+        return out_key, out_id, out_attr
     if n_tiles:
         _cuda.launch(
             "giant_raster", dev, coef.data_ptr(), valid.data_ptr(), overlap.data_ptr(),
@@ -281,13 +355,15 @@ def giant_raster(coef, valid, overlap, ids, tile_h, tile_w, n_tx, y_offset=0.0,
 def rasterize_giant(setup: RasterSetup, width: int, height: int, tile_h: int = 32,
                     tile_w: int = 128, chunk: int = 64, depth_mode: int = DEPTH_MAX,
                     y_offset: float = 0.0, want_ids: bool = True, ortho: bool = False,
-                    ids: torch.Tensor | None = None):
+                    ids: torch.Tensor | None = None, records: torch.Tensor | None = None):
     """Brute-force raster over a (small) table (reference
     ``rasterize_pallas``): per-(tile, chunk) overlap bits, then K2.
 
     want_ids: returns (depth, tri_id) images (tri_id through ``ids`` when
-    given, else local rows).  Depth-only: returns (raw key image, None),
-    -1 = miss, so callers merge levels before converting to depth."""
+    given, else local rows), and with ``records`` (rows indexed by those
+    ids) the (height, width, R) image of the winners' records.  Depth-only:
+    returns (raw key image, None), -1 = miss, so callers merge levels
+    before converting to depth."""
     dev = setup.coef.device
     pad_w = -(-width // tile_w) * tile_w
     pad_h = -(-height // tile_h) * tile_h
@@ -319,10 +395,11 @@ def rasterize_giant(setup: RasterSetup, width: int, height: int, tile_h: int = 3
     if want_ids and ids is not None:
         id_map = torch.zeros(t_pad, dtype=torch.int32, device=dev)
         id_map[:t] = ids.to(torch.int32)
-    key, tid = giant_raster(coef, valid.to(torch.float32).reshape(n_chunks, chunk),
-                            overlap, id_map, tile_h, tile_w, n_tx, y_offset,
-                            want_ids, ortho)
-    key_img = untile(key, width, height, tile_h, tile_w)
+    rec_kw = {} if records is None else {"records": records}  # as in _run_binned_kernel
+    out = giant_raster(coef, valid.to(torch.float32).reshape(n_chunks, chunk),
+                       overlap, id_map, tile_h, tile_w, n_tx, y_offset,
+                       want_ids, ortho, **rec_kw)
+    key_img = untile(out[0], width, height, tile_h, tile_w)
     if not want_ids:
         return key_img, None
     hit = key_img >= 0.0
@@ -330,8 +407,11 @@ def rasterize_giant(setup: RasterSetup, width: int, height: int, tile_h: int = 3
         depth = torch.where(hit, key_img, torch.zeros_like(key_img))
     else:
         depth = torch.where(hit, 1.0 - key_img, torch.ones_like(key_img))
-    tri = untile(tid, width, height, tile_h, tile_w)
-    return depth, torch.where(hit, tri, torch.full_like(tri, -1))
+    tri = untile(out[1], width, height, tile_h, tile_w)
+    tri = torch.where(hit, tri, torch.full_like(tri, -1))
+    if records is None:
+        return depth, tri
+    return depth, tri, untile(out[2], width, height, tile_h, tile_w)
 
 
 # ---------------------------------------------------------------------------
@@ -339,12 +419,19 @@ def rasterize_giant(setup: RasterSetup, width: int, height: int, tile_h: int = 3
 # ---------------------------------------------------------------------------
 
 
-def merge_levels(key_img, id_img, key2, id2):
-    """Max key; on equal (hit) keys the smaller id wins."""
+def merge_levels(key_img, id_img, key2, id2, attr=None, attr2=None):
+    """Max key; on equal (hit) keys the smaller id wins.  With the two
+    levels' record images ``attr``/``attr2``, the records follow the ids:
+    ``attr`` takes ``attr2`` in place where the second level wins, and is
+    returned third."""
     take = key2 > key_img
     tie = (key2 == key_img) & (key2 >= 0.0)
     sel = take | (tie & (id2 < id_img))
-    return torch.where(take, key2, key_img), torch.where(sel, id2, id_img)
+    merged = torch.where(take, key2, key_img), torch.where(sel, id2, id_img)
+    if attr is None:
+        return merged
+    # in place: the frame holds one (H, W, R) image, not one per merge
+    return merged + (torch.where(sel[..., None], attr2, attr, out=attr),)
 
 
 def rasterize_binned(
@@ -354,7 +441,7 @@ def rasterize_binned(
     big_tile_w: int = 128, big_chunk: int = 32, mid_divisor: int = 16,
     giant_divisor: int = 128, giant_tile_h: int = 0, giant_tile_w: int = 0,
     giant_chunk: int = 0, want_ids: bool = True, ortho: bool = False,
-    mat_idx: bool = False,
+    mat_idx: bool = False, records: torch.Tensor | None = None,
 ):
     """Binned visibility raster, three levels merged by depth key:
     fine tiles for small triangles, coarse tiles for medium ones over a
@@ -365,15 +452,23 @@ def rasterize_binned(
 
     Returns (depth, tri_id, stats) with ``pair_overflow`` (fine/mid pairs
     dropped at the bin budget) and ``giant_truncated`` (giant triangles
-    past the compaction cap, not rasterized)."""
+    past the compaction cap, not rasterized).  With ``records`` ((T, R) f32,
+    row = the setup's triangle row; fused resolve) each level's kernel also
+    emits its winners' records, merged with the ids, and the record image
+    (height, width, R) is returned fourth: ``records_ref(records,
+    tri_id)``.  Every level reads the one table through its rows' ids (the
+    reference gathers ``records[mid_idx]`` and ``records[g_idx]`` first)."""
+    _check_records("rasterize_binned", records, want_ids)
     if depth_mode != DEPTH_MAX:
         setup = flip_depth_key(setup)
 
     bins = bin_triangles(setup, width, height, tile_h, tile_w, chunk,
                          max_span=max_span, budget_factor=budget_factor,
                          y_offset=y_offset, mat_idx=mat_idx)
-    key_img, id_img = _run_binned_kernel(bins, width, height, tile_h, tile_w,
-                                         y_offset, want_ids, ortho)
+    fine = _run_binned_kernel(bins, width, height, tile_h, tile_w, y_offset, want_ids, ortho,
+                              records)
+    key_img, id_img = fine[0], fine[1]
+    attr = fine[2] if records is not None else None
     t_count = setup.coef.shape[0]
 
     # mid level over a compacted list; ONE full-T compaction serves both the
@@ -388,9 +483,13 @@ def rasterize_binned(
     mid_bins = bin_triangles(mid_setup, width, height, big_tile_h, big_tile_w, big_chunk,
                              max_span=4, budget_factor=2.0, tri_ids=mid_idx,
                              y_offset=y_offset, mat_idx=mat_idx)
-    mid_key, mid_id = _run_binned_kernel(mid_bins, width, height, big_tile_h, big_tile_w,
-                                         y_offset, want_ids, ortho)
-    if want_ids:
+    mid = _run_binned_kernel(mid_bins, width, height, big_tile_h, big_tile_w, y_offset,
+                             want_ids, ortho, records)
+    mid_key, mid_id = mid[0], mid[1]
+    if records is not None:
+        key_img, id_img, attr = merge_levels(key_img, id_img, mid_key, mid_id, attr, mid[2])
+        del mid
+    elif want_ids:
         key_img, id_img = merge_levels(key_img, id_img, mid_key, mid_id)
     else:
         key_img = torch.maximum(key_img, mid_key)
@@ -423,11 +522,14 @@ def rasterize_binned(
         gth //= 2
     big_out = rasterize_giant(giant_setup, width, height, tile_h=gth, tile_w=gtw,
                               chunk=g_chunk, y_offset=y_offset, want_ids=want_ids,
-                              ortho=ortho, ids=g_idx)
+                              ortho=ortho, ids=g_idx, records=records)
     if want_ids:
-        big_depth, big_id = big_out
+        big_depth, big_id = big_out[0], big_out[1]
         big_key = torch.where(big_id >= 0, big_depth, torch.full_like(big_depth, -1.0))
-        key_img, id_img = merge_levels(key_img, id_img, big_key, big_id)
+        merged = merge_levels(key_img, id_img, big_key, big_id, attr,
+                              big_out[2] if records is not None else None)
+        key_img, id_img = merged[0], merged[1]
+        del big_out
     else:
         key_img = torch.maximum(key_img, big_out[0])
 
@@ -441,4 +543,6 @@ def rasterize_binned(
         "pair_overflow": (bins.overflow + mid_bins.overflow).to(torch.int32),
         "giant_truncated": giant_truncated,
     }
+    if records is not None:
+        return depth, tri_id, stats, attr
     return depth, tri_id, stats

@@ -4,8 +4,9 @@ The shadow map (``render/common.py raster_shadow``) packs into a u16
 superblock table: each row holds an 8x8 block of ceil-quantized depths plus
 a +2 apron (100 of 128 lanes).  Per receiver, K4 (``select9``,
 ``csrc/shadow_select9.cu``) fetches the 3x3 texel neighbourhood from it;
-the compare and the deferred 4-tap PCF blend stay plain tensor code
-(``_pcf_tail``), shared with the reference's formulation.
+the compare and the PCF blend -- the deferred 4-tap or the forward 2x2
+corners (``pcf``) -- stay plain tensor code (``_pcf_tail``), shared with
+the reference's formulation.
 """
 
 from __future__ import annotations
@@ -134,11 +135,13 @@ def _shadow_project(world_pos, light_view_proj, size: int, shadow_bias):
     return uv, compare, fx, fy, xi, yi, xi0, yi0
 
 
-def _pcf_blend(passed, fx, fy, uv, shadow_strength):
-    """Deferred 4-tap PCF blend (taps at +0, +x, +y, +xy) from 9 pass
-    planes, lerp(1, s, strength); outside the map or strength <= 0 -> 1.
-    The two outer multiply-adds carry the reference's contractions (the
-    inner ones multiply 0/1 planes and are exact either way)."""
+def _pcf_blend(passed, fx, fy, uv, shadow_strength, pcf: str = "deferred"):
+    """PCF blend from 9 pass planes, lerp(1, s, strength); outside the map
+    or strength <= 0 -> 1.  ``pcf="deferred"``: the 4-tap blend (bilinear
+    taps at +0, +x, +y, +xy), whose two outer multiply-adds carry the
+    reference's contractions (the inner ones multiply 0/1 planes and are
+    exact either way); ``"forward"``: 4 point taps at the half-texel
+    diagonals, the 2x2 corners' average."""
     def lin(dx, dy):
         c00 = passed[dy * 3 + dx]
         c10 = passed[dy * 3 + dx + 1]
@@ -148,13 +151,19 @@ def _pcf_blend(passed, fx, fy, uv, shadow_strength):
         bot = c01 * (1 - fx) + c11 * fx
         return fma(top, 1 - fy, bot * fy)
 
-    s4 = 0.25 * (lin(0, 0) + lin(1, 0) + lin(0, 1) + lin(1, 1))
+    if pcf == "deferred":
+        s4 = 0.25 * (lin(0, 0) + lin(1, 0) + lin(0, 1) + lin(1, 1))
+    elif pcf == "forward":
+        s4 = 0.25 * (passed[0] + passed[1] + passed[3] + passed[4])
+    else:
+        raise ValueError(f"pcf must be 'deferred' or 'forward', got {pcf!r}")
     s4 = fma(s4 - 1.0, shadow_strength, 1.0)
     in_range = (uv[..., 0] >= 0.0) & (uv[..., 0] <= 1.0) & (uv[..., 1] >= 0.0) & (uv[..., 1] <= 1.0)
     return torch.where((shadow_strength > 0.0) & in_range, s4, torch.ones_like(s4))
 
 
-def _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size: int, shadow_strength):
+def _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size: int, shadow_strength,
+              pcf: str = "deferred"):
     """Comparison + PCF blend.  nb9: 9 depth planes in (dy*3+dx) order."""
     passed = []
     for dy in range(3):
@@ -164,14 +173,15 @@ def _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size: int, shadow_stre
             in_map = (true_x >= 0) & (true_x < size) & (true_y >= 0) & (true_y < size)
             ok = (compare <= nb9[dy * 3 + dx]) | ~in_map | (txc != true_x) | (tyc != true_y)
             passed.append(ok.to(torch.float32))
-    return _pcf_blend(passed, fx, fy, uv, shadow_strength)
+    return _pcf_blend(passed, fx, fy, uv, shadow_strength, pcf)
 
 
 def shadow_factor_blocks(blocks_flat, size: int, world_pos, light_view_proj,
-                         shadow_strength, shadow_bias) -> torch.Tensor:
-    """Deferred PCF shadow factor (H, W) from the u16 superblock table: the
-    compare value quantizes into the same ceil domain as the stored depths,
-    so comparisons stay conservative."""
+                         shadow_strength, shadow_bias, pcf: str = "deferred") -> torch.Tensor:
+    """PCF shadow factor (H, W) from the u16 superblock table (``pcf``: the
+    deferred or the forward blend): the compare value quantizes into the
+    same ceil domain as the stored depths, so comparisons stay
+    conservative."""
     bh, bw = shadow_block_shape(size)
     nbx = size // bw
     uv, compare, fx, fy, xi, yi, xi0, yi0 = _shadow_project(
@@ -182,4 +192,4 @@ def shadow_factor_blocks(blocks_flat, size: int, world_pos, light_view_proj,
     nb = nb.reshape(compare.shape + (9,))
     nb9 = [nb[..., k] for k in range(9)]
     compare = torch.clamp(torch.ceil(compare * 65535.0), 0.0, 65536.0)
-    return _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size, shadow_strength)
+    return _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size, shadow_strength, pcf)

@@ -3,7 +3,8 @@ stage, draw masks, the opaque, alpha-masked and shadow visibility rasters,
 and the material resolve (the combined material on the quad or the
 packed-trilinear atlas, or per-slot taps on the per-map quad atlas;
 trilinear, bilinear and anisotropic filters with quad-derivative LOD;
-compact id space)."""
+compact id space; fused resolve, where the raster kernels emit each
+pixel's resolve record)."""
 
 from __future__ import annotations
 
@@ -91,9 +92,20 @@ def shadow_compaction_cap(settings: RenderSettings, t_count: int) -> int:
     return cap
 
 
+def use_fused_resolve(settings: RenderSettings) -> bool:
+    """Fused resolve (``fused_resolve="on"``): the raster kernels emit each
+    pixel's resolve record, which replaces the resolve's per-pixel record
+    gather.  The port has one raster implementation whatever
+    ``raster_backend`` says, so "on" alone decides; "auto" keeps it off, as
+    the reference does.  The frame is bit-equal either way."""
+    return settings.fused_resolve == "on"
+
+
 def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
             want_ids=True, ortho=False, budget_factor=None, giant_tile=(0, 0),
-            big_tile=None):
+            big_tile=None, records=None):
+    """``rasterize_binned`` at the settings' bin parameters; with
+    ``records`` it returns the record image fourth."""
     big = {} if big_tile is None else {"big_tile_h": big_tile[0], "big_tile_w": big_tile[1]}
     return rasterize_binned(
         setup, width, height, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
@@ -102,30 +114,37 @@ def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
         mid_divisor=settings.bin_mid_divisor, giant_divisor=settings.bin_giant_divisor,
         giant_tile_h=giant_tile[0], giant_tile_w=giant_tile[1],
         giant_chunk=settings.bin_giant_chunk, want_ids=want_ids, ortho=ortho,
-        mat_idx=settings.bin_mat_idx,
+        mat_idx=settings.bin_mat_idx, records=records,
     )
 
 
-def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, vsoa: VertexSoA):
-    """Camera visibility raster.  Returns ``(depth, tri_id, stats,
+def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, vsoa: VertexSoA,
+                  fused: bool = False):
+    """Camera visibility raster.  Returns ``(depth, tri_id, stats, attr,
     compact_ids)``; with a nonzero ``compaction_cap`` the raster runs over
     the frame-visible compacted list and ``tri_id`` holds COMPACT ids
-    (``compact_ids`` maps them back; None when off)."""
+    (``compact_ids`` maps them back; None when off).  ``fused`` (fused
+    resolve) makes the kernels emit each pixel's resolve record, the
+    (H, W, 128) ``attr`` (else None), from ``build_resolve_records`` of the
+    rows the raster runs over (the compact rows under compaction: the
+    values of the reference's ``records[cids]``)."""
     setup = triangle_setup_from_soa(vsoa, tri_mask, CULL_BACK, settings.width, settings.height)
     cap = compaction_cap(settings, setup.valid.shape[0])
     cids = None
     c_overflow = torch.zeros((), dtype=torch.int32, device=tri_mask.device)
     if cap:
         setup, cids, c_overflow = compact_setup(setup, cap)
+    records = build_resolve_records(scene, vsoa.pix9(), ids=cids) if fused else None
     h = settings.height
-    depth, tri_id, stats = _raster(
+    res = _raster(
         setup, settings.width, h, min(settings.tile_h, h), settings.tile_w,
         settings.chunk, DEPTH_MAX, settings,
-        giant_tile=(min(settings.giant_tile_h, h), settings.giant_tile_w),
+        giant_tile=(min(settings.giant_tile_h, h), settings.giant_tile_w), records=records,
     )
-    stats = dict(stats)
+    stats = dict(res[2])
     stats["compact_overflow"] = c_overflow
-    return depth, tri_id, stats, cids
+    attr = res[3] if records is not None else None
+    return res[0], res[1], stats, attr, cids
 
 
 def raster_shadow(scene: DeviceScene, light_view_proj, tri_mask, settings: RenderSettings):
@@ -218,23 +237,52 @@ def _alpha_records(scene: DeviceScene, setup: RasterSetup):
     ], dim=1)
 
 
-def _alpha_candidates(tiles, rows, valid, bbox, tile_h, tile_w, n_tx, width, height):
+# Edge-test margin of the masked raster's candidate filter (``_edge_may_pass``):
+# a multiple of the f32 unit roundoff 2^-24 with room to spare.
+EDGE_SLACK = 2.0 ** -20
+
+
+def _edge_may_pass(coef, X, Y, width: int, height: int):
+    """Superset filter of the raster's edge tests: False only where a pixel
+    centre (X, Y) cannot pass the three contracted edge tests of
+    ``eval_keys`` (``fma(a, X, b*Y) + c`` against a threshold >= 0).  Each
+    edge is summed in plain f32 against -m, m = 2^-20 * (|a| W + |b| H +
+    |c|) + 2^-120: either summation order lies within ~4 * 2^-24 * (|a X| +
+    |b Y| + |c|) of the exact value (3 and 4 roundings), so a pair that the
+    contracted form passes is kept, however thin its triangle -- a sliver's
+    rounded edge functions can cover pixels beyond its bounding box (a
+    pixel 3 columns past one, at 128x128 in tests/test_torch_forward.py),
+    where the reference, which evaluates every pixel of a tile, covers them.
+    A NaN keeps the pair.  coef (..., 16, C); X, Y pixel centres (..., P,
+    1), or each a (min, max) pair of a rectangle's extreme centres: each
+    edge is then tested at its best corner (the exact edge function is
+    linear, so no pixel of the rectangle exceeds it there), which keeps
+    every (rectangle, slot) pair that a pixel of the rectangle may pass."""
+    ok = None
+    for e in range(3):
+        a, b, c = coef[..., None, e, :], coef[..., None, 3 + e, :], coef[..., None, 6 + e, :]
+        m = (a.abs() * width + b.abs() * height + c.abs()) * EDGE_SLACK + 2.0 ** -120
+        xe = X if isinstance(X, torch.Tensor) else torch.where(a > 0, X[1], X[0])
+        ye = Y if isinstance(Y, torch.Tensor) else torch.where(b > 0, Y[1], Y[0])
+        may = ~((a * xe + b * ye + c) < -m)
+        ok = may if ok is None else ok & may
+    return ok
+
+
+def _alpha_candidates(tiles, coef, valid, tile_h, tile_w, n_tx, width, height):
     """The (block, pixel, slot) triples of a group of blocks whose pixel
-    lies in the image and within one pixel of the slot's triangle bbox.
-    Exact: a pixel centre that the edge tests cover lies within the
-    triangle's screen bounds (the bbox floors and ceils them), and the f32
-    edge functions stray from the true edges by far less than the pixel of
-    margin; the reference crops the padded tiles' pixels.
-    tiles (G,), rows/valid (G, C) -> (g, p, c, pixel x, pixel y)."""
+    lies in the image and may pass the slot's edge tests
+    (``_edge_may_pass``); the reference evaluates every pixel of the block's
+    tile and crops the padded tiles' pixels.  tiles (G,), coef (G, 16, C),
+    valid (G, C) -> (g, p, c, pixel x, pixel y)."""
     pix = tile_h * tile_w
     col = torch.arange(pix, device=tiles.device)
     px = ((tiles % n_tx) * tile_w)[:, None] + col % tile_w
     py = ((tiles // n_tx) * tile_h)[:, None] + col // tile_w
-    bb = bbox[:, rows]  # (4, G, C)
-    xf, yf = px.to(torch.float32)[:, :, None], py.to(torch.float32)[:, :, None]
-    cand = ((xf >= bb[0][:, None, :] - 1.0) & (xf <= bb[2][:, None, :] + 1.0)
-            & (yf >= bb[1][:, None, :] - 1.0) & (yf <= bb[3][:, None, :] + 1.0)
-            & valid[:, None, :] & ((px < width) & (py < height))[:, :, None])
+    X = (px.to(torch.float32) + 0.5)[:, :, None]
+    Y = (py.to(torch.float32) + 0.5)[:, :, None]
+    cand = (_edge_may_pass(coef, X, Y, width, height) & valid[:, None, :]
+            & ((px < width) & (py < height))[:, :, None])
     g, p, c = cand.nonzero(as_tuple=True)
     return g, p, c, px[g, p], py[g, p]
 
@@ -273,7 +321,7 @@ def _alpha_eval(coef, arec, x, y, quad_flat, atlas_width, settings: RenderSettin
     return torch.where(ok, key, torch.full_like(key, -1.0)), int(idx.shape[0])
 
 
-def _alpha_level(blocks, scene: DeviceScene, arec, bbox, tile_h, tile_w, width, height,
+def _alpha_level(blocks, scene: DeviceScene, arec, tile_h, tile_w, width, height,
                  settings: RenderSettings):
     """One masked raster level: per pixel the max key of the candidates that
     pass, and the min triangle id among those at it -- per block, then per
@@ -295,8 +343,8 @@ def _alpha_level(blocks, scene: DeviceScene, arec, bbox, tile_h, tile_w, width, 
     step = max(1, ALPHA_PAIR_BUDGET // per_block)
     for b0 in range(0, tiles.shape[0], step):
         sl = slice(b0, b0 + step)
-        g, p, c, x, y = _alpha_candidates(tiles[sl], rows[sl], valid[sl], bbox, tile_h, tile_w,
-                                          n_tx, width, height)
+        g, p, c, x, y = _alpha_candidates(tiles[sl], coef[sl], valid[sl], tile_h, tile_w, n_tx,
+                                          width, height)
         cr = rows[sl][g, c]
         key, covered = _alpha_eval(coef[sl].transpose(1, 2)[g, c], arec[cr], x, y, quad_flat,
                                    atlas_width, settings)
@@ -323,8 +371,9 @@ def _rasterize_alpha(setup: RasterSetup, arec, scene: DeviceScene, settings: Ren
     against every chunk of the table, as the reference's scan; a pixel
     takes the max key, then (argmax's first index within a chunk, a strict
     ``>`` across chunks) the min triangle id.  Only (tile, chunk) blocks
-    with a valid triangle whose bbox overlaps the tile are evaluated (the
-    others cannot cover a pixel of it).  Returns (key image, tri_id,
+    with a valid triangle that may pass its edge tests at a pixel of the
+    tile (``_edge_may_pass`` at the tile's corners) are evaluated; the
+    others cannot cover a pixel of it.  Returns (key image, tri_id,
     counts): key -1 and id -1 where nothing won."""
     width, height = settings.width, settings.height
     tile_h, tile_w, chunk = min(settings.tile_h, height), settings.tile_w, settings.chunk
@@ -335,22 +384,19 @@ def _rasterize_alpha(setup: RasterSetup, arec, scene: DeviceScene, settings: Ren
     rows = torch.arange(n_chunks * chunk, device=dev).reshape(n_chunks, chunk)
     valid = (rows < t) & setup.valid[rows.clamp(max=t - 1)]
     rows = rows.clamp(max=t - 1)
-    bb = setup.bbox[:, rows]  # (4, n_chunks, chunk)
-    tile = torch.arange(n_tx * n_ty, device=dev)
-    tx0 = ((tile % n_tx) * tile_w).to(torch.float32)[:, None]
-    ty0 = ((tile // n_tx) * tile_h).to(torch.float32)[:, None]
-    live = []
-    for c in range(n_chunks):
-        ov = ((bb[0, c] <= tx0 + (tile_w - 1)) & (bb[2, c] >= tx0)
-              & (bb[1, c] <= ty0 + (tile_h - 1)) & (bb[3, c] >= ty0) & valid[c])
-        live.append(ov.any(dim=1))
-    b_tile, b_chunk = torch.stack(live, dim=1).nonzero(as_tuple=True)
     coef = torch.zeros((n_chunks * chunk, COEF_COLS), dtype=torch.float32, device=dev)
     coef[:t] = setup.coef
     coef = coef.reshape(n_chunks, chunk, COEF_COLS).transpose(1, 2)
+    tile = torch.arange(n_tx * n_ty, device=dev)
+    tx0 = ((tile % n_tx) * tile_w).to(torch.float32)[:, None]
+    ty0 = ((tile // n_tx) * tile_h).to(torch.float32)[:, None]
+    xs, ys = (tx0 + 0.5, tx0 + (tile_w - 0.5)), (ty0 + 0.5, ty0 + (tile_h - 0.5))
+    live = [(_edge_may_pass(coef[c], xs, ys, width, height) & valid[c]).any(dim=1)
+            for c in range(n_chunks)]
+    b_tile, b_chunk = torch.stack(live, dim=1).nonzero(as_tuple=True)
     blocks = (coef[b_chunk], rows[b_chunk], rows[b_chunk], valid[b_chunk], b_tile)
-    key, ids, counts = _alpha_level(blocks, scene, arec, setup.bbox, tile_h, tile_w, width,
-                                    height, settings)
+    key, ids, counts = _alpha_level(blocks, scene, arec, tile_h, tile_w, width, height,
+                                    settings)
     return key, ids, [counts]
 
 
@@ -401,8 +447,7 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
         if arec_ids is not None:
             rows = torch.clamp(torch.searchsorted(arec_ids, ids), 0, arec.shape[0] - 1)
         blocks = (bins.coef[live], rows, ids, bins.valid[live, 0] > 0.0, bins.blk_tile[live].long())
-        return _alpha_level(blocks, scene, arec, lvl_setup.bbox, tile_h, tile_w, width, height,
-                            settings)
+        return _alpha_level(blocks, scene, arec, tile_h, tile_w, width, height, settings)
 
     tile_h = min(settings.tile_h, height)
     bins = bin_triangles(lvl_setup, width, height, tile_h, settings.tile_w, chunk, max_span=4,
@@ -429,13 +474,21 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
 
 
 def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
-                          settings: RenderSettings, vsoa: VertexSoA, stats: bool = False):
+                          settings: RenderSettings, vsoa: VertexSoA, stats: bool = False,
+                          attr=None):
     """Rasterize the alpha-masked geometry with an in-raster alpha test (the
     base-colour tap at the analytic LOD, ``_alpha_lod``), then depth-combine
     with the opaque visibility buffer: a masked pixel wins only with a
     strictly greater key, so opaque wins ties.  Returns (depth, tri_id,
     counts); with ``stats`` counts holds the pair counts and drops of each
-    masked level (the reference counts neither), else None."""
+    masked level (the reference counts neither), else None.
+
+    ``attr`` (fused resolve: the opaque raster's (H, W, 128) record image)
+    is returned fourth, its masked-won pixels replaced in place by their
+    triangle's resolve record, as the reference takes them: at 0 < cap < T
+    from the records of the compacted masked list (the rows of
+    ``_compact_chunks``, looked up by ``searchsorted``), else from the
+    whole table."""
     setup = triangle_setup_from_soa(vsoa, masked_mask, CULL_BACK, settings.width,
                                     settings.height)
     arec = _alpha_records(scene, setup)
@@ -445,8 +498,22 @@ def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
         m_key, m_tri, counts = _rasterize_alpha(setup, arec, scene, settings)
     m_depth = torch.where(m_key >= 0.0, m_key, torch.zeros_like(m_key))
     take = m_depth > depth
-    return (torch.where(take, m_depth, depth), torch.where(take, m_tri, tri_id),
-            counts if stats else None)
+    out = (torch.where(take, m_depth, depth), torch.where(take, m_tri, tri_id),
+           counts if stats else None)
+    if attr is None:
+        return out
+    t_count = setup.coef.shape[0]
+    cap = settings.masked_tri_cap
+    safe_m = torch.clamp(m_tri, min=0)
+    if 0 < cap < t_count:
+        sel, ok = _compact_chunks(setup.valid, cap, min(settings.chunk, 64))
+        rec_m = build_resolve_records(scene, vsoa.pix9(), ids=sel)
+        ids_m = torch.where(ok, sel, torch.full_like(sel, t_count))
+        local = torch.clamp(torch.searchsorted(ids_m, safe_m), 0, sel.shape[0] - 1)
+        attr_m = rec_m[local.long()]
+    else:
+        attr_m = build_resolve_records(scene, vsoa.pix9())[safe_m.long()]
+    return out + (torch.where(take[..., None], attr_m, attr, out=attr),)
 
 
 def build_resolve_records(scene: DeviceScene, pix9, ids=None):
@@ -547,9 +614,12 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy, base_w, base_h
 
 
 def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings,
-                      compact_ids=None):
+                      compact_ids=None, full_override=None):
     """Visibility buffer -> interpolated attributes + sampled materials:
-    ONE per-pixel gather of the 128-wide record, then the material taps
+    ONE per-pixel gather of the 128-wide record (or ``full_override``, the
+    (H, W, 128) record image the raster kernels emitted under fused
+    resolve: the same records where ``tri_id >= 0``, zeros elsewhere, where
+    nothing reaches the outputs), then the material taps
     (``settings.texture_filter``) at the quad-derivative LOD: one
     combined-material tap (``combined_material``), else one tap per enabled
     slot (``slot_enabled``) on the per-map atlas.  The result carries
@@ -559,9 +629,11 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         raise not_ported("lod_derivatives='forward'", SAMPLING)
     width, height = settings.width, tri_id.shape[0]
     dev = tri_id.device
-    rec = build_resolve_records(scene, pix9, ids=compact_ids)
-    safe_id = torch.clamp(tri_id, min=0).long()
-    full = rec[safe_id]  # (H, W, 128)
+    if full_override is not None:
+        full = full_override
+    else:
+        rec = build_resolve_records(scene, pix9, ids=compact_ids)
+        full = rec[torch.clamp(tri_id, min=0).long()]  # (H, W, 128)
     av = full[..., 0:57]
     mrec = full[..., 57:121]
     valid = tri_id >= 0

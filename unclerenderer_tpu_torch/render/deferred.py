@@ -1,6 +1,7 @@
 """The deferred frame (``unclerenderer_tpu/render/deferred.py``), single
 device: culling -> shadow map -> visibility raster (opaque, then the
-alpha-masked models merged in) -> material resolve ->
+alpha-masked models merged in; with fused resolve the raster kernels emit
+each pixel's resolve record) -> material resolve ->
 HZB -> lighting (GGX, superblock PCF, IBL) -> sky -> TAA -> auto-exposure
 -> tonemap -> CAS -> the debug-print stats block.  Frames are carried as in
 the reference: ``deferred_frame(scene, params, state, settings,
@@ -78,17 +79,21 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
                 scene, params.light_view_proj, cast_o | cast_m, settings)
         shadow9 = pack_shadow_blocks_u16(shadow_map)
 
-    # --- 3/4/5. visibility raster
+    # --- 3/4/5. visibility raster (fused resolve: the kernels also emit
+    # each pixel's resolve record, attr, which the resolve takes as it is)
     vsoa = common.vertex_stage_soa(scene.pos_soa, params.view_proj, width, height)
     pix9 = vsoa.pix9()
-    depth, tri_id, raster_stats, compact_ids = common.raster_opaque(
-        scene, opaque_mask, settings, vsoa)
+    depth, tri_id, raster_stats, attr, compact_ids = common.raster_opaque(
+        scene, opaque_mask, settings, vsoa, fused=common.use_fused_resolve(settings))
     if settings.has_masked_models:
-        depth, tri_id, _ = common.raster_masked_combine(scene, masked_mask, depth, tri_id,
-                                                        settings, vsoa)
+        masked = common.raster_masked_combine(scene, masked_mask, depth, tri_id, settings, vsoa,
+                                              attr=attr)
+        depth, tri_id = masked[0], masked[1]
+        attr = masked[3] if attr is not None else None
     raster_stats["shadow_compact_overflow"] = shadow_overflow
 
-    g = common.resolve_materials(scene, pix9, tri_id, settings, compact_ids=compact_ids)
+    g = common.resolve_materials(scene, pix9, tri_id, settings, compact_ids=compact_ids,
+                                 full_override=attr)
     if settings.texture_filter == "anisotropic":
         raster_stats["aniso_tap_overflow"] = g["aniso_tap_overflow"]
 

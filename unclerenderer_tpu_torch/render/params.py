@@ -9,9 +9,12 @@
   on the reference's Pallas path: ``hzb_pallas_tail`` K6,
   ``env_select_kernel`` K7 (not under ``env_matmul_gather``: the
   reference's precedence), ``mat_select_kernel`` K8 (packed-trilinear
-  atlas) and ``bin_mat_idx`` K9.  Branches the port has not taken over yet
-  raise ``NotImplementedError`` naming their ROADMAP queue entry
-  (``check_supported``).
+  atlas) and ``bin_mat_idx`` K9.  ``fused_resolve="on"`` makes K1 and K2
+  emit each pixel's resolve record (``render/common.py
+  use_fused_resolve``); ``renderer_type`` picks the Renderer's frame
+  (``deferred_frame`` itself ignores it, as the reference's does).
+  Branches the port has not taken over yet raise ``NotImplementedError``
+  naming their ROADMAP queue entry (``check_supported``).
 * FrameParams / DeviceScene / FrameState: dataclasses of tensors, all on one
   explicit device; ``upload_scene`` puts a scene's host arrays there
   (bfloat16 carried as uint16 bits, ``bf16_bits``).
@@ -105,9 +108,7 @@ def resolve_packed_trilinear(setting, n_materials: int) -> bool:
 
 
 # titles of the ROADMAP.md modules-queue entries that still raise
-FORWARD_PATH = "forward path"
 SAMPLING = "non-default sampling and storage"
-FUSED_RESOLVE = "fused resolve"
 OBSERVABILITY = "observability"
 VIEWER_AND_BENCH = "viewer and bench"
 
@@ -127,10 +128,8 @@ def check_supported(settings: RenderSettings) -> None:
     if settings.texture_filter not in ("trilinear", "bilinear", "anisotropic"):
         raise ValueError(f"unknown texture_filter {settings.texture_filter!r}")
     unsupported = [
-        (settings.renderer_type != "deferred", "renderer_type='forward'", FORWARD_PATH),
         (settings.lod_derivatives != "quad", "lod_derivatives='forward'", SAMPLING),
         (not settings.soa_vertex, "soa_vertex=False (AoS vertex stage)", SAMPLING),
-        (settings.fused_resolve == "on", "fused_resolve='on'", FUSED_RESOLVE),
         (not settings.shadow_table_u16, "shadow_table_u16=False", SAMPLING),
         (settings.kernel_debug_print, "kernel_debug_print", OBSERVABILITY),
     ]

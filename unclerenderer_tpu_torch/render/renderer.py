@@ -3,7 +3,8 @@ texture decode, material fuse, atlas and device-scene build, then frames.
 
 The analog of the D3D12 renderer's ``FApplication`` and renderer
 ``Initialize`` (scene build, texture loads, descriptor heap), with the frame
-loop replaced by calls to ``deferred_frame`` on the Renderer's device (the
+loop replaced by calls to ``deferred_frame`` or, under
+``renderer_type="forward"``, ``forward_frame`` on the Renderer's device (the
 card unless the caller names another).
 
 Deliberately not carried over from the reference:
@@ -14,9 +15,9 @@ Deliberately not carried over from the reference:
 * the on-disk built-scene cache (``core/scenecache.py``): nothing is read or
   written, ``scene_cache_hit`` is False (ROADMAP.md, modules queue: Renderer
   shell and CLI).
-* the forward path, per-pass GPU timing, graph dumps and the profilers:
-  they raise ``NotImplementedError`` naming their ROADMAP.md queue entry,
-  never silently doing nothing.
+* per-pass GPU timing, graph dumps and the profilers: they raise
+  ``NotImplementedError`` naming their ROADMAP.md queue entry, never
+  silently doing nothing.
 
 Host vectors are never read back from the device per frame: the shadow-map
 cache is keyed on the host light vector and visibility, the frame's
@@ -52,10 +53,10 @@ from ..textures.image import (
 )
 from . import common
 from .deferred import deferred_frame
+from .forward import forward_frame
 from .packing import M_UVOS, M_UVROT, pack_model_record, pack_tri_geo, pack_tri_mrec
 from .packing import scene_host_arrays
 from .params import (
-    FORWARD_PATH,
     OBSERVABILITY,
     DeviceScene,
     FrameParams,
@@ -279,8 +280,6 @@ class Renderer:
                 # the frame's frustum and HZB culling mask
                 enable_gpu_culling=cfg.enable_indirect_draw,
             )
-        if settings.renderer_type != "deferred":
-            raise not_ported(f"renderer_type={settings.renderer_type!r}", FORWARD_PATH)
         self.settings = settings
         self.config = cfg
         self._apply_config_side_effects(cfg)
@@ -415,8 +414,9 @@ class Renderer:
     def frame_params(self, delta_time: float = 1.0 / 60.0) -> FrameParams:
         view = self.camera.view_matrix()
         proj_base = self.camera.projection_matrix()
-        # TAA jitter only once history is valid (DeferredRenderer.cpp:398-411)
-        if self.settings.enable_taa and self._taa_history_ready:
+        # TAA jitter only once history is valid (DeferredRenderer.cpp:398-411);
+        # the forward frame has no TAA
+        if self._deferred() and self.settings.enable_taa and self._taa_history_ready:
             jitter = m.taa_jitter(self._frame_counter)
             proj = m.jittered_projection(proj_base, jitter, self.settings.width,
                                          self.settings.height)
@@ -474,16 +474,26 @@ class Renderer:
             self._shadow_key = key
         return self._shadow_cache
 
+    def _deferred(self) -> bool:
+        """The deferred frame renders unless ``renderer_type`` asks for the
+        forward one (any other value renders forward, as in the reference)."""
+        return self.settings.renderer_type == "deferred"
+
     def render_frame(self, delta_time: float = 1.0 / 60.0) -> dict:
-        """One deferred frame.  No fallback: a frame that fails (a kernel
-        that does not build or launch included) raises; the reference's
-        retry with the forward renderer is not carried over."""
+        """One deferred or forward frame (``renderer_type``) on the cached
+        shadow map; a forward frame leaves the frame state as it is.  No
+        fallback: a frame that fails (a kernel that does not build or
+        launch included) raises; the reference's retry with the forward
+        renderer is not carried over."""
         params = self.frame_params(delta_time)
         shadow_map = self._shadow_map(params)
-        out, self.frame_state = deferred_frame(self.device_scene, params, self.frame_state,
-                                               self.settings, shadow_map)
-        if self.settings.enable_taa:
-            self._taa_history_ready = True
+        if self._deferred():
+            out, self.frame_state = deferred_frame(self.device_scene, params, self.frame_state,
+                                                   self.settings, shadow_map)
+            if self.settings.enable_taa:
+                self._taa_history_ready = True
+        else:
+            out = forward_frame(self.device_scene, params, self.settings, shadow_map)
         self._frame_counter += 1
         self._last_out = out
         return out
@@ -494,20 +504,28 @@ class Renderer:
         frame; the light and visibility stay fixed, so the shadow map is
         rendered at most once.  The worst frame's value of each drop counter
         stays on the device until ``stats()`` reads it (the reference scans
-        the frames in one device program, ``renderer.py:695-763``)."""
+        the frames in one device program, ``renderer.py:695-763``).  Forward
+        frames leave the frame state as it is and, as the reference's chain,
+        keep no drop counters."""
         if n < 1:
             raise ValueError(f"render_frames: n must be >= 1, got {n}")
+        deferred = self._deferred()
         params_list = []
         for i in range(n):
             if mutate is not None:
                 mutate(self, i)
             params_list.append(self.frame_params(delta_time))
             self._frame_counter += 1
-            if self.settings.enable_taa:
+            if deferred and self.settings.enable_taa:
                 self._taa_history_ready = True
         shadow_map = self._shadow_map(params_list[0])
         colors, drops = [], None
         for params in params_list:
+            if not deferred:
+                colors.append(forward_frame(self.device_scene, params, self.settings,
+                                            shadow_map)["color"])
+                drops = {}
+                continue
             out, self.frame_state = deferred_frame(self.device_scene, params, self.frame_state,
                                                    self.settings, shadow_map)
             colors.append(out["color"])
@@ -543,8 +561,6 @@ class Renderer:
         new = dataclasses.replace(self.settings, **changes)
         if new == self.settings:
             return
-        if new.renderer_type != "deferred":
-            raise not_ported(f"renderer_type={new.renderer_type!r}", FORWARD_PATH)
         old = self.settings
         self.settings = new
         if ("enable_combined_material" in changes or "material_packed_trilinear" in changes
@@ -600,10 +616,11 @@ class Renderer:
     def stats(self) -> dict:
         """Scene and culling counts of the last rendered frame, its drop
         counters (the worst frame of the last ``render_frames`` folded in),
-        exposure, TAA state and device memory.  Does not advance the frames."""
+        exposure, TAA state and device memory.  Does not advance the frames.
+        A forward frame culls nothing: every model counts as visible."""
         out = self._latest_out()
         total = self.scene_data.num_models
-        n_visible = int(out["model_visible"].sum())
+        n_visible = int(out["model_visible"].sum()) if "model_visible" in out else total
         rs = {k: int(v) for k, v in out["raster_stats"].items()}
         for k, v in (self._chain_drop_counters or {}).items():
             rs[k] = max(rs.get(k, 0), int(v))
@@ -611,8 +628,8 @@ class Renderer:
             "models_total": total,
             "models_visible": n_visible,
             "models_culled": total - n_visible,
-            "frustum_culled": int(out["frustum_culled"]),
-            "hzb_occluded": int(out["hzb_occluded"]),
+            "frustum_culled": int(out.get("frustum_culled", 0)),
+            "hzb_occluded": int(out.get("hzb_occluded", 0)),
             "triangles_total": self.scene_data.num_triangles,
             "bin_pair_overflow": rs.get("pair_overflow", 0),
             "bin_giant_truncated": rs.get("giant_truncated", 0),
@@ -771,7 +788,9 @@ class Renderer:
         out = self.render_frame(delta_time)
         img = np.array(np.clip(out["color"].cpu().numpy(), 0, 1), copy=True)
         if self.debug_print_enabled and not self.settings.gpu_debug_print:
-            visible = int(out["model_visible"].sum())
+            # a forward frame draws every model (the reference counts 1 here)
+            total = self.scene_data.num_models
+            visible = int(out["model_visible"].sum()) if "model_visible" in out else total
             img = stats_overlay(img, {
                 "models_total": self.scene_data.num_models,
                 "models_visible": visible,
