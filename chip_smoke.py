@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Six paths of the port are driven: four through ``deferred_frame``,
+Seven paths of the port are driven: five through ``deferred_frame``,
 
 * default -- the default frame of the combined material (u8 combined quad
   atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
@@ -21,8 +21,13 @@ Six paths of the port are driven: four through ``deferred_frame``,
   (``binned_raster_attrs``, ``giant_raster_attrs``), which the resolve takes
   in place of its record gather; the shadow map's K1/K2, K4 and K5 as on
   the default path;
+* sampling -- the default geometry under the non-default sampling and
+  storage settings together (``lod_derivatives="forward"``,
+  ``soa_vertex=False``, ``shadow_table_u16=False``): forward-difference
+  LOD, the AoS vertex stage and the f32 PCF table, which K4 reads through
+  its f32 entry (``shadow_select9_f32``), with K1, K2 and K5;
 
-a fourth through ``ops/probes.py``, and a fifth through the entry points a
+one through ``ops/probes.py``, and one through the entry points a
 user calls, ``render/renderer.py Renderer`` and ``python -m
 unclerenderer_tpu_torch``:
 
@@ -40,6 +45,9 @@ unclerenderer_tpu_torch``:
   ``RendererConfig`` (stats overlay and TAA on): its cached shadow map and
   K1, K2, K4 and K5; then the same files rendered by the forward Renderer
   (``renderer_type="forward"``: ``render/forward.py forward_frame``).
+
+and K1's debug print (``kernel_debug_print``: ``binned_raster_debug``) in a
+child process, and observability on the Renderer's files.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -129,6 +137,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    in turns with the deferred Renderer; card/CPU forward Renderers at
    256x256 with fused resolve off and on (depth, ids, counters bit-equal,
    colour within 1e-3).
+8. sampling -- (run after the fused path, on its scene) every K1, K2, K4
+   (f32 rows) and K5 call of one 1080p sampling frame bit-equal to its
+   plain version, K4 on f32 rows timed for the kernels line (it is also
+   held bit-equal, bit patterns, on random f32 tables at block widths 4-8
+   in phase 3); 10 counted frames with the gates of phase 5; ms/frame and
+   peak GiB in turns with the default configuration (3 pairs of 3 frames);
+   the pass markers' ``record_function`` ranges a default frame, and
+   ms/frame with them replaced by a no-op, in turns (no gate).  Phase 4
+   adds 256x256 card/CPU pairs: each setting alone and all three, deferred,
+   all three in the forward frame, and the anisotropic filter with
+   compacted taps under forward differences (one frame each).
+9. debug   -- (run after phase 4) a child process (``--k1-debug-child``:
+   device printf writes to its fd 1) grows the printf FIFO, renders one
+   256x256 deferred frame with ``kernel_debug_print``, and holds each debug
+   launch to the plain version; the lines it printed equal the plain
+   version's as a multiset, one per live block; the launches' ms with and
+   without the flag.
+10. observability -- (run after phase 7, on its files at 1080p) GpuTiming's
+   "Frame" samples; ``profile_passes``' ten stages (ms > 0);
+   ``profile_trace_passes`` of 2 frames (ShadowMap, VisibilityRaster and
+   MaterialResolve > 0, every K1 row inside ShadowMap or VisibilityRaster;
+   "(total)" logged beside the frames' CUDA-event time and the "(other)"
+   share); GraphDump's op list naming every kernel its frame launched; the
+   CLI with ``--trace DIR --profile-passes``.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the f32
@@ -139,7 +171,10 @@ and report the bound that counts every (pixel, valid row) pair
 (``bound_all_pairs_ms``, the count before the kernels skipped rows).
 
 The kernels JSON gives each kernel's ``launches`` on its path's counted run
-(the record-emitting entries: the fused path's), ``renderer_launches`` on
+(the record-emitting entries: the fused path's; ``shadow_select9_f32``: the
+sampling path's; ``binned_raster_debug``: the debug child's frame, whose
+``ms`` and ``plain_ms`` are its launches' and ``no_debug_ms`` the same
+launches without the flag), ``renderer_launches`` on
 the Renderer's and ``forward_renderer_launches`` on the forward Renderer's.  The last three lines of stdout
 are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
@@ -180,6 +215,11 @@ ENV_SIZE = 128  # procedural env cube faces, 8 mips
 KERNEL_FLAGS = dict(hzb_pallas_tail=True, env_select_kernel=True, mat_select_kernel=True,
                     bin_mat_idx=True)
 PROBE_ROWS = 786432  # the probes' packed atlas rows (256 u8 lanes)
+# the sampling configuration: the non-default sampling and storage branches
+SAMPLING = dict(lod_derivatives="forward", soa_vertex=False, shadow_table_u16=False)
+DEBUG_FIFO = 64 << 20  # the debug child's device printf FIFO (grown before any launch)
+PASS_STAGES = {"GPU Culling", "ShadowMap", "VertexStage", "GBuffer(Visibility)", "Build HZB",
+               "MaterialResolve", "Lighting", "TemporalAA", "Tonemap", "CAS"}
 SUM_ATOL = 1e-5  # probe-row sums, kernel vs plain: the same adds over equal inputs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -252,7 +292,7 @@ def skip_work(name, args):
 
 
 def work_binned(coef, tri_id, valid, start, count, tile_h, tile_w, n_tx, y_offset=0.0,
-                want_ids=True, ortho=False):
+                want_ids=True, ortho=False, debug=False):
     pix, chunk = tile_h * tile_w, coef.shape[-1]
     per_block = (valid[:, 0] > 0).sum(-1)
     csum = torch.cat([per_block.new_zeros(1), torch.cumsum(per_block, 0)])
@@ -331,6 +371,19 @@ def work_copy(x):
 
 def work_merge(a, b, ka, kb):
     return nbytes(a, b, ka, kb, a), 0
+
+
+def call_belongs(name, args, kwargs) -> bool:
+    """Whether a recorded call of a wrapper shared by several kernel entries
+    is entry ``name``'s: K1 with records or debug, K2 with records, K4 on
+    u16 or f32 rows."""
+    if name == "binned_raster_debug":
+        return bool(kwargs.get("debug"))
+    if kwargs.get("debug"):
+        return False
+    if name in ("shadow_select9", "shadow_select9_f32"):
+        return (args[0].dtype == torch.float32) == name.endswith("_f32")
+    return (kwargs.get("records") is not None) == name.endswith("_attrs")
 
 
 class Recorder:
@@ -441,6 +494,11 @@ def tiny_inputs(dev):
         "giant_raster_attrs": (r.calls[0][0], {"records": rec}),
         "shadow_select9": ((torch.zeros((16, 128), dtype=torch.int16, device=dev), i32[0],
                             i32[1], pcf_deltas(8)), {}),
+        "shadow_select9_f32": ((torch.zeros((16, 128), dtype=torch.float32, device=dev), i32[0],
+                                i32[1], pcf_deltas(8)), {}),
+        # no live block: the launch path's cost, no line printed
+        "binned_raster_debug": ((bins.coef, bins.tri_id, bins.valid, start,
+                                 torch.zeros_like(count), 16, 64, 1), {"debug": True}),
         "gather_rows": ((f32[:4, :2].contiguous().to(torch.bfloat16), i32[0]), {}),
         "hzb_tail": ((f32[:4].contiguous(), [(w, h) for _o, w, h in layout]), {}),
         "env_select": ((torch.zeros((4, 128), device=dev), i32[0], f32), {}),
@@ -468,6 +526,159 @@ def launch_costs(kernels, dev):
                       f"{tuple(first.shape)} {clone_us:.2f} us (host clock, 2 x 3 x 1000 "
                       "calls each, in turns)")
     return out
+
+def debug_phase(kernels, smi) -> dict:
+    """K1's debug print: the child process's device lines (its stdout)
+    equal, as a multiset, the plain version's lines for the same launches,
+    and number the live blocks; the debug launches' ms with and without the
+    flag, the plain version's and the bound go to ``kernels``."""
+    import subprocess
+    from collections import Counter
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_debug_") as td:
+        out = Path(td) / "debug.json"
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--k1-debug-child", str(out)], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"debug child failed: {res.stderr[-3000:]}")
+        got = json.loads(out.read_text())
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("binned raster")]
+    check(Counter(lines) == Counter(got["ref_lines"]),
+          f"debug lines differ from the plain version's: {len(lines)} printed, "
+          f"{len(got['ref_lines'])} expected")
+    check(len(lines) == got["live_blocks"] > 0 and got["launches"] > 0,
+          f"{len(lines)} debug lines for {got['live_blocks']} live blocks, "
+          f"{got['launches']} launches")
+    k = kernels["binned_raster_debug"]
+    for c in got["calls"]:
+        k["ms"] += c["ms"]
+        k["plain_ms"] += c["plain_ms"]
+        k["no_debug_ms"] += c["no_debug_ms"]
+        k["bytes_s"] += c["bytes"] / HBM_BYTES_PER_S
+        k["ops_s"] += c["ops"] / F32_OPS_PER_S
+    log("debug", f"one 256x256 frame with kernel_debug_print in a child process ({child_s:.1f} "
+                 f"s): {got['launches']} debug launches printed {len(lines)} lines, the plain "
+                 f"version's multiset, one per live block ({got['live_blocks']}); printf FIFO "
+                 f"{got['fifo_bytes']} B; per launch (lines, ms with / without the flag): "
+                 f"{[(c['lines'], round(c['ms'], 4), round(c['no_debug_ms'], 4)) for c in got['calls']]} "
+                 f"(CUDA events, 20 launches each, in turns, on {smi})")
+    return {"lines": len(lines), "child_s": child_s, **{k_: v for k_, v in got.items()
+                                                        if k_ != "ref_lines"}}
+
+
+def observability_phase(dev, smi, scene: Path) -> dict:
+    """Observability on the renderer cell's files at 1080p: GpuTiming's
+    "Frame" samples, ``profile_passes``' ten stages, ``profile_trace_passes``
+    (the raster kernels attributed to their passes; "(total)" beside the
+    frames' CUDA-event time, and the "(other)" share, logged), GraphDump's
+    op list naming every kernel its frame launched, and the CLI with
+    ``--trace DIR --profile-passes``.  Returns what it measured; a failed
+    gate raises."""
+    import os
+    import re
+    import subprocess
+
+    from unclerenderer_tpu_torch.core import traceparse
+    from unclerenderer_tpu_torch.core.config import RendererConfig
+    from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+
+    rep = {}
+    settings = RenderSettings(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW)
+    r = Renderer(scene, settings=settings, config=RendererConfig(enable_gpu_timing=True),
+                 device=dev)
+    for _ in range(3):
+        r.render_frame()
+    timing = r.stats()["frame_timing"]
+    check(timing and timing[0]["name"] == "Frame", f"frame_timing {timing}")
+    rep["frame_timing"] = timing
+    stages = r.profile_passes(iterations=1).stats()
+    check({row["name"] for row in stages} == PASS_STAGES and
+          all(row["avg_ms"] > 0 for row in stages), f"profile_passes stages {stages}")
+    rep["profile_passes"] = {row["name"]: row["avg_ms"] for row in stages}
+    log("observability", f"GpuTiming {timing}; profile_passes (ms, one run each, CUDA events): "
+                         f"{ {k: round(v, 3) for k, v in rep['profile_passes'].items()} }")
+
+    # the in-frame buckets of 2 traced frames (the first re-renders the map)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as td:
+        r._shadow_key = None
+        t0 = time.perf_counter()
+        passes = {row["name"]: row["avg_ms"]
+                  for row in r.profile_trace_passes(frames=2, trace_dir=td).stats()}
+        trace_s = time.perf_counter() - t0
+        rows = traceparse.scope_paths(traceparse.load_events(traceparse.find_trace_file(td)))
+    for name in ("ShadowMap", "VisibilityRaster", "MaterialResolve"):
+        check(passes.get(name, 0.0) > 0.0, f"profile_trace_passes: no {name} time ({passes})")
+    k1 = [path for name, _d, path in rows if "binned_raster_kernel" in name]
+    check(k1 and all("ShadowMap" in p or "VisibilityRaster" in p for p in k1),
+          f"K1 rows outside ShadowMap/VisibilityRaster: {[p for p in k1 if 'Raster' not in p]}")
+    unattributed = sum(1 for _n, _d, path in rows if not path)
+    r._shadow_key = None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(2):
+        r.render_frame()
+    end.record()
+    end.synchronize()
+    frame_ms = start.elapsed_time(end) / 2
+    total, other = passes.get("(total)", 0.0), passes.get("(other)", 0.0)
+    rep.update(trace_passes=passes, trace_s=trace_s, device_rows=len(rows), k1_rows=len(k1),
+               rows_without_range=unattributed, frame_event_ms=frame_ms)
+    log("observability", f"profile_trace_passes (2 frames, {trace_s:.1f} s): "
+                         f"{ {k: round(v, 3) for k, v in passes.items()} }; (total) {total:.2f} "
+                         f"ms of device time a frame against {frame_ms:.2f} ms a frame between "
+                         f"CUDA events, (other) {100 * other / max(total, 1e-9):.1f}% of it; "
+                         f"{len(rows)} device rows, {unattributed} with no range, {len(k1)} K1 "
+                         f"rows all in ShadowMap or VisibilityRaster (on {smi})")
+    del r
+
+    # GraphDump: the first frame's op list, in a scratch working directory
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dump_") as td:
+        os.chdir(td)
+        try:
+            r = Renderer(scene, settings=settings, config=RendererConfig(enable_graph_dump=True),
+                         device=dev)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            r.render_frame()
+            torch.cuda.synchronize()
+            launched = sorted(k for k, v in _cuda.LAUNCHES.items() if v)
+            dump = (Path(td) / "render_graph_dump.txt").read_text()
+        finally:
+            os.chdir(cwd)
+    named = sorted(set(re.findall(r"\tkernel (\w+)", dump)))
+    check(len(dump) > 1000 and set(launched) <= set(named),
+          f"graph dump ({len(dump)} B) names {named}, the frame launched {launched}")
+    rep.update(graph_dump_bytes=len(dump), graph_dump_entries=dump.count("\n") - 2,
+               graph_dump_kernels=named)
+    log("observability", f"render_graph_dump.txt {len(dump)} B, {dump.count(chr(10)) - 2} "
+                         f"entries, names every kernel the frame launched: {named}")
+    del r
+
+    # the CLI with --trace and --profile-passes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as td:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "unclerenderer_tpu_torch", "--scene", str(scene), "--width",
+             str(WIDTH), "--height", str(HEIGHT), "--frames", "2", "--trace",
+             str(Path(td) / "trace"), "--profile-passes", "--output", str(Path(td) / "o.png")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"CLI --trace --profile-passes failed: {res.stderr[-3000:]}")
+        traces = list((Path(td) / "trace").glob("*.pt.trace.json"))
+        logged = re.findall(r"pass (\S+(?: \S+)?)\s+avg", res.stdout + res.stderr)
+        check(len(traces) == 1 and set(logged) == PASS_STAGES,
+              f"CLI wrote {traces}, logged passes {logged}")
+        trace_mb = traces[0].stat().st_size / 2**20
+    rep.update(cli_s=cli_s, cli_trace_mib=trace_mb)
+    log("observability", f"CLI --trace DIR --profile-passes at {WIDTH}x{HEIGHT}: {cli_s:.1f} s, "
+                         f"one {trace_mb:.1f} MiB Chrome trace, the ten stages logged")
+    return rep
+
 
 RENDERER_SMALL = 256  # the card/CPU Renderer pair: 256x256, 512^2 shadow map
 OVERLAY_ROWS = 80  # the stats block's four lines end above this row (origin 8, 18 rows a line)
@@ -617,7 +828,8 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
     check(native.build_info.get("path"), f"textures/native.py built no library: {native.build_info}")
     check(r.env_mip_count == float(ENV_SIZE.bit_length()), f"env mips {r.env_mip_count}")
     check(r.settings.gpu_debug_print and r.settings.enable_taa, "overlay and TAA must be on")
-    rep.update(init_s=init_s, setup_phase_s=dict(r.setup_phase_s), native=dict(native.build_info),
+    rep.update(scene_json=str(scene), init_s=init_s, setup_phase_s=dict(r.setup_phase_s),
+               native=dict(native.build_info),
                atlas=[list(quad.shape), str(quad.dtype)], env_mip_count=r.env_mip_count)
 
     center = np.asarray(data.scene_center, np.float32)
@@ -836,11 +1048,74 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
     return rep
 
 
+def k1_debug_child(out: Path) -> int:
+    """The debug phase's child process (``--k1-debug-child``): device printf
+    writes to this process's fd 1, which the parent reads.  Grows the printf
+    FIFO before any CUDA work, renders one 256x256 deferred frame with
+    ``kernel_debug_print`` (its K1 launches print; nothing else writes to
+    stdout), then with fd 1 on /dev/null holds each debug launch to the
+    plain version, times it with and without the flag and the plain version,
+    and writes to ``out``: the plain version's lines, the live blocks, the
+    launches, the times and the bound's bytes and operations."""
+    import io
+    import os
+
+    from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.ops import raster_kernels as rk
+    from unclerenderer_tpu_torch.render.deferred import deferred_frame
+    from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
+    from unclerenderer_tpu_torch.render.testing import (
+        synthetic_device_scene,
+        synthetic_frame_params,
+    )
+
+    fifo = _cuda.printf_fifo(DEBUG_FIFO)
+    dev = torch.device("cuda", 0)
+    scene, data = synthetic_device_scene(24, rich_materials=True, atlas_u8=True, device=dev)
+    settings = RenderSettings(width=256, height=256, shadow_map_size=512, has_masked_models=False,
+                              combined_material=True, kernel_debug_print=True)
+    params = synthetic_frame_params(data, 256, 256, device=dev)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with Recorder(rk, "binned_raster") as r:
+        deferred_frame(scene, params, FrameState.initial(256, 256, dev), settings)
+        torch.cuda.synchronize()  # flushes the device lines to fd 1
+    launches = _cuda.LAUNCHES["binned_raster_debug"]
+    sys.stdout.flush()
+    null = os.open(os.devnull, os.O_WRONLY)
+    os.dup2(null, 1)  # the measurements' own lines go nowhere
+    calls = [c for c in r.calls if c[1].get("debug")]
+    ref_lines, live, per_call = [], 0, []
+    for ca, ck in calls:
+        plain = functools.partial(rk.binned_raster_ref, *ca, **ck)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            want = plain()
+        ref_lines += text.getvalue().split("\n")[:-1]
+        live += int(ca[4].sum())
+        bad, _ = compare(rk.binned_raster(*ca, **ck), want)
+        check(bad == 0, f"binned_raster_debug != plain: {bad} elements")
+        no_debug = {k: v for k, v in ck.items() if k != "debug"}
+        ms_on, ms_off = in_turns(lambda: rk.binned_raster(*ca, **ck),
+                                 lambda: rk.binned_raster(*ca, **no_debug),
+                                 lambda fn: cuda_ms(fn, reps=20))
+        moved, ops, *_pairs = work_binned(*ca, **ck)
+        per_call.append({"shape": list(ca[0].shape), "tiles": int(ca[3].shape[0]),
+                         "lines": int(ca[4].sum()), "ms": ms_on, "no_debug_ms": ms_off,
+                         "plain_ms": cuda_ms(plain, reps=1), "bytes": moved, "ops": ops})
+    out.write_text(json.dumps({"fifo_bytes": fifo, "launches": launches, "live_blocks": live,
+                               "ref_lines": ref_lines, "calls": per_call}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--report", type=Path, default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--k1-debug-child", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.k1_debug_child is not None:
+        return k1_debug_child(args.k1_debug_child)
 
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -856,6 +1131,7 @@ def main() -> int:
     from unclerenderer_tpu_torch.ops.raster import normalize_ortho_setup
     from unclerenderer_tpu_torch.render import common as common_mod
     from unclerenderer_tpu_torch.render.deferred import deferred_frame
+    from unclerenderer_tpu_torch.render.forward import forward_frame
     from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
     from unclerenderer_tpu_torch.render.testing import (
         synthetic_device_scene,
@@ -908,6 +1184,14 @@ def main() -> int:
         "shadow_select9": dict(module=shadow_mod, attr="select9", ref=shadow_mod.select9_ref,
                                work=work_select9, source=csrc + "shadow_select9.cu",
                                replaces="unclerenderer_tpu/ops/shadow.py:335"),
+        # K4's f32 rows (shadow_table_u16=False) and K1's debug print
+        # (kernel_debug_print): the same wrappers given an f32 table, debug=True
+        "shadow_select9_f32": dict(module=shadow_mod, attr="select9", ref=shadow_mod.select9_ref,
+                                   work=work_select9, source=csrc + "shadow_select9.cu",
+                                   replaces="unclerenderer_tpu/ops/shadow.py:335"),
+        "binned_raster_debug": dict(module=rk, attr="binned_raster", ref=rk.binned_raster_ref,
+                                    work=work_binned, source=csrc + "binned_raster.cu",
+                                    replaces="unclerenderer_tpu/ops/pallas_raster.py:572"),
         "gather_rows": dict(module=tex_mod, ref=tex_mod.gather_rows_ref, work=work_gather_rows,
                             library=index_select, source=csrc + "gather_rows.cu",
                             replaces="unclerenderer_tpu/ops/texture.py:105"),
@@ -940,12 +1224,13 @@ def main() -> int:
         k.update(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, graph_ms=0.0,
                  library_graph_ms=0.0, bytes_s=0.0, ops_s=0.0, all_pairs_ops_s=0.0, calls=[],
                  launch_us=None, clone_launch_us=None, no_records_ms=0.0,
-                 no_records_graph_ms=0.0)
+                 no_records_graph_ms=0.0, no_debug_ms=0.0)
     check(set(kernels) == set(_cuda.LAUNCHES), "every built kernel is checked")
     default_kernels = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
     attr_kernels = ("binned_raster_attrs", "giant_raster_attrs")
     packed_kernels = ("hzb_tail", "env_select", "mat_select", "materialize_rows")
     probe_kernels = ("merge_select", "copy_rows", "materialize")
+    sampling_kernels = ("binned_raster", "giant_raster", "shadow_select9_f32", "gather_rows")
     report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     def versus_plain(name, *a, **kw):
@@ -1075,6 +1360,24 @@ def main() -> int:
             base = torch.from_numpy(rng.integers(0, 128 - deltas[-1], m).astype(np.int32)).to(dev)
             row[-1], base[-1] = 4095, 127 - deltas[-1]  # the table's last lane
             versus_plain("shadow_select9", table, row, base, deltas)
+    # K4 on f32 rows at every block width, with -0, inf and the table's last lane
+    table = torch.from_numpy(rng.standard_normal((4096, 128)).astype(np.float32)).to(dev)
+    table.view(-1)[::13] = -0.0
+    table.view(-1)[3::29] = float("inf")
+    for bw in range(4, 9):
+        deltas = shadow_mod.pcf_deltas(bw)
+        for m in (100_003, 257, 31):
+            row = torch.from_numpy(rng.integers(0, 4096, m).astype(np.int32)).to(dev)
+            base = torch.from_numpy(rng.integers(0, 128 - deltas[-1], m).astype(np.int32)).to(dev)
+            row[-1], base[-1] = 4095, 127 - deltas[-1]
+            row[0], base[0] = 0, 0  # the first lane
+            got = shadow_mod.select9(table, row, base, deltas)
+            want = shadow_mod.select9_ref(table, row, base, deltas)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"shadow_select9_f32 != plain (bit patterns) at bw {bw}, {m} receivers")
+    log("kernels", "shadow_select9_f32 bit-equal to plain (bit patterns: -0 read as +0, inf "
+                   "kept) on random f32 tables at block widths 4-8, rows and bases at the "
+                   "table's first and last lanes, 31-100,003 receivers")
     log("kernels", "hzb_tail, env_select, mat_select, materialize_rows and shadow_select9 "
                    "bit-equal to plain on random inputs (hzb_tail: tops 1x1 to 1080x1920, sides "
                    "of 1, 3 launches in a row and 10 graph replays; mat_select: u8, f32 and bf16 "
@@ -1226,15 +1529,17 @@ def main() -> int:
         """The calls of kernels ``names`` in one full-size frame: name ->
         [(args, kwargs)]."""
         with contextlib.ExitStack() as stack:
-            recs = [stack.enter_context(Recorder(kernels[n]["module"], kernels[n]["attr"]))
-                    for n in names]
+            # one recorder a wrapper; its calls sorted by entry (call_belongs)
+            recs = {}
+            for n in names:
+                key = (kernels[n]["module"], kernels[n]["attr"])
+                if key not in recs:
+                    recs[key] = stack.enter_context(Recorder(*key))
             deferred_frame(frame_scene, frame_params,
                            FrameState.initial(WIDTH, HEIGHT, dev), frame_settings)
             torch.cuda.synchronize()
-        # a wrapper's record-emitting calls belong to its *_attrs entry
-        calls = {name: [c for c in r.calls
-                        if (c[1].get("records") is not None) == name.endswith("_attrs")]
-                 for name, r in zip(names, recs)}
+        calls = {name: [c for c in recs[(kernels[name]["module"], kernels[name]["attr"])].calls
+                        if call_belongs(name, *c)] for name in names}
         for name, c in calls.items():
             check(c, f"{name}: the frame made no call")
         return calls
@@ -1265,19 +1570,25 @@ def main() -> int:
         am = frame_scene.alpha_mode[frame_scene.tri_model.long()] == 1
         return int(((tri_id >= 0) & am[tri_id.clamp(min=0).long()]).sum())
 
-    def cross(label, sc_cpu, sdata, frame_settings, mips=None, masked_min=None):
+    def cross(label, sc_cpu, sdata, frame_settings, mips=None, masked_min=None, frames=2,
+              frame="deferred"):
         sc_gpu = to_device(sc_cpu, dev)
         st_c = FrameState.initial(256, 256, "cpu")
         st_g = FrameState.initial(256, 256, dev)
-        for i in range(2):
+        for i in range(frames):
             pos = (4.0 * np.sin(0.05 * i), 1.5, -4.0 * np.cos(0.05 * i))
             p_c = synthetic_frame_params(sdata, 256, 256, camera_pos=pos, device="cpu")
             p_g = synthetic_frame_params(sdata, 256, 256, camera_pos=pos, device=dev)
             if mips is not None:
                 p_c.env_mip_count = torch.tensor(float(mips))
                 p_g.env_mip_count = torch.tensor(float(mips), device=dev)
-            out_c, st_c = deferred_frame(sc_cpu, p_c, st_c, frame_settings)
-            out_g, st_g = deferred_frame(sc_gpu, p_g, st_g, frame_settings)
+            if frame == "forward":
+                out_c = forward_frame(sc_cpu, p_c, frame_settings)
+                out_g = forward_frame(sc_gpu, p_g, frame_settings)
+                out_c["hdr"], out_g["hdr"] = out_c["color"], out_g["color"]
+            else:
+                out_c, st_c = deferred_frame(sc_cpu, p_c, st_c, frame_settings)
+                out_g, st_g = deferred_frame(sc_gpu, p_g, st_g, frame_settings)
             check(out_g["object_id"].dtype == out_c["object_id"].dtype == torch.uint32,
                   f"object_id is {out_g['object_id'].dtype}, the reference's is uint32")
             for key in ("depth", "tri_id", "object_id"):
@@ -1318,7 +1629,22 @@ def main() -> int:
             f"masked cap {cap}", sc_cpu, sdata,
             RenderSettings(width=256, height=256, shadow_map_size=512, masked_tri_cap=cap),
             masked_min=50)
+    # the sampling and storage settings alone and together, deferred and
+    # forward, and the anisotropic filter with compacted taps under forward
+    # differences (one frame each)
+    sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True, device="cpu")
+    sampling_pairs = [(f"{k}={v}", {k: v}, "deferred") for k, v in SAMPLING.items()]
+    sampling_pairs += [("sampling", SAMPLING, "deferred"), ("sampling forward", SAMPLING, "forward"),
+                       ("forward LOD anisotropic compact 0.25",
+                        dict(lod_derivatives="forward", texture_filter="anisotropic",
+                             aniso_compact_frac=0.25), "deferred")]
+    for label, override, frame in sampling_pairs:
+        report[f"cross_color_max_abs_{label}"] = cross(
+            label, sc_cpu, sdata, dataclasses.replace(small, **override), frames=1, frame=frame)
     del sc_cpu
+
+    # ---- 9. K1's debug print: one 256^2 frame in a child process
+    report["debug"] = debug_phase(kernels, smi)
 
     # ---- 6. the probe path (defined here, run after the default path)
     def probe_path(frame_scene, frame_params):
@@ -1555,6 +1881,67 @@ def main() -> int:
         log(label, f"fused frame == unfused frame: {sorted(k for k in a_out)} and the carried "
                    f"state bit-equal, colour exactly equal")
 
+    def sampling_path(frame_scene, frame_params, frame_settings):
+        """The sampling configuration at full width: every K1/K2/K4/K5 call
+        of one frame bit-equal to its plain version, K4 on f32 rows timed
+        for the kernels line, the counted run with its gates, and ms/frame
+        and peak in turns with the default configuration (3 pairs of 3
+        frames)."""
+        s_settings = dataclasses.replace(frame_settings, **SAMPLING)
+        calls = recorded(sampling_kernels, frame_scene, frame_params[0], s_settings)
+        for name, cs in calls.items():
+            for ca, ck in cs:
+                versus_plain(name, *ca, **ck)
+        table = calls["shadow_select9_f32"][0][0][0]
+        log("sampling", f"{ {n: len(c) for n, c in calls.items()} } calls of one frame bit-equal to "
+                        f"plain; the PCF table {tuple(table.shape)} {table.dtype} "
+                        f"({table.nbytes / 2**20:.0f} MiB)")
+        capture(["shadow_select9_f32"], frame_scene, frame_params[0], s_settings)
+        rep = counted("sampling", sampling_kernels, frame_scene, frame_params, s_settings,
+                      time_it=False)
+        turns = timed_turns([("sampling", s_settings), ("default", frame_settings)], frame_scene,
+                            frame_params[:3])
+        rep["turns"] = turns
+        log("sampling", f"ms/frame in turns (3 pairs of 3 frames): sampling "
+                        f"{[round(x, 2) for x in turns['sampling']['ms_per_frame']]} (median "
+                        f"{turns['sampling']['median_ms']:.2f}), default "
+                        f"{[round(x, 2) for x in turns['default']['ms_per_frame']]} (median "
+                        f"{turns['default']['median_ms']:.2f}); peak GiB sampling "
+                        f"{turns['sampling']['peak_gib']:.2f}, default "
+                        f"{turns['default']['peak_gib']:.2f} ({WIDTH}x{HEIGHT}, shadow "
+                        f"{SHADOW}^2, on {smi})")
+        return rep
+
+    def marker_cost(frame_scene, frame_params, frame_settings):
+        """The pass markers' record_function calls in one default frame, and
+        ms/frame with the markers on and replaced by a no-op, in turns (on
+        off off on on off, 3 frames each).  No gate."""
+        prof = torch.autograd.profiler
+        on = prof.record_function
+        n_calls = [0]
+
+        def counting(name):
+            n_calls[0] += 1
+            return on(name)
+
+        with patched(prof, "record_function", counting):
+            run(frame_scene, frame_params[:1], frame_settings,
+                FrameState.initial(WIDTH, HEIGHT, dev))
+        runs = {"on": [], "off": []}
+        state = FrameState.initial(WIDTH, HEIGHT, dev)
+        for label in ("on", "off", "off", "on", "on", "off"):
+            with patched(prof, "record_function",
+                         on if label == "on" else lambda name: contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, state = run(frame_scene, frame_params[:3], frame_settings, state)
+                torch.cuda.synchronize()
+            runs[label].append((time.perf_counter() - t0) * 1000.0 / 3)
+        log("markers", f"{n_calls[0]} record_function ranges a default frame; ms/frame with the "
+                       f"markers {[round(x, 2) for x in runs['on']]}, replaced by a no-op "
+                       f"{[round(x, 2) for x in runs['off']]} (in turns, 3 frames each, on {smi})")
+        return {"ranges_per_frame": n_calls[0], "ms_per_frame": runs}
+
     report["slice"] = counted("slice", default_kernels, scene, params, settings)
     report["probes"] = probe_path(scene, params[0])
 
@@ -1573,6 +1960,10 @@ def main() -> int:
                  f"{[round(x, 2) for x in turns['unfused']['ms_per_frame']]}); peak GiB fused "
                  f"{turns['fused']['peak_gib']:.2f}, unfused {turns['unfused']['peak_gib']:.2f} "
                  f"({WIDTH}x{HEIGHT}, shadow {SHADOW}^2, on {smi})")
+
+    # ---- 8. the sampling path: forward LOD, AoS vertex stage, f32 PCF table
+    report["sampling"] = sampling_path(scene, params, settings)
+    report["markers"] = marker_cost(scene, params, settings)
     del scene
     report["packed"] = counted("packed", default_kernels + packed_kernels, packed,
                                packed_params, packed_settings)
@@ -1630,6 +2021,9 @@ def main() -> int:
     # ---- 7. the Renderer path from scene files, and the CLI
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as scene_dir:
         report["renderer"] = renderer_phase(dev, smi, Path(scene_dir))
+        # ---- 10. observability on the same files
+        report["observability"] = observability_phase(dev, smi, Path(report["renderer"]
+                                                                     ["scene_json"]))
 
     report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                              "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],
@@ -1647,7 +2041,10 @@ def main() -> int:
         args.report.write_text(json.dumps(report, indent=1))
 
     def main_path_launches(name):
+        if name == "binned_raster_debug":
+            return report["debug"]["launches"]
         path = ("slice" if name in default_kernels else "fused" if name in attr_kernels else
+                "sampling" if name == "shadow_select9_f32" else
                 "probes" if name in probe_kernels else "packed")
         return report[path]["launches"][name]
 
@@ -1661,7 +2058,8 @@ def main() -> int:
          "launch_us": k["launch_us"], "clone_launch_us": k["clone_launch_us"],
          "renderer_launches": report["renderer"]["launches"][n],
          "forward_renderer_launches": report["renderer"]["forward"]["launches"][n],
-         **({"no_records_ms": k["no_records_ms"]} if n in attr_kernels else {})}
+         **({"no_records_ms": k["no_records_ms"]} if n in attr_kernels else {}),
+         **({"no_debug_ms": k["no_debug_ms"]} if n == "binned_raster_debug" else {})}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,14 +2,17 @@
 to files, ``--device cpu`` at 64x64 writes a PNG (stdlib encoder) that
 decodes, with the port's own ``load_png``, to exactly the port Renderer's
 ``render_to_u8`` of the same first frame; ``--orbit 2`` writes 2 PNGs,
-each the u8 of ``render_frames``' colour; the flags not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md queue entry.
+each the u8 of ``render_frames``' colour; ``--trace DIR`` writes a
+profiler trace and ``--profile-passes`` logs the deferred stages; the flag
+not ported yet (``--interactive``) raises ``NotImplementedError`` naming its
+ROADMAP.md queue entry.
 
 The reference CLI's PNG is not compared: it has no ``raster_backend``
 flag and on the CPU takes its XLA path, whose PCF table differs from the
 Pallas path the port is held to (``tests/test_torch_renderer.py`` holds the
 Renderer to the reference)."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -81,9 +84,27 @@ def test_cli_orbit_writes_every_frame(scene, tmp_path):
 @pytest.mark.parametrize("flag,title", [(["--interactive"], "viewer and bench"),
                                         (["--trace", "tr"], "observability"),
                                         (["--profile-passes"], "observability")])
-def test_cli_unported_flags_raise(scene, flag, title):
-    with pytest.raises(NotImplementedError, match=rf"modules queue: {title}\)$"):
-        main(["--scene", str(scene), "--device", "cpu", *flag])
+def test_cli_unported_flags_raise(scene, flag, title, tmp_path):
+    """``--interactive`` raises naming its queue entry; ``--trace`` and
+    ``--profile-passes``, which raised under "observability" before that
+    entry was ported, run: the trace of the frame after the first is
+    written into DIR, and the ten deferred stages are logged (in a
+    subprocess, whose log the test reads)."""
+    args = ["--scene", str(scene), "--width", str(SIZE), "--height", str(SIZE),
+            "--shadow-size", str(SIZE), "--device", "cpu", "--output", str(tmp_path / "o.png")]
+    if title != "observability":
+        with pytest.raises(NotImplementedError, match=rf"modules queue: {title}\)$"):
+            main(["--scene", str(scene), "--device", "cpu", *flag])
+        return
+    if flag[0] == "--trace":
+        assert main([*args, "--trace", str(tmp_path / "tr"), "--frames", "2"]) == 0
+        traces = list((tmp_path / "tr").glob("*.pt.trace.json"))
+        assert len(traces) == 1 and traces[0].stat().st_size > 1000
+    else:
+        res = _cli(*args, *flag)
+        logged = re.findall(r"pass (\S+(?: \S+)?)\s+avg", res.stderr + res.stdout)
+        assert len(logged) == 10, logged
+    assert (tmp_path / "o.png").is_file()
 
 
 def test_cli_defaults_to_the_card(scene):

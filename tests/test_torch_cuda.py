@@ -143,6 +143,72 @@ def test_select9_kernel_bit_equal(cuda_device, bw, n):
     assert _cuda.LAUNCHES["shadow_select9"] == before + 1
 
 
+@pytest.mark.parametrize("n", [1, 31, 33, 50000, 2**20 + 3])
+@pytest.mark.parametrize("bw", [4, 5, 6, 7, 8])
+def test_select9_f32_kernel_bit_equal(cuda_device, bw, n):
+    """K4 on f32 rows (shadow_table_u16=False): bit patterns equal to the
+    plain version's, -0 read as +0, inf kept, runs at every lane offset
+    mod 4 and the table's last lane."""
+    rng = np.random.default_rng(bw * n + 1)
+    deltas = pcf_deltas(bw)
+    table = rng.standard_normal((4096, 128)).astype(np.float32)
+    table.reshape(-1)[::13] = -0.0
+    table.reshape(-1)[3::29] = np.inf
+    row = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32))
+    base = torch.from_numpy(rng.integers(0, 128 - deltas[-1], n).astype(np.int32))
+    row[-1], base[-1] = 4095, 127 - deltas[-1]
+    args = [t.to(cuda_device) for t in (torch.from_numpy(table), row, base)]
+    before = dict(_cuda.LAUNCHES)
+    got = select9(*args, deltas)
+    assert torch.equal(got.view(torch.int32), select9_ref(*args, deltas).view(torch.int32))
+    assert _cuda.LAUNCHES["shadow_select9_f32"] == before["shadow_select9_f32"] + 1
+    assert _cuda.LAUNCHES["shadow_select9"] == before["shadow_select9"]
+
+
+def test_binned_raster_debug_prints_each_live_block(cuda_device):
+    """K1 with debug: keys and ids those of the launch without, and (in a
+    subprocess: device printf writes to the process's fd 1) one line per
+    live block, the plain version's lines, also at a chunk the wrapper
+    recuts (the pre-recut block numbers)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    s = _setup(2000, 5, 0.04, cuda_device)
+    for chunk in (32, 256):
+        bins = bin_triangles(s, 256, 256, 16, 64, chunk)
+        start, count = rk.tile_block_ranges(bins, 64)
+        a = (bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 4)
+        _same(rk.binned_raster(*a, debug=True), rk.binned_raster(*a))
+    torch.cuda.synchronize()
+    code = (
+        "import collections, torch, numpy as np\n"
+        "from unclerenderer_tpu_torch.ops import raster_kernels as rk\n"
+        "from unclerenderer_tpu_torch.ops.binning import bin_triangles\n"
+        "import test_torch_cuda as t\n"
+        "s = t._setup(2000, 5, 0.04, torch.device('cuda', 0))\n"
+        "for chunk in (32, 256):\n"
+        "    bins = bin_triangles(s, 256, 256, 16, 64, chunk)\n"
+        "    start, count = rk.tile_block_ranges(bins, 64)\n"
+        "    rk.binned_raster(bins.coef, bins.tri_id, bins.valid, start, count, 16, 64, 4,\n"
+        "                     debug=True)\n"
+        "    torch.cuda.synchronize()\n"
+        "    print('want', chunk, len(rk.debug_lines(start, count)), flush=True)\n"
+        "    for line in rk.debug_lines(start.cpu(), count.cpu()):\n"
+        "        print('ref', line, flush=True)\n"
+    )
+    here = Path(__file__).resolve().parent
+    res = subprocess.run([sys.executable, "-c", code], cwd=here.parent, capture_output=True,
+                         text=True, timeout=300,
+                         env={**__import__("os").environ,
+                              "PYTHONPATH": f"{here}:{here.parent}"})
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = res.stdout.splitlines()
+    dev = sorted(ln for ln in out if ln.startswith("binned raster"))
+    ref = sorted(ln[4:] for ln in out if ln.startswith("ref binned raster"))
+    assert dev == ref and len(dev) > 100
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gather_rows_kernel_bit_equal(cuda_device, dtype):
     rng = np.random.default_rng(1)

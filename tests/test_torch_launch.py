@@ -12,7 +12,7 @@ import torch
 from unclerenderer_tpu_torch.ops import _cuda
 
 WRAPPERS = ["binned_raster", "giant_raster", "binned_raster_attrs", "giant_raster_attrs",
-            "shadow_select9", "gather_rows", "hzb_tail", "env_select", "mat_select",
+            "binned_raster_debug", "shadow_select9", "shadow_select9_f32", "gather_rows", "hzb_tail", "env_select", "mat_select",
             "materialize_rows", "merge_select", "copy_rows", "materialize"]
 
 

@@ -134,8 +134,9 @@ def test_port_imports_no_jax():
     assert loaded == "[]"
 
 
-# every setting that raised once: the ones ported since (the forward path
-# and fused resolve, one slice) render, the others still raise
+# every setting that raised once; each renders now: the forward path and
+# fused resolve (equal to the plain frame here), and the sampling, storage
+# and debug settings (UNPORTED until their slice)
 NOW_RENDER = [
     {"renderer_type": "forward"},
     {"fused_resolve": "on"},
@@ -163,21 +164,27 @@ def plain_frame(rich_scenes):
 
 
 @pytest.mark.parametrize("override", NOW_RENDER + UNPORTED, ids=lambda o: next(iter(o)))
-def test_unported_settings_raise(override, rich_scenes, plain_frame):
-    """A branch not ported raises naming ROADMAP; a ported one renders:
-    ``deferred_frame`` ignores ``renderer_type`` as the reference's does,
-    and fused resolve renders the unfused frame bit for bit."""
+def test_unported_settings_raise(override, rich_scenes, plain_frame, capsys):
+    """Every setting that once raised renders: ``deferred_frame`` ignores
+    ``renderer_type`` as the reference's does, fused resolve and the debug
+    print render the plain frame bit for bit (the debug print adds its
+    lines), the forward LOD and the f32 table change only the shading, and
+    the AoS vertex stage renders the frame (its values are the reference's
+    AoS ones, ``tests/test_torch_sampling_frame.py``)."""
     _, _, t, tdata = rich_scenes
-    if override in NOW_RENDER:
-        out, state = _render(t, tdata, **override)
-        plain, plain_state = plain_frame
+    out, state = _render(t, tdata, **override)
+    plain, plain_state = plain_frame
+    assert int((out["tri_id"] >= 0).sum()) > 100
+    assert bool(torch.isfinite(out["color"]).all())
+    if override in NOW_RENDER or "kernel_debug_print" in override:
         for k in ("color", "hdr", "depth", "tri_id", "object_id"):
             assert torch.equal(out[k], plain[k]), k
         assert torch.equal(state.hzb, plain_state.hzb)
-        assert int((out["tri_id"] >= 0).sum()) > 100
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _render(t, tdata, **override)
+    elif "soa_vertex" not in override:
+        for k in ("depth", "tri_id", "object_id"):
+            assert torch.equal(out[k], plain[k]), k
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("binned raster")]
+    assert bool(lines) == ("kernel_debug_print" in override)
 
 
 def _roadmap_queue_titles():
@@ -189,15 +196,16 @@ def _roadmap_queue_titles():
 
 def test_not_ported_messages_name_a_roadmap_queue_entry(rich_scenes):
     """Every remaining raise names its ROADMAP queue entry by title (a
-    number would go stale at the next re-anchor)."""
-    _, _, t, tdata = rich_scenes
+    number would go stale at the next re-anchor): the CLI's
+    ``--interactive`` (no frame setting raises any more)."""
+    from unclerenderer_tpu_torch import app
+
     titles = _roadmap_queue_titles()
-    assert len(titles) >= 5
+    assert len(titles) >= 3
     msgs = []
-    for override in UNPORTED:
-        with pytest.raises(NotImplementedError) as exc:
-            _render(t, tdata, **override)
-        msgs.append(str(exc.value))
+    with pytest.raises(NotImplementedError) as exc:
+        app.main(["--scene", "missing.json", "--interactive", "--device", "cpu"])
+    msgs.append(str(exc.value))
     for msg in msgs:
         m = re.search(r"\(ROADMAP\.md, modules queue: ([^)]+)\)$", msg)
         assert m and m.group(1) in titles, msg

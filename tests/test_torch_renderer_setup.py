@@ -3,14 +3,12 @@ device-scene build from files (every host array byte-equal, bfloat16 bits
 included, for each atlas layout and without the env cube and BRDF LUT),
 carried frames with the config's GpuDebugPrint off, ``render_frames``,
 ``update_settings``, scene reloads, the fallback scene, the branches
-that raise ``NotImplementedError`` naming their ROADMAP.md queue entry, and
+that once raised (GpuTiming, GraphDump, the profilers: they run now), and
 the forward renderer built from settings, from the config and by
 ``update_settings``.
 Scene, sizes and tolerances as ``tests/test_torch_renderer.py``."""
 
 import dataclasses
-import re
-from pathlib import Path
 
 import jax
 import numpy as np
@@ -40,7 +38,6 @@ from test_torch_renderer import (
     write_test_scene,
 )
 
-ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -241,19 +238,6 @@ def test_missing_scene_falls_back_to_the_procedural_scene(tmp_path):
     assert int((out["tri_id"] >= 0).sum()) > 0 and bool(torch.isfinite(out["color"]).all())
 
 
-def _roadmap_queue_titles():
-    text = (ROOT / "ROADMAP.md").read_text()
-    queue = text.split("**Queue, in order:**", 1)[1].split("\n\n**", 1)[0]
-    return {t.lower() for t in re.findall(r"^\d+\. \*\*([^*]+)\*\*", queue, re.M)}
-
-
-def _raises_naming_queue_entry(fn, title):
-    with pytest.raises(NotImplementedError) as exc:
-        fn()
-    m = re.search(r"\(ROADMAP\.md, modules queue: ([^)]+)\)$", str(exc.value))
-    assert m and m.group(1) == title and title in _roadmap_queue_titles(), str(exc.value)
-
-
 def _renders_forward(r):
     """A forward Renderer renders: a forward frame (no hdr, no frame state
     carried), finite colour in [0, 1], pixels covered."""
@@ -270,10 +254,14 @@ def _renders_forward(r):
 @pytest.mark.parametrize("case", ["settings_forward", "config_forward", "gpu_timing",
                                   "graph_dump", "update_forward", "profile_passes",
                                   "profile_trace", "profile_trace_passes"])
-def test_unported_renderer_branches_raise(scene, case):
-    """The branches not ported raise naming their ROADMAP queue entry; the
-    forward renderer, once among them, renders from settings, from the
-    config and after ``update_settings``."""
+def test_unported_renderer_branches_raise(scene, case, tmp_path, monkeypatch):
+    """Every branch that once raised runs: the forward renderer from
+    settings, from the config and after ``update_settings``; GpuTiming (a
+    "Frame" sample per frame in ``stats()["frame_timing"]``); GraphDump
+    (``render_graph_dump.txt``, written once, naming the kernels' plain
+    versions on the CPU); ``profile_passes`` (the ten deferred stages);
+    ``profile_trace`` (a Chrome trace) and ``profile_trace_passes`` (empty
+    on the CPU: no device rows, as the reference's CPU backend)."""
     small = dict(width=W, height=H, shadow_map_size=SHADOW)
     if case == "settings_forward":
         _renders_forward(Renderer(scene, RenderSettings(renderer_type="forward", **small),
@@ -286,27 +274,46 @@ def test_unported_renderer_branches_raise(scene, case):
         r.update_settings(shadow_map_size=SHADOW)
         _renders_forward(r)
         return
-    make = {
-        "gpu_timing": (lambda: Renderer(scene, config=RendererConfig(enable_gpu_timing=True),
-                                        device="cpu"), "observability"),
-        "graph_dump": (lambda: Renderer(scene, config=RendererConfig(enable_graph_dump=True),
-                                        device="cpu"), "observability"),
-    }
-    if case in make:
-        fn, title = make[case]
-    else:
-        r = Renderer(scene, RenderSettings(**small), device="cpu")
-        if case == "update_forward":
+    if case in ("gpu_timing", "graph_dump"):
+        monkeypatch.chdir(tmp_path)
+        cfg = RendererConfig(window_width=W, window_height=H,
+                             **{f"enable_{case}": True})
+        r = Renderer(scene, config=cfg, device="cpu")
+        r.update_settings(shadow_map_size=SHADOW)
+        for _ in range(2 if case == "gpu_timing" else 1):
             r.render_frame()
-            r.update_settings(renderer_type="forward")
-            _renders_forward(r)
+        timing = r.stats().get("frame_timing")
+        dump = tmp_path / "render_graph_dump.txt"
+        if case == "gpu_timing":
+            # the window is 1 s: a slow frame may have aged out
+            assert [row["name"] for row in timing] == ["Frame"] and timing[0]["samples"] >= 1
+            assert not dump.exists()
             return
-        fn, title = {
-            "profile_passes": (r.profile_passes, "observability"),
-            "profile_trace": (lambda: r.profile_trace("x"), "observability"),
-            "profile_trace_passes": (r.profile_trace_passes, "observability"),
-        }[case]
-    _raises_naming_queue_entry(fn, title)
+        assert timing is None
+        text = dump.read_text()
+        assert len(text) > 1000 and "\tplain version binned_raster" in text
+        assert "VisibilityRaster" in text and "op aten." in text
+        dump.unlink()
+        r.render_frame()
+        assert not dump.exists()  # once
+        return
+    r = Renderer(scene, RenderSettings(**small), device="cpu")
+    if case == "update_forward":
+        r.render_frame()
+        r.update_settings(renderer_type="forward")
+        _renders_forward(r)
+        return
+    if case == "profile_passes":
+        rows = r.profile_passes(iterations=1).stats()
+        assert {row["name"] for row in rows} == {
+            "GPU Culling", "ShadowMap", "VertexStage", "GBuffer(Visibility)", "Build HZB",
+            "MaterialResolve", "Lighting", "TemporalAA", "Tonemap", "CAS"}
+        assert all(row["samples"] == 1 and row["avg_ms"] > 0 for row in rows)
+    elif case == "profile_trace":
+        assert r.profile_trace(tmp_path / "x", frames=1) == str(tmp_path / "x")
+        assert len(list((tmp_path / "x").glob("*.pt.trace.json"))) == 1
+    else:
+        assert r.profile_trace_passes(frames=1, trace_dir=tmp_path / "y").stats() == []
 
 
 def test_renderer_runs_on_the_card_by_default(scene):

@@ -10,9 +10,12 @@ Usage::
 (``render/forward.py``), ``deferred`` (the config's default) with the
 deferred one.  ``--orbit N`` renders an N-frame camera orbit with
 ``Renderer.render_frames`` and writes ``out_000.png`` .. ``out_<N-1>.png``.  PNGs are written with the
-stdlib (``textures/png.py save_png``).  ``--interactive``, ``--trace`` and
-``--profile-passes`` are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP.md queue entry.
+stdlib (``textures/png.py save_png``).  ``--trace DIR`` writes a
+``torch.profiler`` Chrome trace of ``max(1, frames - 1)`` frames after the
+first into DIR (open it in Perfetto); ``--profile-passes`` logs the deferred
+stages' times (``Renderer.profile_passes``; deferred only, as the
+reference's).  ``--interactive`` is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md queue entry.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 
 from .core.config import load_config
 from .core.logging import log_info, log_warning, set_log_level
-from .render.params import OBSERVABILITY, VIEWER_AND_BENCH, RenderSettings, not_ported
+from .render.params import VIEWER_AND_BENCH, RenderSettings, not_ported
 from .textures.png import save_png
 
 
@@ -50,9 +53,10 @@ def main(argv=None) -> int:
     ap.add_argument("--no-ibl", action="store_true")
     ap.add_argument("--log-level", default="info")
     ap.add_argument("--profile-passes", action="store_true",
-                    help="per-pass timing table (not ported yet)")
+                    help="log the deferred stages' times (Renderer.profile_passes)")
     ap.add_argument("--trace", default=None, metavar="DIR",
-                    help="profiler trace of the rendered frames (not ported yet)")
+                    help="write a torch.profiler Chrome trace of the frames after the first "
+                         "into DIR")
     ap.add_argument("--interactive", action="store_true",
                     help="terminal viewer (not ported yet)")
     ap.add_argument("--device", default="cuda",
@@ -63,10 +67,6 @@ def main(argv=None) -> int:
     set_log_level(args.log_level)
     if args.interactive:
         raise not_ported("--interactive (the terminal viewer)", VIEWER_AND_BENCH)
-    if args.trace:
-        raise not_ported("--trace (profiler trace)", OBSERVABILITY)
-    if args.profile_passes:
-        raise not_ported("--profile-passes (per-pass timing)", OBSERVABILITY)
 
     from .render.renderer import Renderer
 
@@ -128,6 +128,12 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     img = renderer.render_to_u8()
     log_info(f"first frame (incl. the kernel build): {(time.monotonic() - t0) * 1e3:.1f} ms")
+    if args.trace:
+        renderer.profile_trace(args.trace, frames=max(1, args.frames - 1))
+    if args.profile_passes and settings.renderer_type == "deferred":
+        for row in renderer.profile_passes(iterations=1).stats():
+            log_info(f"pass {row['name']:<22} avg {row['avg_ms']:7.2f} ms  "
+                     f"min {row['min_ms']:7.2f}  max {row['max_ms']:7.2f}")
     if args.frames > 1:
         t0 = time.monotonic()
         for _ in range(args.frames - 1):

@@ -50,11 +50,25 @@
 // records) against a 0.66 ms bound, and index_select of the same winners'
 // rows takes 2.52 ms (chip_smoke.py).
 //
+// debug_print (replaces the kernel_debug_print branch of _binned_kernel,
+// its pl.debug_print of every live grid step): the binned_raster_debug
+// entry launches the same kernel with kDebug set, so the default entries'
+// code is unchanged.  One thread a live bin block prints
+// "binned raster: block <b> -> tile <t>" with device printf, b the block's
+// index in the level's block arrays before fit_binned_blocks recut them
+// (the wrapper passes the recut factor).  The TPU kernel printed at its
+// grid step; here the lines arrive in no order.  Device printf drops what
+// overflows its FIFO, and the runtime lets the FIFO grow only before the
+// process's first launch of a kernel that prints (PyTorch's device asserts
+// count), so the wrapper checks the FIFO against the launch's lines and
+// raises where they may not fit (printf_fifo below; ops/_cuda.py).
+//
 // Exactness (the threshold, the warp skip, the min-id tie rule):
 // raster_common.cuh.  The group merge applies the same tie rule, so the
 // order in which groups visit blocks is free.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include "raster_common.cuh"
 
@@ -80,14 +94,15 @@ __device__ __forceinline__ void copies_done() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <bool kWantIds, bool kOrtho, bool kWantAttrs>
+template <bool kWantIds, bool kOrtho, bool kWantAttrs, bool kDebug>
 __global__ void __launch_bounds__(kMaxThreads)
 binned_raster_kernel(const float* __restrict__ coef, const int* __restrict__ tri_id,
                      const float* __restrict__ valid, const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count, const float* __restrict__ records,
                      float* __restrict__ out_key, int* __restrict__ out_id,
                      float* __restrict__ out_attr, int r_cols, int chunk, int tile_h,
-                     int tile_w, int n_tx, float y_off, int rects_x, int n_rects, int groups) {
+                     int tile_w, int n_tx, float y_off, int rects_x, int n_rects, int groups,
+                     int recut) {
   static_assert(kWantIds || !kWantAttrs, "records follow the winning ids");
   // float4s a record (raster_common.cuh); its tag is the row's id
   constexpr int kF4 = (kOrtho && !kWantIds) ? 4 : 5;
@@ -102,6 +117,13 @@ binned_raster_kernel(const float* __restrict__ coef, const int* __restrict__ tri
   float4* rec = raw + kRaw * chunk / 4;
 
   const int tile = blockIdx.x;
+  if (kDebug && blockIdx.y == 0) {
+    // the tile's live blocks, one line each (a recut block's first run)
+    for (int j = threadIdx.x; j < tile_count[tile]; j += blockDim.x) {
+      const int b = tile_start[tile] + j;
+      if (b % recut == 0) printf("binned raster: block %d -> tile %d\n", b / recut, tile);
+    }
+  }
   const int ry = (rect / rects_x) * kRectH, rx = (rect % rects_x) * kRectW;
   const int py = ry + lane / kRowThreads, px0 = rx + (lane % kRowThreads) * kPix;
   const float x0 = static_cast<float>((tile % n_tx) * tile_w);
@@ -231,11 +253,12 @@ binned_raster_kernel(const float* __restrict__ coef, const int* __restrict__ tri
   }
 }
 
-template <bool kWantIds, bool kOrtho, bool kWantAttrs = false>
+template <bool kWantIds, bool kOrtho, bool kWantAttrs = false, bool kDebug = false>
 int launch(const float* coef, const int* tri_id, const float* valid, const int* tile_start,
            const int* tile_count, float* out_key, int* out_id, int n_tiles, int chunk,
            int tile_h, int tile_w, int n_tx, float y_off, cudaStream_t stream,
-           const float* rec = nullptr, float* out_attr = nullptr, int r_cols = 0) {
+           const float* rec = nullptr, float* out_attr = nullptr, int r_cols = 0,
+           int recut = 1) {
   constexpr int kF4 = (kOrtho && !kWantIds) ? 4 : 5;
   constexpr int kRaw = kWantIds ? 18 : 17;
   if (chunk < 4 || chunk > kMaxChunk || chunk % 4 != 0)
@@ -253,10 +276,10 @@ int launch(const float* coef, const int* tri_id, const float* valid, const int* 
   const size_t merge = static_cast<size_t>(groups - 1) * threads / groups * kPix * 4 *
                        (kWantIds ? 2 : 1);
   const dim3 grid(n_tiles, (n_rects + kPartRects - 1) / kPartRects);
-  binned_raster_kernel<kWantIds, kOrtho, kWantAttrs>
+  binned_raster_kernel<kWantIds, kOrtho, kWantAttrs, kDebug>
       <<<grid, threads, stage > merge ? stage : merge, stream>>>(
           coef, tri_id, valid, tile_start, tile_count, rec, out_key, out_id, out_attr, r_cols,
-          chunk, tile_h, tile_w, n_tx, y_off, rects_x, n_rects, groups);
+          chunk, tile_h, tile_w, n_tx, y_off, rects_x, n_rects, groups, recut);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -295,4 +318,57 @@ extern "C" int binned_raster_attrs(const float* coef, const int* tri_id, const f
                : launch<true, false, true>(coef, tri_id, valid, tile_start, tile_count, out_key,
                                            out_id, n_tiles, chunk, tile_h, tile_w, n_tx, y_off,
                                            s, rec, out_attr, r_cols);
+}
+
+// kernel_debug_print: binned_raster (rec == nullptr) or binned_raster_attrs
+// (rec != nullptr, want_ids set) with each live block's line printed; recut:
+// the blocks fit_binned_blocks made of each block of the level
+extern "C" int binned_raster_debug(const float* coef, const int* tri_id, const float* valid,
+                                   const int* tile_start, const int* tile_count,
+                                   const float* rec, float* out_key, int* out_id,
+                                   float* out_attr, int n_tiles, int chunk, int tile_h,
+                                   int tile_w, int n_tx, float y_off, int r_cols, int want_ids,
+                                   int ortho, int recut, void* stream) {
+  if (recut < 1 || (rec != nullptr && (r_cols < 1 || !want_ids)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (rec != nullptr)
+    return ortho ? launch<true, true, true, true>(coef, tri_id, valid, tile_start, tile_count,
+                                                  out_key, out_id, n_tiles, chunk, tile_h,
+                                                  tile_w, n_tx, y_off, s, rec, out_attr, r_cols,
+                                                  recut)
+                 : launch<true, false, true, true>(coef, tri_id, valid, tile_start, tile_count,
+                                                   out_key, out_id, n_tiles, chunk, tile_h,
+                                                   tile_w, n_tx, y_off, s, rec, out_attr, r_cols,
+                                                   recut);
+  if (want_ids)
+    return ortho ? launch<true, true, false, true>(coef, tri_id, valid, tile_start, tile_count,
+                                                   out_key, out_id, n_tiles, chunk, tile_h,
+                                                   tile_w, n_tx, y_off, s, nullptr, nullptr, 0,
+                                                   recut)
+                 : launch<true, false, false, true>(coef, tri_id, valid, tile_start, tile_count,
+                                                    out_key, out_id, n_tiles, chunk, tile_h,
+                                                    tile_w, n_tx, y_off, s, nullptr, nullptr, 0,
+                                                    recut);
+  return ortho ? launch<false, true, false, true>(coef, tri_id, valid, tile_start, tile_count,
+                                                  out_key, out_id, n_tiles, chunk, tile_h,
+                                                  tile_w, n_tx, y_off, s, nullptr, nullptr, 0,
+                                                  recut)
+               : launch<false, false, false, true>(coef, tri_id, valid, tile_start, tile_count,
+                                                   out_key, out_id, n_tiles, chunk, tile_h,
+                                                   tile_w, n_tx, y_off, s, nullptr, nullptr, 0,
+                                                   recut);
+}
+
+// The device printf FIFO of the current device: grown to `bytes` where it
+// is smaller and the runtime allows it (before the first launch of a kernel
+// that prints); returns its size in bytes after, or -1 if unreadable.
+extern "C" long long printf_fifo(long long bytes) {
+  size_t fifo = 0;
+  if (cudaDeviceGetLimit(&fifo, cudaLimitPrintfFifoSize) != cudaSuccess) return -1;
+  if (static_cast<long long>(fifo) < bytes &&
+      cudaDeviceSetLimit(cudaLimitPrintfFifoSize, static_cast<size_t>(bytes)) == cudaSuccess)
+    cudaDeviceGetLimit(&fifo, cudaLimitPrintfFifoSize);
+  cudaGetLastError();  // a refused growth leaves no error for the next launch to report
+  return static_cast<long long>(fifo);
 }

@@ -64,12 +64,19 @@ SIGNATURES = {
     # out_attr, n_tiles, chunk, tile_h, tile_w, n_tx, y_off, r_cols, ortho, stream
     "binned_raster_attrs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                             _P],
+    # kernel_debug_print: coef, tri_id, valid, tile_start, tile_count, rec (or
+    # NULL), out_key, out_id, out_attr, n_tiles, chunk, tile_h, tile_w, n_tx,
+    # y_off, r_cols, want_ids, ortho, recut, stream
+    "binned_raster_debug": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                            _I, _I, _P],
     # coef, valid, overlap, ids, rec, out_key, out_id, out_attr,
     # n_tiles, n_chunks, chunk, tile_h, tile_w, n_tx, y_off, r_cols, ortho, stream
     "giant_raster_attrs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                            _P],
-    # table, row, base, out, n, lanes, bw (block width: the 3x3's deltas), stream
+    # table, row, base, out, n, lanes, bw (block width: the 3x3's deltas), stream;
+    # u16 rows, and f32 rows
     "shadow_select9": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "shadow_select9_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     # table, idx, out, n, c, is_bf16, stream
     "gather_rows": [_P, _P, _P, _L, _I, _I, _P],
     # top, out, counter (one u32, 0 between launches), top_h, top_w, levels,
@@ -89,13 +96,19 @@ SIGNATURES = {
 ENTRY = {"materialize_rows": "copy_bytes", "copy_rows": "copy_bytes", "materialize": "copy_bytes"}
 
 # launches per kernel wrapper (K2/K3 share giant_raster; with records, K1 and
-# K2/K3 count under binned_raster_attrs and giant_raster_attrs)
+# K2/K3 count under binned_raster_attrs and giant_raster_attrs; K1 under
+# kernel_debug_print under binned_raster_debug; K4 on f32 rows under
+# shadow_select9_f32)
 LAUNCHES = {name: 0 for name in [n for n in SIGNATURES if n not in ENTRY.values()] + list(ENTRY)}
 
 # kernel wrapper -> bound C function, and device index -> raw current
 # stream handle; both set by ``bind``
 _FNS: dict = {}
 _stream = None
+
+# when set, called with (wrapper name, "kernel" or "plain version") at every
+# launch and every dispatch to a plain version (the Renderer's graph dump)
+LAUNCH_LOG = None
 
 
 def reset_launches() -> None:
@@ -210,6 +223,20 @@ def launch(name: str, device: int, *args) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
     LAUNCHES[name] += 1
+    if LAUNCH_LOG is not None:
+        LAUNCH_LOG(name, "kernel")
+
+
+def printf_fifo(nbytes: int = 0) -> int:
+    """The current device's printf FIFO in bytes, grown to ``nbytes`` first
+    where it is smaller.  The CUDA runtime lets it grow only before the
+    process launches its first kernel that prints -- PyTorch's kernels with
+    device asserts count --, so a caller that wants more than the 1 MiB
+    default calls this before any other CUDA work (the Renderer does under
+    ``kernel_debug_print``)."""
+    fn = library().printf_fifo
+    fn.argtypes, fn.restype = [_L], _L
+    return int(fn(int(nbytes)))
 
 
 def copy(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -246,5 +273,7 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
     if t.is_cuda:
         return False
     if t.is_cpu:
+        if LAUNCH_LOG is not None:
+            LAUNCH_LOG(name, "plain version")
         return True
     raise ValueError(f"{name}: unsupported device {t.device}")

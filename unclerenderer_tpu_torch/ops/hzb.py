@@ -10,6 +10,7 @@ import functools
 
 import torch
 
+from ..core.passes import named_pass
 from . import _cuda
 
 
@@ -98,6 +99,7 @@ def hzb_tail(top: torch.Tensor, dims) -> torch.Tensor:
     return out
 
 
+@named_pass("BuildHZB")
 def build_hzb(depth: torch.Tensor, layout, pallas_tail: bool = False) -> torch.Tensor:
     """Full-res reverse-Z depth (H, W) -> packed min-depth pyramid.
     ``pallas_tail``: the first two levels as plain reductions, the rest in

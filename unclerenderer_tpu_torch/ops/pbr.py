@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.passes import named_pass
 from .fma import fma
 
 PI = 3.14159265
@@ -83,6 +84,7 @@ def apply_normal_map(vertex_normal, tangent4, tangent_normal):
     return normalize(world)
 
 
+@named_pass("IBLAmbient")
 def ibl_ambient(albedo, metallic, f0, n_world, v_world, env_sample_fn,
                 brdf_lut_sample_fn, env_mip_count, roughness, env_sample_level_fn=None):
     """Split-sum IBL: prefiltered env at mip = roughness * (mips-1) for

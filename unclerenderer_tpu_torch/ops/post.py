@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.passes import named_pass
+
 LUM_WEIGHTS = (0.2126, 0.7152, 0.0722)
 
 
@@ -19,6 +21,7 @@ def _edge_pad(img):
     return F.pad(img.permute(2, 0, 1)[None], (1, 1, 1, 1), mode="replicate")[0].permute(1, 2, 0)
 
 
+@named_pass("TemporalAA")
 def temporal_aa(current, history, history_weight, use_history):
     """3x3 neighbourhood min/max clamp of history, then
     lerp(current, clamped_history, weight).  (H, W, 3)."""
@@ -39,6 +42,7 @@ def temporal_aa(current, history, history_weight, use_history):
     return torch.where(use_history, blended, current)
 
 
+@named_pass("AutoExposure")
 def auto_exposure_ev(hdr, prev_ev, use_history, key, ev_min, ev_max,
                      speed_up, speed_down, delta_time):
     """256-sample log2-luminance average (16x16 block mean) -> target EV,
@@ -82,6 +86,7 @@ def pbr_neutral_tonemap(color):
     return torch.where(peak < start_compression, c, desat)
 
 
+@named_pass("Tonemap")
 def tonemap(hdr, exposure, exposure_ev, enable_tonemap: bool,
             enable_auto_exposure: bool, gamma):
     """exposure (x exp2(EV)) -> PBR neutral -> saturate -> gamma."""
@@ -95,6 +100,7 @@ def tonemap(hdr, exposure, exposure_ev, enable_tonemap: bool,
     return color ** (1.0 / torch.clamp(gamma, min=1e-3))
 
 
+@named_pass("CAS")
 def cas_sharpen(color, sharpness):
     """AMD RCAS-style cross-tap luma sharpening on (H, W, 3) in [0, 1]."""
     rcas_inv_peak = 1.0 / (8.0 - 3.0)

@@ -41,6 +41,17 @@ SUBCENTER_MARGIN = 1e-2
 INT32_MAX = 0x7FFFFFFF
 
 
+def viewport_homogeneous(clip, width: int, height: int):
+    """Clip coordinates (V, 4) -> homogeneous pixel coordinates (V, 3) =
+    (X, Y, w), X/w the pixel x, Y/w the pixel y (D3D viewport: y flipped,
+    origin top-left).  Its multiplies by 0.5 are exact, so no contraction
+    order matters."""
+    x, y, w = clip[..., 0], clip[..., 1], clip[..., 3]
+    px = (x * 0.5 + w * 0.5) * width
+    py = (w * 0.5 - y * 0.5) * height
+    return torch.stack([px, py, w], dim=-1)
+
+
 @dataclasses.dataclass
 class RasterSetup:
     """Per-triangle rasterization coefficients."""
@@ -69,6 +80,49 @@ class VertexSoA:
         )
 
 
+@dataclasses.dataclass
+class VertexAoS:
+    """The AoS vertex stage's outputs (``RenderSettings.soa_vertex=False``,
+    or a scene without ``pos_soa``): de-indexed vertex rows, vertex i of
+    triangle t at row 3t + i."""
+
+    clip: torch.Tensor   # (V, 4) clip coordinates
+    pix_h: torch.Tensor  # (V, 3) homogeneous pixel coordinates
+
+    def pix9(self) -> torch.Tensor:
+        """(T, 9) rows [x0 y0 w0 x1 y1 w1 x2 y2 w2]."""
+        return self.pix_h.reshape(-1, 9)
+
+
+def triangle_setup_expanded(pix_h, z_clip, tri_mask, cull_mode=CULL_BACK, width: int = 0,
+                            height: int = 0) -> RasterSetup:
+    """Setup for de-indexed geometry: vertex i of triangle t at row 3t + i."""
+    t = pix_h.shape[0] // 3
+    p = pix_h.reshape(t, 3, 3)
+    z = z_clip.reshape(t, 3)
+    return triangle_setup_from_verts(p[:, 0], p[:, 1], p[:, 2], z[:, 0], z[:, 1], z[:, 2],
+                                     tri_mask, cull_mode, width, height)
+
+
+def triangle_setup_from_verts(p0, p1, p2, z0, z1, z2, tri_mask, cull_mode=CULL_BACK,
+                              width: int = 0, height: int = 0) -> RasterSetup:
+    """Setup from per-triangle (T, 3) homogeneous pixel vertices, with the
+    AoS setup's contraction order (``triangle_setup_from_components``)."""
+    return triangle_setup_from_components(
+        p0[:, 0], p0[:, 1], p0[:, 2], p1[:, 0], p1[:, 1], p1[:, 2],
+        p2[:, 0], p2[:, 1], p2[:, 2], z0, z1, z2, tri_mask, cull_mode, width, height, aos=True)
+
+
+def triangle_setup_any(verts, tri_mask, cull_mode=CULL_BACK, width: int = 0,
+                       height: int = 0) -> RasterSetup:
+    """Setup from either vertex stage's outputs: ``VertexSoA`` or
+    ``VertexAoS``."""
+    if isinstance(verts, VertexAoS):
+        return triangle_setup_expanded(verts.pix_h, verts.clip[:, 2], tri_mask, cull_mode,
+                                       width, height)
+    return triangle_setup_from_soa(verts, tri_mask, cull_mode, width, height)
+
+
 def triangle_setup_from_soa(v: VertexSoA, tri_mask, cull_mode=CULL_BACK,
                             width: int = 0, height: int = 0) -> RasterSetup:
     return triangle_setup_from_components(
@@ -81,10 +135,13 @@ def triangle_setup_from_soa(v: VertexSoA, tri_mask, cull_mode=CULL_BACK,
 
 def triangle_setup_from_components(
     x0, y0v, w0, x1, y1v, w1, x2, y2v, w2, z0, z1, z2,
-    tri_mask, cull_mode=CULL_BACK, width: int = 0, height: int = 0,
+    tri_mask, cull_mode=CULL_BACK, width: int = 0, height: int = 0, aos: bool = False,
 ) -> RasterSetup:
     """Edge/depth coefficients and conservative bbox from per-triangle
     homogeneous pixel vertices (reference ``triangle_setup_from_components``).
+    ``aos``: the components were sliced from the AoS vertex rows
+    (``triangle_setup_from_verts``), whose depth planes the reference
+    contracts in another order under CULL_FRONT (below).
 
     For a clockwise-on-screen triangle with all w > 0, det < 0; edge signs
     are flipped so the rasterized interior is always e_k > 0."""
@@ -119,9 +176,13 @@ def triangle_setup_from_components(
     # mode and column (measured against the jitted reference setup: 0
     # differing coefficients with these, 1-9% of rows with any other):
     # CULL_BACK accumulates e0*v0 -> e1 -> e2 everywhere; CULL_FRONT does so
-    # except in the b columns, which start from fma(e0, v0, e1*v1).
+    # except in the b columns, which start from fma(e0, v0, e1*v1) -- and,
+    # on the AoS setup (whose setup the reference does not pin with an
+    # optimization barrier), in every column (0 differing coefficients of
+    # the light-space setup against the jitted reference; 1-2% of rows with
+    # the SoA order).
     def plane(e0, e1, e2, v0, v1, v2, b_col):
-        if cull_mode == CULL_NONE or (cull_mode == CULL_FRONT and b_col):
+        if cull_mode == CULL_NONE or (cull_mode == CULL_FRONT and (b_col or aos)):
             return fdot([(e0, v0), (e1, v1), (e2, v2)])
         return fma(e2, v2, fma(e1, v1, e0 * v0))
 

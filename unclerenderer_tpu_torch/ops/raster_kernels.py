@@ -12,6 +12,13 @@
 * ``rasterize_binned``: fine bins + coarse (mid) bins + giant brute force,
   merged by depth key with min-id tie-breaks.
 
+Debug print (``debug=True``, the reference's ``debug_print`` under
+``RenderSettings.kernel_debug_print``): K1 prints one line
+``binned raster: block <b> -> tile <t>`` per live bin block of the fine
+level (the reference passes the flag to no other level), through its
+``binned_raster_debug`` C entry (device ``printf``; counted under that
+name), and its plain version prints the same lines from the host.
+
 Fused resolve (``records=``, the reference's ``want_attrs``): K1 and K2 also
 emit each pixel's winning row's record from a (T, R) f32 table indexed by
 the rows' ids -- a (tiles, pix, R) image, zeros where no row won, equal to
@@ -28,6 +35,7 @@ import math
 
 import torch
 
+from ..core.passes import scope
 from . import _cuda
 from .binning import BinnedTriangles, bin_triangles
 from .raster import (
@@ -45,6 +53,9 @@ from .raster import (
 
 BINNED_MAX_CHUNK = 128  # K1 stages a block with cp.async: chunk % 4 == 0
 GIANT_MAX_CHUNK = 256  # one K2 window of staged rows holds a chunk
+# device printf FIFO bytes a debug line may take (its record: a header, the
+# format's address and two int arguments, with room to spare)
+PRINTF_LINE_BYTES = 128
 
 
 def _check_y_offset(name, y_offset):
@@ -147,15 +158,29 @@ def materialize_rows(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def debug_lines(tile_start, tile_count) -> list:
+    """K1's debug lines, one per live bin block: block b of tile t, in tile
+    order (the kernel prints them in no order)."""
+    lines = []
+    for t, (s, c) in enumerate(zip(tile_start.tolist(), tile_count.tolist())):
+        lines += [f"binned raster: block {b} -> tile {t}" for b in range(s, s + c)]
+    return lines
+
+
 def binned_raster_ref(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
-                      n_tx, y_offset=0.0, want_ids=True, ortho=False, records=None):
+                      n_tx, y_offset=0.0, want_ids=True, ortho=False, records=None,
+                      debug=False):
     """Plain version of K1.  coef (n_blocks, 16, chunk), tri_id/valid
     (n_blocks, 1, chunk), tile_start/tile_count (n_tiles,) i32: tile t owns
     blocks [tile_start[t], tile_start[t] + tile_count[t]).  Returns raw
     keys (n_tiles, pix) f32 (-1 = miss) and ids (n_tiles, pix) i32; with
     ``records`` ((T, R) f32, row = id) also the winners' records (n_tiles,
-    pix, R), zeros where no row won."""
+    pix, R), zeros where no row won.  ``debug`` prints ``debug_lines``."""
     _check_records("binned_raster", records, want_ids)
+    if debug:
+        lines = debug_lines(tile_start, tile_count)
+        if lines:
+            print("\n".join(lines), flush=True)
     n_tiles = tile_start.shape[0]
     dev = coef.device
     counts = tile_count.long()
@@ -181,16 +206,22 @@ def binned_raster_ref(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_
 
 
 def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
-                  n_tx, y_offset=0.0, want_ids=True, ortho=False, records=None):
+                  n_tx, y_offset=0.0, want_ids=True, ortho=False, records=None, debug=False):
     """K1 wrapper (same contract as ``binned_raster_ref``); with
     ``records`` it launches the ``binned_raster_attrs`` entry, whose keys
-    and ids are those of the launch without."""
+    and ids are those of the launch without; with ``debug`` the
+    ``binned_raster_debug`` entry, the same kernel printing each live
+    block's line on the device."""
     _check_records("binned_raster", records, want_ids)
-    if _cuda.on_cpu("binned_raster" if records is None else "binned_raster_attrs", coef):
+    entry = ("binned_raster_debug" if debug else
+             "binned_raster" if records is None else "binned_raster_attrs")
+    if _cuda.on_cpu(entry, coef):
         return binned_raster_ref(coef, tri_id, valid, tile_start, tile_count,
-                                 tile_h, tile_w, n_tx, y_offset, want_ids, ortho, records)
+                                 tile_h, tile_w, n_tx, y_offset, want_ids, ortho, records, debug)
+    n_blocks = coef.shape[0]
     coef, tri_id, valid, tile_start, tile_count = fit_binned_blocks(
         coef, tri_id, valid, tile_start, tile_count)
+    recut = coef.shape[0] // n_blocks if n_blocks else 1
     n_tiles = tile_start.shape[0]
     chunk = coef.shape[-1]
     pix = tile_h * tile_w
@@ -204,10 +235,29 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
     out_key = torch.empty((n_tiles, pix), dtype=torch.float32, device=coef.device)
     out_id = (torch.empty((n_tiles, pix), dtype=torch.int32, device=coef.device)
               if want_ids else None)
+    out_attr = None
     if records is not None:
         _cuda.check_cuda("binned_raster", coef, records)
         out_attr = torch.empty((n_tiles, pix, records.shape[1]), dtype=torch.float32,
                                device=coef.device)
+    if debug:
+        if n_tiles:
+            need = PRINTF_LINE_BYTES * int(tile_count.sum()) // recut
+            have = _cuda.printf_fifo(need)
+            if have < need:
+                raise RuntimeError(
+                    f"binned_raster debug print: the device printf FIFO holds {have} bytes and "
+                    f"this launch prints up to {need}; it can grow only before the process's "
+                    "first kernel launch: call unclerenderer_tpu_torch.ops._cuda.printf_fifo("
+                    f"{need}) before any other CUDA work")
+            _cuda.launch(
+                "binned_raster_debug", dev, coef.data_ptr(), tri_id.data_ptr(), valid.data_ptr(),
+                tile_start.data_ptr(), tile_count.data_ptr(), _cuda.ptr(records),
+                out_key.data_ptr(), _cuda.ptr(out_id), _cuda.ptr(out_attr), n_tiles, chunk,
+                tile_h, tile_w, n_tx, float(y_offset),
+                0 if records is None else records.shape[1], int(want_ids), int(ortho), recut)
+        return (out_key, out_id) if records is None else (out_key, out_id, out_attr)
+    if records is not None:
         if n_tiles:
             _cuda.launch(
                 "binned_raster_attrs", dev, coef.data_ptr(), tri_id.data_ptr(),
@@ -238,17 +288,21 @@ def tile_block_ranges(bins: BinnedTriangles, n_tiles: int):
 
 
 def _run_binned_kernel(bins: BinnedTriangles, width, height, tile_h, tile_w,
-                       y_offset=0.0, want_ids=True, ortho=False, records=None):
+                       y_offset=0.0, want_ids=True, ortho=False, records=None, debug=False):
     """One binned level -> (key_img, id_img) cropped to (height, width),
     key = -1 where empty; with ``records`` also the (height, width, R)
     record image.  An unused tile has no live block, so K1 leaves its
-    records zero as the reference's mask does."""
+    records zero as the reference's mask does.  ``debug``: K1 prints its
+    live blocks."""
     n_tx = -(-width // tile_w)
     n_tiles = n_tx * (-(-height // tile_h))
     start, count = tile_block_ranges(bins, n_tiles)
-    # records by keyword, and only when given: a call without is the K1 call
-    # as it always was (callers that record calls read its positions)
+    # records and debug by keyword, and only when given: a call without is
+    # the K1 call as it always was (callers that record calls read its
+    # positions)
     rec_kw = {} if records is None else {"records": records}
+    if debug:
+        rec_kw["debug"] = True
     out = binned_raster(bins.coef, bins.tri_id, bins.valid, start, count,
                         tile_h, tile_w, n_tx, y_offset, want_ids, ortho, **rec_kw)
     key, ids = out[0], out[1]
@@ -441,14 +495,17 @@ def rasterize_binned(
     big_tile_w: int = 128, big_chunk: int = 32, mid_divisor: int = 16,
     giant_divisor: int = 128, giant_tile_h: int = 0, giant_tile_w: int = 0,
     giant_chunk: int = 0, want_ids: bool = True, ortho: bool = False,
-    mat_idx: bool = False, records: torch.Tensor | None = None,
+    mat_idx: bool = False, records: torch.Tensor | None = None, debug_print: bool = False,
 ):
     """Binned visibility raster, three levels merged by depth key:
     fine tiles for small triangles, coarse tiles for medium ones over a
     compacted list, and the giant brute-force level for the rest.
 
     ``mat_idx`` copies each binning level's block index array through K9
-    before its coefficient gather (the reference's ``bin_mat_idx``).
+    before its coefficient gather (the reference's ``bin_mat_idx``);
+    ``debug_print`` makes the fine level's K1 print its live blocks (the
+    reference's ``kernel_debug_print``, which its mid level does not pass
+    on).
 
     Returns (depth, tri_id, stats) with ``pair_overflow`` (fine/mid pairs
     dropped at the bin budget) and ``giant_truncated`` (giant triangles
@@ -462,76 +519,83 @@ def rasterize_binned(
     if depth_mode != DEPTH_MAX:
         setup = flip_depth_key(setup)
 
-    bins = bin_triangles(setup, width, height, tile_h, tile_w, chunk,
-                         max_span=max_span, budget_factor=budget_factor,
-                         y_offset=y_offset, mat_idx=mat_idx)
-    fine = _run_binned_kernel(bins, width, height, tile_h, tile_w, y_offset, want_ids, ortho,
-                              records)
+    with scope("FineBinning"):
+        bins = bin_triangles(setup, width, height, tile_h, tile_w, chunk,
+                             max_span=max_span, budget_factor=budget_factor,
+                             y_offset=y_offset, mat_idx=mat_idx)
+    with scope("RasterKernel"):
+        fine = _run_binned_kernel(bins, width, height, tile_h, tile_w, y_offset, want_ids, ortho,
+                                  records, debug_print)
     key_img, id_img = fine[0], fine[1]
     attr = fine[2] if records is not None else None
     t_count = setup.coef.shape[0]
 
-    # mid level over a compacted list; ONE full-T compaction serves both the
-    # mid list (rows [0, cap_mid)) and the mid-cap overflow for the giant
-    # level (rows [cap_mid, cap_mid + cap_g)), all in ascending id order
-    cap_mid = min(t_count, max(big_chunk, -(-(t_count // mid_divisor) // big_chunk) * big_chunk))
-    cap_g = min(t_count, max(big_chunk, -(-(t_count // giant_divisor) // big_chunk) * big_chunk))
-    ext_idx, ext_valid = compact_mask(bins.big_mask, min(cap_mid + cap_g, t_count))
-    mid_idx, mid_valid = ext_idx[:cap_mid], ext_valid[:cap_mid]
-    mi = mid_idx.long()
-    mid_setup = RasterSetup(coef=setup.coef[mi], valid=mid_valid, bbox=setup.bbox[:, mi])
-    mid_bins = bin_triangles(mid_setup, width, height, big_tile_h, big_tile_w, big_chunk,
-                             max_span=4, budget_factor=2.0, tri_ids=mid_idx,
-                             y_offset=y_offset, mat_idx=mat_idx)
-    mid = _run_binned_kernel(mid_bins, width, height, big_tile_h, big_tile_w, y_offset,
-                             want_ids, ortho, records)
-    mid_key, mid_id = mid[0], mid[1]
-    if records is not None:
-        key_img, id_img, attr = merge_levels(key_img, id_img, mid_key, mid_id, attr, mid[2])
-        del mid
-    elif want_ids:
-        key_img, id_img = merge_levels(key_img, id_img, mid_key, mid_id)
-    else:
-        key_img = torch.maximum(key_img, mid_key)
+    with scope("MidLevel"):
+        # mid level over a compacted list; ONE full-T compaction serves both
+        # the mid list (rows [0, cap_mid)) and the mid-cap overflow for the
+        # giant level (rows [cap_mid, cap_mid + cap_g)), in ascending id order
+        cap_mid = min(t_count,
+                      max(big_chunk, -(-(t_count // mid_divisor) // big_chunk) * big_chunk))
+        cap_g = min(t_count,
+                    max(big_chunk, -(-(t_count // giant_divisor) // big_chunk) * big_chunk))
+        ext_idx, ext_valid = compact_mask(bins.big_mask, min(cap_mid + cap_g, t_count))
+        mid_idx, mid_valid = ext_idx[:cap_mid], ext_valid[:cap_mid]
+        mi = mid_idx.long()
+        mid_setup = RasterSetup(coef=setup.coef[mi], valid=mid_valid, bbox=setup.bbox[:, mi])
+        mid_bins = bin_triangles(mid_setup, width, height, big_tile_h, big_tile_w, big_chunk,
+                                 max_span=4, budget_factor=2.0, tri_ids=mid_idx,
+                                 y_offset=y_offset, mat_idx=mat_idx)
+        mid = _run_binned_kernel(mid_bins, width, height, big_tile_h, big_tile_w, y_offset,
+                                 want_ids, ortho, records)
+        mid_key, mid_id = mid[0], mid[1]
+        if records is not None:
+            key_img, id_img, attr = merge_levels(key_img, id_img, mid_key, mid_id, attr, mid[2])
+            del mid
+        elif want_ids:
+            key_img, id_img = merge_levels(key_img, id_img, mid_key, mid_id)
+        else:
+            key_img = torch.maximum(key_img, mid_key)
 
-    # giant set = (mid rows flagged giant by the coarse binning) U (mid-cap
-    # overflow rows); both parts are ascending and every B id exceeds every
-    # A id, so the concatenation is ascending too
-    a_mask = mid_bins.big_mask & mid_valid
-    a_local, a_ok = compact_mask(a_mask, cap_g)
-    a_ids = torch.where(a_ok, mid_idx[a_local.long()], torch.zeros_like(a_local))
-    b_ids, b_ok = ext_idx[cap_mid:], ext_valid[cap_mid:]
-    cat_ids = torch.cat([a_ids, b_ids])
-    cat_ok = torch.cat([a_ok, b_ok])
-    g_local, g_valid = compact_mask(cat_ok, cap_g)
-    g_idx = torch.where(g_valid, cat_ids[g_local.long()], torch.zeros_like(g_local))
-    n_big = bins.big_mask.sum()
-    lost_beyond = torch.clamp(n_big - min(cap_mid + cap_g, t_count), min=0)
-    lost_a = torch.clamp(a_mask.sum() - a_ok.sum(), min=0)
-    giant_truncated = (cat_ok.sum() - g_valid.sum() + lost_beyond + lost_a).to(torch.int32)
-    gi = g_idx.long()
-    giant_setup = RasterSetup(coef=setup.coef[gi], valid=g_valid, bbox=setup.bbox[:, gi])
+    with scope("GiantLevel"):
+        # giant set = (mid rows flagged giant by the coarse binning) U (mid-cap
+        # overflow rows); both parts are ascending and every B id exceeds every
+        # A id, so the concatenation is ascending too
+        a_mask = mid_bins.big_mask & mid_valid
+        a_local, a_ok = compact_mask(a_mask, cap_g)
+        a_ids = torch.where(a_ok, mid_idx[a_local.long()], torch.zeros_like(a_local))
+        b_ids, b_ok = ext_idx[cap_mid:], ext_valid[cap_mid:]
+        cat_ids = torch.cat([a_ids, b_ids])
+        cat_ok = torch.cat([a_ok, b_ok])
+        g_local, g_valid = compact_mask(cat_ok, cap_g)
+        g_idx = torch.where(g_valid, cat_ids[g_local.long()], torch.zeros_like(g_local))
+        n_big = bins.big_mask.sum()
+        lost_beyond = torch.clamp(n_big - min(cap_mid + cap_g, t_count), min=0)
+        lost_a = torch.clamp(a_mask.sum() - a_ok.sum(), min=0)
+        giant_truncated = (cat_ok.sum() - g_valid.sum() + lost_beyond + lost_a).to(torch.int32)
+        gi = g_idx.long()
+        giant_setup = RasterSetup(coef=setup.coef[gi], valid=g_valid, bbox=setup.bbox[:, gi])
 
-    gth = giant_tile_h or big_tile_h
-    gtw = giant_tile_w or big_tile_w
-    g_chunk = giant_chunk or big_chunk
-    # the reference halves the id-emitting giant tiles to fit its VMEM scope;
-    # kept so the chunk-skip granularity (and so every evaluated pair) is
-    # the reference's
-    while want_ids and gth * gtw > 8192 and gth > 8:
-        gth //= 2
-    big_out = rasterize_giant(giant_setup, width, height, tile_h=gth, tile_w=gtw,
-                              chunk=g_chunk, y_offset=y_offset, want_ids=want_ids,
-                              ortho=ortho, ids=g_idx, records=records)
-    if want_ids:
-        big_depth, big_id = big_out[0], big_out[1]
-        big_key = torch.where(big_id >= 0, big_depth, torch.full_like(big_depth, -1.0))
-        merged = merge_levels(key_img, id_img, big_key, big_id, attr,
-                              big_out[2] if records is not None else None)
-        key_img, id_img = merged[0], merged[1]
-        del big_out
-    else:
-        key_img = torch.maximum(key_img, big_out[0])
+        gth = giant_tile_h or big_tile_h
+        gtw = giant_tile_w or big_tile_w
+        g_chunk = giant_chunk or big_chunk
+        # the reference halves the id-emitting giant tiles to fit its VMEM
+        # scope; kept so the chunk-skip granularity (and so every evaluated
+        # pair) is the reference's
+        while want_ids and gth * gtw > 8192 and gth > 8:
+            gth //= 2
+        big_out = rasterize_giant(giant_setup, width, height, tile_h=gth, tile_w=gtw,
+                                  chunk=g_chunk, y_offset=y_offset, want_ids=want_ids,
+                                  ortho=ortho, ids=g_idx, records=records)
+    with scope("LevelMerge"):
+        if want_ids:
+            big_depth, big_id = big_out[0], big_out[1]
+            big_key = torch.where(big_id >= 0, big_depth, torch.full_like(big_depth, -1.0))
+            merged = merge_levels(key_img, id_img, big_key, big_id, attr,
+                                  big_out[2] if records is not None else None)
+            key_img, id_img = merged[0], merged[1]
+            del big_out
+        else:
+            key_img = torch.maximum(key_img, big_out[0])
 
     hit = key_img >= 0.0
     if depth_mode == DEPTH_MAX:

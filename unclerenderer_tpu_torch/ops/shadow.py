@@ -1,9 +1,12 @@
 """Directional shadow receiver: superblock PCF (``unclerenderer_tpu/ops/shadow.py``).
 
-The shadow map (``render/common.py raster_shadow``) packs into a u16
-superblock table: each row holds an 8x8 block of ceil-quantized depths plus
-a +2 apron (100 of 128 lanes).  Per receiver, K4 (``select9``,
-``csrc/shadow_select9.cu``) fetches the 3x3 texel neighbourhood from it;
+The shadow map (``render/common.py raster_shadow``) packs into a superblock
+table: each row holds an 8x8 block of depths plus a +2 apron (100 of 128
+lanes), ceil-quantized to u16 (``pack_shadow_blocks_u16``, the default) or
+as f32 (``pack_shadow_blocks``, ``RenderSettings.shadow_table_u16=False``:
+the reference's bit-exact oracle table).  Per receiver, K4 (``select9``,
+``csrc/shadow_select9.cu``, an entry per row type) fetches the 3x3 texel
+neighbourhood from it;
 the compare and the PCF blend -- the deferred 4-tap or the forward 2x2
 corners (``pcf``) -- stay plain tensor code (``_pcf_tail``), shared with
 the reference's formulation.
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.passes import named_pass
 from . import _cuda
 from .fma import fma
 from .texture import _to_int
@@ -29,6 +33,13 @@ def shadow_block_shape(size: int) -> tuple:
 def u16_values(table: torch.Tensor) -> torch.Tensor:
     """int16 storage of u16 depths -> their unsigned values as int32."""
     return table.to(torch.int32) & 0xFFFF
+
+
+def pack_shadow_blocks(shadow_map: torch.Tensor) -> torch.Tensor:
+    """(S, S) depth -> (S/bh * S/bw, 128) f32 superblock rows, the layout of
+    ``pack_shadow_blocks_u16`` with the depths as they are and +inf (= always
+    lit) outside the map: compares are unquantized."""
+    return _pack_blocks_core(shadow_map.to(torch.float32), float("inf"))
 
 
 def pack_shadow_blocks_u16(shadow_map: torch.Tensor) -> torch.Tensor:
@@ -60,11 +71,17 @@ def _pack_blocks_core(sm: torch.Tensor, border) -> torch.Tensor:
 
 def select9_ref(table: torch.Tensor, row: torch.Tensor, base: torch.Tensor, deltas) -> torch.Tensor:
     """Plain version of K4: out[n, k] = table[row[n], base[n] + deltas[k]]
-    as f32.  table (rows, lanes) int16 (u16 bits); row/base (N,) i32."""
+    as f32.  table (rows, lanes) int16 (u16 bits) or f32; row/base (N,)
+    i32.  An f32 lane comes out as ``x + 0``, the value of the reference's
+    one-hot lane sum (-0 becomes +0; every other value, inf and NaN
+    included, is kept)."""
     lanes = table.shape[1]
     d = torch.as_tensor(deltas, dtype=torch.int64, device=table.device)
     idx = row.long()[:, None] * lanes + base.long()[:, None] + d[None, :]
-    return u16_values(table.reshape(-1)[idx]).to(torch.float32)
+    got = table.reshape(-1)[idx]
+    if table.dtype == torch.float32:
+        return got + 0.0
+    return u16_values(got).to(torch.float32)
 
 
 def pcf_deltas(bw: int) -> tuple:
@@ -77,28 +94,35 @@ def pcf_deltas(bw: int) -> tuple:
 _PCF_BW = {pcf_deltas(bw): bw for bw in range(4, 9)}
 
 
+# K4's C entry (and launch count) of each row type
+_SELECT9_ENTRY = {torch.int16: "shadow_select9", torch.float32: "shadow_select9_f32"}
+
+
 def select9(table: torch.Tensor, row: torch.Tensor, base: torch.Tensor, deltas) -> torch.Tensor:
     """K4 wrapper (same contract as ``select9_ref``) for the 3x3 deltas
     ``pcf_deltas(bw)``, bw = 4..8, that the frame uses; the same on both
-    devices."""
+    devices.  u16 rows (int16 storage) launch ``shadow_select9``, f32 rows
+    ``shadow_select9_f32``."""
     bw = _PCF_BW.get(tuple(deltas))
     if bw is None:
         raise ValueError(f"select9: deltas {tuple(deltas)} are not a 3x3 of pcf_deltas(4..8)")
-    if table.dtype != torch.int16 or table.dim() != 2 or table.shape[1] % 8:
-        raise ValueError("select9: table must be (rows, lanes) int16 with lanes % 8 == 0")
-    if _cuda.on_cpu("shadow_select9", table):
+    entry = _SELECT9_ENTRY.get(table.dtype)
+    if entry is None or table.dim() != 2 or table.shape[1] % 8:
+        raise ValueError("select9: table must be (rows, lanes) int16 or float32 with "
+                         "lanes % 8 == 0")
+    if _cuda.on_cpu(entry, table):
         return select9_ref(table, row, base, deltas)
     # .contiguous() costs a dispatcher call even when it returns its tensor
     if row.dtype != torch.int32 or not row.is_contiguous():
         row = row.to(torch.int32).contiguous()
     if base.dtype != torch.int32 or not base.is_contiguous():
         base = base.to(torch.int32).contiguous()
-    dev = _cuda.check_cuda("shadow_select9", table, row, base)
+    dev = _cuda.check_cuda(entry, table, row, base)
     if table.data_ptr() % 16:  # aligned word loads of its rows
         raise ValueError("select9: the table must be 16-byte aligned")
     n = row.shape[0]
     out = torch.empty((n, 9), dtype=torch.float32, device=table.device)
-    _cuda.launch("shadow_select9", dev, table.data_ptr(), row.data_ptr(), base.data_ptr(),
+    _cuda.launch(entry, dev, table.data_ptr(), row.data_ptr(), base.data_ptr(),
                  out.data_ptr(), n, table.shape[1], bw)
     return out
 
@@ -176,12 +200,13 @@ def _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size: int, shadow_stre
     return _pcf_blend(passed, fx, fy, uv, shadow_strength, pcf)
 
 
+@named_pass("ShadowPCF")
 def shadow_factor_blocks(blocks_flat, size: int, world_pos, light_view_proj,
                          shadow_strength, shadow_bias, pcf: str = "deferred") -> torch.Tensor:
-    """PCF shadow factor (H, W) from the u16 superblock table (``pcf``: the
-    deferred or the forward blend): the compare value quantizes into the
-    same ceil domain as the stored depths, so comparisons stay
-    conservative."""
+    """PCF shadow factor (H, W) from the superblock table (``pcf``: the
+    deferred or the forward blend).  On the u16 table the compare value
+    quantizes into the same ceil domain as the stored depths, so
+    comparisons stay conservative; on the f32 table they are unquantized."""
     bh, bw = shadow_block_shape(size)
     nbx = size // bw
     uv, compare, fx, fy, xi, yi, xi0, yi0 = _shadow_project(
@@ -191,5 +216,6 @@ def shadow_factor_blocks(blocks_flat, size: int, world_pos, light_view_proj,
     nb = select9(blocks_flat, row.reshape(-1), base.reshape(-1), pcf_deltas(bw))
     nb = nb.reshape(compare.shape + (9,))
     nb9 = [nb[..., k] for k in range(9)]
-    compare = torch.clamp(torch.ceil(compare * 65535.0), 0.0, 65536.0)
+    if blocks_flat.dtype == torch.int16:
+        compare = torch.clamp(torch.ceil(compare * 65535.0), 0.0, 65536.0)
     return _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size, shadow_strength, pcf)

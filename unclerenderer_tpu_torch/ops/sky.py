@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.passes import named_pass
+
 PI = 3.14159265
 
 
@@ -23,6 +25,7 @@ def _normalize(v):
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-20)
 
 
+@named_pass("SkyAtmosphere")
 def apply_atmosphere(view_dir, camera_pos, light_dir, light_color):
     """``ApplyAtmosphere``.  view_dir (..., 3) normalized; camera_pos,
     light_dir (toward the light), light_color: (3,)."""

@@ -80,18 +80,82 @@ def _wrap_index(i, size, mode: int):
     return torch.minimum(torch.clamp(i, min=0), size - 1)
 
 
-def _footprint_axes(dx, dy, base_w, base_h):
-    """Squared screen-axis footprints (lx, ly) in texels."""
+def _footprint_axes(dx, dy, base_w, base_h, contract: bool = False):
+    """Squared screen-axis footprints (lx, ly) in texels.  ``contract``: the
+    sum of the two squares as the reference's ``uv_screen_lod`` contracts
+    it, ``fma(v, v, u * u)`` (0 differing sums against it, where the
+    uncontracted sum differs in 2-15% of them; its anisotropic twin, which
+    reads lx and ly twice, does not contract)."""
     sz = torch.stack([base_w.to(torch.float32), base_h.to(torch.float32)], dim=-1)
-    return ((dx * sz) ** 2).sum(dim=-1), ((dy * sz) ** 2).sum(dim=-1)
+    if not contract:
+        return ((dx * sz) ** 2).sum(dim=-1), ((dy * sz) ** 2).sum(dim=-1)
+
+    def sq(d):
+        p = d * sz
+        return fma(p[..., 1], p[..., 1], p[..., 0] * p[..., 0])
+
+    return sq(dx), sq(dy)
+
+
+def _iso_lod(lx, ly):
+    return 0.5 * torch.log2(torch.clamp(torch.maximum(lx, ly), min=1e-12))
+
+
+def _diff(x, dim: int, append=None, prepend=None):
+    """``jnp.diff(x, axis=dim, append=..., prepend=...)`` for one step."""
+    parts = [p for p in (prepend, x, append) if p is not None]
+    x = torch.cat(parts, dim=dim) if len(parts) > 1 else x
+    n = x.shape[dim]
+    return x.narrow(dim, 1, n - 1) - x.narrow(dim, 0, n - 1)
+
+
+def _edge_gated_uv_derivs(uv, same_tri_x, same_tri_y, same_tri_bx, same_tri_by,
+                          uv_above, uv_below):
+    """Screen-space uv derivatives that never cross a triangle edge: the
+    forward difference where the +x / +y neighbour is the same triangle,
+    else the backward difference where the -x / -y neighbour is, else 0
+    (the quad helper-lane analog; a None backward mask takes the backward
+    difference ungated).  uv (H, W, 2); the masks (H, W) bool; uv_above /
+    uv_below (1, W, 2) the true rows around a row slab, None at the frame's
+    edges (the edge row repeats: a 0 difference)."""
+    dx = _diff(uv, 1, append=uv[:, -1:])
+    dy = _diff(uv, 0, append=uv[-1:] if uv_below is None else uv_below)
+    bx = _diff(uv, 1, prepend=uv[:, :1])
+    by = _diff(uv, 0, prepend=uv[:1] if uv_above is None else uv_above)
+    zero = torch.zeros_like(uv)
+    dx = torch.where(same_tri_x[..., None], dx,
+                     torch.where(same_tri_bx[..., None], bx, zero) if same_tri_bx is not None
+                     else bx)
+    dy = torch.where(same_tri_y[..., None], dy,
+                     torch.where(same_tri_by[..., None], by, zero) if same_tri_by is not None
+                     else by)
+    return dx, dy
+
+
+def uv_screen_lod(uv, base_w, base_h, same_tri_x, same_tri_y, uv_above=None, uv_below=None,
+                  same_tri_bx=None, same_tri_by=None):
+    """Per-pixel LOD from screen-space uv differences
+    (``_edge_gated_uv_derivs``) with ``footprint_lod``'s rule: uv (H, W,
+    2), base_w / base_h (H, W) mip-0 size, same_tri_* (H, W) whether the
+    neighbour in that direction is the pixel's triangle."""
+    dx, dy = _edge_gated_uv_derivs(uv, same_tri_x, same_tri_y, same_tri_bx, same_tri_by,
+                                   uv_above, uv_below)
+    return _iso_lod(*_footprint_axes(dx, dy, base_w, base_h, contract=True))
+
+
+def uv_screen_lod_aniso(uv, base_w, base_h, same_tri_x, same_tri_y, max_aniso: int,
+                        uv_above=None, uv_below=None, same_tri_bx=None, same_tri_by=None):
+    """``(lod, dmaj, extent)`` of ``footprint_lod_aniso`` from the
+    screen-space uv differences of ``uv_screen_lod``."""
+    dx, dy = _edge_gated_uv_derivs(uv, same_tri_x, same_tri_y, same_tri_bx, same_tri_by,
+                                   uv_above, uv_below)
+    return footprint_lod_aniso(dx, dy, base_w, base_h, max_aniso)
 
 
 def footprint_lod(dx, dy, base_w, base_h):
     """Isotropic LOD from explicit uv derivatives: max screen-axis footprint
     in texels, squared-log2."""
-    lx, ly = _footprint_axes(dx, dy, base_w, base_h)
-    rho2 = torch.maximum(lx, ly)
-    return 0.5 * torch.log2(torch.clamp(rho2, min=1e-12))
+    return _iso_lod(*_footprint_axes(dx, dy, base_w, base_h))
 
 
 def footprint_lod_aniso(dx, dy, base_w, base_h, max_aniso: int):
@@ -100,9 +164,16 @@ def footprint_lod_aniso(dx, dy, base_w, base_h, max_aniso: int):
     axis), the uv derivative along the major axis, and the tap-offset scale
     ``extent`` in [0, 1) (0 for an isotropic footprint)."""
     lx, ly = _footprint_axes(dx, dy, base_w, base_h)
+    return _aniso_lod(lx, ly, dx, dy, max_aniso)
+
+
+def _aniso_lod(lx, ly, dx, dy, max_aniso: int):
     rho_maj = torch.clamp(torch.maximum(lx, ly), min=1e-12)
     rho_min = torch.clamp(torch.minimum(lx, ly), min=1e-12)
-    n_eff = torch.clamp(torch.sqrt(rho_maj / rho_min), 1.0, float(max_aniso))
+    # the square root correctly rounded, as XLA's (PyTorch's vectorised f32
+    # sqrt on the CPU is not: 0.2% of extents 1 ulp off)
+    ratio = torch.sqrt((rho_maj / rho_min).double()).float()
+    n_eff = torch.clamp(ratio, 1.0, float(max_aniso))
     rho_eff = torch.maximum(rho_min, rho_maj / (n_eff * n_eff))
     lod = 0.5 * torch.log2(rho_eff)
     dmaj = torch.where((lx >= ly)[..., None], dx, dy)

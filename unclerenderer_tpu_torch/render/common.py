@@ -1,15 +1,18 @@
-"""Frame building blocks (``unclerenderer_tpu/render/common.py``): vertex
-stage, draw masks, the opaque, alpha-masked and shadow visibility rasters,
-and the material resolve (the combined material on the quad or the
-packed-trilinear atlas, or per-slot taps on the per-map quad atlas;
-trilinear, bilinear and anisotropic filters with quad-derivative LOD;
-compact id space; fused resolve, where the raster kernels emit each
-pixel's resolve record)."""
+"""Frame building blocks (``unclerenderer_tpu/render/common.py``): the vertex
+stage (SoA, or AoS under ``soa_vertex=False``), draw masks, the opaque,
+alpha-masked and shadow visibility rasters, and the material resolve (the
+combined material on the quad or the packed-trilinear atlas, or per-slot
+taps on the per-map quad atlas; trilinear, bilinear and anisotropic filters
+with quad-derivative or forward-difference LOD; compact id space; fused
+resolve, where the raster kernels emit each pixel's resolve record).  The
+passes and their sub-scopes carry the reference's names as profiler ranges
+(``core/passes.py``)."""
 
 from __future__ import annotations
 
 import torch
 
+from ..core.passes import named_pass, scope
 from ..ops import pbr
 from ..ops import texture as tex
 from ..ops.fma import fdiff, fdot, fma
@@ -22,19 +25,42 @@ from ..ops.raster import (
     DEPTH_MIN,
     INT32_MAX,
     RasterSetup,
+    VertexAoS,
     VertexSoA,
     compact_mask,
     compact_setup,
     eval_keys,
     normalize_ortho_setup,
-    triangle_setup_from_soa,
+    triangle_setup_any,
+    viewport_homogeneous,
 )
 from ..ops.raster_kernels import merge_levels, rasterize_binned
+from ..ops.shadow import hom_dot4
 from . import packing as PK
-from .params import SAMPLING, DeviceScene, RenderSettings, not_ported
+from .params import DeviceScene, RenderSettings
 
 # material texture slots (has_map columns)
 SLOT_BASE, SLOT_MR, SLOT_NORMAL, SLOT_EMISSIVE = 0, 1, 2, 3
+
+
+def vertex_stage(scene: DeviceScene, view_proj, width: int, height: int):
+    """AoS vertex stage: world -> clip -> homogeneous pixel coordinates of
+    every de-indexed vertex; returns (clip (V, 4), pix_h (V, 3)).  The
+    reference's ``[p, 1] @ view_proj`` is one (V, 4) x (4, 4) dot, whose
+    XLA:CPU sum is pairwise and uncontracted (``hom_dot4``), not the SoA
+    stage's multiply-add chain."""
+    clip = torch.stack(hom_dot4(scene.position, view_proj), dim=-1)
+    return clip, viewport_homogeneous(clip, width, height)
+
+
+def frame_vertices(scene: DeviceScene, view_proj, width: int, height: int,
+                   settings: RenderSettings):
+    """The frame's vertex stage, by the reference's rule: the SoA stage
+    (``VertexSoA``) under ``soa_vertex`` when the scene carries ``pos_soa``,
+    else the AoS one (``VertexAoS``)."""
+    if settings.soa_vertex and scene.pos_soa is not None:
+        return vertex_stage_soa(scene.pos_soa, view_proj, width, height)
+    return VertexAoS(*vertex_stage(scene, view_proj, width, height))
 
 
 def vertex_stage_soa(pos_soa, view_proj, width: int, height: int) -> VertexSoA:
@@ -104,7 +130,8 @@ def use_fused_resolve(settings: RenderSettings) -> bool:
 def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
             want_ids=True, ortho=False, budget_factor=None, giant_tile=(0, 0),
             big_tile=None, records=None):
-    """``rasterize_binned`` at the settings' bin parameters; with
+    """``rasterize_binned`` at the settings' bin parameters (its fine K1
+    level prints its live blocks under ``kernel_debug_print``); with
     ``records`` it returns the record image fourth."""
     big = {} if big_tile is None else {"big_tile_h": big_tile[0], "big_tile_w": big_tile[1]}
     return rasterize_binned(
@@ -115,26 +142,31 @@ def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
         giant_tile_h=giant_tile[0], giant_tile_w=giant_tile[1],
         giant_chunk=settings.bin_giant_chunk, want_ids=want_ids, ortho=ortho,
         mat_idx=settings.bin_mat_idx, records=records,
+        debug_print=settings.kernel_debug_print,
     )
 
 
-def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, vsoa: VertexSoA,
+@named_pass("VisibilityRaster")
+def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, verts,
                   fused: bool = False):
-    """Camera visibility raster.  Returns ``(depth, tri_id, stats, attr,
-    compact_ids)``; with a nonzero ``compaction_cap`` the raster runs over
-    the frame-visible compacted list and ``tri_id`` holds COMPACT ids
-    (``compact_ids`` maps them back; None when off).  ``fused`` (fused
-    resolve) makes the kernels emit each pixel's resolve record, the
-    (H, W, 128) ``attr`` (else None), from ``build_resolve_records`` of the
-    rows the raster runs over (the compact rows under compaction: the
-    values of the reference's ``records[cids]``)."""
-    setup = triangle_setup_from_soa(vsoa, tri_mask, CULL_BACK, settings.width, settings.height)
+    """Camera visibility raster over ``verts`` (``frame_vertices``: SoA or
+    AoS).  Returns ``(depth, tri_id, stats, attr, compact_ids)``; with a
+    nonzero ``compaction_cap`` the raster runs over the frame-visible
+    compacted list and ``tri_id`` holds COMPACT ids (``compact_ids`` maps
+    them back; None when off).  ``fused`` (fused resolve) makes the kernels
+    emit each pixel's resolve record, the (H, W, 128) ``attr`` (else None),
+    from ``build_resolve_records`` of the rows the raster runs over (the
+    compact rows under compaction: the values of the reference's
+    ``records[cids]``)."""
+    with scope("VertexSetup"):
+        setup = triangle_setup_any(verts, tri_mask, CULL_BACK, settings.width, settings.height)
     cap = compaction_cap(settings, setup.valid.shape[0])
     cids = None
     c_overflow = torch.zeros((), dtype=torch.int32, device=tri_mask.device)
     if cap:
-        setup, cids, c_overflow = compact_setup(setup, cap)
-    records = build_resolve_records(scene, vsoa.pix9(), ids=cids) if fused else None
+        with scope("Compaction"):
+            setup, cids, c_overflow = compact_setup(setup, cap)
+    records = build_resolve_records(scene, verts.pix9(), ids=cids) if fused else None
     h = settings.height
     res = _raster(
         setup, settings.width, h, min(settings.tile_h, h), settings.tile_w,
@@ -147,16 +179,20 @@ def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, vsoa: 
     return res[0], res[1], stats, attr, cids
 
 
+@named_pass("ShadowMap")
 def raster_shadow(scene: DeviceScene, light_view_proj, tri_mask, settings: RenderSettings):
     """Depth-only shadow raster: CULL_FRONT + LESS_EQUAL over an ortho
-    projection.  Returns ``(depth, compact_overflow)``."""
+    projection, from the vertex stage ``frame_vertices`` picks.  Returns
+    ``(depth, compact_overflow)``."""
     size = settings.shadow_map_size
-    vs = vertex_stage_soa(scene.pos_soa, light_view_proj, size, size)
-    setup = triangle_setup_from_soa(vs, tri_mask, CULL_FRONT, size, size)
+    with scope("VertexSetup"):
+        vs = frame_vertices(scene, light_view_proj, size, size, settings)
+        setup = triangle_setup_any(vs, tri_mask, CULL_FRONT, size, size)
     cap = shadow_compaction_cap(settings, setup.valid.shape[0])
     overflow = torch.zeros((), dtype=torch.int32, device=tri_mask.device)
     if cap:
-        setup, _ids, overflow = compact_setup(setup, cap)
+        with scope("Compaction"):
+            setup, _ids, overflow = compact_setup(setup, cap)
     setup = normalize_ortho_setup(setup)
     depth, _, _stats = _raster(
         setup, size, size, min(settings.shadow_tile_h, size), settings.shadow_tile_w,
@@ -473,8 +509,9 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
     return key_img, id_img, [counts1, counts2]
 
 
+@named_pass("MaskedRaster")
 def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
-                          settings: RenderSettings, vsoa: VertexSoA, stats: bool = False,
+                          settings: RenderSettings, verts, stats: bool = False,
                           attr=None):
     """Rasterize the alpha-masked geometry with an in-raster alpha test (the
     base-colour tap at the analytic LOD, ``_alpha_lod``), then depth-combine
@@ -489,8 +526,7 @@ def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
     from the records of the compacted masked list (the rows of
     ``_compact_chunks``, looked up by ``searchsorted``), else from the
     whole table."""
-    setup = triangle_setup_from_soa(vsoa, masked_mask, CULL_BACK, settings.width,
-                                    settings.height)
+    setup = triangle_setup_any(verts, masked_mask, CULL_BACK, settings.width, settings.height)
     arec = _alpha_records(scene, setup)
     if settings.masked_tri_cap != 0:
         m_key, m_tri, counts = _rasterize_alpha_binned(setup, arec, scene, settings, stats)
@@ -507,12 +543,12 @@ def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
     safe_m = torch.clamp(m_tri, min=0)
     if 0 < cap < t_count:
         sel, ok = _compact_chunks(setup.valid, cap, min(settings.chunk, 64))
-        rec_m = build_resolve_records(scene, vsoa.pix9(), ids=sel)
+        rec_m = build_resolve_records(scene, verts.pix9(), ids=sel)
         ids_m = torch.where(ok, sel, torch.full_like(sel, t_count))
         local = torch.clamp(torch.searchsorted(ids_m, safe_m), 0, sel.shape[0] - 1)
         attr_m = rec_m[local.long()]
     else:
-        attr_m = build_resolve_records(scene, vsoa.pix9())[safe_m.long()]
+        attr_m = build_resolve_records(scene, verts.pix9())[safe_m.long()]
     return out + (torch.where(take[..., None], attr_m, attr, out=attr),)
 
 
@@ -527,6 +563,16 @@ def build_resolve_records(scene: DeviceScene, pix9, ids=None):
     rows = parts[0].shape[0]
     parts.append(torch.zeros((rows, 7), dtype=torch.float32, device=pix9.device))
     return torch.cat(parts, dim=1)
+
+
+def _same_next(tri_id, dim: int):
+    """Whether the next pixel along ``dim`` shows the same triangle: the
+    reference's ``jnp.diff(tri_id, append=<last>) == 0``, True at the last
+    row or column."""
+    n = tri_id.shape[dim]
+    same = tri_id.narrow(dim, 1, n - 1) == tri_id.narrow(dim, 0, n - 1)
+    edge = torch.ones_like(tri_id.narrow(dim, 0, 1), dtype=torch.bool)
+    return torch.cat([same, edge], dim=dim)
 
 
 def _edge_fn(pa, pb, X, Y):
@@ -567,11 +613,12 @@ def _sample_trilinear_any(quad_flat, atlas_width, rect0, uv, lod, select_kernel=
     return tex.sample_pyramid_trilinear(quad_flat, atlas_width, rect0, uv, lod)
 
 
-def _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy, base_w, base_h, valid,
+def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
                   settings: RenderSettings):
     """D3D12_FILTER_ANISOTROPIC analog: ``max_anisotropy`` trilinear taps
-    along the major-axis footprint at the minor-axis LOD.  Returns (sample,
-    aniso_tap_overflow).
+    along the major-axis footprint at the minor-axis LOD; ``footprint``:
+    the (lod, dmaj, extent) of ``tex.footprint_lod_aniso`` or
+    ``tex.uv_screen_lod_aniso``.  Returns (sample, aniso_tap_overflow).
 
     With 0 < ``aniso_compact_frac`` < 1 the line taps run only over a
     compacted list of the anisotropic pixels (extent > 0; static cap =
@@ -580,7 +627,7 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy, base_w, base_h
     keep the centre tap and are counted."""
     n = settings.max_anisotropy
     sk = settings.mat_select_kernel
-    lod, dmaj, extent = tex.footprint_lod_aniso(d_dx, d_dy, base_w, base_h, n)
+    lod, dmaj, extent = footprint
 
     def line_taps(rect, uv, lod, dmaj, extent):
         acc = 0.0
@@ -613,6 +660,7 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy, base_w, base_h
     return img.reshape(center.shape), overflow
 
 
+@named_pass("MaterialResolve")
 def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings,
                       compact_ids=None, full_override=None):
     """Visibility buffer -> interpolated attributes + sampled materials:
@@ -620,20 +668,21 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     (H, W, 128) record image the raster kernels emitted under fused
     resolve: the same records where ``tri_id >= 0``, zeros elsewhere, where
     nothing reaches the outputs), then the material taps
-    (``settings.texture_filter``) at the quad-derivative LOD: one
+    (``settings.texture_filter``) at the LOD of ``lod_derivatives``: the
+    quad derivatives ("quad"), or forward differences of the pixels' uvs
+    gated by triangle edges ("forward", ``tex.uv_screen_lod``); one
     combined-material tap (``combined_material``), else one tap per enabled
     slot (``slot_enabled``) on the per-map atlas.  The result carries
     ``aniso_tap_overflow`` (0 unless the compacted anisotropic taps
     overflowed their cap; per-slot, the last slot's count)."""
-    if settings.lod_derivatives != "quad":
-        raise not_ported("lod_derivatives='forward'", SAMPLING)
     width, height = settings.width, tri_id.shape[0]
     dev = tri_id.device
     if full_override is not None:
         full = full_override
     else:
-        rec = build_resolve_records(scene, pix9, ids=compact_ids)
-        full = rec[torch.clamp(tri_id, min=0).long()]  # (H, W, 128)
+        with scope("RecGather"):
+            rec = build_resolve_records(scene, pix9, ids=compact_ids)
+            full = rec[torch.clamp(tri_id, min=0).long()]  # (H, W, 128)
     av = full[..., 0:57]
     mrec = full[..., 57:121]
     valid = tri_id >= 0
@@ -643,17 +692,18 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     xx = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     qx, qy = xx + 0.5, yy + 0.5
 
-    e0 = _edge_fn(p1, p2, qx, qy)
-    e1 = _edge_fn(p2, p0, qx, qy)
-    e2 = _edge_fn(p0, p1, qx, qy)
-    ssum = e0 + e1 + e2
-    ssum = torch.where(ssum != 0.0, ssum, torch.ones_like(ssum))
-    bary = (e0 / ssum, e1 / ssum, e2 / ssum)
-    world_pos = _interp3(bary, av, 0, 3)
-    v_normal = _interp3(bary, av, 3, 3)
-    tangent4 = _interp3(bary, av, 6, 4)
-    uv = _interp3(bary, av, 10, 2)
-    v_color = _interp3(bary, av, 12, 4)
+    with scope("InterpAttr"):
+        e0 = _edge_fn(p1, p2, qx, qy)
+        e1 = _edge_fn(p2, p0, qx, qy)
+        e2 = _edge_fn(p0, p1, qx, qy)
+        ssum = e0 + e1 + e2
+        ssum = torch.where(ssum != 0.0, ssum, torch.ones_like(ssum))
+        bary = (e0 / ssum, e1 / ssum, e2 / ssum)
+        world_pos = _interp3(bary, av, 0, 3)
+        v_normal = _interp3(bary, av, 3, 3)
+        tangent4 = _interp3(bary, av, 6, 4)
+        uv = _interp3(bary, av, 10, 2)
+        v_color = _interp3(bary, av, 12, 4)
 
     def M(c, n=1):
         return mrec[..., c:c + n] if n > 1 else mrec[..., c]
@@ -664,24 +714,34 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     uv_rot = M(PK.M_UVROT, 8)
     rects = M(PK.M_RECT, 16)
 
-    # D3D 2x2-quad derivatives with helper-lane semantics, evaluated
-    # analytically from the pixel's own triangle at the quad corners
-    xi = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
-    yi = torch.arange(height, dtype=torch.int32, device=dev)[:, None]
-    bx = (xi & ~1).to(torch.float32)
-    by = (yi & ~1).to(torch.float32)
+    quad_lod = settings.lod_derivatives == "quad"
+    if quad_lod:
+        # D3D 2x2-quad derivatives with helper-lane semantics, evaluated
+        # analytically from the pixel's own triangle at the quad corners
+        xi = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+        yi = torch.arange(height, dtype=torch.int32, device=dev)[:, None]
+        bx = (xi & ~1).to(torch.float32)
+        by = (yi & ~1).to(torch.float32)
 
-    def uv_at(X, Y):
-        f0 = _edge_fn(p1, p2, X, Y)
-        f1 = _edge_fn(p2, p0, X, Y)
-        f2 = _edge_fn(p0, p1, X, Y)
-        fs = f0 + f1 + f2
-        fs = torch.where(fs != 0.0, fs, torch.ones_like(fs))
-        return _interp3((f0 / fs, f1 / fs, f2 / fs), av, 10, 2)
+        def uv_at(X, Y):
+            f0 = _edge_fn(p1, p2, X, Y)
+            f1 = _edge_fn(p2, p0, X, Y)
+            f2 = _edge_fn(p0, p1, X, Y)
+            fs = f0 + f1 + f2
+            fs = torch.where(fs != 0.0, fs, torch.ones_like(fs))
+            return _interp3((f0 / fs, f1 / fs, f2 / fs), av, 10, 2)
 
-    uv_tl = uv_at(bx + 0.5, by + 0.5)
-    uv_tr = uv_at(bx + 1.5, by + 0.5)
-    uv_bl = uv_at(bx + 0.5, by + 1.5)
+        uv_tl = uv_at(bx + 0.5, by + 0.5)
+        uv_tr = uv_at(bx + 1.5, by + 0.5)
+        uv_bl = uv_at(bx + 0.5, by + 1.5)
+    else:
+        # forward differences of the pixels' uvs, gated by the triangle
+        # ids of the neighbours (+x/+y, then -x/-y); the frame's edge rows
+        # and columns count as the same triangle (a 0 difference)
+        same_x = _same_next(tri_id, 1)
+        same_y = _same_next(tri_id, 0)
+        same_bx = _same_next(tri_id.flip(1), 1).flip(1)
+        same_by = _same_next(tri_id.flip(0), 0).flip(0)
 
     quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
     atlas_width = scene.quad_img.shape[1]
@@ -690,6 +750,10 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     aniso_overflow = [torch.zeros((), dtype=torch.int32, device=dev)]
 
     def sample_slot(slot):
+        with scope("MaterialTap"):
+            return _sample_slot(slot)
+
+    def _sample_slot(slot):
         """The material tap of ``slot`` (``settings.texture_filter``) with
         the slot's own rect and KHR transform."""
         t_os = uv_os[..., slot * 4:slot * 4 + 4]
@@ -699,14 +763,27 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         scale = uv_os[..., slot * 4 + 2:slot * 4 + 4]
         base_w = rect0[..., 2] * scale[..., 0].abs()
         base_h = rect0[..., 3] * scale[..., 1].abs()
-        s_tl = tex.apply_texture_transform(uv_tl, t_os, t_rot)
-        d_dx = tex.apply_texture_transform(uv_tr, t_os, t_rot) - s_tl
-        d_dy = tex.apply_texture_transform(uv_bl, t_os, t_rot) - s_tl
+        if quad_lod:
+            # derivatives of the transformed uv, as the shader's quad sees
+            s_tl = tex.apply_texture_transform(uv_tl, t_os, t_rot)
+            d_dx = tex.apply_texture_transform(uv_tr, t_os, t_rot) - s_tl
+            d_dy = tex.apply_texture_transform(uv_bl, t_os, t_rot) - s_tl
         if settings.texture_filter == "anisotropic":
-            s, aniso_overflow[0] = _sample_aniso(quad_flat, atlas_width, rect0, suv, d_dx, d_dy,
-                                                 base_w, base_h, valid, settings)
+            if quad_lod:
+                footprint = tex.footprint_lod_aniso(d_dx, d_dy, base_w, base_h,
+                                                    settings.max_anisotropy)
+            else:
+                footprint = tex.uv_screen_lod_aniso(suv, base_w, base_h, same_x, same_y,
+                                                    settings.max_anisotropy,
+                                                    same_tri_bx=same_bx, same_tri_by=same_by)
+            s, aniso_overflow[0] = _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint,
+                                                 valid, settings)
             return s
-        lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
+        if quad_lod:
+            lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
+        else:
+            lod = tex.uv_screen_lod(suv, base_w, base_h, same_x, same_y, same_tri_bx=same_bx,
+                                    same_tri_by=same_by)
         if settings.texture_filter == "bilinear":
             level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
             return _sample_level_any(quad_flat, atlas_width, rect0, suv, level)
@@ -743,14 +820,15 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
                                    emissive * s[..., :3], emissive)
         nm_rg = sample_slot(SLOT_NORMAL)[..., :2] if on[SLOT_NORMAL] else None
 
-    if nm_rg is None:
-        shading_normal = pbr.normalize(v_normal)
-    else:
-        rg = nm_rg * 2.0 - 1.0
-        tangent_normal = torch.cat([rg, pbr.reconstruct_normal_z(rg)[..., None]], dim=-1)
-        mapped = pbr.apply_normal_map(v_normal, tangent4, tangent_normal)
-        shading_normal = torch.where(has[..., SLOT_NORMAL:SLOT_NORMAL + 1], mapped,
-                                     pbr.normalize(v_normal))
+    with scope("NormalMap"):
+        if nm_rg is None:
+            shading_normal = pbr.normalize(v_normal)
+        else:
+            rg = nm_rg * 2.0 - 1.0
+            tangent_normal = torch.cat([rg, pbr.reconstruct_normal_z(rg)[..., None]], dim=-1)
+            mapped = pbr.apply_normal_map(v_normal, tangent4, tangent_normal)
+            shading_normal = torch.where(has[..., SLOT_NORMAL:SLOT_NORMAL + 1], mapped,
+                                         pbr.normalize(v_normal))
     return {
         "valid": valid,
         "aniso_tap_overflow": aniso_overflow[0],

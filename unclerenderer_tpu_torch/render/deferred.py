@@ -3,7 +3,10 @@ device: culling -> shadow map -> visibility raster (opaque, then the
 alpha-masked models merged in; with fused resolve the raster kernels emit
 each pixel's resolve record) -> material resolve ->
 HZB -> lighting (GGX, superblock PCF, IBL) -> sky -> TAA -> auto-exposure
--> tonemap -> CAS -> the debug-print stats block.  Frames are carried as in
+-> tonemap -> CAS -> the debug-print stats block.  The vertex stage is
+SoA or AoS (``soa_vertex``, ``common.frame_vertices``) and the shadow
+table u16 or f32 (``shadow_table_u16``), as the reference picks them.
+Frames are carried as in
 the reference: ``deferred_frame(scene, params, state, settings,
 shadow_map=None) -> (out, new_state)``; the Renderer passes the shadow map
 it caches."""
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.passes import scope
 from ..ops import pbr
 from ..ops import texture as tex
 from ..ops.cull import frustum_cull, occlusion_cull
@@ -19,7 +23,7 @@ from ..ops.fma import fma
 from ..ops.hzb import build_hzb, hzb_layout
 from ..ops.overlay import device_stats_overlay
 from ..ops.post import auto_exposure_ev, cas_sharpen, temporal_aa, tonemap
-from ..ops.shadow import pack_shadow_blocks_u16, shadow_factor_blocks
+from ..ops.shadow import pack_shadow_blocks, pack_shadow_blocks_u16, shadow_factor_blocks
 from ..ops.sky import apply_atmosphere, sky_view_directions
 from . import common
 from .params import DeviceScene, FrameParams, FrameState, RenderSettings, check_supported
@@ -39,6 +43,14 @@ def frustum_planes(view_proj):
     p = planes[:, :3]
     norms = torch.sqrt(fma(p[:, 2], p[:, 2], fma(p[:, 1], p[:, 1], p[:, 0] * p[:, 0])))[:, None]
     return planes / torch.where(norms > 0, norms, torch.ones_like(norms))
+
+
+def pack_table(shadow_map, settings: RenderSettings):
+    """The superblock PCF table of a shadow map: u16 rows under
+    ``shadow_table_u16`` (the default), else f32."""
+    if settings.shadow_table_u16:
+        return pack_shadow_blocks_u16(shadow_map)
+    return pack_shadow_blocks(shadow_map)
 
 
 def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
@@ -77,16 +89,18 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
             cast_o, cast_m = common.tri_draw_masks(scene, params.model_visible)
             shadow_map, shadow_overflow = common.raster_shadow(
                 scene, params.light_view_proj, cast_o | cast_m, settings)
-        shadow9 = pack_shadow_blocks_u16(shadow_map)
+        with scope("ShadowPack"):
+            shadow9 = pack_table(shadow_map, settings)
 
     # --- 3/4/5. visibility raster (fused resolve: the kernels also emit
     # each pixel's resolve record, attr, which the resolve takes as it is)
-    vsoa = common.vertex_stage_soa(scene.pos_soa, params.view_proj, width, height)
-    pix9 = vsoa.pix9()
+    with scope("VertexSetup"):
+        verts = common.frame_vertices(scene, params.view_proj, width, height, settings)
+        pix9 = verts.pix9()
     depth, tri_id, raster_stats, attr, compact_ids = common.raster_opaque(
-        scene, opaque_mask, settings, vsoa, fused=common.use_fused_resolve(settings))
+        scene, opaque_mask, settings, verts, fused=common.use_fused_resolve(settings))
     if settings.has_masked_models:
-        masked = common.raster_masked_combine(scene, masked_mask, depth, tri_id, settings, vsoa,
+        masked = common.raster_masked_combine(scene, masked_mask, depth, tri_id, settings, verts,
                                               attr=attr)
         depth, tri_id = masked[0], masked[1]
         attr = masked[3] if attr is not None else None
@@ -117,11 +131,12 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     else:
         shadow = torch.ones_like(g["metallic"])
 
-    direct = (
-        pbr.evaluate_pbr(g["albedo"], g["metallic"], g["roughness"], f0, normal_view,
-                         v_view, l_view)
-        * params.light_intensity * params.light_color * shadow[..., None]
-    )
+    with scope("DirectLighting"):
+        direct = (
+            pbr.evaluate_pbr(g["albedo"], g["metallic"], g["roughness"], f0, normal_view,
+                             v_view, l_view)
+            * params.light_intensity * params.light_color * shadow[..., None]
+        )
 
     if settings.enable_ibl:
         env_flat = scene.env_quad.reshape(-1, scene.env_quad.shape[-1])
@@ -189,10 +204,11 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
 
     # --- 13. the debug-print stats block, drawn from device counters
     if settings.gpu_debug_print:
-        color = device_stats_overlay(
-            color, models_visible=model_visible.sum().to(torch.int32),
-            models_total=int(model_visible.shape[0]), frustum_culled=frustum_culled,
-            hzb_occluded=hzb_occluded, exposure_ev=new_ev)
+        with scope("GpuDebugPrint"):
+            color = device_stats_overlay(
+                color, models_visible=model_visible.sum().to(torch.int32),
+                models_total=int(model_visible.shape[0]), frustum_culled=frustum_culled,
+                hzb_occluded=hzb_occluded, exposure_ev=new_ev)
 
     # uint32 as in the reference; ids ride an f32 record column, so they are
     # exact integers below 2^24 and the int32 bits are the uint32 value

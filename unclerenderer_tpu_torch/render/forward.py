@@ -6,10 +6,11 @@ stores it.  No G-buffer, TAA, auto-exposure, tonemap, CAS or HZB, no
 culling (the caller's ``model_visible`` is drawn as it is) and no frame
 state; the stats block is the deferred frame's alone.
 
-The visibility raster, masked raster, fused resolve and material resolve
-are the deferred frame's (``render/common.py``): K1, K2/K3 (with records
-under ``fused_resolve="on"``), K4 through the forward PCF blend, K5, and K7
-and K8 under their flags.
+The vertex stage, visibility raster, masked raster, fused resolve, material
+resolve and shadow table are the deferred frame's (``render/common.py``,
+``render/deferred.py pack_table``): K1, K2/K3 (with records under
+``fused_resolve="on"``), K4 (u16 or f32 rows) through the forward PCF blend,
+K5, and K7 and K8 under their flags.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ import torch
 
 from ..ops import pbr
 from ..ops import texture as tex
-from ..ops.shadow import pack_shadow_blocks_u16, shadow_factor_blocks
+from ..ops.shadow import shadow_factor_blocks
 from ..ops.sky import apply_atmosphere, sky_view_directions
 from . import common
+from .deferred import pack_table
 from .params import DeviceScene, FrameParams, RenderSettings, check_supported
 
 
@@ -35,13 +37,13 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
     dev = scene.tri_geo.device
     width, height = settings.width, settings.height
 
-    vsoa = common.vertex_stage_soa(scene.pos_soa, params.view_proj, width, height)
-    pix9 = vsoa.pix9()
+    verts = common.frame_vertices(scene, params.view_proj, width, height, settings)
+    pix9 = verts.pix9()
     opaque_mask, masked_mask = common.tri_draw_masks(scene, params.model_visible)
     depth, tri_id, raster_stats, attr, compact_ids = common.raster_opaque(
-        scene, opaque_mask, settings, vsoa, fused=common.use_fused_resolve(settings))
+        scene, opaque_mask, settings, verts, fused=common.use_fused_resolve(settings))
     if settings.has_masked_models:
-        masked = common.raster_masked_combine(scene, masked_mask, depth, tri_id, settings, vsoa,
+        masked = common.raster_masked_combine(scene, masked_mask, depth, tri_id, settings, verts,
                                               attr=attr)
         depth, tri_id = masked[0], masked[1]
         attr = masked[3] if attr is not None else None
@@ -51,7 +53,7 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
         if shadow_map is None:
             shadow_map, shadow_overflow = common.raster_shadow(
                 scene, params.light_view_proj, opaque_mask | masked_mask, settings)
-        shadow9 = pack_shadow_blocks_u16(shadow_map)
+        shadow9 = pack_table(shadow_map, settings)
 
     g = common.resolve_materials(scene, pix9, tri_id, settings, compact_ids=compact_ids,
                                  full_override=attr)

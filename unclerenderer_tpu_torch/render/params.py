@@ -12,9 +12,13 @@
   atlas) and ``bin_mat_idx`` K9.  ``fused_resolve="on"`` makes K1 and K2
   emit each pixel's resolve record (``render/common.py
   use_fused_resolve``); ``renderer_type`` picks the Renderer's frame
-  (``deferred_frame`` itself ignores it, as the reference's does).
-  Branches the port has not taken over yet raise ``NotImplementedError``
-  naming their ROADMAP queue entry (``check_supported``).
+  (``deferred_frame`` itself ignores it, as the reference's does).  The
+  non-default sampling and storage branches run as the reference's:
+  ``lod_derivatives="forward"`` (forward-difference LOD), ``soa_vertex=False``
+  (the AoS vertex stage) and ``shadow_table_u16=False`` (the f32 PCF table,
+  K4 on f32 rows); ``kernel_debug_print`` makes K1 print its live blocks.
+  Every field's branch runs; ``check_supported`` refuses only unknown
+  values.
 * FrameParams / DeviceScene / FrameState: dataclasses of tensors, all on one
   explicit device; ``upload_scene`` puts a scene's host arrays there
   (bfloat16 carried as uint16 bits, ``bf16_bits``).
@@ -108,8 +112,6 @@ def resolve_packed_trilinear(setting, n_materials: int) -> bool:
 
 
 # titles of the ROADMAP.md modules-queue entries that still raise
-SAMPLING = "non-default sampling and storage"
-OBSERVABILITY = "observability"
 VIEWER_AND_BENCH = "viewer and bench"
 
 
@@ -123,19 +125,10 @@ def not_ported(what: str, entry: str) -> NotImplementedError:
 
 
 def check_supported(settings: RenderSettings) -> None:
-    """Raise for every setting whose branch the port does not run, instead
-    of silently computing something else."""
+    """Raise for a setting value no branch takes, instead of silently
+    computing something else."""
     if settings.texture_filter not in ("trilinear", "bilinear", "anisotropic"):
         raise ValueError(f"unknown texture_filter {settings.texture_filter!r}")
-    unsupported = [
-        (settings.lod_derivatives != "quad", "lod_derivatives='forward'", SAMPLING),
-        (not settings.soa_vertex, "soa_vertex=False (AoS vertex stage)", SAMPLING),
-        (not settings.shadow_table_u16, "shadow_table_u16=False", SAMPLING),
-        (settings.kernel_debug_print, "kernel_debug_print", OBSERVABILITY),
-    ]
-    for bad, what, entry in unsupported:
-        if bad:
-            raise not_ported(what, entry)
 
 
 @dataclasses.dataclass

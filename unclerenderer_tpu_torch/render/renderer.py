@@ -15,9 +15,19 @@ Deliberately not carried over from the reference:
 * the on-disk built-scene cache (``core/scenecache.py``): nothing is read or
   written, ``scene_cache_hit`` is False (ROADMAP.md, modules queue: Renderer
   shell and CLI).
-* per-pass GPU timing, graph dumps and the profilers: they raise
-  ``NotImplementedError`` naming their ROADMAP.md queue entry, never
-  silently doing nothing.
+* the lowered frame graph of ``enable_graph_dump``: eager PyTorch lowers
+  nothing, so ``render_graph_dump.txt`` holds the first deferred frame's
+  ordered op list instead (every aten op with its shapes and dtypes, and
+  every kernel launch of ``ops/_cuda.py``, each under its pass), and a
+  failing dump raises where the reference logs and goes on.
+
+Observability (the reference's): ``enable_gpu_timing`` adds a ``"Frame"``
+sample per ``render_frame`` (synchronising only then) to
+``stats()["frame_timing"]``; ``profile_passes`` times the deferred stages
+one by one (``render/framegraph.py``); ``profile_trace`` writes a
+``torch.profiler`` Chrome trace of rendered frames and
+``profile_trace_passes`` buckets its device time by pass
+(``core/traceparse.py``).
 
 Host vectors are never read back from the device per frame: the shadow-map
 cache is keyed on the host light vector and visibility, the frame's
@@ -27,6 +37,7 @@ the worst-frame drop counters on the device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import mathlib as m
+from ..core import passes
 from ..core.config import RendererConfig
 from ..core.logging import log_error, log_info, log_warning
 from ..core.tasks import parallel_map, schedule_task, set_task_system_enabled
@@ -56,18 +68,70 @@ from .deferred import deferred_frame
 from .forward import forward_frame
 from .packing import M_UVOS, M_UVROT, pack_model_record, pack_tri_geo, pack_tri_mrec
 from .packing import scene_host_arrays
+from .framegraph import PassTimingStats
 from .params import (
-    OBSERVABILITY,
     DeviceScene,
     FrameParams,
     FrameState,
     RenderSettings,
-    not_ported,
     resolve_packed_trilinear,
     upload_scene,
 )
 
 _SLOT_SRGB = (True, False, False, True)  # base, mr, normal, emissive
+DEBUG_PRINTF_FIFO = 64 << 20  # device printf FIFO under kernel_debug_print
+
+
+def _signature(x) -> str:
+    """``f32[1080,1920]`` for a tensor, the tuple of them for a sequence,
+    ``repr`` for anything else."""
+    if isinstance(x, torch.Tensor):
+        dtype = str(x.dtype).replace("torch.", "")
+        return f"{dtype}[{','.join(map(str, x.shape))}]"
+    if isinstance(x, (list, tuple)):
+        return "(" + ", ".join(_signature(v) for v in x) + ")"
+    return repr(x)
+
+
+@contextlib.contextmanager
+def record_graph(path: Path | None):
+    """The GraphDump analog: run the block with every aten op (a
+    ``TorchDispatchMode`` sees them, with their argument and result shapes
+    and dtypes) and every kernel launch of ``ops/_cuda.py`` (the dispatcher
+    does not see those; on the CPU, each dispatch to a kernel's plain
+    version) written, in order, to ``path`` -- each line under the pass and
+    sub-scope path open at the time (``core/passes.py``).  ``path`` None
+    runs the block as it is."""
+    if path is None:
+        yield
+        return
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ..ops import _cuda
+
+    lines = []
+
+    class _Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            lines.append(f"{passes.scope_path() or '-'}\top {func} "
+                         f"{_signature(list(args))} -> {_signature(out)}")
+            return out
+
+    def launch(name, what):
+        lines.append(f"{passes.scope_path() or '-'}\t{what} {name}")
+
+    _cuda.LAUNCH_LOG = launch
+    try:
+        with _Ops():
+            yield
+    finally:
+        _cuda.LAUNCH_LOG = None
+    kernels = sorted({ln.split()[-1] for ln in lines if "\tkernel " in ln})
+    head = [f"# render graph: {len(lines)} entries (aten ops and kernel launches, in order; "
+            "pass path, then the entry)",
+            f"# kernels launched: {', '.join(kernels) or 'none'}"]
+    path.write_text("\n".join(head + lines) + "\n")
 
 
 def _build_device_scene(
@@ -283,6 +347,11 @@ class Renderer:
         self.settings = settings
         self.config = cfg
         self._apply_config_side_effects(cfg)
+        if settings.kernel_debug_print and self.device.type == "cuda":
+            # room for K1's lines: the FIFO grows only before any kernel runs
+            from ..ops import _cuda
+
+            _cuda.printf_fifo(DEBUG_PRINTF_FIFO)
 
         if assets_root is None:
             assets_root = scene_path.parent.parent
@@ -390,12 +459,11 @@ class Renderer:
         """Honour, refuse or log every RendererConfig key: no toggle silently
         does nothing."""
         set_task_system_enabled(cfg.use_task_system)
-        if cfg.enable_gpu_timing:
-            raise not_ported("RendererConfig.enable_gpu_timing (per-pass GPU timing)",
-                             OBSERVABILITY)
-        if cfg.enable_graph_dump:
-            raise not_ported("RendererConfig.enable_graph_dump (frame graph dump)",
-                             OBSERVABILITY)
+        # GpuTiming: a "Frame" sample per render_frame (stats()["frame_timing"])
+        self._gpu_timing = bool(cfg.enable_gpu_timing)
+        self._frame_times = PassTimingStats() if self._gpu_timing else None
+        # GraphDump: the first deferred frame's op list, once
+        self._graph_dump_pending = bool(cfg.enable_graph_dump)
         # GpuDebugPrint (RendererConfig.h:38): the stats block drawn inside
         # the deferred frame (ops/overlay.py) plus the host overlays of
         # render_overlay_u8
@@ -484,18 +552,32 @@ class Renderer:
         shadow map; a forward frame leaves the frame state as it is.  No
         fallback: a frame that fails (a kernel that does not build or
         launch included) raises; the reference's retry with the forward
-        renderer is not carried over."""
+        renderer is not carried over.  Under ``enable_gpu_timing`` the frame
+        is synchronised and its time sampled as "Frame"; under
+        ``enable_graph_dump`` the first deferred frame runs under
+        ``record_graph`` and writes ``render_graph_dump.txt``."""
+        t0 = time.monotonic() if self._gpu_timing else 0.0
         params = self.frame_params(delta_time)
         shadow_map = self._shadow_map(params)
         if self._deferred():
-            out, self.frame_state = deferred_frame(self.device_scene, params, self.frame_state,
-                                                   self.settings, shadow_map)
+            dump = self._graph_dump_pending
+            self._graph_dump_pending = False
+            with record_graph(Path("render_graph_dump.txt") if dump else None):
+                out, self.frame_state = deferred_frame(self.device_scene, params,
+                                                       self.frame_state, self.settings,
+                                                       shadow_map)
+            if dump:
+                log_info("wrote render_graph_dump.txt (the frame's op list)")
             if self.settings.enable_taa:
                 self._taa_history_ready = True
         else:
             out = forward_frame(self.device_scene, params, self.settings, shadow_map)
         self._frame_counter += 1
         self._last_out = out
+        if self._gpu_timing:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._frame_times.add_sample("Frame", (time.monotonic() - t0) * 1e3)
         return out
 
     def render_frames(self, n: int, delta_time: float = 1.0 / 60.0, mutate=None) -> torch.Tensor:
@@ -642,6 +724,7 @@ class Renderer:
             "exposure_ev": float(self.frame_state.exposure_ev),
             "taa_history_valid": bool(self.frame_state.taa_valid),
             **self.memory_stats(),
+            **({"frame_timing": self._frame_times.stats()} if self._gpu_timing else {}),
         }
 
     def memory_stats(self) -> dict:
@@ -655,14 +738,49 @@ class Renderer:
             "hbm_peak_bytes_in_use": int(torch.cuda.max_memory_allocated(self.device)),
         }
 
-    def profile_passes(self, iterations: int = 3):
-        raise not_ported("Renderer.profile_passes", OBSERVABILITY)
+    def profile_passes(self, iterations: int = 3) -> PassTimingStats:
+        """Per-pass timing table (the GpuTiming toggle analog): the deferred
+        stages run and timed one by one (``render/framegraph.py``)."""
+        from .framegraph import profile_deferred_passes
 
-    def profile_trace_passes(self, frames: int = 3, trace_dir=None):
-        raise not_ported("Renderer.profile_trace_passes", OBSERVABILITY)
+        return profile_deferred_passes(self, iterations)
 
-    def profile_trace(self, trace_dir, frames: int = 3):
-        raise not_ported("Renderer.profile_trace", OBSERVABILITY)
+    def profile_trace_passes(self, frames: int = 3, trace_dir=None) -> PassTimingStats:
+        """In-frame per-pass device time: one ``profile_trace`` of
+        ``frames`` rendered frames, its device rows bucketed by pass
+        (``core/traceparse.py``) into a ``PassTimingStats`` table, with
+        "(other)" for rows in no pass and "(total)".  Empty on the CPU: the
+        trace has no device rows."""
+        import tempfile
+
+        from ..core.traceparse import parse_pass_times
+
+        d = trace_dir or tempfile.mkdtemp(prefix="uncle_trace_")
+        self.profile_trace(d, frames=frames)
+        stats = PassTimingStats(window_seconds=1e9)
+        for name, ms in parse_pass_times(d, n_frames=frames).items():
+            stats.add_sample(name, ms)
+        return stats
+
+    def profile_trace(self, trace_dir, frames: int = 3) -> str:
+        """Record ``frames`` rendered frames with ``torch.profiler`` (host
+        and, on the card, device activity) and write its Chrome trace into
+        ``trace_dir`` (open it in Perfetto); every pass and sub-scope is a
+        named range there.  Returns ``trace_dir``."""
+        trace_dir = Path(trace_dir)
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(frames):
+                self.render_frame()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        path = trace_dir / f"frames_{time.strftime('%Y%m%d_%H%M%S')}.pt.trace.json"
+        prof.export_chrome_trace(str(path))
+        log_info(f"profiler trace ({frames} frames) written to {path}")
+        return str(trace_dir)
 
     def save_state(self, path) -> None:
         """Checkpoint the camera and the frame-carried state (an .npz the
