@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Seven paths of the port are driven: five through ``deferred_frame``,
+Ten paths of the port are driven: five through ``deferred_frame``,
 
 * default -- the default frame of the combined material (u8 combined quad
   atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
@@ -47,7 +47,17 @@ unclerenderer_tpu_torch``:
   (``renderer_type="forward"``: ``render/forward.py forward_frame``).
 
 and K1's debug print (``kernel_debug_print``: ``binned_raster_debug``) in a
-child process, and observability on the Renderer's files.
+child process, and observability on the Renderer's files.  Three more paths
+run through the entry points of the last modules ported:
+
+* cache    -- ``Renderer`` init cold and warm through the scene cache
+  (``core/scenecache.py``) on the renderer cell's files;
+* viewer   -- ``viewer.py run_viewer`` driven by scripted keys on the warm
+  1080p Renderer: K1, K2, K4, K5;
+* multichip -- ``parallel/multichip.py render_frame_multichip`` in ranks
+  spawned as child processes, all on this card over gloo: K1, K2, K4, K5 on
+  each rank's row slab (``y_offset``: the first row of the tile-aligned
+  region around the slab), the shadow map's slabs all-gathered.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -161,6 +171,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    "(total)" logged beside the frames' CUDA-event time and the "(other)"
    share); GraphDump's op list naming every kernel its frame launched; the
    CLI with ``--trace DIR --profile-passes``.
+11. cache  -- (on phase 7's files at 1080p, in a fresh
+   ``UNCLERENDERER_SCENE_CACHE`` directory deleted afterwards; every other
+   phase runs with the cache off) a cold ``Renderer`` init, then a warm
+   one: their seconds and ``setup_phase_s``, ``scene_cache_hit`` False then
+   True, every device array bit-equal, 3 carried frames from each with
+   colour, depth, ids and counters bit-equal.
+12. viewer -- ``run_viewer`` on the warm Renderer, its key reader replaced
+   by a script and the terminal by a buffer: a move, a yaw, a slider nudge
+   (tonemap exposure +0.2), a settings toggle (CAS), a screenshot and quit
+   (4 frames, a 1080p PNG, the camera moved and turned); then 10 frames
+   with no key, counted (K1, K2, K4, K5 launched) and timed: ms per viewer
+   frame (the frame, its read-back, the overlays, the ANSI text).
+13. multichip -- ranks spawned by ``run_ranks`` (the kernels are built
+   already, so no rank builds them) on ``cuda:0`` over gloo, each counted
+   over its frames: (a) the MULTICHIP_r05 contract, 8 ranks at 64x128 with
+   a 128^2 map, every feature on (IBL, masked geometry, HZB, TAA, CAS,
+   auto-exposure), 4 frames with camera motion; (b) 2 ranks at 1920x1080
+   with the 4096^2 map on the headline geometry, 4 frames.  Each: tri_id,
+   depth, ids, counters and HZB bit-equal to the single-device frames from
+   the same states, colour within 1e-5 (seam rows logged on their own);
+   every K1, K2, K4 and K5 call of one slab frame on a rank whose raster
+   region starts below row 0 bit-equal to its plain version; (b) also ms/frame sharded and
+   single-device in turns (3 runs of 4 frames; two ranks share one card, so
+   this is no speed claim).
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the f32
@@ -175,7 +209,9 @@ The kernels JSON gives each kernel's ``launches`` on its path's counted run
 sampling path's; ``binned_raster_debug``: the debug child's frame, whose
 ``ms`` and ``plain_ms`` are its launches' and ``no_debug_ms`` the same
 launches without the flag), ``renderer_launches`` on
-the Renderer's and ``forward_renderer_launches`` on the forward Renderer's.  The last three lines of stdout
+the Renderer's, ``forward_renderer_launches`` on the forward Renderer's,
+``viewer_launches`` on the viewer's 10 frames and ``multichip_launches``
+on rank 1 of the 2-rank 1080p frames.  The last three lines of stdout
 are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
 one CUDA card and imports no JAX.
@@ -1048,6 +1084,355 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
     return rep
 
 
+MC_KERNELS = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
+SEAM_ATOL = 1e-5  # sharded vs single-device colour: the exposure grid's sum order only
+
+
+def scene_cache_phase(dev, smi, scene: Path):
+    """Phase 11: the scene cache (``core/scenecache.py``) on the renderer
+    cell's files at 1920x1080: a cold and a warm ``Renderer`` init in a
+    fresh cache directory (deleted afterwards), their ``setup_phase_s`` and
+    ``scene_cache_hit``, the device arrays bit-equal, and 3 carried frames
+    from each bit-equal (colour, depth, ids, counters).  Returns (report,
+    the warm Renderer)."""
+    import os
+    import shutil
+
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+
+    settings = RenderSettings(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW)
+    cache = Path(tempfile.mkdtemp(prefix="chip_smoke_scene_cache_"))
+    os.environ["UNCLERENDERER_SCENE_CACHE"] = str(cache)
+    try:
+        inits = {}
+        for which in ("cold", "warm"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = Renderer(scene, settings=settings, device=dev)
+            inits[which] = (r, time.perf_counter() - t0)
+        cold, warm = inits["cold"][0], inits["warm"][0]
+        check(not cold.scene_cache_hit and warm.scene_cache_hit,
+              f"cache: hits cold {cold.scene_cache_hit}, warm {warm.scene_cache_hit}")
+        check(set(warm.setup_phase_s) == {"cache_load", "device_upload"},
+              f"cache: warm phases {warm.setup_phase_s}")
+        for f in dataclasses.fields(cold.device_scene):
+            a, b = getattr(cold.device_scene, f.name), getattr(warm.device_scene, f.name)
+            check(a.dtype == b.dtype and torch.equal(a, b), f"cache: device array {f.name}")
+        check(warm.settings == cold.settings, "cache: settings differ")
+        stored = sum(p.stat().st_size for p in cache.rglob("*") if p.is_file())
+        for i in range(3):
+            a, b = cold.render_frame(), warm.render_frame()
+            for k in ("color", "hdr", "depth", "tri_id"):
+                check(torch.equal(a[k], b[k]), f"cache: frame {i} {k} differs cold vs warm")
+            check(torch.equal(a["object_id"].view(torch.int32), b["object_id"].view(torch.int32)),
+                  f"cache: frame {i} object_id")
+            check({k: int(v) for k, v in a["raster_stats"].items()}
+                  == {k: int(v) for k, v in b["raster_stats"].items()}, f"cache: frame {i} counters")
+        rep = {"cold_s": inits["cold"][1], "warm_s": inits["warm"][1],
+               "cold_phases": dict(cold.setup_phase_s), "warm_phases": dict(warm.setup_phase_s),
+               "hits": [cold.scene_cache_hit, warm.scene_cache_hit], "stored_bytes": stored}
+        log("cache", f"init cold {rep['cold_s']:.2f} s {rep['cold_phases']}, warm "
+                     f"{rep['warm_s']:.2f} s {rep['warm_phases']} (hits {rep['hits']}; "
+                     f"{stored / 1e6:.0f} MB stored); device arrays and 3 carried frames "
+                     f"bit-equal cold vs warm ({WIDTH}x{HEIGHT}, shadow {SHADOW}^2, on {smi})")
+        del cold, inits
+        return rep, warm
+    finally:
+        os.environ["UNCLERENDERER_SCENE_CACHE"] = ""
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def viewer_phase(r, smi) -> dict:
+    """Phase 12: the terminal viewer (``viewer.py run_viewer``) on a 1080p
+    Renderer, scripted keys through a stand-in for ``_RawInput`` and the
+    terminal to a buffer: a move, a yaw, a slider nudge, a settings toggle,
+    a screenshot and quit; then 10 frames with no key, timed (ms per
+    viewer frame: the frame, its read-back, the overlays and the ANSI
+    text), with the launch counts set to 0 just before and read after."""
+    import io
+
+    from unclerenderer_tpu_torch import viewer
+    from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.textures.png import load_png
+
+    def session(keys, save_path):
+        keys = list(keys)
+
+        class Scripted:
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def read_keys(self):
+                return keys.pop(0)
+
+        term = io.StringIO()
+        with patched(viewer, "_RawInput", Scripted), contextlib.redirect_stdout(term):
+            t0 = time.perf_counter()
+            frames = viewer.run_viewer(r, save_path=str(save_path), target_fps=1000.0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        check(not keys, f"viewer: {len(keys)} key groups left unread")
+        return frames, secs, term.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viewer_") as d:
+        shot = Path(d) / "shot.png"
+        pos0, fwd0 = np.array(r.camera.position), np.array(r.camera.forward)
+        exposure0, cas0 = r.config.tonemap_exposure, r.settings.enable_cas
+        frames, secs, text = session([["w", "arrow_left"], ["]", ".", "."], ["3"], ["p"], ["x"]],
+                                     shot)
+        check(frames == 4, f"viewer: {frames} frames, expected 4")
+        png = load_png(shot)
+        check(png is not None and png.shape == (HEIGHT, WIDTH, 4)
+              and len(np.unique(png[..., :3].reshape(-1, 3), axis=0)) > 100,
+              "viewer: the screenshot does not decode to a 1080p image")
+        check(not np.allclose(r.camera.position, pos0) and not np.allclose(r.camera.forward, fwd0),
+              "viewer: the camera did not move and turn")
+        check(abs(r.config.tonemap_exposure - (exposure0 + 0.2)) < 1e-9,
+              f"viewer: tonemap_exposure {r.config.tonemap_exposure}, expected {exposure0} + 0.2")
+        check(r.settings.enable_cas != cas0, "viewer: '3' did not toggle CAS")
+        check(text.count("\x1b[H") == 4 and "fps" in text, "viewer: terminal frames missing")
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        n, secs_run, text = session([[]] * FRAMES + [["x"]], shot)
+        launches = dict(_cuda.LAUNCHES)
+    check(n == FRAMES, f"viewer: {n} frames, expected {FRAMES}")
+    for name in MC_KERNELS:
+        check(launches[name] > 0, f"viewer: kernel {name} was not launched")
+    rep = {"scripted_frames": frames, "scripted_s": secs, "frames": n,
+           "ms_per_frame": 1e3 * secs_run / n, "launches": launches,
+           "camera_moved": float(np.linalg.norm(np.array(r.camera.position) - pos0)),
+           "ansi_chars": len(text)}
+    log("viewer", f"scripted session (move, yaw, slider, CAS toggle, screenshot, quit): 4 frames "
+                  f"in {secs:.2f} s, camera moved {rep['camera_moved']:.3f}, {WIDTH}x{HEIGHT} "
+                  f"PNG; "
+                  f"{n} frames with no key: {rep['ms_per_frame']:.2f} ms per viewer frame "
+                  f"(frame, read-back, overlays, {len(text) // n} ANSI chars a frame); launches "
+                  f"{ {k: v for k, v in launches.items() if v} } (on {smi})")
+    return rep
+
+
+def multichip_rank(rank, group, spec):
+    """One rank of phase 13 (``parallel/multichip.py run_ranks``; a child
+    process on ``cuda:0``): the sharded frames of ``spec`` with the launch
+    counts set to 0 just before and read just after, their slabs gathered
+    on rank 0; on ``spec["record_rank"]`` (whose ``row0`` is not 0) every
+    K1, K2, K4 and K5 call of one more sharded frame against its plain
+    version, bit-equal; on rank 0 the single-device frames from the same
+    state, tri_id, depth, ids, counters and HZB bit-equal, colour within
+    ``SEAM_ATOL`` (seam rows too); with ``spec["turns"]`` ms/frame sharded
+    and single-device in turns.  Returns this rank's report."""
+    import torch.distributed as dist
+
+    from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.ops import raster_kernels as rk
+    from unclerenderer_tpu_torch.ops import shadow as shadow_mod
+    from unclerenderer_tpu_torch.ops import texture as tex_mod
+    from unclerenderer_tpu_torch.parallel.dist import RowShards
+    from unclerenderer_tpu_torch.parallel.multichip import (
+        gather_frame,
+        render_frame_multichip,
+        slab_state,
+    )
+    from unclerenderer_tpu_torch.render.deferred import deferred_frame
+    from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
+    from unclerenderer_tpu_torch.render.testing import synthetic_device_scene, synthetic_frame_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    settings = RenderSettings(**spec["settings"])
+    w, h = settings.width, settings.height
+    t0 = time.perf_counter()
+    scene, data = synthetic_device_scene(**spec["scene"], device=dev)
+    params = [synthetic_frame_params(data, w, h, camera_pos=c, device=dev)
+              for c in spec["cameras"]]
+    rows = RowShards(group, h)
+    rep = {"rank": rank, "row0": rows.row0, "slab_h": rows.slab_h,
+           "backend": dist.get_backend(group), "scene_s": time.perf_counter() - t0}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def sharded_run(keep):
+        state = slab_state(FrameState.initial(w, h, dev), settings, group)
+        got = []
+        for p in params:
+            out, state = render_frame_multichip(scene, p, state, settings, group)
+            if keep:
+                full = gather_frame({**out, "taa_history": state.taa_history}, settings, group,
+                                    keys=("color", "hdr", "depth", "tri_id", "object_id",
+                                          "taa_history"))
+                if full is not None:
+                    got.append((full, state.exposure_ev, state.hzb))
+        return got
+
+    # the counted run
+    sync()
+    dist.barrier(group)
+    _cuda.reset_launches()
+    got = sharded_run(keep=True)
+    sync()
+    rep["launches"] = dict(_cuda.LAUNCHES)
+
+    # every K1/K2/K4/K5 call of one sharded frame on the recording rank
+    targets = {"binned_raster": (rk, "binned_raster", rk.binned_raster_ref),
+               "giant_raster": (rk, "giant_raster", rk.giant_raster_ref),
+               "shadow_select9": (shadow_mod, "select9", shadow_mod.select9_ref),
+               "gather_rows": (tex_mod, "gather_rows", tex_mod.gather_rows_ref)}
+    record = rank == spec["record_rank"]
+    with contextlib.ExitStack() as stack:
+        recs = ({n: stack.enter_context(Recorder(m, a)) for n, (m, a, _r) in targets.items()}
+                if record else {})
+        render_frame_multichip(scene, params[0], slab_state(FrameState.initial(w, h, dev),
+                                                            settings, group),
+                               settings, group)
+        sync()
+    if record:
+        check(rows.row0 > 0, "the recording rank must own a slab below the first")
+        rep["held"], rep["y_offsets"] = {}, {}
+        for name, (m, a, ref) in targets.items():
+            calls = recs[name].calls
+            check(calls, f"rank {rank}: {name} made no call")
+            for ca, ck in calls:
+                bad, err = compare(getattr(m, a)(*ca, **ck), ref(*ca, **ck))
+                check(bad == 0, f"rank {rank}: {name} != plain: {bad} elements (err {err})")
+            rep["held"][name] = len(calls)
+            if name in ("binned_raster", "giant_raster"):  # y_offset: K1's 9th, K2's 8th
+                at = 8 if name == "binned_raster" else 7
+                rep["y_offsets"][name] = sorted({float(ca[at]) for ca, _ck in calls})
+        check(any(y > 0 for ys in rep["y_offsets"].values() for y in ys),
+              f"rank {rank}: no raster call at a non-zero y_offset")
+
+    # the single-device frames on rank 0 against the gathered slabs
+    if rank == 0:
+        state = FrameState.initial(w, h, dev)
+        rep["color_err"], rep["seam_err"], rep["ev_err"] = 0.0, 0.0, 0.0
+        for i, (p, (full, ev, hzb)) in enumerate(zip(params, got)):
+            out, state = deferred_frame(scene, p, state, settings)
+            for k in ("tri_id", "depth"):
+                ne = (full[k] != out[k]).nonzero()
+                check(ne.numel() == 0,
+                      f"sharded frame {i}: {k} differs at {ne.shape[0]} pixels, rows "
+                      f"{ne[:, 0].unique()[:40].tolist()}, first {ne[:8].tolist()}: sharded "
+                      f"{full[k][ne[:8, 0], ne[:8, 1]].tolist()} single "
+                      f"{out[k][ne[:8, 0], ne[:8, 1]].tolist()}; counters sharded "
+                      f"{ {c: int(v) for c, v in full['raster_stats'].items()} } single "
+                      f"{ {c: int(v) for c, v in out['raster_stats'].items()} }")
+            check(torch.equal(full["object_id"].view(torch.int32),
+                              out["object_id"].view(torch.int32)), f"sharded frame {i}: object_id")
+            check({k: int(v) for k, v in full["raster_stats"].items()}
+                  == {k: int(v) for k, v in out["raster_stats"].items()},
+                  f"sharded frame {i}: counters {full['raster_stats']} vs {out['raster_stats']}")
+            check(torch.equal(hzb, state.hzb), f"sharded frame {i}: HZB differs")
+            diff = (full["color"] - out["color"]).abs()
+            seams = torch.cat([diff[s * rows.slab_h - 1:s * rows.slab_h + 1]
+                               for s in range(1, rows.n_dev)])
+            rep["color_err"] = max(rep["color_err"], float(diff.max()))
+            rep["seam_err"] = max(rep["seam_err"], float(seams.max()))
+            rep["ev_err"] = max(rep["ev_err"], abs(float(ev) - float(state.exposure_ev)))
+            check(rep["color_err"] <= SEAM_ATOL and rep["seam_err"] <= SEAM_ATOL,
+                  f"sharded frame {i}: colour err {rep['color_err']}, seams {rep['seam_err']}")
+            check(bool(torch.isfinite(full["color"]).all()), f"sharded frame {i}: colour")
+        rep["covered"] = int((got[-1][0]["tri_id"] >= 0).sum())
+    del got
+    dist.barrier(group)
+
+    if spec["turns"]:
+        runs = {"multi": [], "single": []}
+        for which in ("multi", "single", "single", "multi", "multi", "single"):
+            sync()
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            if which == "multi":
+                sharded_run(keep=False)
+                sync()
+                dist.barrier(group)
+            elif rank == 0:
+                state = FrameState.initial(w, h, dev)
+                for p in params:
+                    _out, state = deferred_frame(scene, p, state, settings)
+                sync()
+            runs[which].append(1e3 * (time.perf_counter() - t0) / len(params))
+        rep["ms_per_frame"] = runs
+    if dev.type == "cuda":
+        rep["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return rep
+
+
+def multichip_phase(smi) -> dict:
+    """Phase 13: the row-sharded frame (``parallel/multichip.py``), every
+    rank a child process on ``cuda:0`` over gloo (the kernels already
+    built, so no rank builds them): (a) the MULTICHIP_r05 contract, 8 ranks
+    at 64x128 with a 128^2 shadow map, every feature on, 4 frames with
+    camera motion; (b) 2 ranks at 1920x1080 with the 4096^2 map on the
+    headline geometry, 4 frames, then ms/frame against the single-device
+    frame in turns (two ranks share one card: a smoke of the slab path,
+    not a speed claim)."""
+    from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.parallel.multichip import run_ranks
+
+    check(_cuda.build()[1] == 0.0, "multichip: the kernels must be built before the ranks start")
+    torch.cuda.empty_cache()
+    contract = dict(width=64, height=128, shadow_map_size=128, enable_ibl=True, enable_hzb=True,
+                    enable_taa=True, enable_cas=True, enable_auto_exposure=True,
+                    has_masked_models=True, tile_h=8, tile_w=64, chunk=64, shadow_chunk=64)
+    orbit = [(0.0, 1.5, -4.0)] + [(4.0 * np.sin(0.12 * f), 1.5, -4.0 * np.cos(0.12 * f))
+                                  for f in range(1, 4)]
+    cells = {
+        "contract": (8, dict(device="cuda:0", settings=contract,
+                             scene=dict(n_objects=8, with_masked=True), cameras=orbit,
+                             record_rank=5, turns=False), 300.0),
+        "full": (2, dict(device="cuda:0",
+                         settings=dict(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW,
+                                       has_masked_models=False, combined_material=True),
+                         scene=dict(n_objects=N_OBJECTS, sphere_res=SPHERE_RES, ground=True,
+                                    rich_materials=True, atlas_u8=True),
+                         cameras=[(4.0 * np.sin(0.0035 * i), 1.5, -4.0 * np.cos(0.0035 * i))
+                                  for i in range(4)],
+                         record_rank=1, turns=True), 900.0),
+    }
+    rep = {}
+    for cell, (n, spec, limit) in cells.items():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_rendezvous_") as d:
+            t0 = time.perf_counter()
+            ranks = run_ranks(multichip_rank, n, f"file://{d}/rendezvous", args=(spec,),
+                              device="cuda:0", timeout=limit)
+            secs = time.perf_counter() - t0
+        r0, rec = ranks[0], ranks[spec["record_rank"]]
+        check(all(r["backend"] == "gloo" for r in ranks), "multichip: ranks not on gloo")
+        for r in ranks:
+            for name in MC_KERNELS:
+                check(r["launches"][name] > 0, f"multichip {cell}: rank {r['rank']} launched no "
+                                               f"{name}")
+        s = spec["settings"]
+        log("multichip", f"{cell}: {n} ranks on one card over gloo, {s['width']}x{s['height']}, "
+                         f"shadow {s['shadow_map_size']}^2, {len(spec['cameras'])} frames in "
+                         f"{secs:.1f} s: tri_id, depth, ids, counters, HZB bit-equal to the "
+                         f"single-device frames, colour err {r0['color_err']:.3g} (seam rows "
+                         f"{r0['seam_err']:.3g}), exposure err {r0['ev_err']:.3g}, "
+                         f"{r0['covered']} px covered; rank {rec['rank']} (row0 {rec['row0']}) "
+                         f"held {rec['held']} K1/K2/K4/K5 calls bit-equal to plain at y_offsets "
+                         f"{rec['y_offsets']}")
+        log("multichip", f"{cell}: launches per rank "
+                         f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}")
+        rep[cell] = {"ranks": n, "seconds": secs, "per_rank": ranks}
+        if spec["turns"]:
+            med = {k: statistics.median(v) for k, v in r0["ms_per_frame"].items()}
+            rep[cell]["median_ms"] = med
+            log("multichip", f"{cell}: ms/frame median sharded {med['multi']:.2f} (runs "
+                             f"{[round(x, 2) for x in r0['ms_per_frame']['multi']]}) against "
+                             f"single-device {med['single']:.2f} (runs "
+                             f"{[round(x, 2) for x in r0['ms_per_frame']['single']]}), "
+                             f"{len(spec['cameras'])} frames a run in turns; peak GiB per rank "
+                             f"{[round(r['peak_gib'], 2) for r in ranks]} (on {smi})")
+    return rep
+
+
 def k1_debug_child(out: Path) -> int:
     """The debug phase's child process (``--k1-debug-child``): device printf
     writes to this process's fd 1, which the parent reads.  Grows the printf
@@ -1120,6 +1505,10 @@ def main() -> int:
     # ---- 1. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False -- needs one CUDA card")
+    # every phase but the cache's builds its scenes cold and writes no cache
+    import os
+
+    os.environ["UNCLERENDERER_SCENE_CACHE"] = ""
 
     from unclerenderer_tpu_torch.ops import _cuda
     from unclerenderer_tpu_torch.ops import hzb as hzb_mod
@@ -2024,6 +2413,13 @@ def main() -> int:
         # ---- 10. observability on the same files
         report["observability"] = observability_phase(dev, smi, Path(report["renderer"]
                                                                      ["scene_json"]))
+        # ---- 11. the scene cache and 12. the viewer, on the same files
+        report["cache"], warm = scene_cache_phase(dev, smi, Path(report["renderer"]["scene_json"]))
+        report["viewer"] = viewer_phase(warm, smi)
+        del warm
+
+    # ---- 13. the row-sharded frame in ranks on this card
+    report["multichip"] = multichip_phase(smi)
 
     report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                              "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],
@@ -2058,6 +2454,8 @@ def main() -> int:
          "launch_us": k["launch_us"], "clone_launch_us": k["clone_launch_us"],
          "renderer_launches": report["renderer"]["launches"][n],
          "forward_renderer_launches": report["renderer"]["forward"]["launches"][n],
+         "viewer_launches": report["viewer"]["launches"][n],
+         "multichip_launches": report["multichip"]["full"]["per_rank"][1]["launches"][n],
          **({"no_records_ms": k["no_records_ms"]} if n in attr_kernels else {}),
          **({"no_debug_ms": k["no_debug_ms"]} if n == "binned_raster_debug" else {})}
         for n, k in kernels.items()]}))

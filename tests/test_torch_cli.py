@@ -3,9 +3,9 @@ to files, ``--device cpu`` at 64x64 writes a PNG (stdlib encoder) that
 decodes, with the port's own ``load_png``, to exactly the port Renderer's
 ``render_to_u8`` of the same first frame; ``--orbit 2`` writes 2 PNGs,
 each the u8 of ``render_frames``' colour; ``--trace DIR`` writes a
-profiler trace and ``--profile-passes`` logs the deferred stages; the flag
-not ported yet (``--interactive``) raises ``NotImplementedError`` naming its
-ROADMAP.md queue entry.
+profiler trace and ``--profile-passes`` logs the deferred stages;
+``--interactive`` runs the terminal viewer on the Renderer, driven here by
+scripted keys.
 
 The reference CLI's PNG is not compared: it has no ``raster_backend``
 flag and on the CPU takes its XLA path, whose PCF table differs from the
@@ -84,17 +84,40 @@ def test_cli_orbit_writes_every_frame(scene, tmp_path):
 @pytest.mark.parametrize("flag,title", [(["--interactive"], "viewer and bench"),
                                         (["--trace", "tr"], "observability"),
                                         (["--profile-passes"], "observability")])
-def test_cli_unported_flags_raise(scene, flag, title, tmp_path):
-    """``--interactive`` raises naming its queue entry; ``--trace`` and
-    ``--profile-passes``, which raised under "observability" before that
-    entry was ported, run: the trace of the frame after the first is
-    written into DIR, and the ten deferred stages are logged (in a
-    subprocess, whose log the test reads)."""
+def test_cli_unported_flags_raise(scene, flag, title, tmp_path, monkeypatch):
+    """The flags that raised until their queue entry was ported now run:
+    ``--interactive`` ("viewer and bench") runs the terminal viewer on the
+    Renderer the CLI built on ``--device`` -- scripted keys move the camera,
+    save the screenshot to ``--output`` and quit after 2 frames --;
+    ``--trace`` and ``--profile-passes`` ("observability"): the trace of the
+    frame after the first is written into DIR, and the ten deferred stages
+    are logged (in a subprocess, whose log the test reads)."""
     args = ["--scene", str(scene), "--width", str(SIZE), "--height", str(SIZE),
             "--shadow-size", str(SIZE), "--device", "cpu", "--output", str(tmp_path / "o.png")]
     if title != "observability":
-        with pytest.raises(NotImplementedError, match=rf"modules queue: {title}\)$"):
-            main(["--scene", str(scene), "--device", "cpu", *flag])
+        import io
+
+        from unclerenderer_tpu_torch import viewer
+
+        keys = [["w", "arrow_left"], ["p"], ["x"]]
+
+        class FakeRaw:
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def read_keys(self):
+                return keys.pop(0)
+
+        term = io.StringIO()
+        monkeypatch.setattr(viewer, "_RawInput", FakeRaw)
+        monkeypatch.setattr(viewer.sys, "stdout", term)
+        assert main([*args, *flag]) == 0
+        assert not keys and term.getvalue().count("\x1b[H") == 2
+        shot = load_png(tmp_path / "o.png")
+        assert shot.shape == (SIZE, SIZE, 4) and len(np.unique(shot.reshape(-1, 4), axis=0)) > 4
         return
     if flag[0] == "--trace":
         assert main([*args, "--trace", str(tmp_path / "tr"), "--frames", "2"]) == 0

@@ -25,6 +25,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from unclerenderer_tpu.render.params import RenderSettings as JSettings
 from unclerenderer_tpu.render.renderer import Renderer as JRenderer
@@ -122,7 +123,7 @@ def run(tmp_path_factory):
     mp.undo()
 
 
-def test_renderer_settings_match_reference(run):
+def test_renderer_settings_match_reference(run, tmp_path, monkeypatch):
     j, t = run["j"], run["t"]
     backend = {"raster_backend": "auto", "pallas_interpret": False}  # the reference's oracle
     assert dataclasses.asdict(t.settings) == {**dataclasses.asdict(j.settings), **backend}
@@ -130,7 +131,18 @@ def test_renderer_settings_match_reference(run):
     assert t.settings.combined_material and t.settings.material_atlas_u8
     assert t.env_mip_count == j.env_mip_count == 6.0
     assert t.texture_substitutions == j.texture_substitutions == []
-    assert (t.scene_cache_hit, j.scene_cache_hit) == (False, False)
+    assert (t.scene_cache_hit, j.scene_cache_hit) == (False, False)  # the cache is off here
+    # with the scene cache on, a second port Renderer of the scene is a warm
+    # hit: the same settings and the same device arrays
+    monkeypatch.setenv("UNCLERENDERER_SCENE_CACHE", str(tmp_path / "scene_cache"))
+    settings = RenderSettings(width=W, height=H, shadow_map_size=SHADOW)
+    cold = Renderer(t.scene_path, settings=settings, device="cpu")
+    warm = Renderer(t.scene_path, settings=settings, device="cpu")
+    assert (cold.scene_cache_hit, warm.scene_cache_hit) == (False, True)
+    assert warm.settings == cold.settings == t.settings
+    for f in dataclasses.fields(warm.device_scene):
+        a, b = getattr(t.device_scene, f.name), getattr(warm.device_scene, f.name)
+        assert a.dtype == b.dtype and torch.equal(a, b), f.name
 
 
 def test_frame_params_match_reference(run):

@@ -14,8 +14,9 @@ stdlib (``textures/png.py save_png``).  ``--trace DIR`` writes a
 ``torch.profiler`` Chrome trace of ``max(1, frames - 1)`` frames after the
 first into DIR (open it in Perfetto); ``--profile-passes`` logs the deferred
 stages' times (``Renderer.profile_passes``; deferred only, as the
-reference's).  ``--interactive`` is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md queue entry.
+reference's).  ``--interactive`` runs the terminal viewer
+(``viewer.py run_viewer``) on the Renderer, and ``--output`` names its
+screenshot.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 
 from .core.config import load_config
 from .core.logging import log_info, log_warning, set_log_level
-from .render.params import VIEWER_AND_BENCH, RenderSettings, not_ported
+from .render.params import RenderSettings
 from .textures.png import save_png
 
 
@@ -58,16 +59,14 @@ def main(argv=None) -> int:
                     help="write a torch.profiler Chrome trace of the frames after the first "
                          "into DIR")
     ap.add_argument("--interactive", action="store_true",
-                    help="terminal viewer (not ported yet)")
+                    help="terminal viewer with WASD/arrow camera controls "
+                         "(Application.cpp input-loop analog)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default: cuda; 'cpu' runs the kernels' "
                          "plain PyTorch versions)")
     args = ap.parse_args(argv)
 
     set_log_level(args.log_level)
-    if args.interactive:
-        raise not_ported("--interactive (the terminal viewer)", VIEWER_AND_BENCH)
-
     from .render.renderer import Renderer
 
     cfg = load_config(args.config)
@@ -90,6 +89,13 @@ def main(argv=None) -> int:
         enable_gpu_culling=cfg.enable_indirect_draw,
     )
     renderer = Renderer(args.scene, settings=settings, config=cfg, device=args.device)
+
+    if args.interactive:
+        from .viewer import run_viewer
+
+        frames = run_viewer(renderer, save_path=args.output)
+        log_info(f"viewer exited after {frames} frames")
+        return 0
 
     def sync():
         if renderer.device.type == "cuda":

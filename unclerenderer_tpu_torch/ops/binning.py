@@ -53,17 +53,27 @@ class BinnedTriangles:
     overflow: torch.Tensor  # () i32 dropped pair count
 
 
-def _pair_keys(setup: RasterSetup, width, height, tile_h, tile_w, max_span, y_offset=0.0):
+def _pair_keys(setup: RasterSetup, width, height, tile_h, tile_w, max_span, y_offset=0.0,
+               full_height=None):
     """Each triangle's bbox -> up to S tile keys (``n_tiles`` = invalid),
-    plus the mask of triangles spanning more than S x S tiles."""
+    plus the mask of triangles spanning more than S x S tiles.
+
+    The image is ``height`` rows from global row ``y_offset``.  With
+    ``full_height`` it is a region of a ``full_height``-row image whose
+    tiles are that image's (``y_offset`` a multiple of ``tile_h``): a
+    triangle's span counts its tiles in the whole image, so that it goes to
+    the level it goes to there, and keys only the region's tiles."""
     n_tx = -(-width // tile_w)
-    n_tiles = n_tx * (-(-height // tile_h))
+    n_ty = -(-height // tile_h)
+    n_tiles = n_tx * n_ty
     s_slots = max_span * max_span
     dev = setup.coef.device
 
     bbox = setup.bbox
-    by0 = torch.clamp(bbox[1] - y_offset, 0.0, float(height - 1))
-    by1 = torch.clamp(bbox[3] - y_offset, 0.0, float(height - 1))
+    lo, hi = ((y_offset, y_offset + (height - 1)) if full_height is None
+              else (0.0, float(full_height - 1)))
+    by0 = torch.clamp(bbox[1], lo, hi) - y_offset
+    by1 = torch.clamp(bbox[3], lo, hi) - y_offset
     row_in = (bbox[3] >= y_offset) & (bbox[1] <= y_offset + (height - 1))
     # bbox values are integers: floor division is exact
     tx0 = torch.div(bbox[0], tile_w, rounding_mode="floor").to(torch.int64)
@@ -78,8 +88,11 @@ def _pair_keys(setup: RasterSetup, width, height, tile_h, tile_w, max_span, y_of
     s = torch.arange(s_slots, dtype=torch.int64, device=dev)
     sy = torch.div(s[None, :], span_w[:, None], rounding_mode="floor")
     sx = s[None, :] - sy * span_w[:, None]
-    slot_tile = (ty0[:, None] + sy) * n_tx + tx0[:, None] + sx
+    slot_ty = ty0[:, None] + sy
+    slot_tile = slot_ty * n_tx + tx0[:, None] + sx
     slot_ok = small[:, None] & (s[None, :] < (span_w * span_h)[:, None])
+    if full_height is not None:  # tiles of the whole image outside the region
+        slot_ok = slot_ok & (slot_ty >= 0) & (slot_ty < n_ty)
     keys = torch.where(slot_ok, slot_tile, n_tiles).reshape(-1)
     return keys, big
 
@@ -119,16 +132,18 @@ def bin_triangles(
     setup: RasterSetup, width: int, height: int, tile_h: int, tile_w: int,
     chunk: int, max_span: int = 2, budget_factor: float = 3.0,
     tri_ids: torch.Tensor | None = None, y_offset: float = 0.0, mat_idx: bool = False,
+    full_height: int | None = None,
 ) -> BinnedTriangles:
     """tri_ids (optional) maps local rows of a compacted setup back to
-    global triangle ids for the output id buffers."""
+    global triangle ids for the output id buffers.  ``y_offset`` and
+    ``full_height``: the image is a region of a larger one (``_pair_keys``)."""
     n_tx = -(-width // tile_w)
     n_ty = -(-height // tile_h)
     n_tiles = n_tx * n_ty
     t_count = setup.coef.shape[0]
     s_slots = max_span * max_span
 
-    keys, big = _pair_keys(setup, width, height, tile_h, tile_w, max_span, y_offset)
+    keys, big = _pair_keys(setup, width, height, tile_h, tile_w, max_span, y_offset, full_height)
     sorted_key, sorted_tri = _sort_pairs(keys, n_tiles, s_slots)
 
     n_blocks = int(budget_factor * t_count) // chunk + n_tiles

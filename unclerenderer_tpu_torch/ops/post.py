@@ -16,16 +16,19 @@ def _luma(x):
     return (x * w).sum(dim=-1)
 
 
-def _edge_pad(img):
+def edge_pad(img):
     """(H, W, C) -> (H+2, W+2, C), edge padding."""
     return F.pad(img.permute(2, 0, 1)[None], (1, 1, 1, 1), mode="replicate")[0].permute(1, 2, 0)
 
 
 @named_pass("TemporalAA")
-def temporal_aa(current, history, history_weight, use_history):
+def temporal_aa(current, history, history_weight, use_history, pad_fn=None):
     """3x3 neighbourhood min/max clamp of history, then
-    lerp(current, clamped_history, weight).  (H, W, 3)."""
-    pad = _edge_pad(current)
+    lerp(current, clamped_history, weight).  (H, W, 3).  ``pad_fn(img)`` ->
+    (H+2, W+2, 3) gives the 1-pixel border, edge padding by default; a row
+    slab passes its halo exchange (``parallel/dist.py``) so its seams see
+    their true neighbours."""
+    pad = edge_pad(current) if pad_fn is None else pad_fn(current)
     h, w = current.shape[:2]
     mn = current
     mx = current
@@ -70,6 +73,29 @@ def ev_adapt(log_avg, prev_ev, use_history, key, ev_min, ev_max,
     return torch.where(use_history, adapted, target)
 
 
+def pooled_log_luminance_slab(hdr_slab, row0: int, full_h: int, psum_fn):
+    """``auto_exposure_ev``'s pooling over a row slab: each rank adds its
+    rows to the global 16x16 cell grid (cells may straddle slabs),
+    ``psum_fn`` sums the grid over the ranks, then the same mean-log2
+    reduction runs on every rank.  hdr_slab (slab_h, W, 3); ``row0`` the
+    slab's first global row.  Returns the log-average, equal to the
+    single-device pooling up to the order of the sums."""
+    slab_h, w = hdr_slab.shape[:2]
+    dev = hdr_slab.device
+    gh, gw = min(16, full_h), min(16, w)
+    cell_h = full_h // gh
+    ph, pw = gh * cell_h, w - w % gw
+    r_global = row0 + torch.arange(slab_h, device=dev)
+    cell_of_row = torch.clamp(r_global // cell_h, 0, gh - 1)
+    w_rows = ((cell_of_row[None, :] == torch.arange(gh, device=dev)[:, None])
+              & (r_global[None, :] < ph)).to(torch.float32)  # (gh, slab_h)
+    rowsum = torch.einsum("gs,swc->gwc", w_rows, hdr_slab[:, :pw])
+    cellsum = rowsum.reshape(gh, gw, pw // gw, 3).sum(dim=2)
+    pooled = psum_fn(cellsum) / float(cell_h * (pw // gw))
+    lum = _luma(torch.clamp(pooled, min=0.0))
+    return torch.log2(torch.clamp(lum, min=1e-4)).mean()
+
+
 def pbr_neutral_tonemap(color):
     """Khronos PBR Neutral."""
     start_compression = 0.8 - 0.04
@@ -101,11 +127,12 @@ def tonemap(hdr, exposure, exposure_ev, enable_tonemap: bool,
 
 
 @named_pass("CAS")
-def cas_sharpen(color, sharpness):
-    """AMD RCAS-style cross-tap luma sharpening on (H, W, 3) in [0, 1]."""
+def cas_sharpen(color, sharpness, pad_fn=None):
+    """AMD RCAS-style cross-tap luma sharpening on (H, W, 3) in [0, 1];
+    ``pad_fn`` as in ``temporal_aa``."""
     rcas_inv_peak = 1.0 / (8.0 - 3.0)
     eps = 0.0001
-    pad = _edge_pad(color)
+    pad = edge_pad(color) if pad_fn is None else pad_fn(color)
     h, w = color.shape[:2]
     c = color
     n = pad[0:h, 1:1 + w]

@@ -488,14 +488,18 @@ def merge_levels(key_img, id_img, key2, id2, attr=None, attr2=None):
     return merged + (torch.where(sel[..., None], attr2, attr, out=attr),)
 
 
+BIG_TILE_H = 32  # the mid level's tile height unless the caller sets one
+
+
 def rasterize_binned(
     setup: RasterSetup, width: int, height: int, tile_h: int = 16, tile_w: int = 64,
     chunk: int = 128, depth_mode: int = DEPTH_MAX, y_offset: float = 0.0,
-    max_span: int = 2, budget_factor: float = 2.0, big_tile_h: int = 32,
+    max_span: int = 2, budget_factor: float = 2.0, big_tile_h: int = BIG_TILE_H,
     big_tile_w: int = 128, big_chunk: int = 32, mid_divisor: int = 16,
     giant_divisor: int = 128, giant_tile_h: int = 0, giant_tile_w: int = 0,
     giant_chunk: int = 0, want_ids: bool = True, ortho: bool = False,
     mat_idx: bool = False, records: torch.Tensor | None = None, debug_print: bool = False,
+    full_height: int | None = None,
 ):
     """Binned visibility raster, three levels merged by depth key:
     fine tiles for small triangles, coarse tiles for medium ones over a
@@ -514,7 +518,14 @@ def rasterize_binned(
     emits its winners' records, merged with the ids, and the record image
     (height, width, R) is returned fourth: ``records_ref(records,
     tri_id)``.  Every level reads the one table through its rows' ids (the
-    reference gathers ``records[mid_idx]`` and ``records[g_idx]`` first)."""
+    reference gathers ``records[mid_idx]`` and ``records[g_idx]`` first).
+
+    The image is ``height`` rows from global row ``y_offset``; with
+    ``full_height`` it is a region of a ``full_height``-row image whose
+    tiles at every level are that image's (``y_offset`` a multiple of each
+    level's tile height), and each triangle goes to the level it goes to in
+    the whole image (``binning._pair_keys``): the region's pixels are then
+    the whole image's, bit for bit."""
     _check_records("rasterize_binned", records, want_ids)
     if depth_mode != DEPTH_MAX:
         setup = flip_depth_key(setup)
@@ -522,7 +533,7 @@ def rasterize_binned(
     with scope("FineBinning"):
         bins = bin_triangles(setup, width, height, tile_h, tile_w, chunk,
                              max_span=max_span, budget_factor=budget_factor,
-                             y_offset=y_offset, mat_idx=mat_idx)
+                             y_offset=y_offset, mat_idx=mat_idx, full_height=full_height)
     with scope("RasterKernel"):
         fine = _run_binned_kernel(bins, width, height, tile_h, tile_w, y_offset, want_ids, ortho,
                                   records, debug_print)
@@ -544,7 +555,7 @@ def rasterize_binned(
         mid_setup = RasterSetup(coef=setup.coef[mi], valid=mid_valid, bbox=setup.bbox[:, mi])
         mid_bins = bin_triangles(mid_setup, width, height, big_tile_h, big_tile_w, big_chunk,
                                  max_span=4, budget_factor=2.0, tri_ids=mid_idx,
-                                 y_offset=y_offset, mat_idx=mat_idx)
+                                 y_offset=y_offset, mat_idx=mat_idx, full_height=full_height)
         mid = _run_binned_kernel(mid_bins, width, height, big_tile_h, big_tile_w, y_offset,
                                  want_ids, ortho, records)
         mid_key, mid_id = mid[0], mid[1]

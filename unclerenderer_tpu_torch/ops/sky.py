@@ -55,17 +55,21 @@ def apply_atmosphere(view_dir, camera_pos, light_dir, light_color):
     return base_sky + scattered * sun_attenuation
 
 
-def sky_view_directions(width: int, height: int, camera_pos, view, proj):
+def sky_view_directions(width: int, height: int, camera_pos, view, proj, row0: int = 0,
+                        out_h: int | None = None):
     """Per-pixel world-space view direction through each pixel center
-    (analytic inverse of the viewport + projection)."""
+    (analytic inverse of the viewport + projection).  ``row0``/``out_h``
+    select a row slab of the ``height``-row viewport; the default is the
+    whole frame."""
     dev = view.device
-    yy = (torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5) / height
+    out_h = height if out_h is None else out_h
+    yy = (torch.arange(out_h, dtype=torch.float32, device=dev)[:, None] + row0 + 0.5) / height
     xx = (torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5) / width
     ndc_x = xx * 2.0 - 1.0
     ndc_y = 1.0 - yy * 2.0
     vx = ndc_x / proj[0, 0]
     vy = ndc_y / proj[1, 1]
-    ones = torch.ones((height, width), dtype=torch.float32, device=dev)
+    ones = torch.ones((out_h, width), dtype=torch.float32, device=dev)
     view_ray = torch.stack([vx * ones, vy * ones, ones], dim=-1)
     world_ray = view_ray @ view[:3, :3].T
     return _normalize(world_ray)

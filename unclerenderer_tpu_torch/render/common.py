@@ -10,6 +10,8 @@ passes and their sub-scopes carry the reference's names as profiler ranges
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.passes import named_pass, scope
@@ -34,7 +36,7 @@ from ..ops.raster import (
     triangle_setup_any,
     viewport_homogeneous,
 )
-from ..ops.raster_kernels import merge_levels, rasterize_binned
+from ..ops.raster_kernels import BIG_TILE_H, merge_levels, rasterize_binned
 from ..ops.shadow import hom_dot4
 from . import packing as PK
 from .params import DeviceScene, RenderSettings
@@ -129,14 +131,18 @@ def use_fused_resolve(settings: RenderSettings) -> bool:
 
 def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
             want_ids=True, ortho=False, budget_factor=None, giant_tile=(0, 0),
-            big_tile=None, records=None):
+            big_tile=None, records=None, region=None):
     """``rasterize_binned`` at the settings' bin parameters (its fine K1
     level prints its live blocks under ``kernel_debug_print``); with
-    ``records`` it returns the record image fourth."""
+    ``records`` it returns the record image fourth.  ``region`` (``_slab``)
+    rasterizes only a region of the ``height``-row image and crops the
+    slab out of it."""
+    rows, y0, crop = region or (height, 0, None)
     big = {} if big_tile is None else {"big_tile_h": big_tile[0], "big_tile_w": big_tile[1]}
-    return rasterize_binned(
-        setup, width, height, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
-        depth_mode=depth_mode, max_span=settings.bin_max_span, **big,
+    res = rasterize_binned(
+        setup, width, rows, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
+        depth_mode=depth_mode, y_offset=y0, full_height=None if crop is None else height,
+        max_span=settings.bin_max_span, **big,
         budget_factor=(settings.bin_budget_factor if budget_factor is None else budget_factor),
         mid_divisor=settings.bin_mid_divisor, giant_divisor=settings.bin_giant_divisor,
         giant_tile_h=giant_tile[0], giant_tile_w=giant_tile[1],
@@ -144,11 +150,34 @@ def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
         mat_idx=settings.bin_mat_idx, records=records,
         debug_print=settings.kernel_debug_print,
     )
+    if crop is None:
+        return res
+    return tuple(r[crop] if isinstance(r, torch.Tensor) else r for r in res)
+
+
+def _slab(height: int, dist, align: int = 1):
+    """``(rows, first global row, crop)``: the region this rank rasterizes
+    for its slab of a ``height``-row image, and the slice of the region's
+    rows that is the slab.  The region is the slab widened to multiples of
+    ``align`` (every raster level's tile height), so that its tiles are the
+    whole image's and each of its pixels is rasterized as there: a sliver's
+    edge functions can cover pixels past its bounding box, and the tile
+    holding the box's edge decides which of them are kept.  The whole image
+    and crop None without a sharded ``dist``."""
+    if dist is None or dist.n_dev == 1:
+        return height, 0, None
+    if height % dist.n_dev:
+        raise ValueError(f"{height} rows must divide over {dist.n_dev} ranks")
+    rows = height // dist.n_dev
+    row0 = dist.rank * rows
+    y0 = row0 // align * align
+    y1 = min(height, -(-(row0 + rows) // align) * align)
+    return y1 - y0, y0, slice(row0 - y0, row0 - y0 + rows)
 
 
 @named_pass("VisibilityRaster")
 def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, verts,
-                  fused: bool = False):
+                  fused: bool = False, dist=None):
     """Camera visibility raster over ``verts`` (``frame_vertices``: SoA or
     AoS).  Returns ``(depth, tri_id, stats, attr, compact_ids)``; with a
     nonzero ``compaction_cap`` the raster runs over the frame-visible
@@ -157,7 +186,10 @@ def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, verts,
     emit each pixel's resolve record, the (H, W, 128) ``attr`` (else None),
     from ``build_resolve_records`` of the rows the raster runs over (the
     compact rows under compaction: the values of the reference's
-    ``records[cids]``)."""
+    ``records[cids]``).  With a sharded ``dist`` (``parallel/dist.py``)
+    it renders this rank's row slab in global pixel coordinates, the rows
+    of the whole frame bit for bit; the setup and compaction are the
+    same on every rank, so are the compact ids."""
     with scope("VertexSetup"):
         setup = triangle_setup_any(verts, tri_mask, CULL_BACK, settings.width, settings.height)
     cap = compaction_cap(settings, setup.valid.shape[0])
@@ -168,10 +200,11 @@ def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, verts,
             setup, cids, c_overflow = compact_setup(setup, cap)
     records = build_resolve_records(scene, verts.pix9(), ids=cids) if fused else None
     h = settings.height
+    tile_h, giant_h = min(settings.tile_h, h), min(settings.giant_tile_h, h)
     res = _raster(
-        setup, settings.width, h, min(settings.tile_h, h), settings.tile_w,
-        settings.chunk, DEPTH_MAX, settings,
-        giant_tile=(min(settings.giant_tile_h, h), settings.giant_tile_w), records=records,
+        setup, settings.width, h, tile_h, settings.tile_w, settings.chunk, DEPTH_MAX, settings,
+        giant_tile=(giant_h, settings.giant_tile_w), records=records,
+        region=_slab(h, dist, math.lcm(tile_h, BIG_TILE_H, giant_h)),
     )
     stats = dict(res[2])
     stats["compact_overflow"] = c_overflow
@@ -180,10 +213,13 @@ def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, verts,
 
 
 @named_pass("ShadowMap")
-def raster_shadow(scene: DeviceScene, light_view_proj, tri_mask, settings: RenderSettings):
+def raster_shadow(scene: DeviceScene, light_view_proj, tri_mask, settings: RenderSettings,
+                  dist=None):
     """Depth-only shadow raster: CULL_FRONT + LESS_EQUAL over an ortho
     projection, from the vertex stage ``frame_vertices`` picks.  Returns
-    ``(depth, compact_overflow)``."""
+    ``(depth, compact_overflow)``.  With a sharded ``dist`` each rank
+    rasterizes a row slab of the map and the slabs are all-gathered, so
+    every rank holds the whole map."""
     size = settings.shadow_map_size
     with scope("VertexSetup"):
         vs = frame_vertices(scene, light_view_proj, size, size, settings)
@@ -194,13 +230,17 @@ def raster_shadow(scene: DeviceScene, light_view_proj, tri_mask, settings: Rende
         with scope("Compaction"):
             setup, _ids, overflow = compact_setup(setup, cap)
     setup = normalize_ortho_setup(setup)
+    tile_h, big_h = min(settings.shadow_tile_h, size), min(settings.shadow_big_tile_h, size)
+    region = _slab(size, dist, math.lcm(tile_h, big_h, settings.shadow_giant_tile_h))
     depth, _, _stats = _raster(
-        setup, size, size, min(settings.shadow_tile_h, size), settings.shadow_tile_w,
+        setup, size, size, tile_h, settings.shadow_tile_w,
         settings.shadow_chunk, DEPTH_MIN, settings, want_ids=False, ortho=True,
         budget_factor=settings.shadow_bin_budget_factor,
         giant_tile=(settings.shadow_giant_tile_h, settings.shadow_giant_tile_w),
-        big_tile=(min(settings.shadow_big_tile_h, size), settings.shadow_big_tile_w),
+        big_tile=(big_h, settings.shadow_big_tile_w), region=region,
     )
+    if region[2] is not None:
+        depth = dist.all_gather_rows(depth)
     return depth, overflow
 
 
@@ -305,19 +345,22 @@ def _edge_may_pass(coef, X, Y, width: int, height: int):
     return ok
 
 
-def _alpha_candidates(tiles, coef, valid, tile_h, tile_w, n_tx, width, height):
+def _alpha_candidates(tiles, coef, valid, tile_h, tile_w, n_tx, width, height, y_offset,
+                      full_h):
     """The (block, pixel, slot) triples of a group of blocks whose pixel
     lies in the image and may pass the slot's edge tests
-    (``_edge_may_pass``); the reference evaluates every pixel of the block's
-    tile and crops the padded tiles' pixels.  tiles (G,), coef (G, 16, C),
-    valid (G, C) -> (g, p, c, pixel x, pixel y)."""
+    (``_edge_may_pass`` over the ``full_h``-row frame); the reference
+    evaluates every pixel of the block's tile and crops the padded tiles'
+    pixels.  The image is ``height`` rows from global row ``y_offset``.
+    tiles (G,), coef (G, 16, C), valid (G, C) -> (g, p, c, pixel x, pixel y
+    in the image)."""
     pix = tile_h * tile_w
     col = torch.arange(pix, device=tiles.device)
     px = ((tiles % n_tx) * tile_w)[:, None] + col % tile_w
     py = ((tiles // n_tx) * tile_h)[:, None] + col // tile_w
     X = (px.to(torch.float32) + 0.5)[:, :, None]
-    Y = (py.to(torch.float32) + 0.5)[:, :, None]
-    cand = (_edge_may_pass(coef, X, Y, width, height) & valid[:, None, :]
+    Y = ((py + y_offset).to(torch.float32) + 0.5)[:, :, None]
+    cand = (_edge_may_pass(coef, X, Y, width, full_h) & valid[:, None, :]
             & ((px < width) & (py < height))[:, :, None])
     g, p, c = cand.nonzero(as_tuple=True)
     return g, p, c, px[g, p], py[g, p]
@@ -358,13 +401,14 @@ def _alpha_eval(coef, arec, x, y, quad_flat, atlas_width, settings: RenderSettin
 
 
 def _alpha_level(blocks, scene: DeviceScene, arec, tile_h, tile_w, width, height,
-                 settings: RenderSettings):
+                 settings: RenderSettings, y_offset: int = 0):
     """One masked raster level: per pixel the max key of the candidates that
     pass, and the min triangle id among those at it -- per block, then per
     tile in the reference (its segment merges); the order of such merges
     does not matter.  ``blocks`` = (coef (B, 16, C), rows (B, C) into
-    arec/bbox, ids (B, C), valid (B, C) bool, tile (B,)).  Returns (key
-    image, id image, pair counts): keys -1 and ids -1 where nothing won."""
+    arec/bbox, ids (B, C), valid (B, C) bool, tile (B,)).  The image is
+    ``height`` rows from global row ``y_offset``.  Returns (key image, id
+    image, pair counts): keys -1 and ids -1 where nothing won."""
     coef, rows, ids, valid, tiles = blocks
     n_tx = -(-width // tile_w)
     dev = coef.device
@@ -380,10 +424,10 @@ def _alpha_level(blocks, scene: DeviceScene, arec, tile_h, tile_w, width, height
     for b0 in range(0, tiles.shape[0], step):
         sl = slice(b0, b0 + step)
         g, p, c, x, y = _alpha_candidates(tiles[sl], coef[sl], valid[sl], tile_h, tile_w, n_tx,
-                                          width, height)
+                                          width, height, y_offset, settings.height)
         cr = rows[sl][g, c]
-        key, covered = _alpha_eval(coef[sl].transpose(1, 2)[g, c], arec[cr], x, y, quad_flat,
-                                   atlas_width, settings)
+        key, covered = _alpha_eval(coef[sl].transpose(1, 2)[g, c], arec[cr], x, y + y_offset,
+                                   quad_flat, atlas_width, settings)
         won = key >= 0.0
         pix_i.append((y * width + x)[won])
         keys.append(key[won])
@@ -402,17 +446,19 @@ def _alpha_level(blocks, scene: DeviceScene, arec, tile_h, tile_w, width, height
     return key_img.reshape(height, width), id_img.reshape(height, width), counts
 
 
-def _rasterize_alpha(setup: RasterSetup, arec, scene: DeviceScene, settings: RenderSettings):
+def _rasterize_alpha(setup: RasterSetup, arec, scene: DeviceScene, settings: RenderSettings,
+                     height: int, y_offset: int = 0):
     """Exhaustive masked raster (``masked_tri_cap == 0``): every tile
     against every chunk of the table, as the reference's scan; a pixel
     takes the max key, then (argmax's first index within a chunk, a strict
     ``>`` across chunks) the min triangle id.  Only (tile, chunk) blocks
     with a valid triangle that may pass its edge tests at a pixel of the
     tile (``_edge_may_pass`` at the tile's corners) are evaluated; the
-    others cannot cover a pixel of it.  Returns (key image, tri_id,
-    counts): key -1 and id -1 where nothing won."""
-    width, height = settings.width, settings.height
-    tile_h, tile_w, chunk = min(settings.tile_h, height), settings.tile_w, settings.chunk
+    others cannot cover a pixel of it.  The image is ``height`` rows from
+    global row ``y_offset``.  Returns (key image, tri_id, counts): key -1
+    and id -1 where nothing won."""
+    width = settings.width
+    tile_h, tile_w, chunk = min(settings.tile_h, settings.height), settings.tile_w, settings.chunk
     n_tx, n_ty = -(-width // tile_w), -(-height // tile_h)
     dev = setup.coef.device
     t = setup.coef.shape[0]
@@ -425,14 +471,14 @@ def _rasterize_alpha(setup: RasterSetup, arec, scene: DeviceScene, settings: Ren
     coef = coef.reshape(n_chunks, chunk, COEF_COLS).transpose(1, 2)
     tile = torch.arange(n_tx * n_ty, device=dev)
     tx0 = ((tile % n_tx) * tile_w).to(torch.float32)[:, None]
-    ty0 = ((tile // n_tx) * tile_h).to(torch.float32)[:, None]
+    ty0 = ((tile // n_tx) * tile_h + y_offset).to(torch.float32)[:, None]
     xs, ys = (tx0 + 0.5, tx0 + (tile_w - 0.5)), (ty0 + 0.5, ty0 + (tile_h - 0.5))
-    live = [(_edge_may_pass(coef[c], xs, ys, width, height) & valid[c]).any(dim=1)
+    live = [(_edge_may_pass(coef[c], xs, ys, width, settings.height) & valid[c]).any(dim=1)
             for c in range(n_chunks)]
     b_tile, b_chunk = torch.stack(live, dim=1).nonzero(as_tuple=True)
     blocks = (coef[b_chunk], rows[b_chunk], rows[b_chunk], valid[b_chunk], b_tile)
     key, ids, counts = _alpha_level(blocks, scene, arec, tile_h, tile_w, width, height,
-                                    settings)
+                                    settings, y_offset)
     return key, ids, [counts]
 
 
@@ -447,8 +493,15 @@ def _compact_chunks(mask, cap: int, chunk: int):
     return (sp & ((1 << idx_bits) - 1)).to(torch.int32), sp < (1 << idx_bits)
 
 
+def _masked_tile_heights(settings: RenderSettings):
+    """(level 1, level 2) tile heights of the binned masked raster: the
+    scene tiles and the reference's 32 x 128 tiles."""
+    return min(settings.tile_h, settings.height), min(32, settings.height)
+
+
 def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
-                            settings: RenderSettings, stats: bool = False):
+                            settings: RenderSettings, height: int, y_offset: int = 0,
+                            stats: bool = False):
     """Binned masked raster (``masked_tri_cap != 0``): with 0 < cap < T the
     masked triangles first compact to a list of ``cap`` rows (rounded up to
     whole chunks); level 1 bins them to the scene tiles (span 4, budget
@@ -458,9 +511,10 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
     invalid).  As in the reference, pairs past a level's bin budget and
     triangles too big for level 2 are dropped; with ``stats`` the counts
     report them (``bin_overflow``, ``big_dropped``) beside the pair counts
-    of each level.  Returns (key image, tri_id, counts) as
+    of each level.  The image is ``height`` rows from global row
+    ``y_offset``.  Returns (key image, tri_id, counts) as
     ``_rasterize_alpha``."""
-    width, height = settings.width, settings.height
+    width = settings.width
     chunk = min(settings.chunk, 64)
     t_count = setup.coef.shape[0]
     cap = settings.masked_tri_cap
@@ -483,11 +537,14 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
         if arec_ids is not None:
             rows = torch.clamp(torch.searchsorted(arec_ids, ids), 0, arec.shape[0] - 1)
         blocks = (bins.coef[live], rows, ids, bins.valid[live, 0] > 0.0, bins.blk_tile[live].long())
-        return _alpha_level(blocks, scene, arec, tile_h, tile_w, width, height, settings)
+        return _alpha_level(blocks, scene, arec, tile_h, tile_w, width, height, settings,
+                            y_offset)
 
-    tile_h = min(settings.tile_h, height)
+    full_h = None if height == settings.height else settings.height
+    tile_h, big_th = _masked_tile_heights(settings)
     bins = bin_triangles(lvl_setup, width, height, tile_h, settings.tile_w, chunk, max_span=4,
-                         budget_factor=4.0, tri_ids=tri_ids)
+                         budget_factor=4.0, tri_ids=tri_ids, y_offset=y_offset,
+                         full_height=full_h)
     key_img, id_img, counts1 = level(bins, tile_h, settings.tile_w)
 
     t1 = lvl_setup.coef.shape[0]
@@ -496,9 +553,8 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
     l2 = sel2.long()
     big_setup = RasterSetup(coef=lvl_setup.coef[l2], valid=sel2_valid, bbox=lvl_setup.bbox[:, l2])
     g2 = tri_ids[l2] if tri_ids is not None else sel2
-    big_th = min(32, height)
     bins2 = bin_triangles(big_setup, width, height, big_th, 128, chunk, max_span=8,
-                          budget_factor=2.0, tri_ids=g2)
+                          budget_factor=2.0, tri_ids=g2, y_offset=y_offset, full_height=full_h)
     key2, id2, counts2 = level(bins2, big_th, 128)
     key_img, id_img = merge_levels(key_img, id_img, key2, id2)
     if stats:
@@ -512,7 +568,7 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
 @named_pass("MaskedRaster")
 def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
                           settings: RenderSettings, verts, stats: bool = False,
-                          attr=None):
+                          attr=None, dist=None):
     """Rasterize the alpha-masked geometry with an in-raster alpha test (the
     base-colour tap at the analytic LOD, ``_alpha_lod``), then depth-combine
     with the opaque visibility buffer: a masked pixel wins only with a
@@ -525,13 +581,20 @@ def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
     triangle's resolve record, as the reference takes them: at 0 < cap < T
     from the records of the compacted masked list (the rows of
     ``_compact_chunks``, looked up by ``searchsorted``), else from the
-    whole table."""
+    whole table.  With a sharded ``dist`` the images are this rank's row
+    slab (``raster_opaque``)."""
     setup = triangle_setup_any(verts, masked_mask, CULL_BACK, settings.width, settings.height)
     arec = _alpha_records(scene, setup)
+    tile_h, big_th = _masked_tile_heights(settings)
     if settings.masked_tri_cap != 0:
-        m_key, m_tri, counts = _rasterize_alpha_binned(setup, arec, scene, settings, stats)
+        h, y0, crop = _slab(settings.height, dist, math.lcm(tile_h, big_th))
+        m_key, m_tri, counts = _rasterize_alpha_binned(setup, arec, scene, settings, h, y0,
+                                                       stats)
     else:
-        m_key, m_tri, counts = _rasterize_alpha(setup, arec, scene, settings)
+        h, y0, crop = _slab(settings.height, dist, tile_h)
+        m_key, m_tri, counts = _rasterize_alpha(setup, arec, scene, settings, h, y0)
+    if crop is not None:
+        m_key, m_tri = m_key[crop], m_tri[crop]
     m_depth = torch.where(m_key >= 0.0, m_key, torch.zeros_like(m_key))
     take = m_depth > depth
     out = (torch.where(take, m_depth, depth), torch.where(take, m_tri, tri_id),
@@ -565,11 +628,14 @@ def build_resolve_records(scene: DeviceScene, pix9, ids=None):
     return torch.cat(parts, dim=1)
 
 
-def _same_next(tri_id, dim: int):
+def _same_next(tri_id, dim: int, after=None):
     """Whether the next pixel along ``dim`` shows the same triangle: the
     reference's ``jnp.diff(tri_id, append=<last>) == 0``, True at the last
-    row or column."""
+    row or column; ``after`` is the slice past the end (the row below a
+    slab) when there is one."""
     n = tri_id.shape[dim]
+    if after is not None:
+        return tri_id == torch.cat([tri_id.narrow(dim, 1, n - 1), after], dim=dim)
     same = tri_id.narrow(dim, 1, n - 1) == tri_id.narrow(dim, 0, n - 1)
     edge = torch.ones_like(tri_id.narrow(dim, 0, 1), dtype=torch.bool)
     return torch.cat([same, edge], dim=dim)
@@ -662,7 +728,8 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
 
 @named_pass("MaterialResolve")
 def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings,
-                      compact_ids=None, full_override=None):
+                      compact_ids=None, full_override=None, row0: int = 0, next_tri_row=None,
+                      prev_tri_row=None, row_halo=None):
     """Visibility buffer -> interpolated attributes + sampled materials:
     ONE per-pixel gather of the 128-wide record (or ``full_override``, the
     (H, W, 128) record image the raster kernels emitted under fused
@@ -674,7 +741,13 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     combined-material tap (``combined_material``), else one tap per enabled
     slot (``slot_enabled``) on the per-map atlas.  The result carries
     ``aniso_tap_overflow`` (0 unless the compacted anisotropic taps
-    overflowed their cap; per-slot, the last slot's count)."""
+    overflowed their cap; per-slot, the last slot's count).
+
+    A row slab (sharded frame): ``tri_id`` holds the slab's rows from
+    global row ``row0``, pixel centres stay global; ``next_tri_row`` /
+    ``prev_tri_row`` are the id rows just below and above the slab and
+    ``row_halo(x)`` gives the rows above and below a slab image, for the
+    forward differences at the seams."""
     width, height = settings.width, tri_id.shape[0]
     dev = tri_id.device
     if full_override is not None:
@@ -688,7 +761,7 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     valid = tri_id >= 0
     p0, p1, p2 = av[..., 0:3], av[..., 3:6], av[..., 6:9]
 
-    yy = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    yy = torch.arange(row0, row0 + height, dtype=torch.float32, device=dev)[:, None]
     xx = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
     qx, qy = xx + 0.5, yy + 0.5
 
@@ -719,7 +792,7 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         # D3D 2x2-quad derivatives with helper-lane semantics, evaluated
         # analytically from the pixel's own triangle at the quad corners
         xi = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
-        yi = torch.arange(height, dtype=torch.int32, device=dev)[:, None]
+        yi = torch.arange(row0, row0 + height, dtype=torch.int32, device=dev)[:, None]
         bx = (xi & ~1).to(torch.float32)
         by = (yi & ~1).to(torch.float32)
 
@@ -739,9 +812,9 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         # ids of the neighbours (+x/+y, then -x/-y); the frame's edge rows
         # and columns count as the same triangle (a 0 difference)
         same_x = _same_next(tri_id, 1)
-        same_y = _same_next(tri_id, 0)
+        same_y = _same_next(tri_id, 0, next_tri_row)
         same_bx = _same_next(tri_id.flip(1), 1).flip(1)
-        same_by = _same_next(tri_id.flip(0), 0).flip(0)
+        same_by = _same_next(tri_id.flip(0), 0, prev_tri_row).flip(0)
 
     quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
     atlas_width = scene.quad_img.shape[1]
@@ -763,6 +836,8 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         scale = uv_os[..., slot * 4 + 2:slot * 4 + 4]
         base_w = rect0[..., 2] * scale[..., 0].abs()
         base_h = rect0[..., 3] * scale[..., 1].abs()
+        # a slab's seam rows difference against the neighbours' rows
+        ua, ub = row_halo(suv) if row_halo is not None and not quad_lod else (None, None)
         if quad_lod:
             # derivatives of the transformed uv, as the shader's quad sees
             s_tl = tex.apply_texture_transform(uv_tl, t_os, t_rot)
@@ -774,16 +849,17 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
                                                     settings.max_anisotropy)
             else:
                 footprint = tex.uv_screen_lod_aniso(suv, base_w, base_h, same_x, same_y,
-                                                    settings.max_anisotropy,
-                                                    same_tri_bx=same_bx, same_tri_by=same_by)
+                                                    settings.max_anisotropy, uv_above=ua,
+                                                    uv_below=ub, same_tri_bx=same_bx,
+                                                    same_tri_by=same_by)
             s, aniso_overflow[0] = _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint,
                                                  valid, settings)
             return s
         if quad_lod:
             lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
         else:
-            lod = tex.uv_screen_lod(suv, base_w, base_h, same_x, same_y, same_tri_bx=same_bx,
-                                    same_tri_by=same_by)
+            lod = tex.uv_screen_lod(suv, base_w, base_h, same_x, same_y, uv_above=ua,
+                                    uv_below=ub, same_tri_bx=same_bx, same_tri_by=same_by)
         if settings.texture_filter == "bilinear":
             level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
             return _sample_level_any(quad_flat, atlas_width, rect0, suv, level)

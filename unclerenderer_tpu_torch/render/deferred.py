@@ -1,15 +1,15 @@
-"""The deferred frame (``unclerenderer_tpu/render/deferred.py``), single
-device: culling -> shadow map -> visibility raster (opaque, then the
-alpha-masked models merged in; with fused resolve the raster kernels emit
-each pixel's resolve record) -> material resolve ->
-HZB -> lighting (GGX, superblock PCF, IBL) -> sky -> TAA -> auto-exposure
--> tonemap -> CAS -> the debug-print stats block.  The vertex stage is
-SoA or AoS (``soa_vertex``, ``common.frame_vertices``) and the shadow
-table u16 or f32 (``shadow_table_u16``), as the reference picks them.
-Frames are carried as in
-the reference: ``deferred_frame(scene, params, state, settings,
-shadow_map=None) -> (out, new_state)``; the Renderer passes the shadow map
-it caches."""
+"""The deferred frame (``unclerenderer_tpu/render/deferred.py``): culling ->
+shadow map -> visibility raster (opaque, then the alpha-masked models
+merged in; with fused resolve the raster kernels emit each pixel's resolve
+record) -> material resolve -> HZB -> lighting (GGX, superblock PCF, IBL)
+-> sky -> TAA -> auto-exposure -> tonemap -> CAS -> the debug-print stats
+block, on one device or, with ``dist`` (``parallel/dist.py``), on this
+rank's row slab of a sharded frame (``parallel/multichip.py``).  The vertex
+stage is SoA or AoS (``soa_vertex``, ``common.frame_vertices``) and the
+shadow table u16 or f32 (``shadow_table_u16``), as the reference picks
+them.  Frames are carried as in the reference: ``deferred_frame(scene,
+params, state, settings, shadow_map=None, dist=None) -> (out,
+new_state)``; the Renderer passes the shadow map it caches."""
 
 from __future__ import annotations
 
@@ -22,7 +22,14 @@ from ..ops.cull import frustum_cull, occlusion_cull
 from ..ops.fma import fma
 from ..ops.hzb import build_hzb, hzb_layout
 from ..ops.overlay import device_stats_overlay
-from ..ops.post import auto_exposure_ev, cas_sharpen, temporal_aa, tonemap
+from ..ops.post import (
+    auto_exposure_ev,
+    cas_sharpen,
+    ev_adapt,
+    pooled_log_luminance_slab,
+    temporal_aa,
+    tonemap,
+)
 from ..ops.shadow import pack_shadow_blocks, pack_shadow_blocks_u16, shadow_factor_blocks
 from ..ops.sky import apply_atmosphere, sky_view_directions
 from . import common
@@ -54,14 +61,28 @@ def pack_table(shadow_map, settings: RenderSettings):
 
 
 def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
-                   settings: RenderSettings, shadow_map: torch.Tensor | None = None):
+                   settings: RenderSettings, shadow_map: torch.Tensor | None = None, dist=None):
     """One frame.  ``shadow_map``: a light-space depth map the caller
     rendered (``Renderer._shadow_map``: light and geometry are static); the
     frame then packs it and runs no shadow raster of its own, and its
-    ``shadow_compact_overflow`` stays 0."""
+    ``shadow_compact_overflow`` stays 0.
+
+    ``dist`` supplies the collective hooks (``parallel/dist.py``): None (one
+    device) renders the whole frame; a ``RowShards`` renders this rank's
+    row slab with the same math -- the shadow map and the HZB's source depth
+    all-gathered, the exposure grid and the counters summed over the ranks,
+    the TAA/CAS neighbourhoods and the forward LOD's seam rows exchanged.
+    ``state.taa_history`` and the image outputs are then the slab's rows;
+    the scalars, the HZB and ``tri_remap`` are the same on every rank."""
     check_supported(settings)
+    if dist is None:
+        from ..parallel.dist import SingleChip
+
+        dist = SingleChip(settings.height)
+    sharded = dist.n_dev > 1
     dev = scene.tri_geo.device
     width, height = settings.width, settings.height
+    slab_h = dist.slab_h
     layout, _total = hzb_layout(width // 2, height // 2)
 
     # --- 1. GPU culling (unjittered camera VP)
@@ -88,7 +109,7 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
         if shadow_map is None:
             cast_o, cast_m = common.tri_draw_masks(scene, params.model_visible)
             shadow_map, shadow_overflow = common.raster_shadow(
-                scene, params.light_view_proj, cast_o | cast_m, settings)
+                scene, params.light_view_proj, cast_o | cast_m, settings, dist)
         with scope("ShadowPack"):
             shadow9 = pack_table(shadow_map, settings)
 
@@ -98,21 +119,31 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
         verts = common.frame_vertices(scene, params.view_proj, width, height, settings)
         pix9 = verts.pix9()
     depth, tri_id, raster_stats, attr, compact_ids = common.raster_opaque(
-        scene, opaque_mask, settings, verts, fused=common.use_fused_resolve(settings))
+        scene, opaque_mask, settings, verts, fused=common.use_fused_resolve(settings), dist=dist)
     if settings.has_masked_models:
         masked = common.raster_masked_combine(scene, masked_mask, depth, tri_id, settings, verts,
-                                              attr=attr)
+                                              attr=attr, dist=dist)
         depth, tri_id = masked[0], masked[1]
         attr = masked[3] if attr is not None else None
+    # the binning counters are per slab: summed; the camera compaction runs
+    # the same on every rank, so its count is not (nor the shadow one's)
+    raster_stats = {k: (v if k == "compact_overflow" else dist.psum(v))
+                    for k, v in raster_stats.items()}
     raster_stats["shadow_compact_overflow"] = shadow_overflow
 
-    g = common.resolve_materials(scene, pix9, tri_id, settings, compact_ids=compact_ids,
-                                 full_override=attr)
+    above, below = dist.row_halo(tri_id) if sharded else (None, None)
+    g = common.resolve_materials(
+        scene, pix9, tri_id, settings, compact_ids=compact_ids, full_override=attr,
+        row0=dist.row0, next_tri_row=below, prev_tri_row=above,
+        row_halo=dist.row_halo if sharded else None)
     if settings.texture_filter == "anisotropic":
-        raster_stats["aniso_tap_overflow"] = g["aniso_tap_overflow"]
+        # each slab compacts its own pixels
+        raster_stats["aniso_tap_overflow"] = dist.psum(g["aniso_tap_overflow"])
 
-    # --- 6. HZB for next frame (hzb_pallas_tail: levels past the first two by K6)
-    new_hzb = (build_hzb(depth, layout, pallas_tail=settings.hzb_pallas_tail)
+    # --- 6. HZB for next frame, from the whole frame's depth (hzb_pallas_tail:
+    # levels past the first two by K6)
+    new_hzb = (build_hzb(dist.all_gather_rows(depth), layout,
+                         pallas_tail=settings.hzb_pallas_tail)
                if settings.enable_hzb else state.hzb)
 
     # --- 7. lighting (view space)
@@ -170,27 +201,35 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     # --- 8. sky on empty pixels
     if settings.enable_sky:
         view_dir = sky_view_directions(width, height, params.camera_pos, params.view,
-                                       params.proj_unjittered)
+                                       params.proj_unjittered, row0=dist.row0, out_h=slab_h)
         bg = apply_atmosphere(view_dir, params.camera_pos, params.light_dir, params.light_color)
     else:
-        bg = torch.broadcast_to(params.background, (height, width, 3))
+        bg = torch.broadcast_to(params.background, (slab_h, width, 3))
     hdr = torch.where(g["valid"][..., None], lighting, bg)
 
-    # --- 9. TAA
+    # --- 9. TAA (a slab's seams clamp against the neighbours' rows)
+    pad_fn = dist.halo2d if sharded else None
     if settings.enable_taa:
-        hdr = temporal_aa(hdr, state.taa_history, params.taa_history_weight, state.taa_valid)
+        hdr = temporal_aa(hdr, state.taa_history, params.taa_history_weight, state.taa_valid,
+                          pad_fn=pad_fn)
         new_history = hdr
         new_taa_valid = torch.tensor(True, device=dev)
     else:
         new_history = state.taa_history
         new_taa_valid = torch.tensor(False, device=dev)
 
-    # --- 10. auto exposure
+    # --- 10. auto exposure (sharded: each slab's partial sums of the 16x16
+    # grid, summed over the ranks)
     if settings.enable_auto_exposure:
-        new_ev = auto_exposure_ev(
-            hdr, state.exposure_ev, state.exposure_valid, params.auto_exposure_key,
-            params.auto_exposure_min, params.auto_exposure_max, params.auto_exposure_speed_up,
-            params.auto_exposure_speed_down, params.delta_time)
+        adapt = (state.exposure_ev, state.exposure_valid, params.auto_exposure_key,
+                 params.auto_exposure_min, params.auto_exposure_max,
+                 params.auto_exposure_speed_up, params.auto_exposure_speed_down,
+                 params.delta_time)
+        if sharded:
+            new_ev = ev_adapt(pooled_log_luminance_slab(hdr, dist.row0, height, dist.psum),
+                              *adapt)
+        else:
+            new_ev = auto_exposure_ev(hdr, *adapt)
         new_exposure_valid = torch.tensor(True, device=dev)
     else:
         new_ev = state.exposure_ev
@@ -200,7 +239,7 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     color = tonemap(hdr, params.tonemap_exposure, new_ev, settings.enable_tonemap,
                     settings.enable_auto_exposure, params.tonemap_gamma)
     if settings.enable_cas:
-        color = torch.clamp(cas_sharpen(color, params.cas_sharpness), 0.0, 1.0)
+        color = torch.clamp(cas_sharpen(color, params.cas_sharpness, pad_fn=pad_fn), 0.0, 1.0)
 
     # --- 13. the debug-print stats block, drawn from device counters
     if settings.gpu_debug_print:

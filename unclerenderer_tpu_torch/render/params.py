@@ -111,19 +111,6 @@ def resolve_packed_trilinear(setting, n_materials: int) -> bool:
     return setting
 
 
-# titles of the ROADMAP.md modules-queue entries that still raise
-VIEWER_AND_BENCH = "viewer and bench"
-
-
-def not_ported(what: str, entry: str) -> NotImplementedError:
-    """The error for a branch the port does not run yet; ``entry`` is the
-    title of its ROADMAP.md modules-queue entry."""
-    return NotImplementedError(
-        f"{what} is not ported to unclerenderer_tpu_torch yet "
-        f"(ROADMAP.md, modules queue: {entry})"
-    )
-
-
 def check_supported(settings: RenderSettings) -> None:
     """Raise for a setting value no branch takes, instead of silently
     computing something else."""

@@ -12,9 +12,6 @@ Deliberately not carried over from the reference:
 * the forward fallback ladder (``renderer.py:662-681``: a first deferred
   frame that raises is re-rendered by the forward renderer).  Here it would
   hide a kernel that fails to build or launch; a failing frame raises.
-* the on-disk built-scene cache (``core/scenecache.py``): nothing is read or
-  written, ``scene_cache_hit`` is False (ROADMAP.md, modules queue: Renderer
-  shell and CLI).
 * the lowered frame graph of ``enable_graph_dump``: eager PyTorch lowers
   nothing, so ``render_graph_dump.txt`` holds the first deferred frame's
   ordered op list instead (every aten op with its shapes and dtypes, and
@@ -28,6 +25,12 @@ one by one (``render/framegraph.py``); ``profile_trace`` writes a
 ``torch.profiler`` Chrome trace of rendered frames and
 ``profile_trace_passes`` buckets its device time by pass
 (``core/traceparse.py``).
+
+The built scene goes through the on-disk cache (``core/scenecache.py``) as
+the reference's does: a warm start maps the stored host arrays and uploads
+them (``setup_phase_s["cache_load"]``, ``["device_upload"]``) where a cold
+one builds them (``["scene_build"]``, ``["build_and_upload"]``) and stores
+them; ``scene_cache_hit`` says which.  ``reload_scene`` goes through it too.
 
 Host vectors are never read back from the device per frame: the shadow-map
 cache is keyed on the host light vector and visibility, the frame's
@@ -47,7 +50,7 @@ import numpy as np
 import torch
 
 from .. import mathlib as m
-from ..core import passes
+from ..core import passes, scenecache
 from ..core.config import RendererConfig
 from ..core.logging import log_error, log_info, log_warning
 from ..core.tasks import parallel_map, schedule_task, set_task_system_enabled
@@ -70,6 +73,7 @@ from .packing import M_UVOS, M_UVROT, pack_model_record, pack_tri_geo, pack_tri_
 from .packing import scene_host_arrays
 from .framegraph import PassTimingStats
 from .params import (
+    PACKED_TRI_AUTO_MATERIALS,
     DeviceScene,
     FrameParams,
     FrameState,
@@ -294,6 +298,17 @@ def _build_device_scene(
     return upload_scene(host, device), env_mip_count, combined
 
 
+def scene_cache_key(scene_path: Path, settings: RenderSettings, assets_root: Path) -> str:
+    """The scene cache's key of a build (reference
+    ``render/renderer.py:336-365``): the scene JSON and model files, and the
+    resolved atlas layout -- the atlas settings, the material count at which
+    "auto" picks the packed atlas, and the assets root."""
+    return scenecache.scene_key(
+        scene_path, scenecache.model_files_of(scene_path),
+        (settings.enable_combined_material, settings.material_packed_trilinear,
+         PACKED_TRI_AUTO_MATERIALS, settings.material_atlas_u8, str(assets_root)))
+
+
 def _params_on_device(fields: dict, device) -> FrameParams:
     """FrameParams from host values: packed into one float32 buffer and
     copied in one transfer (pinned and non-blocking on the card, so the host
@@ -358,20 +373,11 @@ class Renderer:
         self.assets_root = Path(assets_root)
 
         t0 = time.monotonic()
-        # per-phase init seconds; no built-scene cache (module docstring)
+        # per-phase init seconds (module docstring)
         self.setup_phase_s: dict[str, float] = {}
-        self.scene_cache_hit = False
-        _t_ph = time.monotonic()
-        self.scene_data = build_scene(scene_path, self.assets_root)
-        self.setup_phase_s["scene_build"] = round(time.monotonic() - _t_ph, 2)
-        if self.scene_data is None:
-            # scene fallback ladder (DeferredRenderer.cpp:259-293): a
-            # procedural cube/sphere scene keeps the renderer alive
-            log_error(f"failed to load scene {scene_path}; falling back to the "
-                      "procedural default scene")
-            from .testing import synthetic_scene_data
-
-            self.scene_data = synthetic_scene_data(4)
+        built = self._load_or_build(scene_path, settings, self.setup_phase_s)
+        self.scene_data, self.device_scene, self.env_mip_count, combined = built[:4]
+        self.texture_substitutions, self.scene_cache_hit = built[4:]
         self._sync_scene_settings()
 
         _models, light, camera_desc = load_scene_json(scene_path)
@@ -395,18 +401,6 @@ class Renderer:
         except (OSError, ValueError):
             self.background = np.array([0.1, 0.1, 0.15], np.float32)
 
-        self.texture_substitutions: list[str] = []
-        _t_ph = time.monotonic()
-        self.device_scene, self.env_mip_count, combined = _build_device_scene(
-            self.scene_data, self.assets_root, self.settings.enable_combined_material,
-            packed_trilinear=self.settings.material_packed_trilinear,
-            substitutions_out=self.texture_substitutions,
-            atlas_u8=self.settings.material_atlas_u8,
-            device=self.device,
-        )
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.setup_phase_s["build_and_upload"] = round(time.monotonic() - _t_ph, 2)
         self._sync_atlas_settings(combined)
         self.frame_state = FrameState.initial(self.settings.width, self.settings.height,
                                               self.device)
@@ -425,6 +419,57 @@ class Renderer:
         self._pending_reload = None
         self.selected_object_id = 0
         self.selected_name = ""
+
+    def _load_or_build(self, scene_path: Path, settings: RenderSettings, phases: dict,
+                       fallback: bool = True):
+        """The scene and its device arrays from the scene cache, or built
+        (and stored) when the cache misses: ``(scene_data, device_scene,
+        env_mip_count, combined, texture_substitutions, cache_hit)``, under
+        ``scene_cache_key``; ``phases`` receives the seconds of each init
+        phase.  A scene that fails to load falls back to the
+        procedural default scene (``DeferredRenderer.cpp:259-293``), which
+        is never cached, or raises ValueError without ``fallback``."""
+        key = scene_cache_key(scene_path, settings, self.assets_root)
+        t = time.monotonic()
+        cached = scenecache.load(key)
+        phases["cache_load"] = round(time.monotonic() - t, 2)
+        if cached is not None:
+            data, arrays, meta = cached
+            t = time.monotonic()
+            # copied out of the read-only maps: a CPU tensor shares its array
+            dev = upload_scene({k: np.array(v) for k, v in arrays.items()}, self.device)
+            self._sync_device()
+            phases["device_upload"] = round(time.monotonic() - t, 2)
+            return (data, dev, meta["env_mip_count"], bool(meta["combined"]),
+                    list(meta["substitutions"]), True)
+        t = time.monotonic()
+        data = build_scene(scene_path, self.assets_root)
+        phases["scene_build"] = round(time.monotonic() - t, 2)
+        if data is None and not fallback:
+            raise ValueError(f"failed to load scene {scene_path}")
+        if data is None:
+            log_error(f"failed to load scene {scene_path}; falling back to the "
+                      "procedural default scene")
+            from .testing import synthetic_scene_data
+
+            data, key = synthetic_scene_data(4), None
+        subs, consumed, host = [], [], {}
+        t = time.monotonic()
+        dev, mips, combined = _build_device_scene(
+            data, self.assets_root, settings.enable_combined_material,
+            packed_trilinear=settings.material_packed_trilinear, substitutions_out=subs,
+            files_out=consumed, host_out=host, atlas_u8=settings.material_atlas_u8,
+            device=self.device)
+        self._sync_device()
+        phases["build_and_upload"] = round(time.monotonic() - t, 2)
+        if key is not None:
+            scenecache.store(key, data, host, {"env_mip_count": mips, "combined": combined,
+                                               "substitutions": subs}, consumed)
+        return data, dev, mips, combined, subs, False
+
+    def _sync_device(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _sync_scene_settings(self) -> None:
         """Settings that follow the scene (renderer.py:387-410): the masked
@@ -835,22 +880,15 @@ class Renderer:
         built on the task pool and swapped in by ``poll_reload`` (call it
         per frame); ``background=False`` builds and swaps now.
         The build takes the current atlas settings (the reference's drops
-        ``material_atlas_u8``), and the scene-dependent settings are synced
-        as at construction."""
+        ``material_atlas_u8``) and goes through the scene cache as
+        construction does, and the scene-dependent settings are synced as at
+        construction.  A scene that fails to load raises (no fallback)."""
         scene_path = Path(scene_path)
         settings = self.settings
 
         def build():
-            data = build_scene(scene_path, self.assets_root)
-            if data is None:
-                raise ValueError(f"failed to load scene {scene_path}")
-            subs: list[str] = []
-            dev, mips, combined = _build_device_scene(
-                data, self.assets_root, settings.enable_combined_material,
-                packed_trilinear=settings.material_packed_trilinear,
-                substitutions_out=subs, atlas_u8=settings.material_atlas_u8,
-                device=self.device,
-            )
+            data, dev, mips, combined, subs, _hit = self._load_or_build(scene_path, settings, {},
+                                                                        fallback=False)
             return scene_path, data, dev, mips, combined, subs
 
         if not background:

@@ -349,6 +349,36 @@ def synthetic_frame_params(
     )
 
 
+def sharded_frames(rank: int, group, spec: dict):
+    """A rank of ``parallel/multichip.py run_ranks``: carried deferred frames
+    of ``synthetic_device_scene(**spec["scene"])`` at
+    ``RenderSettings(**spec["settings"])`` on ``spec["device"]``, one per
+    camera position of ``spec["cameras"]``, each rendered by
+    ``render_frame_multichip``.  Rank 0 returns, per frame, the whole-frame
+    outputs as numpy (``interop.to_numpy``: the image outputs and the TAA
+    history gathered from the slabs, the counters, exposure and HZB as they
+    are); the other ranks None."""
+    from .. import interop
+    from ..parallel.multichip import SLAB_KEYS, gather_frame, render_frame_multichip, slab_state
+    from .params import FrameState, RenderSettings
+
+    dev = torch.device(spec["device"])
+    settings = RenderSettings(**spec["settings"])
+    scene, data = synthetic_device_scene(**spec["scene"], device=dev)
+    state = slab_state(FrameState.initial(settings.width, settings.height, dev), settings, group)
+    frames = []
+    for cam in spec["cameras"]:
+        params = synthetic_frame_params(data, settings.width, settings.height, camera_pos=cam,
+                                        device=dev)
+        out, state = render_frame_multichip(scene, params, state, settings, group)
+        full = gather_frame({**out, "taa_history": state.taa_history,
+                             "exposure_ev": state.exposure_ev, "hzb": state.hzb}, settings,
+                            group, keys=SLAB_KEYS + ("taa_history",))
+        if full is not None:
+            frames.append(interop.to_numpy(full))
+    return frames if rank == 0 else None
+
+
 # ------------------------------------------------------------ scene files
 
 
