@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Ten paths of the port are driven: five through ``deferred_frame``,
+Eleven paths of the port are driven: five through ``deferred_frame``,
 
 * default -- the default frame of the combined material (u8 combined quad
   atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
@@ -58,6 +58,15 @@ run through the entry points of the last modules ported:
   spawned as child processes, all on this card over gloo: K1, K2, K4, K5 on
   each rank's row slab (``y_offset``: the first row of the tile-aligned
   region around the slab), the shadow map's slabs all-gathered.
+
+One more path is the JAX package's second backend:
+
+* xla      -- ``RenderSettings(raster_backend="xla")`` through the
+  Renderer on the renderer cell's files: the exhaustive raster X1
+  (``csrc/exhaustive_raster.cu``, not a TPU kernel: the reference's XLA
+  ``rasterize``) for the shadow map and the camera, the per-texel f16 PCF
+  table with one plain row gather a receiver, plain draw-mask gathers, and
+  none of K1-K9.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -195,6 +204,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    region starts below row 0 bit-equal to its plain version; (b) also ms/frame sharded and
    single-device in turns (3 runs of 4 frames; two ranks share one card, so
    this is no speed claim).
+14. xla    -- (on phase 7's files) X1 bit-equal to its plain version on the
+   256^2 random setups (ids on and off, perspective and ortho, both depth
+   modes, y_offset 0 and 48, tiles 16x64, 32x128, 24x36), and on 64-row
+   windows of the headline tables -- camera rows 512-575 of 1080p, map rows
+   2048-2111 of 4096^2 -- (timed as the other kernels; each window also
+   equal to the whole image's rows), the whole images' two launches timed
+   with their bound; the binned rasters (K1/K2, the kernel path) against X1
+   on the same setups, their differing depth and id pixels logged by class
+   (not gated); the xla Renderer at 1080p with the 4096^2 map: 10 counted
+   ``render_frame`` calls (only X1 launched, 11 times: the first frame also
+   renders the cached map), drop counters 0, then 3 forward frames the same
+   way; the PCF tables' bytes; ms/frame and peak GiB in turns with the
+   default Renderer (3 runs of 10 frames each); card/CPU frames at 128^2,
+   deferred (2 carried) and forward, depth, ids and counters bit-equal,
+   colour within 1e-3, only X1 launched.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the f32
@@ -208,7 +232,10 @@ The kernels JSON gives each kernel's ``launches`` on its path's counted run
 (the record-emitting entries: the fused path's; ``shadow_select9_f32``: the
 sampling path's; ``binned_raster_debug``: the debug child's frame, whose
 ``ms`` and ``plain_ms`` are its launches' and ``no_debug_ms`` the same
-launches without the flag), ``renderer_launches`` on
+launches without the flag; ``exhaustive_raster``: the xla Renderer's, whose
+``ms``, ``graph_ms``, ``plain_ms`` and ``bound_ms`` are the two windows' and
+``frame_ms``, ``frame_graph_ms``, ``frame_bound_ms`` the whole images'),
+``renderer_launches`` on
 the Renderer's, ``forward_renderer_launches`` on the forward Renderer's,
 ``viewer_launches`` on the viewer's 10 frames and ``multichip_launches``
 on rank 1 of the 2-rank 1080p frames.  The last three lines of stdout
@@ -409,6 +436,89 @@ def work_merge(a, b, ka, kb):
     return nbytes(a, b, ka, kb, a), 0
 
 
+X1_RECT = (8, 32)  # csrc/exhaustive_raster.cu: a warp's rectangle (rows, columns)
+X1_PIX = 8  # pixels a thread
+BOX_OPS = 4  # a box test of a (row, tile): four compares
+
+
+def box_pairs(setup, width, height, tile_h, tile_w, y_offset=0.0):
+    """The (row, tile) pairs whose box test X1 passes: every valid row with a
+    finite box against the tiles its box overlaps.  Box and tile edges are
+    integers, so the tile range of a row is exact.  Returns (rows, tiles)."""
+    rows = torch.nonzero(setup.valid & torch.isfinite(setup.bbox).all(0)).flatten()
+    b = setup.bbox[:, rows].double()
+    n_tx, n_ty = -(-width // tile_w), -(-height // tile_h)
+    x_lo = torch.ceil((b[0] - (tile_w - 1)) / tile_w).clamp(min=0)
+    x_hi = torch.floor(b[2] / tile_w).clamp(max=n_tx - 1)
+    y_lo = torch.ceil((b[1] - y_offset - (tile_h - 1)) / tile_h).clamp(min=0)
+    y_hi = torch.floor((b[3] - y_offset) / tile_h).clamp(max=n_ty - 1)
+    nx = (x_hi - x_lo + 1).clamp(min=0).long()
+    n = nx * (y_hi - y_lo + 1).clamp(min=0).long()
+    k = torch.arange(int(n.sum()), device=rows.device) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    nxr = torch.repeat_interleave(nx, n)
+    tx = torch.repeat_interleave(x_lo.long(), n) + k % nxr
+    ty = torch.repeat_interleave(y_lo.long(), n) + k // nxr
+    return torch.repeat_interleave(rows, n), ty * n_tx + tx
+
+
+def work_exhaustive(setup, width, height, tile_h=32, tile_w=64, chunk=128, depth_mode=0,
+                    y_offset=0.0, want_ids=True, ortho=False):
+    """X1: (bytes, operations, live pairs, kept pairs).  Bytes: the table
+    (coefficients, boxes, flags) read once, the images written once.
+    Operations: what the image needs, not X1's walk -- a box test per live
+    (row, tile) pair (``box_pairs`` finds them from each row's tile range),
+    a corner test (EDGE_OPS) per (warp rectangle, live pair) and the edge
+    tests of the (pixel, row) pairs that the warp skip keeps
+    (raster_common.cuh's rule, as ``sweeps.raster.warp_rows``).  X1's own
+    box test of every (tile, valid row) pair is its design's cost, outside
+    the bound.  Live pairs: pixels x rows past the box test."""
+    from unclerenderer_tpu_torch.ops.fma import fma
+    from unclerenderer_tpu_torch.sweeps.raster import centre
+
+    rows, tiles = box_pairs(setup, width, height, tile_h, tile_w, y_offset)
+    n_tx = -(-width // tile_w)
+    rh, rw = X1_RECT
+    rx_n = -(-tile_w // rw)
+    rect = torch.arange(rx_n * -(-tile_h // rh), device=rows.device)
+    rx, ry = (rect % rx_n) * rw, (rect // rx_n) * rh
+    tested = kept = 0
+    for s0 in range(0, rows.shape[0], 1 << 19):
+        coef = setup.coef[rows[s0:s0 + (1 << 19)]]
+        t = tiles[s0:s0 + (1 << 19)]
+        x0 = ((t % n_tx) * tile_w).to(torch.float32)[:, None]
+        y0 = ((t // n_tx) * tile_h).to(torch.float32)[:, None] + y_offset
+        may = torch.ones((coef.shape[0], rect.shape[0]), dtype=torch.bool, device=coef.device)
+        for e in range(3):
+            a, b, c = (coef[:, i][:, None] for i in (e, 3 + e, 6 + e))
+            qx = torch.where(a > 0, centre(x0, rx + rw - 1), centre(x0, rx))
+            qy = torch.where(b > 0, centre(y0, ry + rh - 1), centre(y0, ry))
+            ev = fma(a, qx, b * qy) + c
+            may &= (ev > 0) | ((ev == 0) & ((a > 0) | ((a == 0) & (b > 0))))
+        may |= ~torch.isfinite(coef[:, :9]).all(1, keepdim=True)
+        tested += may.numel()
+        kept += int(may.sum())
+    kept_pairs = rh * rw * kept
+    ops = (BOX_OPS * rows.shape[0] + EDGE_OPS * tested
+           + PIXEL_EDGE_OPS * kept_pairs + 3 * kept_pairs // X1_PIX)
+    moved = nbytes(setup.coef, setup.bbox, setup.valid) + width * height * 4 * (1 + int(want_ids))
+    return moved, ops, tile_h * tile_w * rows.shape[0], kept_pairs
+
+
+def past_box(setup, b_id, differ, tile_h, tile_w, y_offset):
+    """Of the pixels ``differ``, those whose binned winner's box misses the
+    pixel's tile at X1's tile size: coverage of a sliver past its box, which
+    a coarser bin level's larger tile evaluates and X1 rejects."""
+    yy, xx = torch.nonzero(differ, as_tuple=True)
+    w = b_id[yy, xx]
+    bb = setup.bbox[:, w.clamp(min=0).long()]
+    tx0 = (xx // tile_w * tile_w).to(torch.float32)
+    ty0 = (yy // tile_h * tile_h).to(torch.float32) + y_offset
+    over = ((bb[0] <= tx0 + (tile_w - 1)) & (bb[2] >= tx0) & (bb[1] <= ty0 + (tile_h - 1))
+            & (bb[3] >= ty0))
+    return int(((w >= 0) & ~over).sum())
+
+
 def call_belongs(name, args, kwargs) -> bool:
     """Whether a recorded call of a wrapper shared by several kernel entries
     is entry ``name``'s: K1 with records or debug, K2 with records, K4 on
@@ -544,6 +654,7 @@ def tiny_inputs(dev):
         "merge_select": ((i32[0], i32[1], f32[0], f32[1]), {}),
         "copy_rows": ((i32,), {}),
         "materialize": ((i32,), {}),
+        "exhaustive_raster": ((s, 64, 16), {"tile_h": 16, "tile_w": 64}),
     }
 
 
@@ -554,7 +665,9 @@ def launch_costs(kernels, dev):
     for name, (args, kw) in tiny_inputs(dev).items():
         k = kernels[name]
         wrapper = getattr(k["module"], k["attr"])
-        first = next(a for a in args if isinstance(a, torch.Tensor))
+        # a setup's (X1's) coefficients stand for it
+        first = next(getattr(a, "coef", a) for a in args
+                     if isinstance(getattr(a, "coef", a), torch.Tensor))
         us, clone_us = in_turns(lambda: wrapper(*args, **kw), first.clone)
         k["launch_us"], k["clone_launch_us"] = us, clone_us
         out[name] = {"us": us, "clone_us": clone_us}
@@ -1517,7 +1630,8 @@ def main() -> int:
     from unclerenderer_tpu_torch.ops import shadow as shadow_mod
     from unclerenderer_tpu_torch.ops import texture as tex_mod
     from unclerenderer_tpu_torch.ops.binning import bin_triangles
-    from unclerenderer_tpu_torch.ops.raster import normalize_ortho_setup
+    from unclerenderer_tpu_torch.ops.raster import DEPTH_MAX, DEPTH_MIN, normalize_ortho_setup
+    from unclerenderer_tpu_torch.ops.raster import rasterize as rasterize_plain
     from unclerenderer_tpu_torch.render import common as common_mod
     from unclerenderer_tpu_torch.render.deferred import deferred_frame
     from unclerenderer_tpu_torch.render.forward import forward_frame
@@ -1605,6 +1719,11 @@ def main() -> int:
         "materialize": dict(module=probes, ref=probes.materialize_ref, work=work_copy,
                             library=clone, source=csrc + "copy_bytes.cu",
                             replaces="tools/prof_fuse.py:51"),
+        # X1 (raster_backend="xla"): not a TPU kernel; it computes the
+        # reference's XLA raster, which no PyTorch call computes
+        "exhaustive_raster": dict(module=rk, attr="rasterize_exhaustive", ref=rasterize_plain,
+                                  work=work_exhaustive, source=csrc + "exhaustive_raster.cu",
+                                  replaces="unclerenderer_tpu/ops/raster.py:502"),
     }
     for name, k in kernels.items():
         k.setdefault("attr", name)
@@ -1613,7 +1732,7 @@ def main() -> int:
         k.update(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, graph_ms=0.0,
                  library_graph_ms=0.0, bytes_s=0.0, ops_s=0.0, all_pairs_ops_s=0.0, calls=[],
                  launch_us=None, clone_launch_us=None, no_records_ms=0.0,
-                 no_records_graph_ms=0.0, no_debug_ms=0.0)
+                 no_records_graph_ms=0.0, no_debug_ms=0.0, frame=None)
     check(set(kernels) == set(_cuda.LAUNCHES), "every built kernel is checked")
     default_kernels = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
     attr_kernels = ("binned_raster_attrs", "giant_raster_attrs")
@@ -1854,7 +1973,8 @@ def main() -> int:
         k = kernels[name]
         wrapper = getattr(k["module"], k["attr"])
         bad, err = compare(wrapper(*ca, **ck), k["ref"](*ca, **ck))
-        shapes = [tuple(x.shape) for x in ca if isinstance(x, torch.Tensor)]
+        shapes = [tuple(getattr(x, "coef", x).shape) for x in ca
+                  if isinstance(getattr(x, "coef", x), torch.Tensor)]  # a setup: its coefficients
         check(bad == 0, f"{name} != plain at path shapes {shapes}: {bad} elements")
         plain_ms = cuda_ms(lambda: k["ref"](*ca, **ck), reps=1)
         library = (k["library_for"](wrapper, ca, ck) if k["library_for"] is not None else
@@ -1960,14 +2080,14 @@ def main() -> int:
         return int(((tri_id >= 0) & am[tri_id.clamp(min=0).long()]).sum())
 
     def cross(label, sc_cpu, sdata, frame_settings, mips=None, masked_min=None, frames=2,
-              frame="deferred"):
+              frame="deferred", size=256):
         sc_gpu = to_device(sc_cpu, dev)
-        st_c = FrameState.initial(256, 256, "cpu")
-        st_g = FrameState.initial(256, 256, dev)
+        st_c = FrameState.initial(size, size, "cpu")
+        st_g = FrameState.initial(size, size, dev)
         for i in range(frames):
             pos = (4.0 * np.sin(0.05 * i), 1.5, -4.0 * np.cos(0.05 * i))
-            p_c = synthetic_frame_params(sdata, 256, 256, camera_pos=pos, device="cpu")
-            p_g = synthetic_frame_params(sdata, 256, 256, camera_pos=pos, device=dev)
+            p_c = synthetic_frame_params(sdata, size, size, camera_pos=pos, device="cpu")
+            p_g = synthetic_frame_params(sdata, size, size, camera_pos=pos, device=dev)
             if mips is not None:
                 p_c.env_mip_count = torch.tensor(float(mips))
                 p_g.env_mip_count = torch.tensor(float(mips), device=dev)
@@ -2407,6 +2527,203 @@ def main() -> int:
     log("kernels", "masked fused 1080p frame: every record-emitting K1/K2 call bit-equal to plain")
     del m_scene
 
+    # ---- 14. the xla path (defined here, run on the Renderer's files)
+    def xla_path(scene_json):
+        """raster_backend="xla": X1 against its plain version, the binned
+        rasters against X1, the headline Renderer counted and timed, and
+        card/CPU frames at 128^2 (phase 14 of the module docstring)."""
+        from unclerenderer_tpu_torch.render.deferred import pack_table
+        from unclerenderer_tpu_torch.render.renderer import Renderer
+
+        rep = {}
+        t_phase = time.perf_counter()
+        # (a) X1 vs plain on the reference tests' random setups
+        n_calls = 0
+        for seed, n, size in [(0, 150, 0.04), (2, 60, 0.2), (3, 40, 0.6), (5, 2000, 0.04)]:
+            persp = random_setup(n, seed, size, dev)
+            for want_ids, ortho in modes:
+                s = normalize_ortho_setup(persp) if ortho else persp
+                for depth_mode in (DEPTH_MAX, DEPTH_MIN):
+                    for y_offset in (0.0, 48.0):
+                        for th, tw in ((16, 64), (32, 128), (24, 36)):
+                            versus_plain("exhaustive_raster", s, 256, 256, tile_h=th, tile_w=tw,
+                                         depth_mode=depth_mode, y_offset=y_offset,
+                                         want_ids=want_ids, ortho=ortho)
+                            n_calls += 1
+        log("xla", f"exhaustive_raster bit-equal to plain on {n_calls} calls over the 256^2 "
+                   "random setups (ids and depth-only, perspective and ortho, both depth modes, "
+                   "y_offset 0 and 48, tiles 16x64, 32x128 and 24x36)")
+
+        # (c) the headline geometry through the Renderer: 10 counted frames
+        xs = RenderSettings(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW,
+                            raster_backend="xla")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = Renderer(scene_json, settings=xs, device=dev)
+        center = np.asarray(r.scene_data.scene_center, np.float32)
+        cam0 = np.asarray(r.camera.position, np.float32)
+
+        def orbit(rr):
+            a = 0.0035 * rr._frame_counter
+            off = cam0 - center
+            rr.camera.position = center + np.array(
+                [off[0] * np.cos(a) - off[2] * np.sin(a), off[1],
+                 off[0] * np.sin(a) + off[2] * np.cos(a)], np.float32)
+            rr.camera.set_look_at(center)
+
+        def gate(rr, out, label, frames):
+            launches = dict(_cuda.LAUNCHES)
+            used = {k: v for k, v in launches.items() if v}
+            # the first frame renders the shadow map (a second X1 launch)
+            check(used == {"exhaustive_raster": frames + 1},
+                  f"xla {label}: launches {used}, expected only X1, {frames + 1} times")
+            st = rr.stats()
+            for key in ("bin_pair_overflow", "bin_giant_truncated", "compact_overflow",
+                        "shadow_compact_overflow"):
+                check(st[key] == 0, f"xla {label}: drop counter {key} = {st[key]}")
+            color = out["color"]
+            check(tuple(color.shape) == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(color).all()),
+                  f"xla {label}: colour {tuple(color.shape)} not finite")
+            covered = int((out["tri_id"] >= 0).sum())
+            check(covered > 0.3 * WIDTH * HEIGHT, f"xla {label}: only {covered} covered pixels")
+            log("xla", f"{label}: launches in {frames} render_frame calls {launches}; drop "
+                       f"counters 0; {covered} covered pixels, colour finite")
+            return launches
+
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        for _ in range(FRAMES):
+            orbit(r)
+            out = r.render_frame()
+        torch.cuda.synchronize()
+        rep["launches"] = gate(r, out, "deferred Renderer", FRAMES)
+        # the Renderer's settings: xs synced to the scene (no masked models)
+        xs = r.settings
+        check(xs.raster_backend == "xla" and not xs.has_masked_models,
+              f"xla Renderer settings {xs}")
+        kernel_path = dataclasses.replace(xs, raster_backend="auto")
+        tables = {label: pack_table(r._shadow_cache, st).nbytes
+                  for label, st in (("f16 per-texel", xs), ("u16 superblock", kernel_path))}
+        log("xla", f"PCF table bytes: {tables}")
+        rep["pcf_table_bytes"] = tables
+
+        # the frame's two X1 calls and its two _raster calls, recorded
+        params = r.frame_params()
+        with Recorder(common_mod, "rasterize_exhaustive") as rx, \
+                Recorder(common_mod, "_raster") as rr:
+            deferred_frame(r.device_scene, params, FrameState.initial(WIDTH, HEIGHT, dev), xs)
+            torch.cuda.synchronize()
+        check(len(rx.calls) == 2 and len(rr.calls) == 2, "a deferred frame makes two X1 calls")
+
+        # (a) windows of the full-size tables against the plain version; the
+        # whole images timed with their bounds
+        rep["frame"] = {}
+        for (ca, ck), label, y0 in zip(rx.calls, ("shadow", "camera"), (2048, 512)):
+            check((ck["depth_mode"] == DEPTH_MIN) == (label == "shadow"), "call order")
+            wa, wk = (ca[0], ca[1], 64), dict(ck, y_offset=float(y0))
+            measure("exhaustive_raster", wa, wk)
+            full = rk.rasterize_exhaustive(*ca, **ck)
+            win = rk.rasterize_exhaustive(*wa, **wk)
+            check(all(a is None and b is None or torch.equal(a[y0:y0 + 64], b)
+                      for a, b in zip(full, win)), f"{label} window != the image's rows")
+            ms = cuda_ms(lambda: rk.rasterize_exhaustive(*ca, **ck), reps=10)
+            g_ms = graph_ms(lambda: rk.rasterize_exhaustive(*ca, **ck), reps=5)
+            moved, ops, pairs, kept = work_exhaustive(*ca, **ck)
+            b_s, o_s = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+            rep["frame"][label] = {"ms": ms, "graph_ms": g_ms, "bound_ms": 1e3 * max(b_s, o_s),
+                                   "bound_by": "bytes" if b_s >= o_s else "operations",
+                                   "bytes": moved, "ops": ops, "pairs": pairs, "kept": kept,
+                                   "rows": int(ca[0].coef.shape[0]),
+                                   "valid_rows": int(ca[0].valid.sum())}
+            log("xla", f"X1 {label} {ca[1]}x{ca[2]} over {ca[0].coef.shape[0]} rows "
+                       f"({int(ca[0].valid.sum())} valid): window rows {y0}-{y0 + 63} bit-equal "
+                       f"to plain and to the image's rows; the image eager {ms:.4f} ms, graph "
+                       f"{g_ms:.4f} ms, bound {1e3 * max(b_s, o_s):.4f} ms ({moved} B, {ops} ops; "
+                       f"{pairs} live (pixel, row) pairs, {kept} kept by the warp skip) (on {smi})")
+        x1 = kernels["exhaustive_raster"]
+        x1["frame"] = {k: sum(v[k] for v in rep["frame"].values())
+                       for k in ("ms", "graph_ms", "bound_ms")}
+
+        # (b) the binned rasters (kernel path) against X1 on the same setups
+        rep["binned_vs_x1"] = {}
+        for (ra, rkw), label in zip(rr.calls, ("shadow", "camera")):
+            setup, th, tw = ra[0], ra[3], ra[4]
+            b = common_mod._raster(*ra[:7], kernel_path, **rkw)
+            x = common_mod._raster(*ra[:7], xs, **rkw)
+            row = {"depth_pixels": int((b[0] != x[0]).sum())}
+            if b[1] is None:  # the depth-only map: again with ids, for the classes
+                b = common_mod._raster(*ra[:7], kernel_path, **dict(rkw, want_ids=True))
+                x = common_mod._raster(*ra[:7], xs, **dict(rkw, want_ids=True))
+            check(int(b[2]["pair_overflow"]) == 0 and int(b[2]["giant_truncated"]) == 0,
+                  f"binned {label}: drops {b[2]}")
+            differ = (b[0] != x[0]) | (b[1] != x[1])
+            row.update(id_pixels=int((b[1] != x[1]).sum()), pixels=int(differ.sum()),
+                       past_box=past_box(setup, b[1], differ, th, tw, 0.0))
+            row["other"] = row["pixels"] - row["past_box"]
+            rep["binned_vs_x1"][label] = row
+            log("xla", f"binned (K1/K2) vs X1, {label} {ra[1]}x{ra[2]}: {row} -- past_box: the "
+                       f"binned winner's box misses the pixel's {th}x{tw} tile (a sliver's coverage "
+                       f"past its box that a coarser bin level's tile keeps); other: any other "
+                       f"(not gated; on {smi})")
+
+        # forward frames on the same Renderer (its settings change drops the cached map)
+        r.update_settings(renderer_type="forward")
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        for _ in range(3):
+            orbit(r)
+            out = r.render_frame()
+        torch.cuda.synchronize()
+        rep["forward_launches"] = gate(r, out, "forward Renderer", 3)
+        check(float(out["color"].min()) >= 0.0 and float(out["color"].max()) <= 1.0,
+              "xla forward colour outside [0, 1]")
+        r.update_settings(renderer_type="deferred")
+
+        # ms/frame in turns with the default (kernel path) Renderer; peak GiB
+        d = Renderer(scene_json, settings=RenderSettings(width=WIDTH, height=HEIGHT,
+                                                         shadow_map_size=SHADOW), device=dev)
+        runs = {"xla": [], "default": []}
+        peak = {"xla": 0.0, "default": 0.0}
+        extra = {"xla": 0.0, "default": 0.0}
+        for which in ("xla", "default", "default", "xla", "xla", "default"):
+            rr_ = r if which == "xla" else d
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(FRAMES):
+                orbit(rr_)
+                rr_.render_frame()
+            torch.cuda.synchronize()
+            runs[which].append((time.perf_counter() - t0) * 1000.0 / FRAMES)
+            top = torch.cuda.max_memory_allocated()
+            peak[which] = max(peak[which], top / 2**30)
+            extra[which] = max(extra[which], (top - base) / 2**30)
+        med = {k: statistics.median(v) for k, v in runs.items()}
+        log("xla", f"ms/frame median: xla Renderer {med['xla']:.2f} (runs "
+                   f"{[round(x, 2) for x in runs['xla']]}), default Renderer {med['default']:.2f} "
+                   f"(runs {[round(x, 2) for x in runs['default']]}); 3 runs x {FRAMES} frames "
+                   f"each in turns, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2; peak GiB xla "
+                   f"{peak['xla']:.2f}, default {peak['default']:.2f} (both Renderers resident; "
+                   f"above the run's start: xla {extra['xla']:.2f}, default "
+                   f"{extra['default']:.2f}) on {smi}")
+        rep.update(ms_per_frame=runs, median_ms=med, peak_gib=peak, frame_extra_gib=extra)
+        del r, d
+
+        # (d) card vs CPU frames at 128^2, deferred and forward
+        sc_cpu, sdata = synthetic_device_scene(24, with_masked=True, device="cpu")
+        small_x = RenderSettings(width=128, height=128, shadow_map_size=256, raster_backend="xla")
+        _cuda.reset_launches()
+        rep["cross_color_max_abs"] = cross("xla 128", sc_cpu, sdata, small_x, size=128,
+                                           masked_min=0)
+        rep["cross_color_max_abs_forward"] = cross("xla 128 forward", sc_cpu, sdata, small_x,
+                                                   size=128, frames=1, frame="forward")
+        used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        check(set(used) == {"exhaustive_raster"}, f"xla cross frames launched {used}")
+        rep["seconds"] = time.perf_counter() - t_phase
+        log("xla", f"phase done in {rep['seconds']:.1f} s")
+        return rep
+
     # ---- 7. the Renderer path from scene files, and the CLI
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as scene_dir:
         report["renderer"] = renderer_phase(dev, smi, Path(scene_dir))
@@ -2417,6 +2734,8 @@ def main() -> int:
         report["cache"], warm = scene_cache_phase(dev, smi, Path(report["renderer"]["scene_json"]))
         report["viewer"] = viewer_phase(warm, smi)
         del warm
+        # ---- 14. the xla path on the same files
+        report["xla"] = xla_path(Path(report["renderer"]["scene_json"]))
 
     # ---- 13. the row-sharded frame in ranks on this card
     report["multichip"] = multichip_phase(smi)
@@ -2430,7 +2749,8 @@ def main() -> int:
                              "launch_us": k["launch_us"],
                              "clone_launch_us": k["clone_launch_us"],
                              "no_records_ms": k["no_records_ms"],
-                             "no_records_graph_ms": k["no_records_graph_ms"]}
+                             "no_records_graph_ms": k["no_records_graph_ms"],
+                             "frame": k["frame"]}
                          for n, k in kernels.items()}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
@@ -2441,12 +2761,14 @@ def main() -> int:
             return report["debug"]["launches"]
         path = ("slice" if name in default_kernels else "fused" if name in attr_kernels else
                 "sampling" if name == "shadow_select9_f32" else
-                "probes" if name in probe_kernels else "packed")
+                "probes" if name in probe_kernels else
+                "xla" if name == "exhaustive_raster" else "packed")
         return report[path]["launches"][name]
 
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
          "launches": main_path_launches(n), "max_abs_err": k["err"], "ms": k["ms"],
+         "graph_ms": k["graph_ms"],
          "plain_ms": k["plain_ms"], "bound_ms": 1e3 * max(k["bytes_s"], k["ops_s"]),
          "bound_by": "bytes" if k["bytes_s"] >= k["ops_s"] else "operations",
          "library_ms": (k["library_ms"] if k["library"] is not None or k["library_for"]
@@ -2457,7 +2779,11 @@ def main() -> int:
          "viewer_launches": report["viewer"]["launches"][n],
          "multichip_launches": report["multichip"]["full"]["per_rank"][1]["launches"][n],
          **({"no_records_ms": k["no_records_ms"]} if n in attr_kernels else {}),
-         **({"no_debug_ms": k["no_debug_ms"]} if n == "binned_raster_debug" else {})}
+         **({"no_debug_ms": k["no_debug_ms"]} if n == "binned_raster_debug" else {}),
+         # X1's line times the checked windows; the whole frame's two launches apart
+         **({"frame_ms": k["frame"]["ms"], "frame_graph_ms": k["frame"]["graph_ms"],
+             "frame_bound_ms": k["frame"]["bound_ms"], "tpu_kernel": False}
+            if n == "exhaustive_raster" else {})}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

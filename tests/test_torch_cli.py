@@ -7,10 +7,15 @@ profiler trace and ``--profile-passes`` logs the deferred stages;
 ``--interactive`` runs the terminal viewer on the Renderer, driven here by
 scripted keys.
 
-The reference CLI's PNG is not compared: it has no ``raster_backend``
-flag and on the CPU takes its XLA path, whose PCF table differs from the
-Pallas path the port is held to (``tests/test_torch_renderer.py`` holds the
-Renderer to the reference)."""
+The reference CLI's PNG is not compared here: it has no
+``raster_backend`` flag and on the CPU takes its XLA path, whose PCF table
+differs from the kernel path the port's CLI renders at its default.  The
+port's ``raster_backend="xla"`` renders the reference's XLA image:
+``tests/test_torch_xla_backend.py`` holds the port's Renderer at "xla" to
+the reference's Renderer at its default "auto" on the CPU, ``render_to_u8``
+within 1 level, the u8 frame the reference CLI writes
+(``tests/test_torch_renderer.py`` holds the kernel path's Renderer to the
+reference's Pallas path)."""
 
 import re
 import subprocess

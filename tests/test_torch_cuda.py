@@ -18,6 +18,7 @@ from unclerenderer_tpu_torch.ops.binning import bin_triangles
 from unclerenderer_tpu_torch.ops.raster import (
     CULL_NONE,
     normalize_ortho_setup,
+    rasterize,
     triangle_setup_from_components,
 )
 from unclerenderer_tpu_torch.ops.shadow import pcf_deltas, select9, select9_ref
@@ -113,6 +114,28 @@ def test_giant_raster_fitted_chunks_bit_equal(cuda_device, chunk, want_ids, ids)
     before = _cuda.LAUNCHES["giant_raster"]
     _same(rk.giant_raster(*args), rk.giant_raster_ref(*args))
     assert _cuda.LAUNCHES["giant_raster"] == before + 1
+
+
+@pytest.mark.parametrize("seed,n,size", [(0, 150, 0.04), (3, 40, 0.6), (5, 2000, 0.04)])
+@pytest.mark.parametrize("depth_mode", [0, 1])
+@pytest.mark.parametrize("want_ids,ortho", [(True, False), (False, False), (False, True)])
+@pytest.mark.parametrize("tile,y_offset", [((16, 64), 0.0), ((32, 128), 48.0), ((24, 36), 0.0),
+                                           ((6, 10), 48.0)])
+def test_exhaustive_raster_kernel_bit_equal(cuda_device, seed, n, size, depth_mode, want_ids,
+                                            ortho, tile, y_offset):
+    """X1 against its plain version (``ops/raster.py rasterize``) on the
+    random setups, both depth modes, ids on and off, ortho-normalized,
+    the frame's tiles and partial warp rectangles, and a row offset; one
+    launch a call."""
+    s = _setup(n, seed, size, cuda_device)
+    if ortho:
+        s = normalize_ortho_setup(s)
+    kw = dict(tile_h=tile[0], tile_w=tile[1], depth_mode=depth_mode, y_offset=y_offset,
+              want_ids=want_ids, ortho=ortho)
+    before = _cuda.LAUNCHES["exhaustive_raster"]
+    got = rk.rasterize_exhaustive(s, 256, 200, **kw)
+    assert _cuda.LAUNCHES["exhaustive_raster"] == before + 1
+    _same(got, rasterize(s, 256, 200, chunk=64, **kw))
 
 
 def test_rasterize_binned_kernels_match_plain(cuda_device):

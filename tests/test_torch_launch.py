@@ -13,7 +13,7 @@ from unclerenderer_tpu_torch.ops import _cuda
 
 WRAPPERS = ["binned_raster", "giant_raster", "binned_raster_attrs", "giant_raster_attrs",
             "binned_raster_debug", "shadow_select9", "shadow_select9_f32", "gather_rows", "hzb_tail", "env_select", "mat_select",
-            "materialize_rows", "merge_select", "copy_rows", "materialize"]
+            "materialize_rows", "merge_select", "copy_rows", "materialize", "exhaustive_raster"]
 
 
 class StubEntry:

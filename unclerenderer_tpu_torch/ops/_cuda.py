@@ -88,6 +88,9 @@ SIGNATURES = {
     "mat_select": [_P, _P, _P, _P, _L, _I, _P],
     # src, dst, n bytes, stream
     "copy_bytes": [_P, _P, _L, _P],
+    # coef (T, 16), bbox (4, T), valid (T,) bool, out_depth, out_id (or NULL),
+    # t_count, width, height, tile_h, tile_w, y_off, want_ids, ortho, depth_max, stream
+    "exhaustive_raster": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # a, b, ka, kb, out, n, stream
     "merge_select": [_P, _P, _P, _P, _P, _L, _P],
 }

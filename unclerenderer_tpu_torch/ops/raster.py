@@ -390,10 +390,14 @@ def untile(x: torch.Tensor, width: int, height: int, tile_h: int, tile_w: int):
 
 def rasterize(setup: RasterSetup, width: int, height: int, tile_h: int = 32,
               tile_w: int = 64, chunk: int = 128, depth_mode: int = DEPTH_MAX,
-              y_offset: float = 0.0):
+              y_offset: float = 0.0, want_ids: bool = True, ortho: bool = False):
     """Exhaustive visibility raster (reference ``rasterize``): every tile
     against every triangle, with a per-(tile, triangle) bbox rejection.
-    Returns (depth (H, W) f32, tri_id (H, W) i32, -1 where empty)."""
+    Returns (depth (H, W) f32, tri_id (H, W) i32, -1 where empty; None
+    without ``want_ids``).  ``ortho`` takes key = nz with no divide, which
+    on an ortho-normalized setup (nw = (0, 0, 1)) is the divide's result.
+    Only (tile, chunk) pairs with a row that passes the rejection are
+    evaluated: the others change no pixel."""
     dev = setup.coef.device
     pad_w = -(-width // tile_w) * tile_w
     pad_h = -(-height // tile_h) * tile_h
@@ -424,18 +428,26 @@ def rasterize(setup: RasterSetup, width: int, height: int, tile_h: int = 32,
         & (bb[1] <= (ty0 + (tile_h - 1))[:, None]) & (bb[3] >= ty0[:, None])
     )
     pair_valid = valid.reshape(n_chunks, chunk)[pair_chunk] & overlap
+    live = pair_valid.any(dim=1)
+    pair_tile, pair_chunk, pair_valid = pair_tile[live], pair_chunk[live], pair_valid[live]
     keys, ids = [], []
     for b0, b1 in batched_blocks(pair_tile.shape[0], tile_h * tile_w * chunk):
         qx, qy = tile_pixel_centers(pair_tile[b0:b1], tile_h, tile_w, n_tx, y_offset)
         k, i = block_winners(coef[pair_chunk[b0:b1]], pair_valid[b0:b1],
-                             tid[pair_chunk[b0:b1]], qx, qy)
+                             tid[pair_chunk[b0:b1]], qx, qy, ortho=ortho, want_ids=want_ids)
         keys.append(k)
         ids.append(i)
-    tile_key, tile_id = merge_blocks(torch.cat(keys), torch.cat(ids), pair_tile, n_tiles)
+    pix = tile_h * tile_w
+    empty = torch.empty((0, pix), dtype=torch.float32, device=dev)
+    blk_key = torch.cat(keys) if keys else empty
+    blk_id = (torch.cat(ids) if ids else empty.to(torch.int32)) if want_ids else None
+    tile_key, tile_id = merge_blocks(blk_key, blk_id, pair_tile, n_tiles)
     hit = tile_key >= 0.0
     if depth_mode == DEPTH_MAX:
         depth = torch.where(hit, tile_key, torch.zeros_like(tile_key))
     else:
         depth = torch.where(hit, 1.0 - tile_key, torch.ones_like(tile_key))
-    return (untile(depth, width, height, tile_h, tile_w),
-            untile(tile_id, width, height, tile_h, tile_w))
+    depth = untile(depth, width, height, tile_h, tile_w)
+    if not want_ids:
+        return depth, None
+    return depth, untile(tile_id, width, height, tile_h, tile_w)

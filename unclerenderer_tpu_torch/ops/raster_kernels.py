@@ -11,6 +11,10 @@
   gather, under ``RenderSettings.bin_mat_idx``.
 * ``rasterize_binned``: fine bins + coarse (mid) bins + giant brute force,
   merged by depth key with min-id tie-breaks.
+* ``rasterize_exhaustive`` (X1, ``csrc/exhaustive_raster.cu``): every tile
+  against every triangle, the raster of ``raster_backend="xla"``
+  (``ops/raster.py rasterize`` is its plain version).  Not a port of a TPU
+  kernel: the reference runs it as XLA.
 
 Debug print (``debug=True``, the reference's ``debug_print`` under
 ``RenderSettings.kernel_debug_print``): K1 prints one line
@@ -25,8 +29,9 @@ the rows' ids -- a (tiles, pix, R) image, zeros where no row won, equal to
 ``records_ref`` -- through their ``*_attrs`` C entries, counted as
 ``binned_raster_attrs`` / ``giant_raster_attrs``.
 
-Each kernel wrapper runs its plain version (``*_ref``) for CPU tensors and
-launches the kernel for CUDA tensors; there is no fallback between the two.
+Each kernel wrapper runs its plain version (``*_ref``; X1: ``rasterize``)
+for CPU tensors and launches the kernel for CUDA tensors; there is no
+fallback between the two.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from .raster import (
     compact_mask,
     flip_depth_key,
     merge_blocks,
+    rasterize,
     tile_pixel_centers,
     untile,
 )
@@ -466,6 +472,45 @@ def rasterize_giant(setup: RasterSetup, width: int, height: int, tile_h: int = 3
     if records is None:
         return depth, tri
     return depth, tri, untile(out[2], width, height, tile_h, tile_w)
+
+
+# ---------------------------------------------------------------------------
+# X1: exhaustive raster (raster_backend="xla")
+# ---------------------------------------------------------------------------
+
+
+def rasterize_exhaustive(setup: RasterSetup, width: int, height: int, tile_h: int = 32,
+                         tile_w: int = 64, chunk: int = 128, depth_mode: int = DEPTH_MAX,
+                         y_offset: float = 0.0, want_ids: bool = True, ortho: bool = False):
+    """X1 wrapper: the exhaustive raster of ``ops/raster.py rasterize`` (same
+    contract: (depth (height, width), tri_id or None), rows from global
+    row ``y_offset``), by the plain version for CPU tensors and by the
+    ``exhaustive_raster`` kernel for CUDA tensors.  ``chunk`` only sizes
+    the plain version's blocks; the result does not depend on it."""
+    if _cuda.on_cpu("exhaustive_raster", setup.coef):
+        return rasterize(setup, width, height, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
+                         depth_mode=depth_mode, y_offset=y_offset, want_ids=want_ids, ortho=ortho)
+    coef, bbox, valid = setup.coef, setup.bbox, setup.valid
+    t_count = coef.shape[0]
+    if (coef.dtype != torch.float32 or bbox.dtype != torch.float32 or valid.dtype != torch.bool
+            or tuple(coef.shape) != (t_count, COEF_COLS) or tuple(bbox.shape) != (4, t_count)
+            or tuple(valid.shape) != (t_count,)):
+        raise ValueError("rasterize_exhaustive: expects coef (T, 16) f32, bbox (4, T) f32 and "
+                         "valid (T,) bool")
+    _check_y_offset("rasterize_exhaustive", y_offset)
+    coef, bbox, valid = (x if x.is_contiguous() else x.contiguous() for x in (coef, bbox, valid))
+    dev = _cuda.check_cuda("rasterize_exhaustive", coef, bbox, valid)
+    if coef.data_ptr() % 16:  # a row is read as four 16-byte loads
+        raise ValueError("rasterize_exhaustive: coef must be 16-byte aligned")
+    depth = torch.empty((height, width), dtype=torch.float32, device=coef.device)
+    tri_id = (torch.empty((height, width), dtype=torch.int32, device=coef.device)
+              if want_ids else None)
+    if height and width:
+        _cuda.launch("exhaustive_raster", dev, coef.data_ptr(), bbox.data_ptr(),
+                     valid.data_ptr(), depth.data_ptr(), _cuda.ptr(tri_id), t_count, width,
+                     height, tile_h, tile_w, float(y_offset), int(want_ids), int(ortho),
+                     int(depth_mode == DEPTH_MAX))
+    return depth, tri_id
 
 
 # ---------------------------------------------------------------------------

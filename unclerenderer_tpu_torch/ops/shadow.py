@@ -1,15 +1,25 @@
-"""Directional shadow receiver: superblock PCF (``unclerenderer_tpu/ops/shadow.py``).
+"""Directional shadow receiver: PCF over the shadow map (``unclerenderer_tpu/ops/shadow.py``).
 
-The shadow map (``render/common.py raster_shadow``) packs into a superblock
-table: each row holds an 8x8 block of depths plus a +2 apron (100 of 128
-lanes), ceil-quantized to u16 (``pack_shadow_blocks_u16``, the default) or
-as f32 (``pack_shadow_blocks``, ``RenderSettings.shadow_table_u16=False``:
-the reference's bit-exact oracle table).  Per receiver, K4 (``select9``,
+On the kernel path (``render/common.py use_kernel_path``) the shadow map
+(``render/common.py raster_shadow``) packs into a superblock table: each
+row holds an 8x8 block of depths plus a +2 apron (100 of 128 lanes),
+ceil-quantized to u16 (``pack_shadow_blocks_u16``, the default) or as f32
+(``pack_shadow_blocks``, ``RenderSettings.shadow_table_u16=False``: the
+reference's bit-exact oracle table).  Per receiver, K4 (``select9``,
 ``csrc/shadow_select9.cu``, an entry per row type) fetches the 3x3 texel
-neighbourhood from it;
-the compare and the PCF blend -- the deferred 4-tap or the forward 2x2
-corners (``pcf``) -- stay plain tensor code (``_pcf_tail``), shared with
-the reference's formulation.
+neighbourhood from it.
+
+Under ``raster_backend="xla"`` the reference packs the per-texel f16 table
+instead (``pack_shadow9``: each texel's 3x3 neighbourhood, lifted by 5e-4
+before rounding) and reads it with one plain row gather a receiver
+(``shadow_factor_packed``); its f16 rounding makes the PCF result differ
+from the superblock tables' at shadow edges.  ``shadow_factor`` is the
+unpacked receiver: the hardware comparison samplers (``sample_cmp_linear``,
+``sample_cmp_point``) on the map itself.
+
+Every layout ends in the same compare and PCF blend -- the deferred 4-tap
+or the forward 2x2 corners (``pcf``) -- plain tensor code (``_pcf_tail``),
+shared with the reference's formulation.
 """
 
 from __future__ import annotations
@@ -136,6 +146,15 @@ def hom_dot4(p3: torch.Tensor, m: torch.Tensor) -> list:
     return [(x * m[0, j] + y * m[1, j]) + (z * m[2, j] + m[3, j]) for j in range(4)]
 
 
+def _texel_coord(u, size: int):
+    """``u * size - 0.5`` contracted into one rounding, as XLA:CPU does.  At
+    a power-of-two size the product is exact, so the plain form gives the
+    same value without the emulated ``fma``."""
+    if size & (size - 1) == 0:
+        return u * size - 0.5
+    return fma(u, float(size), -0.5)
+
+
 def _shadow_project(world_pos, light_view_proj, size: int, shadow_bias):
     """World -> light uv, compare depth, and the 3x3 neighbourhood base
     (xi/yi true base, xi0/yi0 clamped into the map)."""
@@ -145,8 +164,8 @@ def _shadow_project(world_pos, light_view_proj, size: int, shadow_bias):
     cx, cy, cz = sp[0] / w, sp[1] / w, sp[2] / w
     uv = torch.stack([cx * 0.5 + 0.5, cy * -0.5 + 0.5], dim=-1)
     compare = cz - shadow_bias
-    tx = uv[..., 0] * size - 0.5
-    ty = uv[..., 1] * size - 0.5
+    tx = _texel_coord(uv[..., 0], size)
+    ty = _texel_coord(uv[..., 1], size)
     x0 = torch.floor(tx)
     y0 = torch.floor(ty)
     fx = tx - x0
@@ -218,4 +237,106 @@ def shadow_factor_blocks(blocks_flat, size: int, world_pos, light_view_proj,
     nb9 = [nb[..., k] for k in range(9)]
     if blocks_flat.dtype == torch.int16:
         compare = torch.clamp(torch.ceil(compare * 65535.0), 0.0, 65536.0)
+    return _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size, shadow_strength, pcf)
+
+
+# ---------------------------------------------------------------------------
+# The unpacked receiver and the per-texel f16 table (raster_backend="xla")
+# ---------------------------------------------------------------------------
+
+
+def _cmp_gather(shadow_map, ix, iy, compare):
+    """Point comparison fetch with BORDER = 1.0 (lit) outside the map:
+    1 where ``compare <= depth`` (LESS_EQUAL)."""
+    h, w = shadow_map.shape
+    inside = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    sx = torch.clamp(ix, 0, w - 1).long()
+    sy = torch.clamp(iy, 0, h - 1).long()
+    passed = (compare <= shadow_map[sy, sx]).to(torch.float32)
+    return torch.where(inside, passed, torch.ones_like(passed))
+
+
+def sample_cmp_linear(shadow_map, uv, compare):
+    """Linear-comparison sample (hardware PCF): compare at the 4 bilinear
+    texels, then blend the 0/1 results bilinearly."""
+    h, w = shadow_map.shape
+    tx = _texel_coord(uv[..., 0], w)
+    ty = _texel_coord(uv[..., 1], h)
+    x0 = torch.floor(tx)
+    y0 = torch.floor(ty)
+    fx = tx - x0
+    fy = ty - y0
+    x0i, y0i = _to_int(x0), _to_int(y0)
+    c00 = _cmp_gather(shadow_map, x0i, y0i, compare)
+    c10 = _cmp_gather(shadow_map, x0i + 1, y0i, compare)
+    c01 = _cmp_gather(shadow_map, x0i, y0i + 1, compare)
+    c11 = _cmp_gather(shadow_map, x0i + 1, y0i + 1, compare)
+    top = c00 * (1 - fx) + c10 * fx
+    bot = c01 * (1 - fx) + c11 * fx
+    return fma(top, 1 - fy, bot * fy)
+
+
+def sample_cmp_point(shadow_map, uv, compare):
+    """Point-comparison sample (the forward frame's sampler)."""
+    h, w = shadow_map.shape
+    ix = _to_int(torch.floor(uv[..., 0] * w))
+    iy = _to_int(torch.floor(uv[..., 1] * h))
+    return _cmp_gather(shadow_map, ix, iy, compare)
+
+
+@named_pass("ShadowPCF")
+def shadow_factor(shadow_map, world_pos, light_view_proj, shadow_strength, shadow_bias,
+                  pcf: str = "deferred") -> torch.Tensor:
+    """The unpacked receiver: project into light space, 4-tap PCF through
+    the comparison samplers on the map itself (``pcf="deferred"``: linear
+    taps at +0, +x, +y, +xy texels; ``"forward"``: point taps at the four
+    half-texel diagonals), lerp(1, s, strength); outside the map or
+    strength <= 0 -> 1."""
+    h, w = shadow_map.shape
+    uv, compare = _shadow_project(world_pos, light_view_proj, w, shadow_bias)[:2]
+    tx, ty = 1.0 / w, 1.0 / h
+    if pcf == "deferred":
+        taps = [sample_cmp_linear(shadow_map, uv, compare)]
+        taps += [sample_cmp_linear(shadow_map, uv + uv.new_tensor(d), compare)
+                 for d in ((tx, 0.0), (0.0, ty), (tx, ty))]
+    elif pcf == "forward":
+        hx, hy = 0.5 * tx, 0.5 * ty
+        taps = [sample_cmp_point(shadow_map, uv + uv.new_tensor(d), compare)
+                for d in ((hx, hy), (-hx, hy), (hx, -hy), (-hx, -hy))]
+    else:
+        raise ValueError(f"pcf must be 'deferred' or 'forward', got {pcf!r}")
+    s = 0.25 * (taps[0] + taps[1] + taps[2] + taps[3])
+    s = fma(s - 1.0, shadow_strength, 1.0)
+    in_range = (uv[..., 0] >= 0.0) & (uv[..., 0] <= 1.0) & (uv[..., 1] >= 0.0) & (uv[..., 1] <= 1.0)
+    return torch.where((shadow_strength > 0.0) & in_range, s, torch.ones_like(s))
+
+
+SHADOW9_LIFT = 5e-4  # > one f16 ulp in [0.5, 1): rounding never lowers a blocker
+
+
+def pack_shadow9(shadow_map: torch.Tensor) -> torch.Tensor:
+    """(S, S) depth -> (S, S, 12) f16: channel dy*3 + dx holds depth(y + dy,
+    x + dx) for dy, dx in 0..2, +inf (= lit) past the map's edge, and three
+    zero channels.  Each depth is lifted by 5e-4 before the f16 rounding
+    (nearest even, as the reference's cast), so no blocker rounds below its
+    depth; the comparison bias grows by at most 1e-3."""
+    s = shadow_map.shape[0]
+    padded = torch.full((s + 2, s + 2), float("inf"), dtype=torch.float32,
+                        device=shadow_map.device)
+    padded[:s, :s] = shadow_map + SHADOW9_LIFT
+    chans = [padded[dy:dy + s, dx:dx + s] for dy in range(3) for dx in range(3)]
+    chans += [torch.zeros_like(shadow_map)] * 3
+    return torch.stack(chans, dim=-1).to(torch.float16)
+
+
+@named_pass("ShadowPCF")
+def shadow_factor_packed(shadow9_flat, size: int, world_pos, light_view_proj, shadow_strength,
+                         shadow_bias, pcf: str = "deferred") -> torch.Tensor:
+    """PCF shadow factor with one row gather a receiver from the per-texel
+    table (``pack_shadow9(map).reshape(-1, 12)``): the texel's 3x3
+    neighbourhood, then the compare and blend of every layout."""
+    uv, compare, fx, fy, xi, yi, xi0, yi0 = _shadow_project(
+        world_pos, light_view_proj, size, shadow_bias)
+    nb = shadow9_flat[(yi0 * size + xi0).long()].to(torch.float32)
+    nb9 = [nb[..., k] for k in range(9)]
     return _pcf_tail(nb9, compare, fx, fy, uv, xi, yi, xi0, yi0, size, shadow_strength, pcf)

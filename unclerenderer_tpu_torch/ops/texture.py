@@ -5,8 +5,9 @@ both layouts -- the quad atlas (two row gathers per trilinear tap) and the
 packed-trilinear atlas (one 16C-lane row gather, ``sample_pyramid_tri``) --
 with the trilinear, bilinear and anisotropic footprints, and its IBL path
 (seamless packed-trilinear env cube, hat-function matmuls for the BRDF LUT
-and the irradiance tail).  Three kernels live here, each with its plain
-version (``*_ref``) beside it:
+and the irradiance tail), and the quad-atlas env samplers
+(``sample_cube_pyramid``, ``sample_cube_pyramid_level``).  Three kernels
+live here, each with its plain version (``*_ref``) beside it:
 
 * ``gather_rows`` -- K5 (``csrc/gather_rows.cu``), the draw-mask row gather;
 * ``mat_select`` -- K8 (``csrc/mat_select.cu``), the packed material decode
@@ -447,6 +448,49 @@ def _cube_face_rect(face_rect0, direction):
     for f in range(6):
         rect = torch.where((face == f)[..., None], face_rect0[f].to(torch.float32), rect)
     return rect, uv
+
+
+def _sample_cube_bilinear(env_quad_flat, atlas_width: int, rect, uv, level):
+    """One bilinear tap of the quad-atlas env samplers: CLAMP addressing in
+    the face's mip rect, the three blends contracted as the reference's
+    jitted samplers (``_lerp_fa``)."""
+    c = env_quad_flat.shape[-1] // 4
+    x, y, w, h = _pyramid_rect(rect, level)
+    wf, hf = w.to(torch.float32), h.to(torch.float32)
+    # D3D clamps each tap: below half a texel both taps land on texel 0, so
+    # the blend fraction dies out there too
+    tx = torch.minimum(torch.clamp(uv[..., 0] * wf - 0.5, min=0.0), wf - 1.0)
+    ty = torch.minimum(torch.clamp(uv[..., 1] * hf - 0.5, min=0.0), hf - 1.0)
+    fx0 = torch.floor(tx)
+    fy0 = torch.floor(ty)
+    fx = (tx - fx0)[..., None]
+    fy = (ty - fy0)[..., None]
+    ix = _wrap_index(_to_int(fx0), w, ADDRESS_CLAMP)
+    iy = _wrap_index(_to_int(fy0), h, ADDRESS_CLAMP)
+    quad = _rows_to_f32(env_quad_flat[((y + iy) * atlas_width + (x + ix)).long()], c)
+    top = _lerp_fa(quad[..., 0:c], quad[..., c:2 * c], fx)
+    bot = _lerp_fa(quad[..., 2 * c:3 * c], quad[..., 3 * c:], fx)
+    return _lerp_fa(top, bot, fy)
+
+
+def sample_cube_pyramid(env_quad_flat, atlas_width: int, face_rect0, direction, lod):
+    """Cubemap trilinear sample over the quad-record pyramid atlas (CLAMP
+    addressing a face): two bilinear taps at floor(lod) and the next mip,
+    blended by the fraction.  face_rect0 (6, 4): each face's mip-0 rect."""
+    rect, uv = _cube_face_rect(face_rect0, direction)
+    lod = torch.clamp(lod, min=0.0)
+    l0 = _to_int(torch.floor(lod))
+    frac = torch.clamp(lod - l0.to(torch.float32), 0.0, 1.0)[..., None]
+    a = _sample_cube_bilinear(env_quad_flat, atlas_width, rect, uv, l0)
+    b = _sample_cube_bilinear(env_quad_flat, atlas_width, rect, uv, l0 + 1)
+    return _lerp_fa(a, b, frac)
+
+
+def sample_cube_pyramid_level(env_quad_flat, atlas_width: int, face_rect0, direction, level):
+    """Single-tap cube sample at an integer mip over the quad-record
+    pyramid atlas (the reference's SampleLevel(maxMip) irradiance fetch)."""
+    rect, uv = _cube_face_rect(face_rect0, direction)
+    return _sample_cube_bilinear(env_quad_flat, atlas_width, rect, uv, level)
 
 
 def env_select_ref(env_tri_flat: torch.Tensor, env_rows: torch.Tensor, params9: torch.Tensor):

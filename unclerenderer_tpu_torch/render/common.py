@@ -6,7 +6,13 @@ taps on the per-map quad atlas; trilinear, bilinear and anisotropic filters
 with quad-derivative or forward-difference LOD; compact id space; fused
 resolve, where the raster kernels emit each pixel's resolve record).  The
 passes and their sub-scopes carry the reference's names as profiler ranges
-(``core/passes.py``)."""
+(``core/passes.py``).
+
+Two backends, as in the reference (``use_kernel_path``): the kernel path
+(the binned raster K1/K2 and the kernels K4-K9 under their flags), and
+``raster_backend="xla"``, the reference's XLA path: the exhaustive raster
+X1, plain draw-mask gathers, and no K4-K9 (the frames pack the per-texel
+f16 PCF table instead, ``ops/shadow.py pack_shadow9``)."""
 
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from ..ops.raster import (
     triangle_setup_any,
     viewport_homogeneous,
 )
-from ..ops.raster_kernels import BIG_TILE_H, merge_levels, rasterize_binned
+from ..ops.raster_kernels import BIG_TILE_H, merge_levels, rasterize_binned, rasterize_exhaustive
 from ..ops.shadow import hom_dot4
 from . import packing as PK
 from .params import DeviceScene, RenderSettings
@@ -84,9 +90,30 @@ def vertex_stage_soa(pos_soa, view_proj, width: int, height: int) -> VertexSoA:
     return VertexSoA(px=tuple(px), py=tuple(py), pw=tuple(pw), z=tuple(z))
 
 
-def tri_draw_masks(scene: DeviceScene, model_visible: torch.Tensor):
+def use_kernel_path(settings: RenderSettings) -> bool:
+    """Which backend a frame takes: the counterpart of the reference's
+    ``_use_pallas`` (``unclerenderer_tpu/render/common.py:161``).
+    ``raster_backend="xla"`` takes the reference's XLA path -- the
+    exhaustive raster X1, plain draw-mask gathers, the per-texel f16 PCF
+    table, and none of K1-K9 --, whose image differs from the kernel path's
+    at shadow edges (the PCF table's rounding) and at bin drops.
+    ``"pallas"`` and ``"auto"`` take the kernel path on either device (its
+    CPU runs are the kernels' plain versions); the reference's ``"auto"``
+    picks by JAX's backend instead, XLA on the CPU and Pallas elsewhere.
+    Any other value is refused by ``params.check_supported``."""
+    return settings.raster_backend != "xla"
+
+
+def tri_draw_masks(scene: DeviceScene, model_visible: torch.Tensor,
+                   settings: RenderSettings | None = None):
     """Per-triangle opaque / alpha-masked draw masks: the two per-model
-    flags gathered per triangle by K5 (``ops/texture.py gather_rows``)."""
+    flags gathered per triangle by K5 (``ops/texture.py gather_rows``), or
+    on the XLA path of ``settings`` (``use_kernel_path``) by two plain
+    gathers."""
+    if settings is not None and not use_kernel_path(settings):
+        tri_model = scene.tri_model.long()
+        vis, masked = model_visible[tri_model], scene.alpha_mode[tri_model] == 1
+        return vis & ~masked, vis & masked
     table = torch.stack([model_visible, scene.alpha_mode == 1], dim=-1).to(torch.bfloat16)
     got = tex.gather_rows(table, scene.tri_model) > 0.5
     vis, masked = got[..., 0], got[..., 1]
@@ -121,12 +148,12 @@ def shadow_compaction_cap(settings: RenderSettings, t_count: int) -> int:
 
 
 def use_fused_resolve(settings: RenderSettings) -> bool:
-    """Fused resolve (``fused_resolve="on"``): the raster kernels emit each
-    pixel's resolve record, which replaces the resolve's per-pixel record
-    gather.  The port has one raster implementation whatever
-    ``raster_backend`` says, so "on" alone decides; "auto" keeps it off, as
-    the reference does.  The frame is bit-equal either way."""
-    return settings.fused_resolve == "on"
+    """Fused resolve (``fused_resolve="on"`` on the kernel path): the raster
+    kernels emit each pixel's resolve record, which replaces the resolve's
+    per-pixel record gather.  "auto" keeps it off, as the reference does,
+    and so does the XLA path (the reference's ``:234``).  The frame is
+    bit-equal either way."""
+    return settings.fused_resolve == "on" and use_kernel_path(settings)
 
 
 def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
@@ -134,10 +161,21 @@ def _raster(setup, width, height, tile_h, tile_w, chunk, depth_mode, settings,
             big_tile=None, records=None, region=None):
     """``rasterize_binned`` at the settings' bin parameters (its fine K1
     level prints its live blocks under ``kernel_debug_print``); with
-    ``records`` it returns the record image fourth.  ``region`` (``_slab``)
-    rasterizes only a region of the ``height``-row image and crops the
-    slab out of it."""
+    ``records`` it returns the record image fourth.  Under
+    ``raster_backend="xla"`` the exhaustive raster X1 at the same tiles,
+    which drops nothing: its drop counters are 0 (the reference's XLA
+    branch of ``_dispatch_raster``).  ``region`` (``_slab``) rasterizes only
+    a region of the ``height``-row image and crops the slab out of it."""
     rows, y0, crop = region or (height, 0, None)
+    if not use_kernel_path(settings):  # records never come: use_fused_resolve is off
+        depth, tri_id = rasterize_exhaustive(setup, width, rows, tile_h=tile_h, tile_w=tile_w,
+                                             chunk=chunk, depth_mode=depth_mode, y_offset=y0,
+                                             want_ids=want_ids, ortho=ortho)
+        zero = torch.zeros((), dtype=torch.int32, device=setup.coef.device)
+        stats = {"pair_overflow": zero, "giant_truncated": zero}
+        if crop is None:
+            return depth, tri_id, stats
+        return depth[crop], None if tri_id is None else tri_id[crop], stats
     big = {} if big_tile is None else {"big_tile_h": big_tile[0], "big_tile_w": big_tile[1]}
     res = rasterize_binned(
         setup, width, rows, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
@@ -159,10 +197,12 @@ def _slab(height: int, dist, align: int = 1):
     """``(rows, first global row, crop)``: the region this rank rasterizes
     for its slab of a ``height``-row image, and the slice of the region's
     rows that is the slab.  The region is the slab widened to multiples of
-    ``align`` (every raster level's tile height), so that its tiles are the
-    whole image's and each of its pixels is rasterized as there: a sliver's
+    ``align`` (every raster level's tile height; the exhaustive raster's
+    one tile height on the XLA path), so that its tiles are the whole
+    image's and each of its pixels is rasterized as there: a sliver's
     edge functions can cover pixels past its bounding box, and the tile
-    holding the box's edge decides which of them are kept.  The whole image
+    holding the box's edge decides which of them are kept (the binned
+    levels and the exhaustive raster's box test alike).  The whole image
     and crop None without a sharded ``dist``."""
     if dist is None or dist.n_dev == 1:
         return height, 0, None
@@ -201,10 +241,11 @@ def raster_opaque(scene: DeviceScene, tri_mask, settings: RenderSettings, verts,
     records = build_resolve_records(scene, verts.pix9(), ids=cids) if fused else None
     h = settings.height
     tile_h, giant_h = min(settings.tile_h, h), min(settings.giant_tile_h, h)
+    align = math.lcm(tile_h, BIG_TILE_H, giant_h) if use_kernel_path(settings) else tile_h
     res = _raster(
         setup, settings.width, h, tile_h, settings.tile_w, settings.chunk, DEPTH_MAX, settings,
         giant_tile=(giant_h, settings.giant_tile_w), records=records,
-        region=_slab(h, dist, math.lcm(tile_h, BIG_TILE_H, giant_h)),
+        region=_slab(h, dist, align),
     )
     stats = dict(res[2])
     stats["compact_overflow"] = c_overflow
@@ -231,7 +272,9 @@ def raster_shadow(scene: DeviceScene, light_view_proj, tri_mask, settings: Rende
             setup, _ids, overflow = compact_setup(setup, cap)
     setup = normalize_ortho_setup(setup)
     tile_h, big_h = min(settings.shadow_tile_h, size), min(settings.shadow_big_tile_h, size)
-    region = _slab(size, dist, math.lcm(tile_h, big_h, settings.shadow_giant_tile_h))
+    align = (math.lcm(tile_h, big_h, settings.shadow_giant_tile_h) if use_kernel_path(settings)
+             else tile_h)
+    region = _slab(size, dist, align)
     depth, _, _stats = _raster(
         setup, size, size, tile_h, settings.shadow_tile_w,
         settings.shadow_chunk, DEPTH_MIN, settings, want_ids=False, ortho=True,
@@ -692,7 +735,7 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
     one centre tap, which equals its N coincident taps; pixels past the cap
     keep the centre tap and are counted."""
     n = settings.max_anisotropy
-    sk = settings.mat_select_kernel
+    sk = settings.mat_select_kernel and use_kernel_path(settings)
     lod, dmaj, extent = footprint
 
     def line_taps(rect, uv, lod, dmaj, extent):
@@ -863,8 +906,9 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         if settings.texture_filter == "bilinear":
             level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
             return _sample_level_any(quad_flat, atlas_width, rect0, suv, level)
-        return _sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod,
-                                     select_kernel=settings.mat_select_kernel)
+        return _sample_trilinear_any(
+            quad_flat, atlas_width, rect0, suv, lod,
+            select_kernel=settings.mat_select_kernel and use_kernel_path(settings))
 
     albedo = M(PK.M_BCF, 3) * v_color[..., :3]
     alpha = M(PK.M_ALPHA) * v_color[..., 3]

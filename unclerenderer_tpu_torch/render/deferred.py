@@ -1,15 +1,17 @@
 """The deferred frame (``unclerenderer_tpu/render/deferred.py``): culling ->
 shadow map -> visibility raster (opaque, then the alpha-masked models
 merged in; with fused resolve the raster kernels emit each pixel's resolve
-record) -> material resolve -> HZB -> lighting (GGX, superblock PCF, IBL)
--> sky -> TAA -> auto-exposure -> tonemap -> CAS -> the debug-print stats
-block, on one device or, with ``dist`` (``parallel/dist.py``), on this
-rank's row slab of a sharded frame (``parallel/multichip.py``).  The vertex
-stage is SoA or AoS (``soa_vertex``, ``common.frame_vertices``) and the
-shadow table u16 or f32 (``shadow_table_u16``), as the reference picks
-them.  Frames are carried as in the reference: ``deferred_frame(scene,
-params, state, settings, shadow_map=None, dist=None) -> (out,
-new_state)``; the Renderer passes the shadow map it caches."""
+record) -> material resolve -> HZB -> lighting (GGX, PCF, IBL) -> sky ->
+TAA -> auto-exposure -> tonemap -> CAS -> the debug-print stats block, on
+one device or, with ``dist`` (``parallel/dist.py``), on this rank's row
+slab of a sharded frame (``parallel/multichip.py``).  The vertex stage is
+SoA or AoS (``soa_vertex``, ``common.frame_vertices``), and the PCF table
+the superblock table, u16 or f32 (``shadow_table_u16``), on the kernel
+path or the per-texel f16 table under ``raster_backend="xla"``
+(``common.use_kernel_path``), as the reference picks them.  Frames are
+carried as in the reference: ``deferred_frame(scene, params, state,
+settings, shadow_map=None, dist=None) -> (out, new_state)``; the Renderer
+passes the shadow map it caches."""
 
 from __future__ import annotations
 
@@ -30,7 +32,13 @@ from ..ops.post import (
     temporal_aa,
     tonemap,
 )
-from ..ops.shadow import pack_shadow_blocks, pack_shadow_blocks_u16, shadow_factor_blocks
+from ..ops.shadow import (
+    pack_shadow9,
+    pack_shadow_blocks,
+    pack_shadow_blocks_u16,
+    shadow_factor_blocks,
+    shadow_factor_packed,
+)
 from ..ops.sky import apply_atmosphere, sky_view_directions
 from . import common
 from .params import DeviceScene, FrameParams, FrameState, RenderSettings, check_supported
@@ -53,11 +61,20 @@ def frustum_planes(view_proj):
 
 
 def pack_table(shadow_map, settings: RenderSettings):
-    """The superblock PCF table of a shadow map: u16 rows under
-    ``shadow_table_u16`` (the default), else f32."""
+    """The PCF table of a shadow map: on the kernel path the superblock
+    table, u16 rows under ``shadow_table_u16`` (the default), else f32;
+    under ``raster_backend="xla"`` the per-texel f16 table (S*S, 12)."""
+    if not common.use_kernel_path(settings):
+        return pack_shadow9(shadow_map).reshape(-1, 12)
     if settings.shadow_table_u16:
         return pack_shadow_blocks_u16(shadow_map)
     return pack_shadow_blocks(shadow_map)
+
+
+def shadow_receiver(settings: RenderSettings):
+    """The PCF receiver that reads ``pack_table``'s table: K4 on the
+    superblock rows, or one plain row gather on the per-texel table."""
+    return shadow_factor_blocks if common.use_kernel_path(settings) else shadow_factor_packed
 
 
 def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
@@ -102,12 +119,13 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
             model_visible = model_visible & ~occluded
 
     # --- 2. shadow map: casters are not camera-culled
-    opaque_mask, masked_mask = common.tri_draw_masks(scene, model_visible)
+    kernels = common.use_kernel_path(settings)
+    opaque_mask, masked_mask = common.tri_draw_masks(scene, model_visible, settings)
     shadow_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     shadow9 = None
     if settings.enable_shadows:
         if shadow_map is None:
-            cast_o, cast_m = common.tri_draw_masks(scene, params.model_visible)
+            cast_o, cast_m = common.tri_draw_masks(scene, params.model_visible, settings)
             shadow_map, shadow_overflow = common.raster_shadow(
                 scene, params.light_view_proj, cast_o | cast_m, settings, dist)
         with scope("ShadowPack"):
@@ -140,10 +158,10 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
         # each slab compacts its own pixels
         raster_stats["aniso_tap_overflow"] = dist.psum(g["aniso_tap_overflow"])
 
-    # --- 6. HZB for next frame, from the whole frame's depth (hzb_pallas_tail:
-    # levels past the first two by K6)
+    # --- 6. HZB for next frame, from the whole frame's depth (hzb_pallas_tail,
+    # on the kernel path: levels past the first two by K6)
     new_hzb = (build_hzb(dist.all_gather_rows(depth), layout,
-                         pallas_tail=settings.hzb_pallas_tail)
+                         pallas_tail=settings.hzb_pallas_tail and kernels)
                if settings.enable_hzb else state.hzb)
 
     # --- 7. lighting (view space)
@@ -156,9 +174,9 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     f0 = 0.04 + (g["albedo"] - 0.04) * g["metallic"][..., None]
 
     if settings.enable_shadows:
-        shadow = shadow_factor_blocks(shadow9, settings.shadow_map_size, g["world_pos"],
-                                      params.light_view_proj, params.shadow_strength,
-                                      params.shadow_bias)
+        shadow = shadow_receiver(settings)(shadow9, settings.shadow_map_size, g["world_pos"],
+                                           params.light_view_proj, params.shadow_strength,
+                                           params.shadow_bias)
     else:
         shadow = torch.ones_like(g["metallic"])
 
@@ -173,9 +191,10 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
         env_flat = scene.env_quad.reshape(-1, scene.env_quad.shape[-1])
         env_w = scene.env_quad.shape[1]
 
-        # K7 decodes the packed env rows; env_matmul_gather takes precedence
-        # (the reference's order), and only changes how the row is gathered
-        env_kernel = settings.env_select_kernel and not settings.env_matmul_gather
+        # K7 decodes the packed env rows on the kernel path; env_matmul_gather
+        # takes precedence (the reference's order), and only changes how the
+        # row is gathered
+        env_kernel = settings.env_select_kernel and not settings.env_matmul_gather and kernels
 
         def env_sample(direction, lod):
             return tex.sample_cube_pyramid_tri(env_flat, env_w, scene.env_rect0, direction,

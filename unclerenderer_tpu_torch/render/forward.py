@@ -8,9 +8,11 @@ state; the stats block is the deferred frame's alone.
 
 The vertex stage, visibility raster, masked raster, fused resolve, material
 resolve and shadow table are the deferred frame's (``render/common.py``,
-``render/deferred.py pack_table``): K1, K2/K3 (with records under
-``fused_resolve="on"``), K4 (u16 or f32 rows) through the forward PCF blend,
-K5, and K7 and K8 under their flags.
+``render/deferred.py pack_table``): on the kernel path K1, K2/K3 (with
+records under ``fused_resolve="on"``), K4 (u16 or f32 rows) through the
+forward PCF blend, K5, and K7 and K8 under their flags; under
+``raster_backend="xla"`` the exhaustive raster X1, the per-texel f16 PCF
+table and plain gathers.
 """
 
 from __future__ import annotations
@@ -19,10 +21,9 @@ import torch
 
 from ..ops import pbr
 from ..ops import texture as tex
-from ..ops.shadow import shadow_factor_blocks
 from ..ops.sky import apply_atmosphere, sky_view_directions
 from . import common
-from .deferred import pack_table
+from .deferred import pack_table, shadow_receiver
 from .params import DeviceScene, FrameParams, RenderSettings, check_supported
 
 
@@ -39,7 +40,8 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
 
     verts = common.frame_vertices(scene, params.view_proj, width, height, settings)
     pix9 = verts.pix9()
-    opaque_mask, masked_mask = common.tri_draw_masks(scene, params.model_visible)
+    kernels = common.use_kernel_path(settings)
+    opaque_mask, masked_mask = common.tri_draw_masks(scene, params.model_visible, settings)
     depth, tri_id, raster_stats, attr, compact_ids = common.raster_opaque(
         scene, opaque_mask, settings, verts, fused=common.use_fused_resolve(settings))
     if settings.has_masked_models:
@@ -67,9 +69,9 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
     f0 = 0.04 + (g["albedo"] - 0.04) * g["metallic"][..., None]  # lerp(0.04, albedo, metallic)
 
     if settings.enable_shadows:
-        shadow = shadow_factor_blocks(shadow9, settings.shadow_map_size, g["world_pos"],
-                                      params.light_view_proj, params.shadow_strength,
-                                      params.shadow_bias, pcf="forward")
+        shadow = shadow_receiver(settings)(shadow9, settings.shadow_map_size, g["world_pos"],
+                                           params.light_view_proj, params.shadow_strength,
+                                           params.shadow_bias, pcf="forward")
     else:
         shadow = torch.ones_like(g["metallic"])
 
@@ -82,11 +84,13 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
         env_flat = scene.env_quad.reshape(-1, scene.env_quad.shape[-1])
         env_w = scene.env_quad.shape[1]
 
-        # K7 decodes the packed env rows (the forward frame has no
-        # env_matmul_gather branch in the reference)
+        # K7 decodes the packed env rows on the kernel path (the forward
+        # frame has no env_matmul_gather branch in the reference)
+        env_kernel = settings.env_select_kernel and kernels
+
         def env_sample(direction, lod):
             return tex.sample_cube_pyramid_tri(env_flat, env_w, scene.env_rect0, direction,
-                                               lod, select_kernel=settings.env_select_kernel)[..., :3]
+                                               lod, select_kernel=env_kernel)[..., :3]
 
         def env_sample_level(direction, level):
             del level  # always the last mip: its texels live in env_tail

@@ -107,7 +107,7 @@ def profile_deferred_passes(renderer, iterations: int = 3) -> PassTimingStats:
     visible = timed("GPU Culling", lambda: frustum_cull(scene.bounds_min, scene.bounds_max,
                                                         frustum_planes(vp)))
     model_visible = params.model_visible & visible
-    opaque_mask, masked_mask = common.tri_draw_masks(scene, model_visible)
+    opaque_mask, masked_mask = common.tri_draw_masks(scene, model_visible, settings)
     if settings.enable_shadows:
         timed("ShadowMap", lambda: common.raster_shadow(scene, params.light_view_proj,
                                                         opaque_mask | masked_mask, settings))

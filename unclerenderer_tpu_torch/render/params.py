@@ -3,10 +3,16 @@
 * RenderSettings: static pipeline configuration.  Every field name and
   default of the reference is kept (a test checks them).  Fields that only
   chose between TPU implementations with identical output
-  (``raster_backend``, ``pallas_interpret``, ``bin_align_scatter``,
-  ``compact_mode``, ``env_matmul_gather``) are accepted and the port runs
-  its one implementation.  The four kernel flags launch their kernel, as
-  on the reference's Pallas path: ``hzb_pallas_tail`` K6,
+  (``pallas_interpret``, ``bin_align_scatter``, ``compact_mode``,
+  ``env_matmul_gather``) are accepted and the port runs its one
+  implementation.  ``raster_backend`` picks a different image:
+  ``"xla"`` runs the reference's XLA path (the exhaustive raster X1, the
+  per-texel f16 PCF table, plain gathers, none of K1-K9), whose PCF
+  differs at shadow edges and which drops nothing at a bin budget;
+  ``"pallas"`` and ``"auto"`` run the kernel path on either device
+  (``render/common.py use_kernel_path``; the reference's ``"auto"`` is
+  its XLA path on the CPU).  The four kernel flags launch their kernel on
+  the kernel path, as on the reference's Pallas path: ``hzb_pallas_tail`` K6,
   ``env_select_kernel`` K7 (not under ``env_matmul_gather``: the
   reference's precedence), ``mat_select_kernel`` K8 (packed-trilinear
   atlas) and ``bin_mat_idx`` K9.  ``fused_resolve="on"`` makes K1 and K2
@@ -17,8 +23,8 @@
   ``lod_derivatives="forward"`` (forward-difference LOD), ``soa_vertex=False``
   (the AoS vertex stage) and ``shadow_table_u16=False`` (the f32 PCF table,
   K4 on f32 rows); ``kernel_debug_print`` makes K1 print its live blocks.
-  Every field's branch runs; ``check_supported`` refuses only unknown
-  values.
+  Every field's branch runs; ``check_supported`` refuses unknown values
+  of ``texture_filter`` and ``raster_backend``.
 * FrameParams / DeviceScene / FrameState: dataclasses of tensors, all on one
   explicit device; ``upload_scene`` puts a scene's host arrays there
   (bfloat16 carried as uint16 bits, ``bf16_bits``).
@@ -116,6 +122,8 @@ def check_supported(settings: RenderSettings) -> None:
     computing something else."""
     if settings.texture_filter not in ("trilinear", "bilinear", "anisotropic"):
         raise ValueError(f"unknown texture_filter {settings.texture_filter!r}")
+    if settings.raster_backend not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown raster_backend {settings.raster_backend!r}")
 
 
 @dataclasses.dataclass

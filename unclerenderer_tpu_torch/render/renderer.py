@@ -577,7 +577,8 @@ class Renderer:
         key = (tuple(m.light_vector_from_scene_direction(self.light.direction).tolist()),
                tuple(np.asarray(self.scene_data.visible_mask).tolist()))
         if self._shadow_cache is None or key != self._shadow_key:
-            opaque, masked = common.tri_draw_masks(self.device_scene, params.model_visible)
+            opaque, masked = common.tri_draw_masks(self.device_scene, params.model_visible,
+                                                   self.settings)
             self._shadow_cache, overflow = common.raster_shadow(
                 self.device_scene, params.light_view_proj, opaque | masked, self.settings)
             self._shadow_overflow = int(overflow)

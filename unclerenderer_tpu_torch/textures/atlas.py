@@ -9,16 +9,36 @@ gathers (``ops/texture.py``).  The reference's layouts and numbers exactly:
 * ``build_pyramid_tri_atlas`` -- the packed-trilinear rows: the quad plus
   the 3x3 parent neighbourhood at the next mip (16C lanes), and with
   ``cube=True`` seamless cube faces whose borders hold the neighbouring
-  faces' texels (32C lanes).
+  faces' texels (32C lanes);
+* ``build_atlas`` -- the shelf atlas (``TextureAtlas``): every (texture,
+  mip) rectangle packed by height into one array, with a per-texture table
+  of mip rectangles whose entries past the chain repeat its last mip.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 
 import numpy as np
 
 _log = logging.getLogger(__name__)
+
+MAX_MIPS = 14  # mip table entries a texture: chains up to 8192
+
+
+@dataclasses.dataclass
+class TextureAtlas:
+    data: np.ndarray = None          # (H, W, C) float32 linear
+    mip_x: np.ndarray = None         # (n_tex, MAX_MIPS) int32
+    mip_y: np.ndarray = None         # (n_tex, MAX_MIPS) int32
+    mip_w: np.ndarray = None         # (n_tex, MAX_MIPS) int32
+    mip_h: np.ndarray = None         # (n_tex, MAX_MIPS) int32
+    mip_count: np.ndarray = None     # (n_tex,) int32
+
+    @property
+    def num_textures(self) -> int:
+        return 0 if self.mip_x is None else int(self.mip_x.shape[0])
 
 
 class _ShelfPacker:
@@ -43,6 +63,58 @@ class _ShelfPacker:
 
 def _round_up(v: int, m: int) -> int:
     return ((v + m - 1) // m) * m
+
+
+def build_atlas(texture_mips: list[list[np.ndarray]], pad: int = 0) -> TextureAtlas:
+    """Pack mip chains (each a list of (h, w, C) float32 arrays) into one
+    shelf atlas: rectangles sorted by height then width (descending), a
+    power-of-two width of at least 128 and the widest mip, doubled while
+    its square is under 1.3x the rectangles' area (up to 16384), the
+    height rounded up to 8 rows.  The LOD clamp is baked into the mip
+    table: entries past a chain repeat its last mip."""
+    n = len(texture_mips)
+    atlas = TextureAtlas(
+        mip_x=np.zeros((n, MAX_MIPS), np.int32),
+        mip_y=np.zeros((n, MAX_MIPS), np.int32),
+        mip_w=np.ones((n, MAX_MIPS), np.int32),
+        mip_h=np.ones((n, MAX_MIPS), np.int32),
+        mip_count=np.zeros(n, np.int32),
+    )
+    if n == 0:
+        atlas.data = np.zeros((8, 128, 4), np.float32)
+        return atlas
+
+    rects = []  # (h, w, texture, mip), tallest first
+    for t, mips in enumerate(texture_mips):
+        atlas.mip_count[t] = len(mips)
+        for lv, img in enumerate(mips):
+            rects.append((img.shape[0], img.shape[1], t, lv))
+    rects.sort(key=lambda r: (-r[0], -r[1]))
+
+    total_area = sum(r[0] * r[1] for r in rects)
+    width = 1 << int(np.ceil(np.log2(max(128, max(r[1] for r in rects)))))
+    while width * width < total_area * 1.3 and width < 16384:
+        width *= 2
+
+    packer = _ShelfPacker(width)
+    places = {(t, lv): packer.place(w + pad, h + pad) for h, w, t, lv in rects}
+
+    channels = texture_mips[0][0].shape[-1]
+    data = np.zeros((_round_up(max(packer.height, 8), 8), width, channels), np.float32)
+    for t, mips in enumerate(texture_mips):
+        for lv, img in enumerate(mips):
+            x, y = places[(t, lv)]
+            h, w = img.shape[:2]
+            data[y:y + h, x:x + w] = img
+            atlas.mip_x[t, lv], atlas.mip_y[t, lv] = x, y
+            atlas.mip_w[t, lv], atlas.mip_h[t, lv] = w, h
+        last = len(mips) - 1
+        for table in (atlas.mip_x, atlas.mip_y, atlas.mip_w, atlas.mip_h):
+            table[t, len(mips):] = table[t, last]
+    atlas.data = data
+    _log.info(f"texture atlas: {n} textures, {len(rects)} mips packed into "
+              f"{width}x{data.shape[0]} ({data.nbytes / 1e6:.1f} MB f32)")
+    return atlas
 
 
 # Seamless cube-face borders: a border texel's centre direction (u/v
