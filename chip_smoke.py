@@ -206,16 +206,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    this is no speed claim).
 14. xla    -- (on phase 7's files) X1 bit-equal to its plain version on the
    256^2 random setups (ids on and off, perspective and ortho, both depth
-   modes, y_offset 0 and 48, tiles 16x64, 32x128, 24x36), and on 64-row
-   windows of the headline tables -- camera rows 512-575 of 1080p, map rows
-   2048-2111 of 4096^2 -- (timed as the other kernels; each window also
-   equal to the whole image's rows), the whole images' two launches timed
-   with their bound; the binned rasters (K1/K2, the kernel path) against X1
-   on the same setups, their differing depth and id pixels logged by class
-   (not gated); the xla Renderer at 1080p with the 4096^2 map: 10 counted
-   ``render_frame`` calls (only X1 launched, 11 times: the first frame also
-   renders the cached map), drop counters 0, then 3 forward frames the same
-   way; the PCF tables' bytes; ms/frame and peak GiB in turns with the
+   modes, y_offset 0 and 48, tiles 16x64, 32x128, 24x36), on the whole
+   images of the headline tables -- the 1080p camera and the 4096^2 map --
+   (timed as the other kernels, with their bound; the mask and tile
+   kernels' device ms apart, by the profiler; the masks' bytes), and on
+   64-row windows of them -- camera rows 512-575, map rows 2048-2111 --
+   (each window also equal to the whole image's rows); the binned rasters
+   (K1/K2, the kernel path) against X1 on the same setups, their differing
+   depth and id pixels logged by class and gated at 0; the xla Renderer at
+   1080p with the 4096^2 map: 10 counted ``render_frame`` calls (only X1
+   launched, 11 times: the first frame also renders the cached map), drop
+   counters 0, then 3 forward frames the same way; the PCF tables' bytes; ms/frame and peak GiB in turns with the
    default Renderer (3 runs of 10 frames each); card/CPU frames at 128^2,
    deferred (2 carried) and forward, depth, ids and counters bit-equal,
    colour within 1e-3, only X1 launched.
@@ -233,8 +234,9 @@ The kernels JSON gives each kernel's ``launches`` on its path's counted run
 sampling path's; ``binned_raster_debug``: the debug child's frame, whose
 ``ms`` and ``plain_ms`` are its launches' and ``no_debug_ms`` the same
 launches without the flag; ``exhaustive_raster``: the xla Renderer's, whose
-``ms``, ``graph_ms``, ``plain_ms`` and ``bound_ms`` are the two windows' and
-``frame_ms``, ``frame_graph_ms``, ``frame_bound_ms`` the whole images'),
+``ms``, ``graph_ms``, ``plain_ms`` and ``bound_ms`` are the whole camera and
+map images', and ``mask_ms``, ``tile_ms`` its two kernels' device ms in
+them, ``mask_bytes`` their masks'),
 ``renderer_launches`` on
 the Renderer's, ``forward_renderer_launches`` on the forward Renderer's,
 ``viewer_launches`` on the viewer's 10 frames and ``multichip_launches``
@@ -436,30 +438,11 @@ def work_merge(a, b, ka, kb):
     return nbytes(a, b, ka, kb, a), 0
 
 
-X1_RECT = (8, 32)  # csrc/exhaustive_raster.cu: a warp's rectangle (rows, columns)
-X1_PIX = 8  # pixels a thread
+# the warp skip that X1's bound counts: K2's rectangle (rows, columns) and pixels a thread
+# (the image's need, not X1's design: csrc/exhaustive_raster.cu's warps are smaller)
+X1_RECT = (8, 32)
+X1_PIX = 8
 BOX_OPS = 4  # a box test of a (row, tile): four compares
-
-
-def box_pairs(setup, width, height, tile_h, tile_w, y_offset=0.0):
-    """The (row, tile) pairs whose box test X1 passes: every valid row with a
-    finite box against the tiles its box overlaps.  Box and tile edges are
-    integers, so the tile range of a row is exact.  Returns (rows, tiles)."""
-    rows = torch.nonzero(setup.valid & torch.isfinite(setup.bbox).all(0)).flatten()
-    b = setup.bbox[:, rows].double()
-    n_tx, n_ty = -(-width // tile_w), -(-height // tile_h)
-    x_lo = torch.ceil((b[0] - (tile_w - 1)) / tile_w).clamp(min=0)
-    x_hi = torch.floor(b[2] / tile_w).clamp(max=n_tx - 1)
-    y_lo = torch.ceil((b[1] - y_offset - (tile_h - 1)) / tile_h).clamp(min=0)
-    y_hi = torch.floor((b[3] - y_offset) / tile_h).clamp(max=n_ty - 1)
-    nx = (x_hi - x_lo + 1).clamp(min=0).long()
-    n = nx * (y_hi - y_lo + 1).clamp(min=0).long()
-    k = torch.arange(int(n.sum()), device=rows.device) - torch.repeat_interleave(
-        torch.cumsum(n, 0) - n, n)
-    nxr = torch.repeat_interleave(nx, n)
-    tx = torch.repeat_interleave(x_lo.long(), n) + k % nxr
-    ty = torch.repeat_interleave(y_lo.long(), n) + k // nxr
-    return torch.repeat_interleave(rows, n), ty * n_tx + tx
 
 
 def work_exhaustive(setup, width, height, tile_h=32, tile_w=64, chunk=128, depth_mode=0,
@@ -470,10 +453,11 @@ def work_exhaustive(setup, width, height, tile_h=32, tile_w=64, chunk=128, depth
     (row, tile) pair (``box_pairs`` finds them from each row's tile range),
     a corner test (EDGE_OPS) per (warp rectangle, live pair) and the edge
     tests of the (pixel, row) pairs that the warp skip keeps
-    (raster_common.cuh's rule, as ``sweeps.raster.warp_rows``).  X1's own
-    box test of every (tile, valid row) pair is its design's cost, outside
-    the bound.  Live pairs: pixels x rows past the box test."""
+    (raster_common.cuh's rule, as ``sweeps.raster.warp_rows``).  X1's row
+    masks and per-tile scans are its design's cost, outside the bound.
+    Live pairs: pixels x rows past the box test."""
     from unclerenderer_tpu_torch.ops.fma import fma
+    from unclerenderer_tpu_torch.sweeps.exhaustive import box_pairs
     from unclerenderer_tpu_torch.sweeps.raster import centre
 
     rows, tiles = box_pairs(setup, width, height, tile_h, tile_w, y_offset)
@@ -530,6 +514,29 @@ def call_belongs(name, args, kwargs) -> bool:
     if name in ("shadow_select9", "shadow_select9_f32"):
         return (args[0].dtype == torch.float32) == name.endswith("_f32")
     return (kwargs.get("records") is not None) == name.endswith("_attrs")
+
+
+def kernel_device_ms(fn, reps=10, attempts=5):
+    """Device ms a call of ``fn``, by device kernel name: ``torch.profiler``
+    over ``reps`` eager calls after a warm-up.  A trace with no device event
+    (the profiler drops one now and then) is taken again; none in
+    ``attempts`` fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        if per:
+            return per
+    check(False, f"the profiler recorded no device event in {attempts} traces")
 
 
 class Recorder:
@@ -2615,34 +2622,47 @@ def main() -> int:
             torch.cuda.synchronize()
         check(len(rx.calls) == 2 and len(rr.calls) == 2, "a deferred frame makes two X1 calls")
 
-        # (a) windows of the full-size tables against the plain version; the
-        # whole images timed with their bounds
+        # (a) the whole images against the plain version (bit-equal), timed with
+        # their bounds; the mask and tile kernels' device ms apart; 64-row windows
+        # against the plain version and against the images' rows
         rep["frame"] = {}
+        x1 = kernels["exhaustive_raster"]
         for (ca, ck), label, y0 in zip(rx.calls, ("shadow", "camera"), (2048, 512)):
             check((ck["depth_mode"] == DEPTH_MIN) == (label == "shadow"), "call order")
+            measure("exhaustive_raster", ca, ck)
+            call = x1["calls"][-1]
             wa, wk = (ca[0], ca[1], 64), dict(ck, y_offset=float(y0))
-            measure("exhaustive_raster", wa, wk)
-            full = rk.rasterize_exhaustive(*ca, **ck)
+            versus_plain("exhaustive_raster", *wa, **wk)
+            *full, masks = rk.rasterize_exhaustive(*ca, **ck, want_masks=True)
             win = rk.rasterize_exhaustive(*wa, **wk)
             check(all(a is None and b is None or torch.equal(a[y0:y0 + 64], b)
                       for a, b in zip(full, win)), f"{label} window != the image's rows")
-            ms = cuda_ms(lambda: rk.rasterize_exhaustive(*ca, **ck), reps=10)
-            g_ms = graph_ms(lambda: rk.rasterize_exhaustive(*ca, **ck), reps=5)
+            split = kernel_device_ms(lambda: rk.rasterize_exhaustive(*ca, **ck))
+            mask_ms = sum(v for n, v in split.items() if "exhaustive_masks" in n)
+            tile_ms = sum(v for n, v in split.items() if "exhaustive_raster_kernel" in n)
+            check(mask_ms > 0 and tile_ms > 0 and len(split) == 2,
+                  f"X1 {label}: device kernels {split}, expected its mask and tile kernels")
             moved, ops, pairs, kept = work_exhaustive(*ca, **ck)
-            b_s, o_s = moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-            rep["frame"][label] = {"ms": ms, "graph_ms": g_ms, "bound_ms": 1e3 * max(b_s, o_s),
-                                   "bound_by": "bytes" if b_s >= o_s else "operations",
+            rows = int(ca[0].coef.shape[0])
+            rep["frame"][label] = {"ms": call["ms"], "graph_ms": call["graph_ms"],
+                                   "plain_ms": call["plain_ms"], "bound_ms": call["bound_ms"],
+                                   "bound_by": call["bound_by"], "mask_ms": mask_ms,
+                                   "tile_ms": tile_ms, "mask_bytes": masks.nbytes,
                                    "bytes": moved, "ops": ops, "pairs": pairs, "kept": kept,
-                                   "rows": int(ca[0].coef.shape[0]),
-                                   "valid_rows": int(ca[0].valid.sum())}
-            log("xla", f"X1 {label} {ca[1]}x{ca[2]} over {ca[0].coef.shape[0]} rows "
-                       f"({int(ca[0].valid.sum())} valid): window rows {y0}-{y0 + 63} bit-equal "
-                       f"to plain and to the image's rows; the image eager {ms:.4f} ms, graph "
-                       f"{g_ms:.4f} ms, bound {1e3 * max(b_s, o_s):.4f} ms ({moved} B, {ops} ops; "
-                       f"{pairs} live (pixel, row) pairs, {kept} kept by the warp skip) (on {smi})")
-        x1 = kernels["exhaustive_raster"]
+                                   "rows": rows, "valid_rows": int(ca[0].valid.sum())}
+            log("xla", f"X1 {label} {ca[1]}x{ca[2]} over {rows} rows ({int(ca[0].valid.sum())} "
+                       f"valid): the whole image bit-equal to plain (plain {call['plain_ms']:.1f} "
+                       f"ms), window rows {y0}-{y0 + 63} bit-equal to plain and to the image's "
+                       f"rows; the image eager {call['ms']:.4f} ms, graph {call['graph_ms']:.4f} "
+                       f"ms, bound {call['bound_ms']:.4f} ms ({moved} B, {ops} ops; {pairs} live "
+                       f"(pixel, row) pairs, {kept} kept by the warp skip), "
+                       f"{100 * call['bound_ms'] / call['graph_ms']:.2f}% of it; device ms "
+                       f"(profiler, eager): mask kernel {mask_ms:.4f}, tile kernel {tile_ms:.4f}; "
+                       f"masks {tuple(masks.shape)} {masks.nbytes} B (on {smi})")
+            del full, masks, win
         x1["frame"] = {k: sum(v[k] for v in rep["frame"].values())
-                       for k in ("ms", "graph_ms", "bound_ms")}
+                       for k in ("ms", "graph_ms", "bound_ms", "mask_ms", "tile_ms",
+                                 "mask_bytes")}
 
         # (b) the binned rasters (kernel path) against X1 on the same setups
         rep["binned_vs_x1"] = {}
@@ -2661,10 +2681,12 @@ def main() -> int:
                        past_box=past_box(setup, b[1], differ, th, tw, 0.0))
             row["other"] = row["pixels"] - row["past_box"]
             rep["binned_vs_x1"][label] = row
+            check(row["pixels"] == 0 and row["depth_pixels"] == 0,
+                  f"binned (K1/K2) vs X1, {label}: {row} differing pixels")
             log("xla", f"binned (K1/K2) vs X1, {label} {ra[1]}x{ra[2]}: {row} -- past_box: the "
                        f"binned winner's box misses the pixel's {th}x{tw} tile (a sliver's coverage "
                        f"past its box that a coarser bin level's tile keeps); other: any other "
-                       f"(not gated; on {smi})")
+                       f"(gated at 0 pixels; on {smi})")
 
         # forward frames on the same Renderer (its settings change drops the cached map)
         r.update_settings(renderer_type="forward")
@@ -2780,9 +2802,9 @@ def main() -> int:
          "multichip_launches": report["multichip"]["full"]["per_rank"][1]["launches"][n],
          **({"no_records_ms": k["no_records_ms"]} if n in attr_kernels else {}),
          **({"no_debug_ms": k["no_debug_ms"]} if n == "binned_raster_debug" else {}),
-         # X1's line times the checked windows; the whole frame's two launches apart
-         **({"frame_ms": k["frame"]["ms"], "frame_graph_ms": k["frame"]["graph_ms"],
-             "frame_bound_ms": k["frame"]["bound_ms"], "tpu_kernel": False}
+         # X1's line times the whole map and camera images; its two kernels apart
+         **({"mask_ms": k["frame"]["mask_ms"], "tile_ms": k["frame"]["tile_ms"],
+             "mask_bytes": k["frame"]["mask_bytes"], "tpu_kernel": False}
             if n == "exhaustive_raster" else {})}
         for n, k in kernels.items()]}))
     print(smi)

@@ -19,6 +19,7 @@ from unclerenderer_tpu_torch.ops.raster import (
     normalize_ortho_setup,
     triangle_setup_from_components,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 SIZE = 128  # image width and height
 

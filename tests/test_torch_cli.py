@@ -30,6 +30,7 @@ from unclerenderer_tpu_torch.render.params import RenderSettings
 from unclerenderer_tpu_torch.render.renderer import Renderer
 from unclerenderer_tpu_torch.render.testing import write_scene
 from unclerenderer_tpu_torch.textures.png import load_png
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 ROOT = Path(__file__).resolve().parents[1]
 SIZE = 64

@@ -116,26 +116,81 @@ def test_giant_raster_fitted_chunks_bit_equal(cuda_device, chunk, want_ids, ids)
     assert _cuda.LAUNCHES["giant_raster"] == before + 1
 
 
-@pytest.mark.parametrize("seed,n,size", [(0, 150, 0.04), (3, 40, 0.6), (5, 2000, 0.04)])
+def _x1_setup(case, n, seed, size, dev):
+    """X1's test tables: (setup, width, height).  ``random``: the random
+    triangles on a 256 x 200 image; ``ground``: with a ground plane (two
+    rows whose boxes span every band and column) in the middle of the
+    table; ``empty_band``: every triangle above row 96 and below row 160,
+    so the bands between hold no row; ``map``: a 4096-row-tall map's tile
+    grid at small T."""
+    if case == "map":
+        return _setup(n, seed, size, dev, w=4096, h=4096), 4096, 4096
+    s = _setup(n, seed, size, dev, w=256, h=200)
+    if case == "ground":  # two triangles past every edge of the image
+        px = torch.tensor([[-1e3, 3e3, -1e3], [3e3, 3e3, -1e3]], device=dev)
+        py = torch.tensor([[-1e3, -1e3, 3e3], [-1e3, 3e3, 3e3]], device=dev)
+        one, z = torch.ones(2, device=dev), torch.full((2,), 0.95, device=dev)
+        g = triangle_setup_from_components(
+            px[:, 0], py[:, 0], one, px[:, 1], py[:, 1], one, px[:, 2], py[:, 2], one, z, z, z,
+            torch.ones(2, dtype=torch.bool, device=dev), CULL_NONE, 256, 200)
+        half = n // 2
+        s = type(s)(coef=torch.cat([s.coef[:half], g.coef, s.coef[half:]]),
+                    valid=torch.cat([s.valid[:half], g.valid, s.valid[half:]]),
+                    bbox=torch.cat([s.bbox[:, :half], g.bbox, s.bbox[:, half:]], 1))
+        assert bool(((s.bbox[1] <= 0) & (s.bbox[3] >= 199) & (s.bbox[0] <= 0)
+                     & (s.bbox[2] >= 255)).any())
+    if case == "empty_band":
+        keep = (s.bbox[3] < 96) | (s.bbox[1] > 160)
+        s = type(s)(coef=s.coef[keep].contiguous(), valid=s.valid[keep],
+                    bbox=s.bbox[:, keep].contiguous())
+    return s, 256, 200
+
+
+X1_CASES = [("random", 0, 150, 0.04), ("random", 3, 40, 0.6), ("random", 5, 2000, 0.04),
+            ("ground", 1, 600, 0.04), ("empty_band", 4, 700, 0.04), ("map", 6, 300, 0.02)]
+
+
+@pytest.mark.parametrize("case,seed,n,size", X1_CASES)
 @pytest.mark.parametrize("depth_mode", [0, 1])
 @pytest.mark.parametrize("want_ids,ortho", [(True, False), (False, False), (False, True)])
 @pytest.mark.parametrize("tile,y_offset", [((16, 64), 0.0), ((32, 128), 48.0), ((24, 36), 0.0),
                                            ((6, 10), 48.0)])
-def test_exhaustive_raster_kernel_bit_equal(cuda_device, seed, n, size, depth_mode, want_ids,
-                                            ortho, tile, y_offset):
+def test_exhaustive_raster_kernel_bit_equal(cuda_device, case, seed, n, size, depth_mode,
+                                            want_ids, ortho, tile, y_offset):
     """X1 against its plain version (``ops/raster.py rasterize``) on the
-    random setups, both depth modes, ids on and off, ortho-normalized,
-    the frame's tiles and partial warp rectangles, and a row offset; one
-    launch a call."""
-    s = _setup(n, seed, size, cuda_device)
+    random setups, a ground plane spanning every band, an empty band and a
+    4096-row-tall map grid, both depth modes, ids on and off,
+    ortho-normalized, the frame's tiles and partial warp rectangles, and a
+    row offset; one wrapper call (the mask and tile launches) a call."""
+    s, w, h = _x1_setup(case, n, seed, size, cuda_device)
     if ortho:
         s = normalize_ortho_setup(s)
     kw = dict(tile_h=tile[0], tile_w=tile[1], depth_mode=depth_mode, y_offset=y_offset,
               want_ids=want_ids, ortho=ortho)
     before = _cuda.LAUNCHES["exhaustive_raster"]
-    got = rk.rasterize_exhaustive(s, 256, 200, **kw)
+    got = rk.rasterize_exhaustive(s, w, h, **kw)
     assert _cuda.LAUNCHES["exhaustive_raster"] == before + 1
-    _same(got, rasterize(s, 256, 200, chunk=64, **kw))
+    _same(got, rasterize(s, w, h, chunk=64, **kw))
+
+
+@pytest.mark.parametrize("case,seed,n,size", X1_CASES + [("random", 7, 77, 0.1),
+                                                          ("random", 8, 0, 0.1)])
+@pytest.mark.parametrize("tile,y_offset", [((16, 64), 0.0), ((32, 128), 37.25), ((6, 10), 48.0)])
+def test_exhaustive_raster_masks_equal_plain(cuda_device, case, seed, n, size, tile, y_offset):
+    """The kernel's band and column masks (its scratch) equal
+    ``band_masks_plain`` and ``column_masks_plain`` word for word (T of no
+    multiple of 32 and T = 0 included), and the kernel launches exactly
+    its mask and tile kernels."""
+    s, w, h = _x1_setup(case, n, seed, size, cuda_device)
+    got = []
+    names = _kernels_launched(lambda: got.append(rk.rasterize_exhaustive(
+        s, w, h, tile_h=tile[0], tile_w=tile[1], y_offset=y_offset, want_masks=True)))
+    want = torch.cat([rk.band_masks_plain(s, h, tile[0], y_offset),
+                      rk.column_masks_plain(s, w, tile[1])])
+    assert torch.equal(got[0][2], want)
+    want_names = ["exhaustive_masks", "exhaustive_raster_kernel"][0 if n else 1:]
+    assert len(names) == len(want_names) and all(
+        k in x for k, x in zip(want_names, names)), names
 
 
 def test_rasterize_binned_kernels_match_plain(cuda_device):

@@ -25,6 +25,7 @@ from unclerenderer_tpu_torch.ops import raster as tr
 from unclerenderer_tpu_torch.ops import raster_kernels as rk
 from unclerenderer_tpu_torch.render.deferred import deferred_frame
 from unclerenderer_tpu_torch.render.params import DeviceScene, FrameParams, FrameState, RenderSettings
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 PREFIX = "binned raster: block "
 

@@ -30,6 +30,7 @@ from unclerenderer_tpu.render.testing import synthetic_frame_params as j_frame_p
 from unclerenderer_tpu_torch import interop
 from unclerenderer_tpu_torch.render.deferred import deferred_frame
 from unclerenderer_tpu_torch.render.params import DeviceScene, FrameParams, FrameState, RenderSettings
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 SIZE = 128
 EXACT = ("depth", "tri_id", "object_id", "model_visible", "frustum_culled", "hzb_occluded")

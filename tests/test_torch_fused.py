@@ -43,6 +43,7 @@ from unclerenderer_tpu_torch.ops.binning import bin_triangles
 from unclerenderer_tpu_torch.render import common as tcommon
 from unclerenderer_tpu_torch.render.deferred import deferred_frame
 from unclerenderer_tpu_torch.render.params import DeviceScene, FrameParams, FrameState, RenderSettings
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 SIZE = 128
 EXACT = ("depth", "tri_id", "object_id", "model_visible", "frustum_culled", "hzb_occluded")

@@ -25,6 +25,7 @@ from unclerenderer_tpu_torch.scene import build as tbuild
 from unclerenderer_tpu_torch.scene import mesh as tmesh
 from unclerenderer_tpu_torch.textures import atlas as tatlas
 from unclerenderer_tpu_torch.textures import image as timage
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 
 def _same(got, want, msg=""):

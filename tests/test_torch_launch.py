@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from unclerenderer_tpu_torch.ops import _cuda
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 WRAPPERS = ["binned_raster", "giant_raster", "binned_raster_attrs", "giant_raster_attrs",
             "binned_raster_debug", "shadow_select9", "shadow_select9_f32", "gather_rows", "hzb_tail", "env_select", "mat_select",

@@ -36,6 +36,7 @@ from unclerenderer_tpu_torch.textures import dds as tdds
 from unclerenderer_tpu_torch.textures import image as timage
 from unclerenderer_tpu_torch.textures import native as tnative
 from unclerenderer_tpu_torch.textures import png as tpng
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 
 def same(got, want, path="value"):

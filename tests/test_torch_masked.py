@@ -31,6 +31,7 @@ from unclerenderer_tpu_torch.render import common as tcommon
 from unclerenderer_tpu_torch.render.deferred import deferred_frame
 from unclerenderer_tpu_torch.render.params import DeviceScene, FrameParams, FrameState, RenderSettings
 from unclerenderer_tpu_torch.render.testing import synthetic_device_scene, synthetic_frame_params
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 SIZE = 128
 RTOL, ATOL = 1e-6, 1e-7

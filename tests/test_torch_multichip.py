@@ -51,6 +51,7 @@ from unclerenderer_tpu_torch.render.testing import (
     synthetic_device_scene,
     synthetic_frame_params,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 RANK_TIMEOUT = 240.0  # seconds: the group's collectives and the join
 EXACT = ("tri_id", "depth", "object_id")
@@ -63,7 +64,7 @@ def cameras(n):
 
 def sharded(tmp_path, n, spec):
     return run_ranks(sharded_frames, n, f"file://{tmp_path}/rendezvous", args=(spec,),
-                     timeout=RANK_TIMEOUT)[0]
+                     device="cpu", timeout=RANK_TIMEOUT)[0]
 
 
 def assert_seams(got, want, n, atol, label):
@@ -169,7 +170,27 @@ def test_run_ranks_reports_a_failing_rank(tmp_path):
                 scene=dict(n_objects=2), cameras=cameras(1))
     with pytest.raises(RuntimeError, match="must divide over 4 ranks"):
         run_ranks(sharded_frames, 4, f"file://{tmp_path}/rendezvous", args=(spec,),
-                  timeout=RANK_TIMEOUT)
+                  device="cpu", timeout=RANK_TIMEOUT)
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """``init_render_group`` and ``run_ranks`` name the card unless the
+    caller asks for the CPU; on a host without a card for every rank the
+    card's group is gloo (here: no card, one rank)."""
+    import inspect
+
+    import torch.distributed as dist
+
+    from unclerenderer_tpu_torch.parallel.multichip import init_render_group
+
+    for fn in (init_render_group, run_ranks):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    group = init_render_group(0, 1, f"file://{tmp_path}/rendezvous")
+    try:
+        want = "nccl" if torch.cuda.device_count() >= 1 else "gloo"
+        assert dist.get_backend(group) == want
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------- functions

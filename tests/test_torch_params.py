@@ -18,6 +18,7 @@ from unclerenderer_tpu_torch import interop
 from unclerenderer_tpu_torch.render import params as tparams
 from unclerenderer_tpu_torch.render.deferred import deferred_frame
 from unclerenderer_tpu_torch.render.testing import synthetic_device_scene, synthetic_frame_params
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 ROOT = Path(__file__).resolve().parents[1]
 

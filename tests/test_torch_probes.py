@@ -37,6 +37,7 @@ from unclerenderer_tpu_torch import interop
 from unclerenderer_tpu_torch.ops import probes
 from unclerenderer_tpu_torch.ops.raster import RasterSetup
 from unclerenderer_tpu_torch.render.params import DeviceScene, FrameParams, RenderSettings
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 ROOT = Path(__file__).resolve().parents[1]
 

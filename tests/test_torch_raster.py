@@ -18,6 +18,7 @@ from unclerenderer_tpu.render.testing import synthetic_frame_params as j_frame_p
 from unclerenderer_tpu_torch.ops import binning as tbin
 from unclerenderer_tpu_torch.ops import raster as tr
 from unclerenderer_tpu_torch.render import common as tc
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 
 def T(x):

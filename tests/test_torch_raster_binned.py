@@ -17,6 +17,7 @@ from unclerenderer_tpu_torch.ops import raster_kernels as rk
 from unclerenderer_tpu_torch.ops.binning import bin_triangles
 from unclerenderer_tpu_torch.ops.fma import fma
 from unclerenderer_tpu_torch.sweeps import raster as sweep
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 
 def T(x):

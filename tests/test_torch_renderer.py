@@ -33,6 +33,7 @@ from unclerenderer_tpu_torch import interop
 from unclerenderer_tpu_torch.render.params import RenderSettings
 from unclerenderer_tpu_torch.render.renderer import Renderer
 from unclerenderer_tpu_torch.render.testing import write_scene
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 W, H, SHADOW = 160, 128, 128
 EXACT = ("depth", "tri_id", "object_id", "model_visible", "frustum_culled", "hzb_occluded")

@@ -37,6 +37,7 @@ from test_torch_renderer import (
     renderer_pair,
     write_test_scene,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 
 

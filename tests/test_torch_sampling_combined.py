@@ -7,6 +7,7 @@ mode), at the bar of ``tests/test_torch_sampling_frame.py``."""
 
 import pytest
 from test_torch_sampling_frame import ALL_THREE, frame_case
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 
 @pytest.mark.parametrize("frame", ["deferred", "forward"])

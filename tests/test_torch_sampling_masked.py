@@ -12,6 +12,7 @@ from unclerenderer_tpu.render.testing import synthetic_frame_params as j_frame_p
 from unclerenderer_tpu_torch import interop
 from unclerenderer_tpu_torch.render.deferred import deferred_frame
 from unclerenderer_tpu_torch.render.params import FrameParams, FrameState, RenderSettings
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 
 def test_masked_scene_aos_matches_reference():

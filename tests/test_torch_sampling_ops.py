@@ -34,6 +34,7 @@ from unclerenderer_tpu_torch.ops import shadow as ts
 from unclerenderer_tpu_torch.ops import texture as tt
 from unclerenderer_tpu_torch.render import common as tc
 from unclerenderer_tpu_torch.render.params import DeviceScene, FrameParams
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 LVP = np.array([[0.15, 0.0, 0.0, 0.0],
                 [0.0, -0.15, 0.02, 0.0],

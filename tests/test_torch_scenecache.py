@@ -24,6 +24,7 @@ from unclerenderer_tpu_torch.core import scenecache
 from unclerenderer_tpu_torch.render.params import RenderSettings
 from unclerenderer_tpu_torch.render.renderer import Renderer, scene_cache_key
 from unclerenderer_tpu_torch.render.testing import write_scene
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 ROOT = Path(__file__).resolve().parents[1]
 SETTINGS = RenderSettings(width=64, height=64, shadow_map_size=64)

@@ -29,6 +29,7 @@ from unclerenderer_tpu_torch import interop
 from unclerenderer_tpu_torch.ops import hzb as thzb
 from unclerenderer_tpu_torch.ops import raster_kernels as rk
 from unclerenderer_tpu_torch.ops import texture as tt
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 RTOL, ATOL = 1e-6, 1e-7
 

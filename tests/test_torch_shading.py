@@ -24,6 +24,7 @@ from unclerenderer_tpu_torch.ops import pbr as tpbr
 from unclerenderer_tpu_torch.ops import post as tpost
 from unclerenderer_tpu_torch.ops import sky as tsky
 from unclerenderer_tpu_torch.render import deferred as tdef
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -9,6 +9,7 @@ import torch
 
 from unclerenderer_tpu.ops import shadow as js
 from unclerenderer_tpu_torch.ops import shadow as ts
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 LVP = np.array([[0.15, 0.0, 0.0, 0.0],
                 [0.0, -0.15, 0.02, 0.0],

@@ -19,6 +19,7 @@ from unclerenderer_tpu_torch.ops import texture as tt
 from unclerenderer_tpu_torch.render import common as tc
 from unclerenderer_tpu_torch.render import packing as PK
 from unclerenderer_tpu_torch.render.params import DeviceScene
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 ATOL = 2e-6
 

@@ -19,6 +19,7 @@ from unclerenderer_tpu_torch.render.params import RenderSettings
 from unclerenderer_tpu_torch.render.renderer import Renderer
 from unclerenderer_tpu_torch.scene.camera import Camera
 from unclerenderer_tpu_torch.textures.png import load_png
+from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
 
 SMALL = dict(width=64, height=64, shadow_map_size=64, tile_h=16, tile_w=64, chunk=32,
              shadow_chunk=32)

@@ -331,7 +331,7 @@ def test_sharded_xla_frames_match_single_device(tmp_path, monkeypatch):
     spec = dict(device="cpu", settings=st, scene=dict(n_objects=8, with_masked=True),
                 cameras=cams)
     frames = run_ranks(sharded_frames, 2, f"file://{tmp_path}/rendezvous", args=(spec,),
-                       timeout=240.0)[0]
+                       device="cpu", timeout=240.0)[0]
     settings = RenderSettings(**st)
     scene, data = synthetic_device_scene(8, with_masked=True, device="cpu")
     state = FrameState.initial(settings.width, settings.height, "cpu")

@@ -12,9 +12,11 @@
 * ``rasterize_binned``: fine bins + coarse (mid) bins + giant brute force,
   merged by depth key with min-id tie-breaks.
 * ``rasterize_exhaustive`` (X1, ``csrc/exhaustive_raster.cu``): every tile
-  against every triangle, the raster of ``raster_backend="xla"``
-  (``ops/raster.py rasterize`` is its plain version).  Not a port of a TPU
-  kernel: the reference runs it as XLA.
+  against every triangle whose box overlaps it, the raster of
+  ``raster_backend="xla"`` (``ops/raster.py rasterize`` is its plain
+  version); the kernel finds each tile's rows as its band's row mask AND
+  its column's (``band_masks_plain``, ``column_masks_plain``).  Not a port
+  of a TPU kernel: the reference runs it as XLA.
 
 Debug print (``debug=True``, the reference's ``debug_print`` under
 ``RenderSettings.kernel_debug_print``): K1 prints one line
@@ -479,17 +481,74 @@ def rasterize_giant(setup: RasterSetup, width: int, height: int, tile_h: int = 3
 # ---------------------------------------------------------------------------
 
 
+X1_PASS = 256  # csrc/exhaustive_raster.cu kScan: rows a pass; a mask line holds whole passes
+
+
+def _mask_words(bits: torch.Tensor) -> torch.Tensor:
+    """(lines, T) bool -> (lines, ceil(T / 256) * 8) int32 words: bit b of
+    word w is row 32 w + b, zeros past the table (X1's mask layout)."""
+    n, t = bits.shape
+    n_words = -(-t // X1_PASS) * (X1_PASS // 32)
+    padded = torch.zeros((n, n_words * 32), dtype=torch.int64, device=bits.device)
+    padded[:, :t] = bits
+    words = (padded.reshape(n, n_words, 32) << torch.arange(32, device=bits.device)).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def mask_bits(words: torch.Tensor, t: int) -> torch.Tensor:
+    """X1 mask words -> (lines, t) bool, bit b of word w as row 32 w + b."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :t].bool()
+
+
+def band_masks_plain(setup: RasterSetup, height: int, tile_h: int,
+                     y_offset: float = 0.0) -> torch.Tensor:
+    """Plain version of X1's band masks: bit r of band b (a row of tiles,
+    ``tile_h`` image rows from global row ``y_offset + b * tile_h``) is set
+    where row r is valid and its box passes the y half of the box test of
+    ``ops/raster.py rasterize``, whose tile edges (``ty0``, ``ty0 + tile_h -
+    1``) every tile of the band shares.  (bands, ceil(T / 256) * 8) int32."""
+    n_bands = -(-height // tile_h)
+    y0 = (torch.arange(n_bands, device=setup.bbox.device) * tile_h).to(torch.float32) + y_offset
+    y1 = y0 + (tile_h - 1)
+    bits = (setup.valid[None] & (setup.bbox[1][None] <= y1[:, None])
+            & (setup.bbox[3][None] >= y0[:, None]))
+    return _mask_words(bits)
+
+
+def column_masks_plain(setup: RasterSetup, width: int, tile_w: int) -> torch.Tensor:
+    """Plain version of X1's column masks: bit r of column c is set where
+    row r's box passes the x half of the box test (tile edges ``tx0 = c *
+    tile_w``, ``tx0 + tile_w - 1``).  (columns, ceil(T / 256) * 8) int32."""
+    n_tx = -(-width // tile_w)
+    x0 = (torch.arange(n_tx, device=setup.bbox.device) * tile_w).to(torch.float32)
+    x1 = x0 + (tile_w - 1)
+    bits = (setup.bbox[0][None] <= x1[:, None]) & (setup.bbox[2][None] >= x0[:, None])
+    return _mask_words(bits)
+
+
 def rasterize_exhaustive(setup: RasterSetup, width: int, height: int, tile_h: int = 32,
                          tile_w: int = 64, chunk: int = 128, depth_mode: int = DEPTH_MAX,
-                         y_offset: float = 0.0, want_ids: bool = True, ortho: bool = False):
+                         y_offset: float = 0.0, want_ids: bool = True, ortho: bool = False,
+                         want_masks: bool = False):
     """X1 wrapper: the exhaustive raster of ``ops/raster.py rasterize`` (same
     contract: (depth (height, width), tri_id or None), rows from global
     row ``y_offset``), by the plain version for CPU tensors and by the
     ``exhaustive_raster`` kernel for CUDA tensors.  ``chunk`` only sizes
-    the plain version's blocks; the result does not depend on it."""
+    the plain version's blocks; the result does not depend on it.
+
+    ``want_masks`` also returns the row masks the tiles walked: the band
+    masks then the column masks, (bands + columns, ceil(T / 256) * 8)
+    int32 (the kernel's scratch; ``band_masks_plain`` and
+    ``column_masks_plain`` on the CPU)."""
     if _cuda.on_cpu("exhaustive_raster", setup.coef):
-        return rasterize(setup, width, height, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
-                         depth_mode=depth_mode, y_offset=y_offset, want_ids=want_ids, ortho=ortho)
+        out = rasterize(setup, width, height, tile_h=tile_h, tile_w=tile_w, chunk=chunk,
+                        depth_mode=depth_mode, y_offset=y_offset, want_ids=want_ids, ortho=ortho)
+        if not want_masks:
+            return out
+        return out + (torch.cat([band_masks_plain(setup, height, tile_h, y_offset),
+                                 column_masks_plain(setup, width, tile_w)]),)
     coef, bbox, valid = setup.coef, setup.bbox, setup.valid
     t_count = coef.shape[0]
     if (coef.dtype != torch.float32 or bbox.dtype != torch.float32 or valid.dtype != torch.bool
@@ -505,12 +564,15 @@ def rasterize_exhaustive(setup: RasterSetup, width: int, height: int, tile_h: in
     depth = torch.empty((height, width), dtype=torch.float32, device=coef.device)
     tri_id = (torch.empty((height, width), dtype=torch.int32, device=coef.device)
               if want_ids else None)
+    lines = -(-height // tile_h) + -(-width // tile_w) if height and width else 0
+    masks = torch.empty((lines, -(-t_count // X1_PASS) * (X1_PASS // 32)), dtype=torch.int32,
+                        device=coef.device)
     if height and width:
         _cuda.launch("exhaustive_raster", dev, coef.data_ptr(), bbox.data_ptr(),
-                     valid.data_ptr(), depth.data_ptr(), _cuda.ptr(tri_id), t_count, width,
-                     height, tile_h, tile_w, float(y_offset), int(want_ids), int(ortho),
-                     int(depth_mode == DEPTH_MAX))
-    return depth, tri_id
+                     valid.data_ptr(), masks.data_ptr(), depth.data_ptr(), _cuda.ptr(tri_id),
+                     t_count, width, height, tile_h, tile_w, float(y_offset), int(want_ids),
+                     int(ortho), int(depth_mode == DEPTH_MAX))
+    return (depth, tri_id, masks) if want_masks else (depth, tri_id)
 
 
 # ---------------------------------------------------------------------------

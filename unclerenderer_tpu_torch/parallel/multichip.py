@@ -46,13 +46,14 @@ from .dist import RowShards
 SLAB_KEYS = ("color", "hdr", "depth", "tri_id", "object_id")
 
 
-def init_render_group(rank: int, world_size: int, init_method: str, device="cpu",
+def init_render_group(rank: int, world_size: int, init_method: str, device="cuda",
                       timeout: float = 120.0):
     """Join the process group of ``world_size`` ranks at ``init_method``
     (e.g. ``file:///tmp/x/rendezvous``, a path no earlier group used) and
-    return it: NCCL when ``device`` is a card and the host has a card for
-    every rank (rank r then renders on ``cuda:r``), else gloo.  Every
-    collective waits at most ``timeout`` seconds."""
+    return it: NCCL when ``device`` is a card (the default) and the host has
+    a card for every rank (rank r then renders on ``cuda:r``), else gloo
+    (``device="cpu"`` asks for it).  Every collective waits at most
+    ``timeout`` seconds."""
     dev = torch.device(device)
     own_card = dev.type == "cuda" and torch.cuda.device_count() >= world_size
     backend = "nccl" if own_card else "gloo"
@@ -109,10 +110,11 @@ def _rank_entry(rank, world_size, init_method, device, timeout, results, fn, arg
         raise
 
 
-def run_ranks(fn, world_size: int, init_method: str, args=(), device="cpu",
+def run_ranks(fn, world_size: int, init_method: str, args=(), device="cuda",
               timeout: float = 300.0):
     """Spawn ``world_size`` processes, each joining the group at
-    ``init_method`` (``init_render_group``) and running ``fn(rank, group,
+    ``init_method`` (``init_render_group`` with ``device``: the card by
+    default, ``"cpu"`` for gloo on the host) and running ``fn(rank, group,
     *args)`` (a module-level function); return their results in rank order.
     Raises RuntimeError when a rank fails or the ranks are not done within
     ``timeout`` seconds; no rank outlives the call."""
