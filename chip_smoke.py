@@ -220,6 +220,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    default Renderer (3 runs of 10 frames each); card/CPU frames at 128^2,
    deferred (2 carried) and forward, depth, ids and counters bit-equal,
    colour within 1e-3, only X1 launched.
+15. program -- (on phase 7's files at 1080p with the 4096^2 map) the frame
+   program (``render/program.py``: the frame captured into a CUDA graph and
+   replayed): (a) one op-by-op deferred frame, one forward frame and one
+   ``raster_shadow`` under ``torch.cuda.set_sync_debug_mode("error")``, no
+   sync; (b) 10 carried deferred frames on the orbit replayed and again op
+   by op (``program.eager``) from one start state, every output and every
+   state field bit-equal; 3 forward frames the same way; ``render_frames(10)``
+   against the 10 op-by-op frames; (c) the same launch counts over the 10
+   frames; (d) recorded, not gated: ms/frame graph and op by op in turns
+   (3 pairs of 10 frames), host ms a ``render_frame`` call, the profiler's
+   device-busy share over 3 frames of each, capture seconds, graph pool
+   GiB and peak GiB.
+
+The Renderer phases (7, 10-12, 14) run as users run the Renderer: on the
+card its frames after the first of a (settings, scene) are replays of the
+captured program, for every setting ``program.supported`` accepts (the
+masked path's settings run op by op); their launch counts count each
+replay's kernels.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the f32
@@ -1332,6 +1350,246 @@ def viewer_phase(r, smi) -> dict:
                   f"{n} frames with no key: {rep['ms_per_frame']:.2f} ms per viewer frame "
                   f"(frame, read-back, overlays, {len(text) // n} ANSI chars a frame); launches "
                   f"{ {k: v for k, v in launches.items() if v} } (on {smi})")
+    return rep
+
+
+def device_busy(trace_path) -> dict:
+    """From a ``torch.profiler`` Chrome trace: the device rows' busy time
+    (the union of their intervals), the span from the first row's start to
+    the last row's end, and the busy share of that span."""
+    from unclerenderer_tpu_torch.core import traceparse
+
+    rows = sorted((e["ts"], e["ts"] + e.get("dur", 0.0))
+                  for e in traceparse.load_events(trace_path)
+                  if e.get("cat") in traceparse.DEVICE_CATS)
+    check(rows, "the profiler recorded no device row")
+    busy, end = 0.0, rows[0][0]
+    for a, b in rows:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = end - rows[0][0]
+    return {"rows": len(rows), "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+            "busy_share": busy / span if span else 0.0}
+
+
+def program_phase(dev, smi, scene: Path) -> dict:
+    """Phase 15: the frame program (``render/program.py``) on the renderer
+    cell's files at 1920x1080 with the 4096^2 map.  (a) no host sync: one
+    op-by-op deferred frame, one forward frame and one ``raster_shadow``
+    under ``torch.cuda.set_sync_debug_mode("error")``; (b) graph = eager:
+    10 carried frames on the orbit as replays and again op by op
+    (``program.eager``) from one start state, every output and every state
+    field bit-equal, the forward Renderer over 3 frames the same way, and
+    ``render_frames(10)`` against the 10 op-by-op frames; (c) the same
+    launch counts over the 10 frames; (d) recorded, not gated: ms/frame
+    graph and op by op in turns (3 pairs of 10 frames), host ms a
+    ``render_frame`` call, the profiler's device-busy share over 3 frames
+    of each, capture seconds, graph pool GiB and peak GiB."""
+    from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.render import common as common_mod
+    from unclerenderer_tpu_torch.render import program
+    from unclerenderer_tpu_torch.render.deferred import deferred_frame
+    from unclerenderer_tpu_torch.render.forward import forward_frame
+    from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+
+    t_phase = time.perf_counter()
+    rep = {}
+    settings = RenderSettings(width=WIDTH, height=HEIGHT, shadow_map_size=SHADOW)
+    r = Renderer(scene, settings=settings, device=dev)
+    f = Renderer(scene, settings=dataclasses.replace(settings, renderer_type="forward"),
+                 device=dev)
+    center = np.asarray(r.scene_data.scene_center, np.float32)
+    cam0 = np.asarray(r.camera.position, np.float32)
+
+    def orbit(rr, i=0):
+        a = 0.0035 * rr._frame_counter
+        off = cam0 - center
+        rr.camera.position = center + np.array(
+            [off[0] * np.cos(a) - off[2] * np.sin(a), off[1], off[0] * np.sin(a) + off[2] * np.cos(a)],
+            np.float32)
+        rr.camera.set_look_at(center)
+
+    # the warm-up frame (op by op: the kernels build), then the capture
+    for rr in (r, f):
+        orbit(rr)
+        rr.render_frame()
+        check(rr.frame_program.startswith("eager: warm-up"), f"first frame: {rr.frame_program}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for rr in (r, f):
+        orbit(rr)
+        rr.render_frame()
+        check(rr.frame_program == "graph" and rr.stats()["frame_program"] == "graph",
+              f"second frame: {rr.frame_program}")
+    progs = {"deferred": r._program, "forward": f._program}
+    rep["capture"] = {k: {"capture_s": p.capture_s, "pool_gib": p.pool_bytes / 2**30,
+                          "launches": dict(p.launches)} for k, p in progs.items()}
+    log("program", f"captured: " + "; ".join(
+        f"{k} {p.capture_s:.2f} s, pool {p.pool_bytes / 2**30:.2f} GiB, launches a replay "
+        f"{ {n: c for n, c in p.launches.items() if c} }" for k, p in progs.items()))
+
+    # (a) no host sync in the frames the programs capture
+    params = r.frame_params()
+    state = FrameState(**{fl.name: getattr(r.frame_state, fl.name).clone()
+                          for fl in dataclasses.fields(FrameState)})
+    opaque, masked = common_mod.tri_draw_masks(r.device_scene, params.model_visible, r.settings)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        deferred_frame(r.device_scene, params, state, r.settings, r._shadow_cache)
+        forward_frame(f.device_scene, params, f.settings, f._shadow_cache)
+        common_mod.raster_shadow(r.device_scene, params.light_view_proj, opaque | masked,
+                                 r.settings)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("program", "no host sync (sync debug mode \"error\") in an op-by-op deferred frame, a "
+                   "forward frame and raster_shadow at 1080p with the 4096^2 map")
+    del state
+
+    # (b) graph = eager over carried frames, (c) the same launches
+    def snapshot(rr):
+        st = FrameState(**{fl.name: getattr(rr.frame_state, fl.name).clone()
+                           for fl in dataclasses.fields(FrameState)})
+        return (st, rr._frame_counter, rr._taa_history_ready, np.array(rr.camera.position),
+                np.array(rr.camera.forward), np.array(rr.camera.up))
+
+    def restore(rr, snap):
+        rr.frame_state = snap[0]
+        rr._frame_counter, rr._taa_history_ready = snap[1], snap[2]
+        rr.camera.position, rr.camera.forward, rr.camera.up = (x.copy() for x in snap[3:])
+
+    def frames(rr, n, eager):
+        outs, states = [], []
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        with program.eager() if eager else contextlib.nullcontext():
+            for _ in range(n):
+                orbit(rr)
+                outs.append(rr.render_frame())
+                states.append(snapshot(rr)[0])
+        torch.cuda.synchronize()
+        want = "eager: inside program.eager()" if eager else "graph"
+        check(rr.frame_program == want, f"frames ran as {rr.frame_program}, expected {want}")
+        return outs, states, {k: v for k, v in _cuda.LAUNCHES.items() if v}
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.uint32 else x
+
+    def differences(a, b):
+        """{name: differing elements} over two frames' outputs (or states)."""
+        diff = {}
+        for k in a:
+            if isinstance(a[k], dict):
+                diff.update({f"{k}.{n}": int(v != b[k][n]) for n, v in a[k].items()})
+            else:
+                diff[k] = int((bits(a[k]) != bits(b[k])).sum())
+        return {k: v for k, v in diff.items() if v}
+
+    def hold(label, ga, ea, gs=None, es=None):
+        for i, (g, e) in enumerate(zip(ga, ea)):
+            check(set(g) == set(e), f"{label} frame {i}: outputs {set(g)} vs {set(e)}")
+            bad = differences(g, e)
+            if gs is not None:
+                bad.update(differences(dataclasses.asdict(gs[i]), dataclasses.asdict(es[i])))
+            check(not bad, f"{label} frame {i}: graph and op-by-op frames differ in {bad}")
+
+    start = snapshot(r)
+    g_outs, g_states, g_launch = frames(r, FRAMES, eager=False)
+    restore(r, start)
+    e_outs, e_states, e_launch = frames(r, FRAMES, eager=True)
+    hold("deferred", g_outs, e_outs, g_states, e_states)
+    check(g_launch == e_launch, f"launches over {FRAMES} frames: graph {g_launch}, eager {e_launch}")
+    rep["launches"] = {"graph": g_launch, "eager": e_launch}
+    log("program", f"{FRAMES} carried deferred frames on the orbit, replayed and op by op from one "
+                   f"start state: every output ({sorted(g_outs[0])}) and every state field "
+                   f"bit-equal; launches the same: {g_launch}")
+    del g_outs, g_states
+
+    f_start = snapshot(f)
+    fg, _s, fg_launch = frames(f, 3, eager=False)
+    restore(f, f_start)
+    fe, _s, fe_launch = frames(f, 3, eager=True)
+    hold("forward", fg, fe)
+    check(fg_launch == fe_launch, f"forward launches: graph {fg_launch}, eager {fe_launch}")
+    log("program", f"3 forward frames replayed and op by op: every output bit-equal, launches "
+                   f"the same ({fg_launch})")
+    del fg, fe
+
+    restore(r, start)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    colors = r.render_frames(FRAMES, mutate=orbit)
+    torch.cuda.synchronize()
+    chain_launch = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    check(r.frame_program == "graph", f"render_frames ran as {r.frame_program}")
+    bad = {i: int((colors[i] != e["color"]).sum()) for i, e in enumerate(e_outs)}
+    bad = {i: n for i, n in bad.items() if n}
+    bad.update(differences(dataclasses.asdict(r.frame_state), dataclasses.asdict(e_states[-1])))
+    check(not bad, f"render_frames({FRAMES}) vs {FRAMES} op-by-op frames differ: {bad}")
+    check(chain_launch == e_launch, f"render_frames launches {chain_launch}, eager {e_launch}")
+    drops = {k: int(v) for k, v in r._chain_drop_counters.items()}
+    check(not any(drops.values()), f"render_frames drop counters {drops}")
+    log("program", f"render_frames({FRAMES}) replayed: colours and final state bit-equal to the "
+                   f"{FRAMES} op-by-op frames, launches the same, worst-frame drops {drops}")
+    del colors, e_outs, e_states
+
+    # (d) times, in turns; host ms a call; peak
+    def timed(eager):
+        torch.cuda.synchronize()
+        host = 0.0
+        t0 = time.perf_counter()
+        with program.eager() if eager else contextlib.nullcontext():
+            for _ in range(FRAMES):
+                orbit(r)
+                h0 = time.perf_counter()
+                r.render_frame()
+                host += time.perf_counter() - h0
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / FRAMES, host * 1e3 / FRAMES
+
+    runs = {"graph": [], "eager": []}
+    host = {"graph": [], "eager": []}
+    for which in ("graph", "eager", "eager", "graph", "graph", "eager"):
+        ms, h = timed(which == "eager")
+        runs[which].append(ms)
+        host[which].append(h)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    med_host = {k: statistics.median(v) for k, v in host.items()}
+    rep.update(ms_per_frame=runs, median_ms=med, host_ms_per_call=host,
+               median_host_ms=med_host, peak_gib=peak)
+    log("program", f"ms/frame median: graph {med['graph']:.2f} (runs "
+                   f"{[round(x, 2) for x in runs['graph']]}), op by op {med['eager']:.2f} (runs "
+                   f"{[round(x, 2) for x in runs['eager']]}); host ms a render_frame call: graph "
+                   f"{med_host['graph']:.3f}, op by op {med_host['eager']:.3f}; 3 runs x "
+                   f"{FRAMES} frames each in turns, {WIDTH}x{HEIGHT}, shadow {SHADOW}^2; peak "
+                   f"{peak:.2f} GiB since the capture (on {smi})")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rep["busy"] = {}
+    for which in ("graph", "eager"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_busy_") as td:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                    (program.eager() if which == "eager" else contextlib.nullcontext()):
+                for _ in range(3):
+                    orbit(r)
+                    r.render_frame()
+                torch.cuda.synchronize()
+            path = Path(td) / "busy.pt.trace.json"
+            prof.export_chrome_trace(str(path))
+            rep["busy"][which] = device_busy(path)
+    log("program", "device-busy share over 3 frames (profiler rows' union over their span): " +
+        "; ".join(f"{k} {100 * v['busy_share']:.1f}% ({v['busy_ms'] / 3:.2f} of "
+                  f"{v['span_ms'] / 3:.2f} ms a frame, {v['rows']} rows)"
+                  for k, v in rep["busy"].items()) + f" (on {smi})")
+    rep["seconds"] = time.perf_counter() - t_phase
+    log("program", f"phase done in {rep['seconds']:.1f} s")
+    del r, f
     return rep
 
 
@@ -2758,6 +3016,8 @@ def main() -> int:
         del warm
         # ---- 14. the xla path on the same files
         report["xla"] = xla_path(Path(report["renderer"]["scene_json"]))
+        # ---- 15. the frame program on the same files
+        report["program"] = program_phase(dev, smi, Path(report["renderer"]["scene_json"]))
 
     # ---- 13. the row-sharded frame in ranks on this card
     report["multichip"] = multichip_phase(smi)

@@ -5,6 +5,9 @@ at import) when no CUDA device is present.  On a machine with an NVIDIA
 GPU (which has no JAX, hence no conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``."""
 
+import contextlib
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -963,3 +966,196 @@ def test_renderer_forward_and_fused_card_frames_equal_cpu_frames(cuda_device, tm
             {k: int(v) for k, v in h["raster_stats"].items()}
         assert float((g["color"].cpu() - h["color"]).abs().max()) <= 1e-3
         assert int((h["tri_id"] >= 0).sum()) > 100
+
+
+# --------------------------------------------- the frame program (render/program.py)
+
+PROGRAM_SIZE = 128
+
+
+@pytest.fixture(scope="module")
+def program_scene(cuda_device, tmp_path_factory):
+    """An unmasked scene written to files (the masked raster runs op by
+    op), for Renderers at 128x128 with a 128^2 map."""
+    from unclerenderer_tpu_torch.render.testing import write_scene
+
+    return write_scene(tmp_path_factory.mktemp("program_scene"), 6, n_materials=3, tex_size=32)
+
+
+def _program_renderer(scene, dev, monkeypatch, **over):
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+
+    monkeypatch.setenv("UNCLERENDERER_SCENE_CACHE", "")
+    s = PROGRAM_SIZE
+    r = Renderer(scene, settings=RenderSettings(width=s, height=s, shadow_map_size=s, **over),
+                 device=dev)
+    center = np.asarray(r.scene_data.scene_center)
+
+    def orbit():
+        a = 0.2 * r._frame_counter
+        r.camera.position = (center[0] + 4 * np.sin(a), center[1] + 1.5,
+                             center[2] - 4 * np.cos(a))
+        r.camera.set_look_at(center)
+
+    return r, orbit
+
+
+def _snapshot(r):
+    import dataclasses
+
+    from unclerenderer_tpu_torch.render.params import FrameState
+
+    st = FrameState(**{f.name: getattr(r.frame_state, f.name).clone()
+                       for f in dataclasses.fields(FrameState)})
+    return st, r._frame_counter, r._taa_history_ready
+
+
+def _restore(r, snap):
+    r.frame_state = snap[0]
+    r._frame_counter, r._taa_history_ready = snap[1], snap[2]
+
+
+def _assert_frames_equal(a, b):
+    assert set(a) == set(b)
+    for k, v in a.items():
+        if isinstance(v, dict):
+            assert {n: int(x) for n, x in v.items()} == {n: int(x) for n, x in b[k].items()}, k
+        elif v.dtype == torch.uint32:
+            assert torch.equal(v.view(torch.int32), b[k].view(torch.int32)), k
+        else:
+            assert torch.equal(v, b[k]), k
+
+
+def _assert_states_equal(a, b):
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+@pytest.mark.parametrize("renderer_type", ["deferred", "forward"])
+def test_program_frames_equal_eager_frames(program_scene, cuda_device, monkeypatch,
+                                           renderer_type):
+    """3 carried frames replayed from the captured program and the same 3
+    op by op from one start state: every output and every state field
+    bit-equal, the same launches a frame; the Renderer reports "graph"."""
+    from unclerenderer_tpu_torch.render import program
+
+    r, orbit = _program_renderer(program_scene, cuda_device, monkeypatch,
+                                 renderer_type=renderer_type)
+    for _ in range(2):  # the warm-up frame, then the capture
+        orbit()
+        r.render_frame()
+    assert r.stats()["frame_program"] == "graph" and r._program is not None
+    start = _snapshot(r)
+    runs = {}
+    for eager in (False, True):
+        _restore(r, start)
+        outs, states, launches = [], [], []
+        with program.eager() if eager else contextlib.nullcontext():
+            for _ in range(3):
+                orbit()
+                _cuda.reset_launches()
+                outs.append(r.render_frame())
+                launches.append(dict(_cuda.LAUNCHES))
+                states.append(_snapshot(r)[0])
+        runs[eager] = outs, states, launches
+    assert r.frame_program == "eager: inside program.eager()"
+    for i in range(3):
+        _assert_frames_equal(runs[False][0][i], runs[True][0][i])
+        _assert_states_equal(runs[False][1][i], runs[True][1][i])
+        assert runs[False][2][i] == runs[True][2][i] and runs[False][2][i]["binned_raster"] > 0
+
+
+def test_program_render_frames_equal_render_frame_calls(program_scene, cuda_device, monkeypatch):
+    r, orbit = _program_renderer(program_scene, cuda_device, monkeypatch)
+    for _ in range(2):
+        orbit()
+        r.render_frame()
+    start = _snapshot(r)
+    colors = r.render_frames(3, mutate=lambda rr, i: orbit())
+    assert r.frame_program == "graph"
+    chain_state, drops = _snapshot(r)[0], dict(r._chain_drop_counters)
+    _restore(r, start)
+    singles = []
+    for _ in range(3):
+        orbit()
+        singles.append(r.render_frame())
+    assert torch.equal(colors, torch.stack([o["color"] for o in singles]))
+    _assert_states_equal(chain_state, r.frame_state)
+    assert {k: int(v) for k, v in drops.items()} == \
+        {k: max(int(o["raster_stats"][k]) for o in singles) for k in drops}
+
+
+def test_program_outputs_kept_unchanged_by_the_next_replay(program_scene, cuda_device,
+                                                           monkeypatch):
+    r, orbit = _program_renderer(program_scene, cuda_device, monkeypatch)
+    for _ in range(3):
+        orbit()
+        kept = r.render_frame()
+    assert r.frame_program == "graph"
+    copy = {k: v.clone() for k, v in kept.items() if not isinstance(v, dict)}
+    orbit()
+    nxt = r.render_frame()
+    assert not torch.equal(nxt["color"], kept["color"])
+    for k, v in copy.items():
+        assert torch.equal(v.view(torch.int32) if v.dtype == torch.uint32 else v,
+                           kept[k].view(torch.int32) if v.dtype == torch.uint32 else kept[k]), k
+
+
+def test_program_rebuilt_after_update_settings(program_scene, cuda_device, monkeypatch):
+    r, orbit = _program_renderer(program_scene, cuda_device, monkeypatch)
+    for _ in range(2):
+        orbit()
+        r.render_frame()
+    first = r._program
+    assert first is not None and r.frame_program == "graph"
+    r.update_settings(enable_cas=False)
+    assert r._program is None
+    orbit()
+    r.render_frame()
+    assert r.frame_program.startswith("eager: warm-up")
+    orbit()
+    r.render_frame()
+    assert r.frame_program == "graph" and r._program is not first
+    assert r._program.settings == r.settings and not r._program.settings.enable_cas
+
+
+def test_program_capture_that_syncs_raises(program_scene, cuda_device, tmp_path):
+    """A supported path made to read a value back inside the frame: the
+    capture raises from render_frame, nothing falls back to the op-by-op
+    frame.  In a child process, so a failed capture leaves this one as it
+    was."""
+    import subprocess
+    import sys
+    import textwrap
+
+    code = textwrap.dedent(f"""
+        import os, sys
+        os.environ["UNCLERENDERER_SCENE_CACHE"] = ""
+        sys.path.insert(0, {str(Path(__file__).resolve().parents[1])!r})
+        from unclerenderer_tpu_torch.render import deferred
+        from unclerenderer_tpu_torch.render.params import RenderSettings
+        from unclerenderer_tpu_torch.render.renderer import Renderer
+        real = deferred.tonemap
+        def syncing(hdr, *a, **k):
+            float(hdr.max())  # a read-back: a host sync
+            return real(hdr, *a, **k)
+        deferred.tonemap = syncing
+        r = Renderer({str(program_scene)!r}, settings=RenderSettings(width=64, height=64,
+                     shadow_map_size=64), device="cuda")
+        r.render_frame()
+        assert r.frame_program.startswith("eager: warm-up"), r.frame_program
+        try:
+            r.render_frame()
+        except RuntimeError as e:
+            print("RAISED", type(e).__name__, str(e)[:200])
+        else:
+            print("RAN AS", r.frame_program)
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=tmp_path)
+    # a RuntimeError (torch.AcceleratorError is one): the capture was invalidated
+    assert res.stdout.startswith("RAISED") and "capture" in res.stdout, (res.stdout,
+                                                                         res.stderr[-2000:])

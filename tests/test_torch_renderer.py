@@ -31,6 +31,7 @@ from unclerenderer_tpu.render.params import RenderSettings as JSettings
 from unclerenderer_tpu.render.renderer import Renderer as JRenderer
 from unclerenderer_tpu_torch import interop
 from unclerenderer_tpu_torch.render.params import RenderSettings
+from unclerenderer_tpu_torch.render.program import CPU_REASON
 from unclerenderer_tpu_torch.render.renderer import Renderer
 from unclerenderer_tpu_torch.render.testing import write_scene
 from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch thread a module
@@ -171,7 +172,10 @@ def test_carried_frames_match_reference(run, i):
 
 def test_stats_match_reference(run):
     j_stats, t_stats = run["stats"]
-    assert set(t_stats) == set(j_stats)
+    # the port's one key of its own: how the frame ran (the CPU runs op by op)
+    assert set(t_stats) == set(j_stats) | {"frame_program"}
+    t_stats = dict(t_stats)
+    assert t_stats.pop("frame_program") == f"eager: {CPU_REASON}"
     for k, v in j_stats.items():
         if k == "exposure_ev":
             assert abs(t_stats[k] - v) <= ATOL_EV

@@ -22,6 +22,7 @@ from unclerenderer_tpu.render.renderer import _build_device_scene as j_build
 from unclerenderer_tpu_torch import interop
 from unclerenderer_tpu_torch.core.config import RendererConfig
 from unclerenderer_tpu_torch.render.params import DeviceScene, RenderSettings
+from unclerenderer_tpu_torch.render.program import CPU_REASON
 from unclerenderer_tpu_torch.render.renderer import Renderer
 from unclerenderer_tpu_torch.render.renderer import _build_device_scene as t_build
 from unclerenderer_tpu_torch.render.testing import synthetic_scene_data, write_scene
@@ -139,6 +140,8 @@ def test_render_frames_match_reference(scene):
     assert all(v.device.type == "cpu" for v in t._chain_drop_counters.values())
     assert t._frame_counter == j._frame_counter == 3 and t._last_out is None
     j_stats, t_stats = j.stats(), t.stats()  # re-renders the current view
+    # the port's one key of its own: how the frame ran (the CPU runs op by op)
+    assert t_stats.pop("frame_program") == f"eager: {CPU_REASON}"
     assert {k: v for k, v in t_stats.items() if k != "exposure_ev"} == \
         {k: v for k, v in j_stats.items() if k != "exposure_ev"}
 

@@ -24,8 +24,10 @@ stream is never cached across calls) and the ctypes call with pointers as
 plain ints (``c_void_p`` argtypes take ints), holding the GIL. A non-zero
 return raises ``RuntimeError``; a launch is counted in ``LAUNCHES``, one
 count per kernel wrapper, which ``chip_smoke.py`` reads to show which
-kernels a run went through. What each piece costs on the card is in PERF.md
-(``python3 -m unclerenderer_tpu_torch.sweeps.launch_path`` measures it).
+kernels a run went through (a launch captured into a frame program's CUDA
+graph counts at each replay instead, ``CAPTURED``). What each piece costs
+on the card is in PERF.md (``python3 -m
+unclerenderer_tpu_torch.sweeps.launch_path`` measures it).
 """
 
 from __future__ import annotations
@@ -113,6 +115,11 @@ _stream = None
 # when set, called with (wrapper name, "kernel" or "plain version") at every
 # launch and every dispatch to a plain version (the Renderer's graph dump)
 LAUNCH_LOG = None
+
+# while ``render/program.py`` captures a CUDA graph, the Counter its launches
+# are recorded in: a captured launch runs at each replay, and the program
+# adds the recorded counts to LAUNCHES then, not at capture
+CAPTURED = None
 
 
 def reset_launches() -> None:
@@ -226,7 +233,7 @@ def launch(name: str, device: int, *args) -> None:
     err = fn(*args, _stream(device))
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
-    LAUNCHES[name] += 1
+    (LAUNCHES if CAPTURED is None else CAPTURED)[name] += 1
     if LAUNCH_LOG is not None:
         LAUNCH_LOG(name, "kernel")
 

@@ -6,9 +6,13 @@ from __future__ import annotations
 
 import torch
 
+from .consts import device_constant
 from .fma import fma
 from .hzb import hzb_load
 from .shadow import hom_dot4
+
+# the eight corners of a box, as 0/1 weights of its max over its min
+_CORNERS = tuple((x, y, z) for x in (0.0, 1.0) for y in (0.0, 1.0) for z in (0.0, 1.0))
 
 
 def frustum_cull(bounds_min, bounds_max, planes):
@@ -26,8 +30,7 @@ def occlusion_cull(bounds_min, bounds_max, view_proj, hzb_pyramid, layout,
                    hzb_width: int, hzb_height: int):
     """HZB occlusion test (``CullIndirectArgs.hlsl``).  True = OCCLUDED."""
     dev = bounds_min.device
-    sel = torch.tensor([[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)],
-                       dtype=torch.float32, device=dev)
+    sel = device_constant(_CORNERS, dev)
     corners = bounds_min[:, None, :] + (bounds_max - bounds_min)[:, None, :] * sel[None]
     cx, cy, cz, w = hom_dot4(corners, view_proj)
     any_behind = (w <= 0.0).any(dim=1)

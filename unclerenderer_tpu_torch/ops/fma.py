@@ -19,22 +19,27 @@ is a correctly rounded single rounding (53 >= 24 + 2 bits).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
-def _as_tensor(x, like: torch.Tensor) -> torch.Tensor:
+def _f64(x):
+    """An operand in f64: a tensor widened, a Python number rounded to f32
+    (the value the reference's f32 operand holds) and kept on the host as a
+    scalar, so that no constant is copied onto the device."""
     if isinstance(x, torch.Tensor):
-        return x
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+        return x.double()
+    return float(np.float32(x))
 
 
 def fma(a, b, c) -> torch.Tensor:
-    """f32 ``a * b + c`` with one rounding (IEEE fusedMultiplyAdd)."""
-    like = next(t for t in (a, b, c) if isinstance(t, torch.Tensor))
-    a, b, c = (_as_tensor(t, like) for t in (a, b, c))
-    u = a.double() * b.double()  # exact: 24 + 24 bits < 53
-    v = c.double()
-    u, v = torch.broadcast_tensors(u, v)
+    """f32 ``a * b + c`` with one rounding (IEEE fusedMultiplyAdd); at
+    least one operand is a tensor."""
+    a, b, c = (_f64(t) for t in (a, b, c))
+    u = a * b  # exact: 24 + 24 bits < 53
+    v = c
+    if isinstance(u, torch.Tensor) and isinstance(v, torch.Tensor):
+        u, v = torch.broadcast_tensors(u, v)
     s = u + v
     bp = s - u
     err = (u - (s - bp)) + (v - bp)  # TwoSum: s + err == u + v exactly

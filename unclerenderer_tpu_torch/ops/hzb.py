@@ -12,6 +12,7 @@ import torch
 
 from ..core.passes import named_pass
 from . import _cuda
+from .consts import device_constant
 
 
 def hzb_layout(width: int, height: int):
@@ -118,9 +119,8 @@ def build_hzb(depth: torch.Tensor, layout, pallas_tail: bool = False) -> torch.T
 def hzb_load(pyramid, layout, mip, x, y):
     """Point-load pyramid[mip][y, x] with per-element mip/coords."""
     dev = pyramid.device
-    offsets = torch.tensor([o for o, _w, _h in layout], dtype=torch.int64, device=dev)
-    widths = torch.tensor([w for _o, w, _h in layout], dtype=torch.int64, device=dev)
-    heights = torch.tensor([h for _o, _w, h in layout], dtype=torch.int64, device=dev)
+    offsets, widths, heights = (device_constant(tuple(v), dev, torch.int64)
+                                for v in zip(*layout))
     mip = torch.clamp(mip.long(), 0, len(layout) - 1)
     w = widths[mip]
     h = heights[mip]

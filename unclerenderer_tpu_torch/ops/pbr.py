@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..core.passes import named_pass
+from .consts import device_constant
 from .fma import fma
 
 PI = 3.14159265
@@ -78,7 +79,7 @@ def apply_normal_map(vertex_normal, tangent4, tangent_normal):
     t = normalize(fma(-n, _dot3_fma(n, t_raw)[..., None], t_raw))
     b = normalize(torch.linalg.cross(n, t, dim=-1)) * tangent4[..., 3:4]
     tn_len = torch.linalg.vector_norm(tangent_normal, dim=-1, keepdim=True)
-    flat = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=tangent_normal.device)
+    flat = device_constant((0.0, 0.0, 1.0), tangent_normal.device)
     tn = torch.where(tn_len < 1e-5, flat, tangent_normal)
     world = fma(tn[..., 2:3], n, fma(tn[..., 0:1], t, tn[..., 1:2] * b))
     return normalize(world)

@@ -7,12 +7,13 @@ import torch
 import torch.nn.functional as F
 
 from ..core.passes import named_pass
+from .consts import device_constant
 
 LUM_WEIGHTS = (0.2126, 0.7152, 0.0722)
 
 
 def _luma(x):
-    w = torch.tensor(LUM_WEIGHTS, dtype=torch.float32, device=x.device)
+    w = device_constant(LUM_WEIGHTS, x.device)
     return (x * w).sum(dim=-1)
 
 

@@ -223,6 +223,9 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
     _check_records("binned_raster", records, want_ids)
     entry = ("binned_raster_debug" if debug else
              "binned_raster" if records is None else "binned_raster_attrs")
+    # the debug launch sizes its printf lines by the live block count, read
+    # back to the host on either device
+    n_lines = int(tile_count.sum()) if debug else 0
     if _cuda.on_cpu(entry, coef):
         return binned_raster_ref(coef, tri_id, valid, tile_start, tile_count,
                                  tile_h, tile_w, n_tx, y_offset, want_ids, ortho, records, debug)
@@ -250,7 +253,7 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
                                device=coef.device)
     if debug:
         if n_tiles:
-            need = PRINTF_LINE_BYTES * int(tile_count.sum()) // recut
+            need = PRINTF_LINE_BYTES * n_lines
             have = _cuda.printf_fifo(need)
             if have < need:
                 raise RuntimeError(
@@ -288,9 +291,14 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
 def tile_block_ranges(bins: BinnedTriangles, n_tiles: int):
     """Live blocks are [0, total_used) in tile order, so each tile's blocks
     form one contiguous range: (start, count) per tile.  Dead budget blocks
-    belong to no tile and cost the kernel nothing."""
-    live = bins.blk_live == 1
-    count = torch.bincount(bins.blk_tile[live].long(), minlength=n_tiles)[:n_tiles]
+    belong to no tile and cost the kernel nothing.  Counted at a static
+    shape, with no read back to the host: every block adds one to its
+    tile's count, a dead block (or one of a tile past ``n_tiles``) to a
+    spill slot ``n_tiles`` that is cut off."""
+    live = (bins.blk_live == 1) & (bins.blk_tile < n_tiles)
+    slot = torch.where(live, bins.blk_tile.long(), n_tiles)
+    count = torch.zeros(n_tiles + 1, dtype=torch.int64, device=slot.device)
+    count = count.index_add_(0, slot, torch.ones_like(slot))[:n_tiles]
     start = torch.cumsum(count, 0) - count
     return start.to(torch.int32), count.to(torch.int32)
 

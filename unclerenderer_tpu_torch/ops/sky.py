@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..core.passes import named_pass
+from .consts import device_constant
 
 PI = 3.14159265
 
@@ -32,8 +33,8 @@ def apply_atmosphere(view_dir, camera_pos, light_dir, light_color):
     dev = view_dir.device
     horizon_falloff = torch.clamp(
         (1.0 - torch.clamp(view_dir[..., 1] * 0.5 + 0.5, 0.0, 1.0)) ** 3.0, 0.0, 1.0)
-    zenith = torch.tensor([0.05, 0.12, 0.22], dtype=torch.float32, device=dev)
-    horizon = torch.tensor([0.52, 0.68, 0.86], dtype=torch.float32, device=dev)
+    zenith = device_constant((0.05, 0.12, 0.22), dev)
+    horizon = device_constant((0.52, 0.68, 0.86), dev)
     base_sky = zenith + (horizon - zenith) * horizon_falloff[..., None]
 
     l = _normalize(light_dir)
@@ -47,7 +48,7 @@ def apply_atmosphere(view_dir, camera_pos, light_dir, light_color):
     r_phase = rayleigh_phase(cos_sun_view)
     m_phase = mie_phase(cos_sun_view, 0.76)
 
-    rayleigh_color = torch.tensor([0.650, 0.570, 0.475], dtype=torch.float32, device=dev)
+    rayleigh_color = device_constant((0.650, 0.570, 0.475), dev)
     scattered = rayleigh_color * (rayleigh_density * r_phase)[..., None]
     scattered = scattered + light_color * (mie_density * m_phase * 0.8)[..., None]
     sun_attenuation = torch.clamp(

@@ -232,10 +232,10 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
         hdr = temporal_aa(hdr, state.taa_history, params.taa_history_weight, state.taa_valid,
                           pad_fn=pad_fn)
         new_history = hdr
-        new_taa_valid = torch.tensor(True, device=dev)
+        new_taa_valid = torch.ones((), dtype=torch.bool, device=dev)
     else:
         new_history = state.taa_history
-        new_taa_valid = torch.tensor(False, device=dev)
+        new_taa_valid = torch.zeros((), dtype=torch.bool, device=dev)
 
     # --- 10. auto exposure (sharded: each slab's partial sums of the 16x16
     # grid, summed over the ranks)
@@ -249,10 +249,10 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
                               *adapt)
         else:
             new_ev = auto_exposure_ev(hdr, *adapt)
-        new_exposure_valid = torch.tensor(True, device=dev)
+        new_exposure_valid = torch.ones((), dtype=torch.bool, device=dev)
     else:
         new_ev = state.exposure_ev
-        new_exposure_valid = torch.tensor(False, device=dev)
+        new_exposure_valid = torch.zeros((), dtype=torch.bool, device=dev)
 
     # --- 11. tonemap, 12. CAS (the UNORM backbuffer clamps its overshoot)
     color = tonemap(hdr, params.tonemap_exposure, new_ev, settings.enable_tonemap,
@@ -278,7 +278,7 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
         exposure_ev=new_ev,
         exposure_valid=new_exposure_valid,
         hzb=new_hzb,
-        hzb_valid=torch.tensor(settings.enable_hzb, device=dev),
+        hzb_valid=torch.full((), settings.enable_hzb, dtype=torch.bool, device=dev),
         frame_index=state.frame_index + 1,
     )
     out = {

@@ -36,6 +36,19 @@ Host vectors are never read back from the device per frame: the shadow-map
 cache is keyed on the host light vector and visibility, the frame's
 parameters travel in one non-blocking copy, and ``render_frames`` keeps
 the worst-frame drop counters on the device.
+
+On the card the frames run as programs (``render/program.py``), as the
+reference's run compiled: the first frame of a (settings, scene) runs op by
+op and builds the kernels, the next captures the frame into a CUDA graph
+(and the shadow raster into another at the first map it re-renders), and
+every later frame replays it.  The frame state then lives in the program's
+static buffers (``frame_state`` is them; assigning it copies into them),
+and each frame's outputs are clones the next replay leaves alone.  A
+changed ``settings`` or scene (``update_settings``, ``reload_scene``)
+drops the programs, where the reference recompiles.  Settings that
+``program.supported`` refuses run op by op (logged once), and so do the
+CPU, ``program.eager()`` blocks, ``profile_trace`` and the graph dump;
+``stats()["frame_program"]`` says how the last frame ran.
 """
 
 from __future__ import annotations
@@ -72,6 +85,7 @@ from .forward import forward_frame
 from .packing import M_UVOS, M_UVROT, pack_model_record, pack_tri_geo, pack_tri_mrec
 from .packing import scene_host_arrays
 from .framegraph import PassTimingStats
+from . import program
 from .params import (
     PACKED_TRI_AUTO_MATERIALS,
     DeviceScene,
@@ -309,23 +323,20 @@ def scene_cache_key(scene_path: Path, settings: RenderSettings, assets_root: Pat
          PACKED_TRI_AUTO_MATERIALS, settings.material_atlas_u8, str(assets_root)))
 
 
+def _host_params(fields: dict, device) -> torch.Tensor:
+    """FrameParams host values packed into one float32 vector
+    (``program.pack_params``), pinned on the card so that its copy to the
+    device does not block: the host never waits for the frames already
+    queued."""
+    flat = torch.from_numpy(program.pack_params(fields))
+    return flat.pin_memory() if device.type == "cuda" else flat
+
+
 def _params_on_device(fields: dict, device) -> FrameParams:
-    """FrameParams from host values: packed into one float32 buffer and
-    copied in one transfer (pinned and non-blocking on the card, so the host
-    never waits for the frames already queued); ``model_visible`` travels
-    as 0/1 and becomes bool on the device."""
-    arrays = {k: np.asarray(v, np.float32) for k, v in fields.items()}
-    flat = torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays.values()]))
-    if device.type == "cuda":
-        flat = flat.pin_memory().to(device, non_blocking=True)
-    else:
-        flat = flat.to(device)
-    out, at = {}, 0
-    for k, a in arrays.items():
-        out[k] = flat[at:at + a.size].view(a.shape)
-        at += a.size
-    out["model_visible"] = out["model_visible"] != 0
-    return FrameParams(**out)
+    """FrameParams from host values, copied in one transfer;
+    ``model_visible`` travels as 0/1 and becomes bool on the device."""
+    flat = _host_params(fields, device).to(device, non_blocking=True)
+    return program.unpack_params(flat, program.params_layout(fields))
 
 
 class Renderer:
@@ -344,6 +355,13 @@ class Renderer:
         scene_path = Path(scene_path)
         self.scene_path = scene_path
         self.device = torch.device(device)
+        # the frame programs (render/program.py) of the current settings and
+        # scene, and the settings and scene whose op-by-op frame warmed them
+        self._program = None
+        self._shadow_program = None
+        self._warm = None
+        self._refusals_logged: set = set()
+        self.frame_program = "eager: no frame rendered yet"
         cfg = config or RendererConfig()
         if settings is None:
             settings = RenderSettings(
@@ -524,7 +542,111 @@ class Renderer:
         for key, why in inherent.items():
             log_info(f"config {key}: inherent in the CUDA port ({why}); value ignored")
 
+    @property
+    def frame_state(self) -> FrameState:
+        """The carried frame state; with a deferred program, its static
+        buffers, which each replay overwrites (clone what you keep)."""
+        return self._frame_state
+
+    @frame_state.setter
+    def frame_state(self, state: FrameState) -> None:
+        """Copied into the program's state buffers where the program has
+        them and the shapes agree; otherwise the programs are dropped."""
+        prog = self._program
+        if prog is not None and prog.state is not None:
+            if state is prog.state:
+                return
+            fields = [f.name for f in dataclasses.fields(FrameState)]
+            if all(getattr(state, f).shape == getattr(prog.state, f).shape
+                   and getattr(state, f).dtype == getattr(prog.state, f).dtype for f in fields):
+                for f in fields:
+                    getattr(prog.state, f).copy_(getattr(state, f))
+                return
+            self._drop_programs()
+        self._frame_state = state
+
+    def _drop_programs(self) -> None:
+        """Forget the frame programs and their warm-up, where the reference
+        recompiles (changed settings or scene); the state stays as it is."""
+        self._program = None
+        self._shadow_program = None
+        self._warm = None
+
+    def _frame_mode(self) -> str:
+        """How the next frame runs: "graph" (a program replay, captured first
+        where none is current), or "eager: <why>" (op by op)."""
+        if self.device.type != "cuda":
+            return f"eager: {program.CPU_REASON}"
+        ok, why = program.supported(self.settings)
+        if not ok:
+            if why not in self._refusals_logged:
+                self._refusals_logged.add(why)
+                log_info(f"frames run op by op: {why}")
+            return f"eager: {why}"
+        if program.eager_active():
+            return "eager: inside program.eager()"
+        if self._deferred() and self._graph_dump_pending:
+            return "eager: the graph dump records the first deferred frame op by op"
+        prog = self._program
+        if prog is not None and (prog.scene is not self.device_scene
+                                 or prog.settings != self.settings):
+            self._drop_programs()  # settings or scene replaced in place
+        warm = self._warm is not None and (self._warm[0] == self.settings
+                                           and self._warm[1] is self.device_scene)
+        if self._program is not None or warm:
+            return "graph"
+        return "eager: warm-up (the kernels build; the next frame captures the program)"
+
+    def _eager_frame(self, fields: dict, dump: bool = False, shadow: bool = True) -> dict:
+        """One frame op by op (under ``record_graph`` with ``dump``); the
+        state is carried through ``frame_state``.  ``shadow`` False takes the
+        cached map as it is."""
+        params = _params_on_device(fields, self.device)
+        shadow_map = (self._shadow_map(params) if shadow or not self.settings.enable_shadows
+                      else self._shadow_cache)
+        if self._deferred():
+            with record_graph(Path("render_graph_dump.txt") if dump else None):
+                out, self.frame_state = deferred_frame(self.device_scene, params,
+                                                       self.frame_state, self.settings,
+                                                       shadow_map)
+            if dump:
+                log_info("wrote render_graph_dump.txt (the frame's op list)")
+        else:
+            out = forward_frame(self.device_scene, params, self.settings, shadow_map)
+        if self.device.type == "cuda":
+            self._warm = (self.settings, self.device_scene)
+        return out
+
+    def _program_frame(self, fields: dict, shadow: bool = True) -> program.FrameProgram:
+        """The current frame program, captured at its first use, with
+        ``fields`` loaded into its parameter buffer and (``shadow``) the map
+        re-rendered into its map buffer where the light or visibility
+        changed."""
+        host = _host_params(fields, self.device)
+        prog = self._program
+        if prog is None:
+            deferred = self._deferred()
+            prog = program.FrameProgram(
+                self.device_scene, self.settings, "deferred" if deferred else "forward",
+                host.to(self.device), program.params_layout(fields),
+                state=self.frame_state if deferred else None,
+                shadow_map=self._shadow_cache if self.settings.enable_shadows else None)
+            self._program = prog
+            if deferred:
+                self._frame_state = prog.state
+            log_info(f"frame program captured: {prog.kind}, {sum(prog.launches.values())} kernel "
+                     f"launches, pool {prog.pool_bytes / 2**30:.2f} GiB, {prog.capture_s:.2f} s")
+        else:
+            prog.load_params(host)
+        if shadow:
+            self._shadow_map(None, prog)
+        return prog
+
     def frame_params(self, delta_time: float = 1.0 / 60.0) -> FrameParams:
+        return _params_on_device(self._frame_fields(delta_time), self.device)
+
+    def _frame_fields(self, delta_time: float) -> dict:
+        """The frame's parameters as host values, FrameParams' fields."""
         view = self.camera.view_matrix()
         proj_base = self.camera.projection_matrix()
         # TAA jitter only once history is valid (DeferredRenderer.cpp:398-411);
@@ -539,7 +661,7 @@ class Renderer:
         light_vp = m.build_directional_light_view_proj(
             self.scene_data.scene_center, self.scene_data.scene_radius, light_vec)
         cfg = self.config
-        return _params_on_device(dict(
+        return dict(
             view=view,
             proj=proj,
             proj_unjittered=proj_base,
@@ -564,23 +686,38 @@ class Renderer:
             auto_exposure_speed_up=cfg.auto_exposure_speed_up,
             auto_exposure_speed_down=cfg.auto_exposure_speed_down,
             delta_time=delta_time,
-        ), self.device)
+        )
 
-    def _shadow_map(self, params: FrameParams) -> torch.Tensor | None:
+    def _shadow_map(self, params: FrameParams | None,
+                    prog: program.FrameProgram | None = None) -> torch.Tensor | None:
         """Cached shadow map: geometry and light are static, so the map
         re-renders only when the light or the visibility changes (the D3D12
         renderer re-renders it every frame).  Keyed on the host vectors the
         params were built from; the drop count is read back only when the
-        map re-renders."""
+        map re-renders.  With ``prog`` (its parameter buffer loaded) the map
+        re-renders by the shadow program into ``prog``'s map buffer, else op
+        by op from ``params`` (copied into the current program's map buffer
+        where there is one)."""
         if not self.settings.enable_shadows:
             return None
         key = (tuple(m.light_vector_from_scene_direction(self.light.direction).tolist()),
                tuple(np.asarray(self.scene_data.visible_mask).tolist()))
         if self._shadow_cache is None or key != self._shadow_key:
-            opaque, masked = common.tri_draw_masks(self.device_scene, params.model_visible,
-                                                   self.settings)
-            self._shadow_cache, overflow = common.raster_shadow(
-                self.device_scene, params.light_view_proj, opaque | masked, self.settings)
+            if prog is not None:
+                if self._shadow_program is None or self._shadow_program.program is not prog:
+                    self._shadow_program = program.ShadowProgram(prog)
+                overflow = self._shadow_program.run()
+                depth = prog.shadow_map
+            else:
+                opaque, masked = common.tri_draw_masks(self.device_scene, params.model_visible,
+                                                       self.settings)
+                depth, overflow = common.raster_shadow(
+                    self.device_scene, params.light_view_proj, opaque | masked, self.settings)
+                current = self._program
+                if current is not None and current.shadow_map is not None:
+                    current.shadow_map.copy_(depth)
+                    depth = current.shadow_map
+            self._shadow_cache = depth
             self._shadow_overflow = int(overflow)
             if self._shadow_overflow:
                 log_warning(f"shadow compaction dropped {self._shadow_overflow} casters -- "
@@ -595,29 +732,28 @@ class Renderer:
 
     def render_frame(self, delta_time: float = 1.0 / 60.0) -> dict:
         """One deferred or forward frame (``renderer_type``) on the cached
-        shadow map; a forward frame leaves the frame state as it is.  No
+        shadow map; a forward frame leaves the frame state as it is.  On the
+        card a replay of the frame program where ``_frame_mode`` says so
+        (its outputs are clones, kept as they are by later frames).  No
         fallback: a frame that fails (a kernel that does not build or
-        launch included) raises; the reference's retry with the forward
-        renderer is not carried over.  Under ``enable_gpu_timing`` the frame
-        is synchronised and its time sampled as "Frame"; under
-        ``enable_graph_dump`` the first deferred frame runs under
-        ``record_graph`` and writes ``render_graph_dump.txt``."""
+        launch, a capture or a replay included) raises; the reference's
+        retry with the forward renderer is not carried over.  Under
+        ``enable_gpu_timing`` the frame is synchronised and its time
+        sampled as "Frame"; under ``enable_graph_dump`` the first deferred
+        frame runs op by op under ``record_graph`` and writes
+        ``render_graph_dump.txt``."""
         t0 = time.monotonic() if self._gpu_timing else 0.0
-        params = self.frame_params(delta_time)
-        shadow_map = self._shadow_map(params)
-        if self._deferred():
-            dump = self._graph_dump_pending
-            self._graph_dump_pending = False
-            with record_graph(Path("render_graph_dump.txt") if dump else None):
-                out, self.frame_state = deferred_frame(self.device_scene, params,
-                                                       self.frame_state, self.settings,
-                                                       shadow_map)
-            if dump:
-                log_info("wrote render_graph_dump.txt (the frame's op list)")
-            if self.settings.enable_taa:
-                self._taa_history_ready = True
+        fields = self._frame_fields(delta_time)
+        mode = self._frame_mode()
+        if mode == "graph":
+            out = self._program_frame(fields).run()
         else:
-            out = forward_frame(self.device_scene, params, self.settings, shadow_map)
+            dump = self._deferred() and self._graph_dump_pending
+            self._graph_dump_pending &= not dump
+            out = self._eager_frame(fields, dump=dump)
+        if self._deferred() and self.settings.enable_taa:
+            self._taa_history_ready = True
+        self.frame_program = mode
         self._frame_counter += 1
         self._last_out = out
         if self._gpu_timing:
@@ -632,38 +768,43 @@ class Renderer:
         frame; the light and visibility stay fixed, so the shadow map is
         rendered at most once.  The worst frame's value of each drop counter
         stays on the device until ``stats()`` reads it (the reference scans
-        the frames in one device program, ``renderer.py:695-763``).  Forward
-        frames leave the frame state as it is and, as the reference's chain,
-        keep no drop counters."""
+        the frames in one device program, ``renderer.py:695-763``).  On the
+        card each frame is a program replay (after one op-by-op warm-up
+        frame where none ran yet), each frame's parameters copied into the
+        program's buffer on the stream, with no host synchronisation between
+        frames.  Forward frames leave the frame state as it is and, as the
+        reference's chain, keep no drop counters."""
         if n < 1:
             raise ValueError(f"render_frames: n must be >= 1, got {n}")
         deferred = self._deferred()
-        params_list = []
+        fields_list = []
         for i in range(n):
             if mutate is not None:
                 mutate(self, i)
-            params_list.append(self.frame_params(delta_time))
+            fields_list.append(self._frame_fields(delta_time))
             self._frame_counter += 1
             if deferred and self.settings.enable_taa:
                 self._taa_history_ready = True
-        shadow_map = self._shadow_map(params_list[0])
-        colors, drops = [], None
-        for params in params_list:
-            if not deferred:
-                colors.append(forward_frame(self.device_scene, params, self.settings,
-                                            shadow_map)["color"])
-                drops = {}
-                continue
-            out, self.frame_state = deferred_frame(self.device_scene, params, self.frame_state,
-                                                   self.settings, shadow_map)
-            colors.append(out["color"])
-            rs = out["raster_stats"]
-            drops = dict(rs) if drops is None else {k: torch.maximum(drops[k], v)
-                                                    for k, v in rs.items()}
+        colors, drops = None, ({} if not deferred else None)
+        for i, fields in enumerate(fields_list):
+            mode = self._frame_mode()
+            if mode == "graph":
+                out = self._program_frame(fields, shadow=i == 0).replay()
+            else:
+                out = self._eager_frame(fields, shadow=i == 0)
+            self.frame_program = mode
+            if colors is None:
+                colors = torch.empty((n,) + tuple(out["color"].shape), dtype=out["color"].dtype,
+                                     device=out["color"].device)
+            colors[i].copy_(out["color"])
+            if deferred:
+                rs = out["raster_stats"]
+                drops = ({k: v.clone() for k, v in rs.items()} if drops is None else
+                         {k: torch.maximum(drops[k], v) for k, v in rs.items()})
         # stats()/pick() re-render on demand; the chain's drops stay visible
         self._chain_drop_counters = drops
         self._last_out = None
-        return torch.stack(colors)
+        return colors
 
     def _latest_out(self) -> dict:
         """The last rendered frame's outputs (one frame is rendered if there
@@ -691,6 +832,7 @@ class Renderer:
             return
         old = self.settings
         self.settings = new
+        self._drop_programs()
         if ("enable_combined_material" in changes or "material_packed_trilinear" in changes
                 or "material_atlas_u8" in changes):
             self.texture_substitutions = []
@@ -744,8 +886,10 @@ class Renderer:
     def stats(self) -> dict:
         """Scene and culling counts of the last rendered frame, its drop
         counters (the worst frame of the last ``render_frames`` folded in),
-        exposure, TAA state and device memory.  Does not advance the frames.
-        A forward frame culls nothing: every model counts as visible."""
+        exposure, TAA state, device memory and how the last frame ran
+        (``frame_program``: "graph" or "eager: <why>").  Does not advance the
+        frames.  A forward frame culls nothing: every model counts as
+        visible."""
         out = self._latest_out()
         total = self.scene_data.num_models
         n_visible = int(out["model_visible"].sum()) if "model_visible" in out else total
@@ -769,6 +913,7 @@ class Renderer:
                                            int(self._shadow_overflow)),
             "exposure_ev": float(self.frame_state.exposure_ev),
             "taa_history_valid": bool(self.frame_state.taa_valid),
+            "frame_program": self.frame_program,
             **self.memory_stats(),
             **({"frame_timing": self._frame_times.stats()} if self._gpu_timing else {}),
         }
@@ -812,13 +957,14 @@ class Renderer:
         """Record ``frames`` rendered frames with ``torch.profiler`` (host
         and, on the card, device activity) and write its Chrome trace into
         ``trace_dir`` (open it in Perfetto); every pass and sub-scope is a
-        named range there.  Returns ``trace_dir``."""
+        named range there: the frames run op by op (``program.eager``), as a
+        replayed graph replays no range.  Returns ``trace_dir``."""
         trace_dir = Path(trace_dir)
         trace_dir.mkdir(parents=True, exist_ok=True)
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.profile(activities=activities) as prof, program.eager():
             for _ in range(frames):
                 self.render_frame()
             if self.device.type == "cuda":
@@ -901,6 +1047,7 @@ class Renderer:
 
     def _apply_reload(self, built) -> None:
         scene_path, data, dev, mips, combined, subs = built
+        self._drop_programs()
         self.texture_substitutions = subs
         self.scene_data = data
         self.device_scene = dev
