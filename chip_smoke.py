@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Eleven paths of the port are driven: five through ``deferred_frame``,
+Twelve paths of the port are driven: five through ``deferred_frame``,
 
 * default -- the default frame of the combined material (u8 combined quad
   atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
@@ -15,7 +15,9 @@ Eleven paths of the port are driven: five through ``deferred_frame``,
   on, per-slot material taps) on its masked scene (every 4th model a MASK
   material; per-map quad atlas), with the Renderer's ``masked_tri_cap``:
   K1, K2, K4 and K5 over the whole table (compaction is off with masked
-  models) and the masked raster in plain PyTorch (it has no kernel);
+  models) and the masked raster's two levels by M1 (``masked_raster``,
+  ``csrc/masked_raster.cu``: not a TPU kernel, the reference's XLA masked
+  raster);
 * fused   -- the default path with ``fused_resolve="on"``: the camera
   raster's K1 and K2 launches emit each pixel's resolve record
   (``binned_raster_attrs``, ``giant_raster_attrs``), which the resolve takes
@@ -59,14 +61,19 @@ run through the entry points of the last modules ported:
   each rank's row slab (``y_offset``: the first row of the tile-aligned
   region around the slab), the shadow map's slabs all-gathered.
 
-One more path is the JAX package's second backend:
+One more path is the JAX package's second backend, and the last the masked
+frame as a user renders it:
 
 * xla      -- ``RenderSettings(raster_backend="xla")`` through the
   Renderer on the renderer cell's files: the exhaustive raster X1
   (``csrc/exhaustive_raster.cu``, not a TPU kernel: the reference's XLA
   ``rasterize``) for the shadow map and the camera, the per-texel f16 PCF
   table with one plain row gather a receiver, plain draw-mask gathers, and
-  none of K1-K9.
+  none of K1-K9 (M1 where masked models are on: the reference runs one
+  masked raster under every backend);
+* masked-program -- the headline geometry written with masked models and
+  rendered by the Renderer at the default ``RendererConfig``: its masked
+  frames captured and replayed as CUDA graphs (K1, K2, K4, K5 and M1).
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -98,6 +105,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    and also without records and beside ``records.index_select(0, ids)`` on
    the same winner ids (their library call); the masked path's fused calls
    held bit-equal.
+   M1 (``masked_raster``) on the special setups of ``render/testing.py
+   masked_raster_setup`` -- coplanar ties, +0/-0 keys, slivers covering
+   pixels past their boxes, alphas within ulps of the cutoff -- at 256^2,
+   on quad (4-channel f32/bf16, 16-channel u8) and packed (u8, bf16, f32)
+   atlases, binned and exhaustive, chunks 32-256, y_offset 0 and 48, both
+   filters and misaligned tables: key bits, ids, live blocks and covered
+   pairs equal to the plain version's.
    Then the launch path: every kernel wrapper's host microseconds per call
    on a tiny input (``launch_us``: 2 x 3 runs of 1000 calls, no
    synchronisation inside a run) beside ``clone`` of the same input, taken
@@ -108,7 +122,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    path, the packed path under the trilinear and the anisotropic filter,
    and the masked path (24 objects, per-slot masked scene) at
    ``masked_tri_cap`` 0, -1 and the Renderer's value, each with more than
-   50 pixels won by masked models.
+   50 pixels won by masked models; every M1 call of the card's masked
+   frames held bit-equal to the plain version.
 5. slice   -- per path, 10 carried frames at 1920x1080 over the
    263,184-triangle synthetic scene with a 4096^2 shadow map, on a slow
    orbit, with the launch counts set to 0 just before and read just after:
@@ -116,10 +131,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    then 3 timed runs of 10 frames.  The packed configuration is also timed
    with the four flags off (the reference's XLA-equivalent branches).  The
    masked path also logs the pixels won by masked models, the masked
-   raster's stage ms and its alpha tap's ms (CUDA events), the (pixel,
-   candidate) pairs of each masked level, and
+   raster's stage ms and M1's launches' ms (CUDA events), M1's counts of
+   each masked level (live blocks, covered and alpha-tapped pairs), and
    the pairs and triangles the masked levels drop past their bin budgets,
-   which the reference does not count (logged, not gated).
+   which the reference does not count (logged, not gated); its two M1
+   calls (levels 1 and 2) are held bit-equal to the plain version and
+   timed as the other kernels' (the kernels line's M1 calls).
    The fused path: one fused frame equal to the unfused frame from the same
    state (every output and the carried state bit-equal, colour exactly
    equal), on the default and the masked geometry; 10 counted fused frames
@@ -172,7 +189,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    256x256 deferred frame with ``kernel_debug_print``, and holds each debug
    launch to the plain version; the lines it printed equal the plain
    version's as a multiset, one per live block; the launches' ms with and
-   without the flag.
+   without the flag.  Then a 256x256 Renderer with the flag: 3 frames
+   replayed from the frame program, each printing the multiset of lines of
+   the same frame op by op (from the same state), which is the plain
+   version's -- each frame's live blocks, once.
 10. observability -- (run after phase 7, on its files at 1080p) GpuTiming's
    "Frame" samples; ``profile_passes``' ten stages (ms > 0);
    ``profile_trace_passes`` of 2 frames (ShadowMap, VisibilityRaster and
@@ -232,12 +252,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (3 pairs of 10 frames), host ms a ``render_frame`` call, the profiler's
    device-busy share over 3 frames of each, capture seconds, graph pool
    GiB and peak GiB.
+16. masked-program -- phase 15 on the headline geometry written with
+   ``write_scene(..., masked=True)`` at 1080p with the 4096^2 map: the
+   Renderers turn the masked raster on from the scene, and each replay
+   launches M1 twice (levels 1 and 2; gated).
 
-The Renderer phases (7, 10-12, 14) run as users run the Renderer: on the
+The Renderer phases (7, 10-12, 14-16) run as users run the Renderer: on the
 card its frames after the first of a (settings, scene) are replays of the
-captured program, for every setting ``program.supported`` accepts (the
-masked path's settings run op by op); their launch counts count each
-replay's kernels.
+captured program, for every setting ``program.supported`` accepts; their
+launch counts count each replay's kernels.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations over the f32
@@ -255,7 +278,9 @@ launches without the flag; ``exhaustive_raster``: the xla Renderer's, whose
 ``ms``, ``graph_ms``, ``plain_ms`` and ``bound_ms`` are the whole camera and
 map images', and ``mask_ms``, ``tile_ms`` its two kernels' device ms in
 them, ``mask_bytes`` their masks'),
-``renderer_launches`` on
+``masked_raster`` (M1, ``"tpu_kernel": false``): the masked Renderer's
+10 replayed frames of phase 16, its ``ms``/``graph_ms``/``plain_ms``/
+``bound_ms`` the masked 1080p frame's two calls; ``renderer_launches`` on
 the Renderer's, ``forward_renderer_launches`` on the forward Renderer's,
 ``viewer_launches`` on the viewer's 10 frames and ``multichip_launches``
 on rank 1 of the 2-rank 1080p frames.  The last three lines of stdout
@@ -301,6 +326,7 @@ PROBE_ROWS = 786432  # the probes' packed atlas rows (256 u8 lanes)
 # the sampling configuration: the non-default sampling and storage branches
 SAMPLING = dict(lod_derivatives="forward", soa_vertex=False, shadow_table_u16=False)
 DEBUG_FIFO = 64 << 20  # the debug child's device printf FIFO (grown before any launch)
+REPLAY_FRAMES = 3  # the debug child's Renderer frames replayed, and again op by op
 PASS_STAGES = {"GPU Culling", "ShadowMap", "VertexStage", "GBuffer(Visibility)", "Build HZB",
                "MaterialResolve", "Lighting", "TemporalAA", "Tonemap", "CAS"}
 SUM_ATOL = 1e-5  # probe-row sums, kernel vs plain: the same adds over equal inputs
@@ -312,6 +338,14 @@ EDGE_OPS = 12
 # a (pixel, row) pair that the warp skip keeps: three FMAs and adds, plus
 # the three b*qy multiplies that a thread makes once for its kPix pixels
 PIXEL_EDGE_OPS = 9
+# M1: a covered (pixel, slot) pair's edge tests, its depth numerator and
+# denominator (a multiply, an FMA and an add each) and their divide; a
+# tapped pair's alpha test: three interpolations and divides (12), the LOD
+# (a reciprocal, 4 FMAs, 8 multiplies, 2 FMAs, a max, a log2 and a multiply:
+# 18), a trilinear tap's two bilinear blends and mip lerp (21 lerp
+# operations and the texel coordinates, ~20) and the cutoff (3)
+MASKED_PAIR_OPS = PIXEL_EDGE_OPS + 7
+TAP_OPS = 74
 
 
 def log(phase: str, msg: str) -> None:
@@ -507,6 +541,30 @@ def work_exhaustive(setup, width, height, tile_h=32, tile_w=64, chunk=128, depth
     return moved, ops, tile_h * tile_w * rows.shape[0], kept_pairs
 
 
+def work_masked(coef, tri_id, valid, rows, start, count, arec, atlas, atlas_width, tile_h,
+                tile_w, width, height, y_offset=0, full_height=None, bilinear=False,
+                stats=False):
+    """M1: (bytes, operations).  Bytes: the slots of the blocks the tiles
+    walk (16 coefficients, flag, id, record row) and the valid slots' alpha
+    records (19 floats) read once, the tile ranges, the two images written
+    once, and each tapped pair's texels (4 a bilinear tap, 8 a trilinear
+    one).  Operations: what this run's data needs, not M1's walk: the edge
+    and depth tests of the covered pairs and the alpha tests of the tapped
+    ones, from the kernel's own counts (one more launch, outside every
+    counted run)."""
+    from unclerenderer_tpu_torch.ops import raster_kernels as rk
+
+    n = rk.masked_raster(coef, tri_id, valid, rows, start, count, arec, atlas, atlas_width,
+                         tile_h, tile_w, width, height, y_offset, full_height, bilinear,
+                         stats=True)[2]
+    walked = coef.shape[0] if start is None else int(count.sum())
+    slots = int((valid.reshape(coef.shape[0], -1)[:walked] > 0).sum())
+    taps = int(n["tapped"])
+    moved = (walked * coef.shape[-1] * 4 * 19 + slots * 4 * 19 + nbytes(start, count)
+             + height * width * 8 + taps * (4 if bilinear else 8) * atlas.element_size())
+    return moved, MASKED_PAIR_OPS * int(n["covered"]) + TAP_OPS * taps
+
+
 def past_box(setup, b_id, differ, tile_h, tile_w, y_offset):
     """Of the pixels ``differ``, those whose binned winner's box misses the
     pixel's tile at X1's tile size: coverage of a sliver past its box, which
@@ -647,8 +705,16 @@ def tiny_inputs(dev):
     from unclerenderer_tpu_torch.ops.binning import bin_triangles
     from unclerenderer_tpu_torch.ops.shadow import pcf_deltas
 
+    from unclerenderer_tpu_torch.render.testing import (
+        masked_raster_args,
+        masked_raster_atlas,
+        masked_raster_setup,
+    )
+
     s = random_setup(16, 0, 0.1, dev, w=64, h=16)
     bins = bin_triangles(s, 64, 16, 16, 64, 32)
+    m_setup, m_arec = masked_raster_setup("random", 0, dev, 64, 16, n=16)
+    m_atlas, m_aw = masked_raster_atlas("quad16", torch.uint8, dev)
     start, count = rk.tile_block_ranges(bins, 1)
     with Recorder(rk, "giant_raster") as r:
         rk.rasterize_giant(s, 64, 16, tile_h=16, tile_w=64, chunk=8)
@@ -680,6 +746,8 @@ def tiny_inputs(dev):
         "copy_rows": ((i32,), {}),
         "materialize": ((i32,), {}),
         "exhaustive_raster": ((s, 64, 16), {"tile_h": 16, "tile_w": 64}),
+        "masked_raster": (masked_raster_args(m_setup, m_arec, m_atlas, m_aw, 64, 16, chunk=32),
+                          {}),
     }
 
 
@@ -718,13 +786,33 @@ def debug_phase(kernels, smi) -> dict:
         child_s = time.perf_counter() - t0
         check(res.returncode == 0, f"debug child failed: {res.stderr[-3000:]}")
         got = json.loads(out.read_text())
-    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("binned raster")]
+    sections, cur = {}, []
+    for ln in res.stdout.splitlines():
+        if ln.startswith("=== "):
+            sections[ln[4:]], cur = cur, []
+        elif ln.startswith("binned raster"):
+            cur.append(ln)
+    lines = sections["direct"]
     check(Counter(lines) == Counter(got["ref_lines"]),
           f"debug lines differ from the plain version's: {len(lines)} printed, "
           f"{len(got['ref_lines'])} expected")
     check(len(lines) == got["live_blocks"] > 0 and got["launches"] > 0,
           f"{len(lines)} debug lines for {got['live_blocks']} live blocks, "
           f"{got['launches']} launches")
+    # the replayed Renderer frames: each frame's lines once, as op by op
+    check(got["replay_mode"] == "graph", f"debug Renderer frames ran as {got['replay_mode']}")
+    per_frame = []
+    for i in range(REPLAY_FRAMES):
+        g, e = sections[f"graph {i}"], sections[f"eager {i}"]
+        check(e and Counter(g) == Counter(e), f"replayed debug frame {i}: {len(g)} lines, op by "
+                                              f"op {len(e)} (not the same multiset)")
+        per_frame.append(len(g))
+    eager_lines = [ln for i in range(REPLAY_FRAMES) for ln in sections[f"eager {i}"]]
+    check(Counter(eager_lines) == Counter(got["replay_ref_lines"]),
+          "the op-by-op Renderer frames' debug lines differ from the plain version's")
+    log("debug", f"a debug Renderer (256x256): {REPLAY_FRAMES} frames replayed from "
+                 f"the frame program printed {per_frame} lines, each frame the multiset of the "
+                 "same frame op by op, which is the plain version's: one line a live block, once")
     k = kernels["binned_raster_debug"]
     for c in got["calls"]:
         k["ms"] += c["ms"]
@@ -738,8 +826,8 @@ def debug_phase(kernels, smi) -> dict:
                  f"{got['fifo_bytes']} B; per launch (lines, ms with / without the flag): "
                  f"{[(c['lines'], round(c['ms'], 4), round(c['no_debug_ms'], 4)) for c in got['calls']]} "
                  f"(CUDA events, 20 launches each, in turns, on {smi})")
-    return {"lines": len(lines), "child_s": child_s, **{k_: v for k_, v in got.items()
-                                                        if k_ != "ref_lines"}}
+    return {"lines": len(lines), "child_s": child_s, "replay_lines": per_frame,
+            **{k_: v for k_, v in got.items() if k_ not in ("ref_lines", "replay_ref_lines")}}
 
 
 def observability_phase(dev, smi, scene: Path) -> dict:
@@ -1373,7 +1461,7 @@ def device_busy(trace_path) -> dict:
             "busy_share": busy / span if span else 0.0}
 
 
-def program_phase(dev, smi, scene: Path) -> dict:
+def program_phase(dev, smi, scene: Path, label: str = "program") -> dict:
     """Phase 15: the frame program (``render/program.py``) on the renderer
     cell's files at 1920x1080 with the 4096^2 map.  (a) no host sync: one
     op-by-op deferred frame, one forward frame and one ``raster_shadow``
@@ -1385,7 +1473,10 @@ def program_phase(dev, smi, scene: Path) -> dict:
     launch counts over the 10 frames; (d) recorded, not gated: ms/frame
     graph and op by op in turns (3 pairs of 10 frames), host ms a
     ``render_frame`` call, the profiler's device-busy share over 3 frames
-    of each, capture seconds, graph pool GiB and peak GiB."""
+    of each, capture seconds, graph pool GiB and peak GiB.  On a scene with
+    masked models (phase 16, ``label`` "masked-program") the Renderers
+    turn the masked raster on, and each replay launches M1 twice (its two
+    levels)."""
     from unclerenderer_tpu_torch.ops import _cuda
     from unclerenderer_tpu_torch.render import common as common_mod
     from unclerenderer_tpu_torch.render import program
@@ -1424,9 +1515,18 @@ def program_phase(dev, smi, scene: Path) -> dict:
         check(rr.frame_program == "graph" and rr.stats()["frame_program"] == "graph",
               f"second frame: {rr.frame_program}")
     progs = {"deferred": r._program, "forward": f._program}
+    masked = r.settings.has_masked_models
+    check(masked == f.settings.has_masked_models, "the two Renderers' masked settings differ")
+    if masked:
+        for k, p in progs.items():
+            check(p.launches["masked_raster"] == 2,
+                  f"{label}: a {k} replay launches M1 {p.launches['masked_raster']} times, "
+                  "expected 2 (levels 1 and 2)")
     rep["capture"] = {k: {"capture_s": p.capture_s, "pool_gib": p.pool_bytes / 2**30,
                           "launches": dict(p.launches)} for k, p in progs.items()}
-    log("program", f"captured: " + "; ".join(
+    rep["masked"] = masked
+    rep["masked_tri_cap"] = r.settings.masked_tri_cap
+    log(label, f"captured: " + "; ".join(
         f"{k} {p.capture_s:.2f} s, pool {p.pool_bytes / 2**30:.2f} GiB, launches a replay "
         f"{ {n: c for n, c in p.launches.items() if c} }" for k, p in progs.items()))
 
@@ -1445,7 +1545,7 @@ def program_phase(dev, smi, scene: Path) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log("program", "no host sync (sync debug mode \"error\") in an op-by-op deferred frame, a "
+    log(label, "no host sync (sync debug mode \"error\") in an op-by-op deferred frame, a "
                    "forward frame and raster_shadow at 1080p with the 4096^2 map")
     del state
 
@@ -1503,7 +1603,7 @@ def program_phase(dev, smi, scene: Path) -> dict:
     hold("deferred", g_outs, e_outs, g_states, e_states)
     check(g_launch == e_launch, f"launches over {FRAMES} frames: graph {g_launch}, eager {e_launch}")
     rep["launches"] = {"graph": g_launch, "eager": e_launch}
-    log("program", f"{FRAMES} carried deferred frames on the orbit, replayed and op by op from one "
+    log(label, f"{FRAMES} carried deferred frames on the orbit, replayed and op by op from one "
                    f"start state: every output ({sorted(g_outs[0])}) and every state field "
                    f"bit-equal; launches the same: {g_launch}")
     del g_outs, g_states
@@ -1514,7 +1614,7 @@ def program_phase(dev, smi, scene: Path) -> dict:
     fe, _s, fe_launch = frames(f, 3, eager=True)
     hold("forward", fg, fe)
     check(fg_launch == fe_launch, f"forward launches: graph {fg_launch}, eager {fe_launch}")
-    log("program", f"3 forward frames replayed and op by op: every output bit-equal, launches "
+    log(label, f"3 forward frames replayed and op by op: every output bit-equal, launches "
                    f"the same ({fg_launch})")
     del fg, fe
 
@@ -1532,7 +1632,7 @@ def program_phase(dev, smi, scene: Path) -> dict:
     check(chain_launch == e_launch, f"render_frames launches {chain_launch}, eager {e_launch}")
     drops = {k: int(v) for k, v in r._chain_drop_counters.items()}
     check(not any(drops.values()), f"render_frames drop counters {drops}")
-    log("program", f"render_frames({FRAMES}) replayed: colours and final state bit-equal to the "
+    log(label, f"render_frames({FRAMES}) replayed: colours and final state bit-equal to the "
                    f"{FRAMES} op-by-op frames, launches the same, worst-frame drops {drops}")
     del colors, e_outs, e_states
 
@@ -1561,7 +1661,7 @@ def program_phase(dev, smi, scene: Path) -> dict:
     med_host = {k: statistics.median(v) for k, v in host.items()}
     rep.update(ms_per_frame=runs, median_ms=med, host_ms_per_call=host,
                median_host_ms=med_host, peak_gib=peak)
-    log("program", f"ms/frame median: graph {med['graph']:.2f} (runs "
+    log(label, f"ms/frame median: graph {med['graph']:.2f} (runs "
                    f"{[round(x, 2) for x in runs['graph']]}), op by op {med['eager']:.2f} (runs "
                    f"{[round(x, 2) for x in runs['eager']]}); host ms a render_frame call: graph "
                    f"{med_host['graph']:.3f}, op by op {med_host['eager']:.3f}; 3 runs x "
@@ -1583,12 +1683,12 @@ def program_phase(dev, smi, scene: Path) -> dict:
             path = Path(td) / "busy.pt.trace.json"
             prof.export_chrome_trace(str(path))
             rep["busy"][which] = device_busy(path)
-    log("program", "device-busy share over 3 frames (profiler rows' union over their span): " +
+    log(label, "device-busy share over 3 frames (profiler rows' union over their span): " +
         "; ".join(f"{k} {100 * v['busy_share']:.1f}% ({v['busy_ms'] / 3:.2f} of "
                   f"{v['span_ms'] / 3:.2f} ms a frame, {v['rows']} rows)"
                   for k, v in rep["busy"].items()) + f" (on {smi})")
     rep["seconds"] = time.perf_counter() - t_phase
-    log("program", f"phase done in {rep['seconds']:.1f} s")
+    log(label, f"phase done in {rep['seconds']:.1f} s")
     del r, f
     return rep
 
@@ -1816,20 +1916,29 @@ def k1_debug_child(out: Path) -> int:
     writes to this process's fd 1, which the parent reads.  Grows the printf
     FIFO before any CUDA work, renders one 256x256 deferred frame with
     ``kernel_debug_print`` (its K1 launches print; nothing else writes to
-    stdout), then with fd 1 on /dev/null holds each debug launch to the
-    plain version, times it with and without the flag and the plain version,
-    and writes to ``out``: the plain version's lines, the live blocks, the
-    launches, the times and the bound's bytes and operations."""
+    stdout); then a Renderer with the flag on a scene written to files: its
+    warm-up frame, ``REPLAY_FRAMES`` frames replayed from the
+    frame program and the same frames op by op from the same state, each
+    frame's lines ended by a marker line (``=== <frame>``).  Then, with fd
+    1 on /dev/null, holds each direct debug launch to the plain version,
+    times it with and without the flag and the plain version, and writes
+    to ``out``: the plain version's lines of the direct frame and of the
+    op-by-op Renderer frames, the live blocks, the launches, the replays'
+    mode, the times and the bound's bytes and operations."""
+    import ctypes
     import io
     import os
 
     from unclerenderer_tpu_torch.ops import _cuda
     from unclerenderer_tpu_torch.ops import raster_kernels as rk
+    from unclerenderer_tpu_torch.render import program
     from unclerenderer_tpu_torch.render.deferred import deferred_frame
     from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
     from unclerenderer_tpu_torch.render.testing import (
         synthetic_device_scene,
         synthetic_frame_params,
+        write_scene,
     )
 
     fifo = _cuda.printf_fifo(DEBUG_FIFO)
@@ -1840,14 +1949,55 @@ def k1_debug_child(out: Path) -> int:
     params = synthetic_frame_params(data, 256, 256, device=dev)
     torch.cuda.synchronize()
     _cuda.reset_launches()
-    with Recorder(rk, "binned_raster") as r:
+    with Recorder(rk, "binned_raster") as r_direct:
         deferred_frame(scene, params, FrameState.initial(256, 256, dev), settings)
         torch.cuda.synchronize()  # flushes the device lines to fd 1
     launches = _cuda.LAUNCHES["binned_raster_debug"]
+    libc = ctypes.CDLL(None)
+
+    def mark(tag):
+        """Ends a section of fd 1: the device lines so far flushed (the
+        synchronize hands them to C's stdout, fflush writes them), then a
+        marker line."""
+        torch.cuda.synchronize()
+        libc.fflush(None)
+        sys.stdout.flush()
+        print(f"=== {tag}", flush=True)
+
+    mark("direct")
+    # the Renderer's debug frames as program replays, then the same frames
+    # op by op from the same state (a fixed camera: the cached map is not
+    # re-rendered, so each frame prints its camera raster's fine level)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_debug_scene_") as td:
+        r = Renderer(write_scene(td, 24, sphere_res=(12, 8), n_materials=3, tex_size=64),
+                     settings=RenderSettings(width=256, height=256, shadow_map_size=512,
+                                             kernel_debug_print=True), device=dev)
+        r.render_frame()  # the warm-up frame, op by op
+        mark("warm-up")
+        start = (FrameState(**{f.name: getattr(r.frame_state, f.name).clone()
+                               for f in dataclasses.fields(FrameState)}),
+                 r._frame_counter, r._taa_history_ready)
+        for i in range(REPLAY_FRAMES):
+            r.render_frame()
+            mark(f"graph {i}")
+        replay_mode = r.frame_program
+        r.frame_state = start[0]
+        r._frame_counter, r._taa_history_ready = start[1], start[2]
+        with program.eager(), Recorder(rk, "binned_raster") as rec:
+            for i in range(REPLAY_FRAMES):
+                r.render_frame()
+                mark(f"eager {i}")
+        del r
     sys.stdout.flush()
     null = os.open(os.devnull, os.O_WRONLY)
     os.dup2(null, 1)  # the measurements' own lines go nowhere
-    calls = [c for c in r.calls if c[1].get("debug")]
+    replay_ref = []
+    for ca, ck in (c for c in rec.calls if c[1].get("debug")):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rk.binned_raster_ref(*ca, **ck)
+        replay_ref += text.getvalue().split("\n")[:-1]
+    calls = [c for c in r_direct.calls if c[1].get("debug")]
     ref_lines, live, per_call = [], 0, []
     for ca, ck in calls:
         plain = functools.partial(rk.binned_raster_ref, *ca, **ck)
@@ -1867,7 +2017,8 @@ def k1_debug_child(out: Path) -> int:
                          "lines": int(ca[4].sum()), "ms": ms_on, "no_debug_ms": ms_off,
                          "plain_ms": cuda_ms(plain, reps=1), "bytes": moved, "ops": ops})
     out.write_text(json.dumps({"fifo_bytes": fifo, "launches": launches, "live_blocks": live,
-                               "ref_lines": ref_lines, "calls": per_call}))
+                               "ref_lines": ref_lines, "calls": per_call,
+                               "replay_mode": replay_mode, "replay_ref_lines": replay_ref}))
     return 0
 
 
@@ -1902,6 +2053,10 @@ def main() -> int:
     from unclerenderer_tpu_torch.render.forward import forward_frame
     from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
     from unclerenderer_tpu_torch.render.testing import (
+        MASKED_CASES,
+        masked_raster_args,
+        masked_raster_atlas,
+        masked_raster_setup,
         synthetic_device_scene,
         synthetic_frame_params,
     )
@@ -1989,6 +2144,12 @@ def main() -> int:
         "exhaustive_raster": dict(module=rk, attr="rasterize_exhaustive", ref=rasterize_plain,
                                   work=work_exhaustive, source=csrc + "exhaustive_raster.cu",
                                   replaces="unclerenderer_tpu/ops/raster.py:502"),
+        # M1: not a TPU kernel either; the reference's XLA masked raster
+        # (_rasterize_alpha_binned's eval_level :766, and _rasterize_alpha :552
+        # at masked_tri_cap 0), which no PyTorch call computes
+        "masked_raster": dict(module=rk, ref=rk.masked_raster_ref, work=work_masked,
+                              source=csrc + "masked_raster.cu",
+                              replaces="unclerenderer_tpu/render/common.py:689"),
     }
     for name, k in kernels.items():
         k.setdefault("attr", name)
@@ -2195,6 +2356,53 @@ def main() -> int:
     log("kernels", "gather_rows bit-equal to plain on random inputs (f32 and bf16 tables of "
                    "342 and 8192 rows, C = 1-5, ragged, misaligned and odd index arrays)")
 
+    # ---- 3a. M1 vs plain on the special setups
+    def masked_versus_plain(args, label):
+        """One M1 call with its counts against the plain version's: key bits,
+        ids, live blocks and covered pairs equal, tapped pairs at most the
+        covered ones; the frame's call (no counts) gives the same images.
+        Returns the kernel's counts."""
+        args = args[:16]  # a frame's recorded call also passes its stats flag
+        got = rk.masked_raster(*args, stats=True)
+        want = rk.masked_raster_ref(*args, stats=True)
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+              and torch.equal(got[1], want[1]), f"masked_raster != plain ({label}): "
+              f"{compare(got[:2], want[:2])[0]} elements")
+        n = {k: int(v) for k, v in got[2].items()}
+        check(n["blocks"] == int(want[2]["blocks"]) and n["covered"] == int(want[2]["covered"])
+              and n["tapped"] <= n["covered"], f"masked_raster counts {n} vs plain "
+              f"{ {k: int(v) for k, v in want[2].items()} } ({label})")
+        plain = rk.masked_raster(*args)
+        check(plain[2] is None and torch.equal(plain[0], got[0]) and torch.equal(plain[1], got[1]),
+              f"masked_raster without counts differs ({label})")
+        return n
+
+    m1_calls, m1_taps = 0, 0
+    for case in MASKED_CASES:
+        m_setup, m_arec = masked_raster_setup(case, 3, dev)
+        for layout, dtype in (("quad4", torch.float32), ("quad4", torch.bfloat16),
+                              ("quad16", torch.uint8), ("packed", torch.uint8),
+                              ("packed", torch.bfloat16), ("packed", torch.float32)):
+            m_atlas, m_aw = masked_raster_atlas(layout, dtype, dev, seed=4)
+            for form in ("binned", "exhaustive"):
+                for chunk, y0, bilinear, misaligned in ((64, 0, False, False),
+                                                        (32, 48, True, True),
+                                                        (256, 0, False, True),
+                                                        (128, 48, False, False)):
+                    m_args = masked_raster_args(m_setup, m_arec, m_atlas, m_aw, 256, 256 - y0,
+                                                form, chunk, y_offset=y0, full_height=256,
+                                                bilinear=bilinear, misaligned=misaligned)
+                    m1_taps += masked_versus_plain(
+                        m_args, f"{case} {layout} {dtype} {form} chunk {chunk} y_offset {y0}")[
+                            "tapped"]
+                    m1_calls += 1
+    log("kernels", f"masked_raster bit-equal to plain on {m1_calls} calls ({m1_taps} alpha taps) "
+                   f"over the special setups {MASKED_CASES} (coplanar ties, +0/-0 keys, slivers "
+                   "past their boxes, alphas within ulps of the cutoff) at 256^2: quad atlases "
+                   "(4 channels f32/bf16, 16 u8) and packed ones (u8, bf16, f32), binned and "
+                   "exhaustive, chunks 32-256, y_offset 0 and 48, both filters, misaligned "
+                   "tables; live blocks and covered pairs equal, tapped <= covered")
+
     # ---- 3c. the launch path: host us per call of every wrapper
     report["launch"] = launch_costs(kernels, dev)
 
@@ -2346,7 +2554,10 @@ def main() -> int:
 
     def cross(label, sc_cpu, sdata, frame_settings, mips=None, masked_min=None, frames=2,
               frame="deferred", size=256):
+        """Card frames against CPU frames; with masked models on, every M1
+        call of the card's frames held bit-equal to the plain version too."""
         sc_gpu = to_device(sc_cpu, dev)
+        m1_held = 0
         st_c = FrameState.initial(size, size, "cpu")
         st_g = FrameState.initial(size, size, dev)
         for i in range(frames):
@@ -2356,13 +2567,20 @@ def main() -> int:
             if mips is not None:
                 p_c.env_mip_count = torch.tensor(float(mips))
                 p_g.env_mip_count = torch.tensor(float(mips), device=dev)
+            with Recorder(rk, "masked_raster") as m1:
+                if frame == "forward":
+                    out_g = forward_frame(sc_gpu, p_g, frame_settings)
+                else:
+                    out_g, st_g_next = deferred_frame(sc_gpu, p_g, st_g, frame_settings)
+            for ca, ck in m1.calls:
+                versus_plain("masked_raster", *ca, **ck)
+            m1_held += len(m1.calls)
             if frame == "forward":
                 out_c = forward_frame(sc_cpu, p_c, frame_settings)
-                out_g = forward_frame(sc_gpu, p_g, frame_settings)
                 out_c["hdr"], out_g["hdr"] = out_c["color"], out_g["color"]
             else:
                 out_c, st_c = deferred_frame(sc_cpu, p_c, st_c, frame_settings)
-                out_g, st_g = deferred_frame(sc_gpu, p_g, st_g, frame_settings)
+                st_g = st_g_next
             check(out_g["object_id"].dtype == out_c["object_id"].dtype == torch.uint32,
                   f"object_id is {out_g['object_id'].dtype}, the reference's is uint32")
             for key in ("depth", "tri_id", "object_id"):
@@ -2383,6 +2601,10 @@ def main() -> int:
             log("cross", f"{label} frame {i}: depth/tri_id/object_id (uint32) bit-equal, "
                          f"|color| {cdiff:.2e}, |hdr| {hdiff:.2e}, "
                          f"{int((out_g['tri_id'] >= 0).sum())} covered pixels{won}")
+        if frame_settings.has_masked_models:
+            check(m1_held > 0, f"cross-device {label}: no M1 call")
+            log("cross", f"{label}: {m1_held} masked_raster (M1) calls of the card's frames "
+                         "bit-equal to plain")
         return cdiff
 
     sc_cpu, sdata = synthetic_device_scene(24, rich_materials=True, atlas_u8=True, device="cpu")
@@ -2544,9 +2766,9 @@ def main() -> int:
 
     def masked_stage(frame_scene, frame_params, frame_settings):
         """One masked frame with CUDA events around the masked raster and
-        around each alpha tap; the pair counts and drops of each masked
+        around each M1 launch; M1's counts and the drops of each masked
         level."""
-        stage, taps = [], []  # (start, end, output, rows of the 4th argument: a tap's uv)
+        stage, taps = [], []  # (start event, end event, output) of each call
 
         def timed_call(fn, into):
             def call(*a, **kw):
@@ -2554,33 +2776,32 @@ def main() -> int:
                 e0.record()
                 out = fn(*a, **kw)
                 e1.record()
-                into.append((e0, e1, out, a[3].shape[0]))
+                into.append((e0, e1, out))
                 return out
             return call
 
         with patched(common_mod, "raster_masked_combine",
                      timed_call(functools.partial(common_mod.raster_masked_combine, stats=True),
                                 stage)), \
-                patched(common_mod, "_alpha_tap", timed_call(common_mod._alpha_tap, taps)):
+                patched(rk, "masked_raster", timed_call(rk.masked_raster, taps)):
             deferred_frame(frame_scene, frame_params, FrameState.initial(WIDTH, HEIGHT, dev),
                            frame_settings)
             torch.cuda.synchronize()
-        stage_ms = sum(e0.elapsed_time(e1) for e0, e1, _, _ in stage)
-        tap_ms = sum(e0.elapsed_time(e1) for e0, e1, _, _ in taps)
-        tap_pairs = sum(n for _, _, _, n in taps)
-        levels = [{k: int(v) for k, v in c.items()} for _, _, out, _ in stage for c in out[2]]
+        stage_ms = sum(e0.elapsed_time(e1) for e0, e1, _ in stage)
+        m1_ms = [e0.elapsed_time(e1) for e0, e1, _ in taps]
+        levels = [{k: int(v) for k, v in c.items()} for _, _, out in stage for c in out[2]]
         for k, lv in enumerate(levels):
-            log("masked", f"level {k + 1}: {lv['blocks']} live blocks, {lv['pairs']} (pixel, slot) "
-                          f"pairs, {lv['candidates']} that may pass their edge tests, "
-                          f"{lv['covered']} covered and in depth range (alpha-tapped); dropped, "
-                          f"not counted by the reference: {lv.get('bin_overflow', 0)} pairs past "
-                          f"the bin budget" + (f", {lv['big_dropped']} triangles too big for "
-                                               "level 2" if k == 1 else ""))
-        log("masked", f"masked raster {stage_ms:.2f} ms of one frame, of which the alpha taps "
-                      f"{tap_ms:.2f} ms for {tap_pairs} (pixel, candidate) pairs "
-                      f"({1e6 * tap_ms / max(tap_pairs, 1):.3f} ns a pair; CUDA events, on {smi})")
-        return {"masked_raster_ms": stage_ms, "alpha_tap_ms": tap_ms, "alpha_tap_pairs": tap_pairs,
-                "levels": levels}
+            log("masked", f"level {k + 1}: {lv['blocks']} live blocks, {lv['covered']} covered "
+                          f"(pixel, slot) pairs, {lv['tapped']} alpha-tapped (those that could "
+                          f"change their pixel's winner); dropped, not counted by the reference: "
+                          f"{lv.get('bin_overflow', 0)} pairs past the bin budget"
+                          + (f", {lv['big_dropped']} triangles too big for level 2" if k == 1
+                             else ""))
+        log("masked", f"masked raster {stage_ms:.2f} ms of one op-by-op frame, of which M1's "
+                      f"{len(m1_ms)} launches {sum(m1_ms):.3f} ms "
+                      f"({[round(x, 3) for x in m1_ms]}; CUDA events around each call, host "
+                      f"included, on {smi})")
+        return {"masked_raster_ms": stage_ms, "m1_ms": m1_ms, "levels": levels}
 
     def counted(label, names, frame_scene, frame_params, frame_settings, extra=None,
                 time_it=True):
@@ -2774,14 +2995,31 @@ def main() -> int:
                    f"call: {shapes})")
     del m_calls
 
+    # ---- 3b. M1 on the masked 1080p frame's own level-1 and level-2 inputs:
+    # bit-equal, timed, its bound (the kernels line's M1 calls)
+    m1_calls = recorded(["masked_raster"], m_scene, m_params[0], m_settings)["masked_raster"]
+    check(len(m1_calls) == 2, f"the masked frame made {len(m1_calls)} M1 calls, expected 2")
+    for level, (ca, ck) in enumerate(m1_calls, 1):
+        n = masked_versus_plain(ca, f"1080p level {level}")
+        measure("masked_raster", ca, ck)
+        call = kernels["masked_raster"]["calls"][-1]
+        call.update(launch=f"level {level}", counts=n)
+        log("masked", f"M1 level {level} ({ca[9]}x{ca[10]} tiles, {ca[0].shape[0]} block slots of "
+                      f"{ca[0].shape[-1]}): {n['blocks']} live blocks, {n['covered']} covered "
+                      f"pairs, {n['tapped']} tapped; bit-equal to plain; eager {call['ms']:.4f} ms, "
+                      f"graph {call['graph_ms']:.4f} ms, plain {call['plain_ms']:.2f} ms, bound "
+                      f"{call['bound_ms']:.4f} ms ({call['bytes']} B, {call['ops']} ops, "
+                      f"{call['bound_by']}) (on {smi})")
+    del m1_calls
+
     def masked_checks(out):
         n_won = masked_pixels(m_scene, out["tri_id"])
         check(n_won > 0, "masked: no pixel won by a masked model")
         log("masked", f"{n_won} pixels won by masked models")
         return {"masked_pixels": n_won, **masked_stage(m_scene, m_params[0], m_settings)}
 
-    report["masked"] = counted("masked", default_kernels, m_scene, m_params, m_settings,
-                               extra=masked_checks)
+    report["masked"] = counted("masked", default_kernels + ("masked_raster",), m_scene, m_params,
+                               m_settings, extra=masked_checks)
     # fused resolve on the masked path: masked-won pixels take their records
     # from the compacted masked list; the record-emitting calls vs plain
     m_fused = dataclasses.replace(m_settings, fused_resolve="on")
@@ -2852,7 +3090,9 @@ def main() -> int:
             covered = int((out["tri_id"] >= 0).sum())
             check(covered > 0.3 * WIDTH * HEIGHT, f"xla {label}: only {covered} covered pixels")
             log("xla", f"{label}: launches in {frames} render_frame calls {launches}; drop "
-                       f"counters 0; {covered} covered pixels, colour finite")
+                       f"counters 0; {covered} covered pixels, colour finite; M1 (the masked "
+                       f"raster, not one of K1-K9) {launches['masked_raster']} launches: the "
+                       "scene has no masked model")
             return launches
 
         torch.cuda.synchronize()
@@ -2999,7 +3239,11 @@ def main() -> int:
         rep["cross_color_max_abs_forward"] = cross("xla 128 forward", sc_cpu, sdata, small_x,
                                                    size=128, frames=1, frame="forward")
         used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
-        check(set(used) == {"exhaustive_raster"}, f"xla cross frames launched {used}")
+        # the masked scene's frames also run M1, the masked raster of both backends
+        check(set(used) == {"exhaustive_raster", "masked_raster"},
+              f"xla cross frames launched {used}")
+        log("xla", f"128^2 card frames: launches {used} (X1, and M1 for the masked models: the "
+                   "reference runs one masked raster under every backend; none of K1-K9)")
         rep["seconds"] = time.perf_counter() - t_phase
         log("xla", f"phase done in {rep['seconds']:.1f} s")
         return rep
@@ -3018,6 +3262,20 @@ def main() -> int:
         report["xla"] = xla_path(Path(report["renderer"]["scene_json"]))
         # ---- 15. the frame program on the same files
         report["program"] = program_phase(dev, smi, Path(report["renderer"]["scene_json"]))
+    # ---- 16. the masked frame program: the headline geometry with masked models
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_masked_scene_") as masked_dir:
+        from unclerenderer_tpu_torch.render.testing import write_scene
+
+        t0 = time.perf_counter()
+        m_json = write_scene(masked_dir, N_OBJECTS, sphere_res=SPHERE_RES, ground=True,
+                             n_materials=6, tex_size=256, env_size=ENV_SIZE, masked=True,
+                             name="masked")
+        log("masked-program", f"wrote the headline geometry with masked models (every 4th "
+                              f"object from 1 an alpha-checker MASK material) in "
+                              f"{time.perf_counter() - t0:.2f} s")
+        report["masked_program"] = program_phase(dev, smi, m_json, "masked-program")
+        check(report["masked_program"]["masked"], "the masked scene's Renderer runs no masked "
+                                                  "raster")
 
     # ---- 13. the row-sharded frame in ranks on this card
     report["multichip"] = multichip_phase(smi)
@@ -3045,6 +3303,8 @@ def main() -> int:
                 "sampling" if name == "shadow_select9_f32" else
                 "probes" if name in probe_kernels else
                 "xla" if name == "exhaustive_raster" else "packed")
+        if name == "masked_raster":  # the masked Renderer's 10 replayed frames
+            return report["masked_program"]["launches"]["graph"][name]
         return report[path]["launches"][name]
 
     print(json.dumps({"kernels": [
@@ -3065,7 +3325,8 @@ def main() -> int:
          # X1's line times the whole map and camera images; its two kernels apart
          **({"mask_ms": k["frame"]["mask_ms"], "tile_ms": k["frame"]["tile_ms"],
              "mask_bytes": k["frame"]["mask_bytes"], "tpu_kernel": False}
-            if n == "exhaustive_raster" else {})}
+            if n == "exhaustive_raster" else {}),
+         **({"tpu_kernel": False} if n == "masked_raster" else {})}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -975,8 +975,8 @@ PROGRAM_SIZE = 128
 
 @pytest.fixture(scope="module")
 def program_scene(cuda_device, tmp_path_factory):
-    """An unmasked scene written to files (the masked raster runs op by
-    op), for Renderers at 128x128 with a 128^2 map."""
+    """An unmasked scene written to files, for Renderers at 128x128 with a
+    128^2 map."""
     from unclerenderer_tpu_torch.render.testing import write_scene
 
     return write_scene(tmp_path_factory.mktemp("program_scene"), 6, n_materials=3, tex_size=32)
@@ -1034,16 +1034,14 @@ def _assert_states_equal(a, b):
         assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
 
 
-@pytest.mark.parametrize("renderer_type", ["deferred", "forward"])
-def test_program_frames_equal_eager_frames(program_scene, cuda_device, monkeypatch,
-                                           renderer_type):
+def _hold_program_frames(scene, dev, monkeypatch, renderer_type, kernel):
     """3 carried frames replayed from the captured program and the same 3
     op by op from one start state: every output and every state field
-    bit-equal, the same launches a frame; the Renderer reports "graph"."""
+    bit-equal, the same launches a frame (``kernel`` among them); the
+    Renderer reports "graph"."""
     from unclerenderer_tpu_torch.render import program
 
-    r, orbit = _program_renderer(program_scene, cuda_device, monkeypatch,
-                                 renderer_type=renderer_type)
+    r, orbit = _program_renderer(scene, dev, monkeypatch, renderer_type=renderer_type)
     for _ in range(2):  # the warm-up frame, then the capture
         orbit()
         r.render_frame()
@@ -1065,7 +1063,36 @@ def test_program_frames_equal_eager_frames(program_scene, cuda_device, monkeypat
     for i in range(3):
         _assert_frames_equal(runs[False][0][i], runs[True][0][i])
         _assert_states_equal(runs[False][1][i], runs[True][1][i])
-        assert runs[False][2][i] == runs[True][2][i] and runs[False][2][i]["binned_raster"] > 0
+        assert runs[False][2][i] == runs[True][2][i] and runs[False][2][i][kernel] > 0
+    return runs
+
+
+@pytest.mark.parametrize("renderer_type", ["deferred", "forward"])
+def test_program_frames_equal_eager_frames(program_scene, cuda_device, monkeypatch,
+                                           renderer_type):
+    """3 carried frames replayed and op by op: bit-equal, the same launches."""
+    _hold_program_frames(program_scene, cuda_device, monkeypatch, renderer_type, "binned_raster")
+
+
+@pytest.fixture(scope="module")
+def masked_program_scene(cuda_device, tmp_path_factory):
+    """A scene with alpha-masked models written to files (every 4th object
+    from 1 an alpha-checker MASK material): the Renderer turns the masked
+    raster on."""
+    from unclerenderer_tpu_torch.render.testing import write_scene
+
+    return write_scene(tmp_path_factory.mktemp("masked_program_scene"), 6, n_materials=3,
+                       tex_size=32, masked=True)
+
+
+@pytest.mark.parametrize("renderer_type", ["deferred", "forward"])
+def test_masked_program_frames_equal_eager_frames(masked_program_scene, cuda_device, monkeypatch,
+                                                  renderer_type):
+    """The masked frame captured: replays bit-equal to op-by-op frames, M1
+    launched twice a frame (levels 1 and 2) in both."""
+    runs = _hold_program_frames(masked_program_scene, cuda_device, monkeypatch, renderer_type,
+                                "masked_raster")
+    assert all(n["masked_raster"] == 2 for n in runs[False][2])
 
 
 def test_program_render_frames_equal_render_frame_calls(program_scene, cuda_device, monkeypatch):
@@ -1159,3 +1186,49 @@ def test_program_capture_that_syncs_raises(program_scene, cuda_device, tmp_path)
     # a RuntimeError (torch.AcceleratorError is one): the capture was invalidated
     assert res.stdout.startswith("RAISED") and "capture" in res.stdout, (res.stdout,
                                                                          res.stderr[-2000:])
+
+
+# ------------------------------------------------------------- M1: the masked raster
+
+MASKED_LAYOUTS = [("quad4", torch.float32), ("quad4", torch.bfloat16), ("quad16", torch.uint8),
+                  ("quad16", torch.float32), ("packed", torch.uint8), ("packed", torch.bfloat16),
+                  ("packed", torch.float32)]
+# (chunk, y_offset, bilinear, misaligned tables): the frame's chunk, a slab's
+# rows with the nearest-mip filter, and the exhaustive scan's wider chunks
+MASKED_CALLS = [(64, 0, False, False), (32, 48, True, True), (256, 0, False, True),
+                (128, 48, False, False)]
+
+
+@pytest.mark.parametrize("form", ["binned", "exhaustive"])
+@pytest.mark.parametrize("layout,dtype", MASKED_LAYOUTS)
+@pytest.mark.parametrize("case", ["random", "ties", "zero", "slivers", "cutoff"])
+def test_masked_raster_kernel_bit_equal_one_launch(cuda_device, case, layout, dtype, form):
+    """M1 against its plain version on the special setups, every atlas
+    layout, binned and exhaustive: key bits, ids and the live-block and
+    covered counts equal, tapped pairs at most the covered ones; one launch
+    a call."""
+    from unclerenderer_tpu_torch.render.testing import (
+        masked_raster_args,
+        masked_raster_atlas,
+        masked_raster_setup,
+    )
+
+    setup, arec = masked_raster_setup(case, 1, cuda_device)
+    atlas, aw = masked_raster_atlas(layout, dtype, cuda_device, seed=2)
+    for chunk, y_offset, bilinear, misaligned in MASKED_CALLS:
+        args = masked_raster_args(setup, arec, atlas, aw, 256, 256 - y_offset, form, chunk,
+                                  y_offset=y_offset, full_height=256, bilinear=bilinear,
+                                  misaligned=misaligned)
+        before = _cuda.LAUNCHES["masked_raster"]
+        key, ids, counts = rk.masked_raster(*args, stats=True)
+        assert _cuda.LAUNCHES["masked_raster"] == before + 1
+        want_key, want_ids, want = rk.masked_raster_ref(*args, stats=True)
+        assert torch.equal(key.view(torch.int32), want_key.view(torch.int32))
+        assert torch.equal(ids, want_ids)
+        assert int((ids >= 0).sum()) > 0
+        assert int(counts["blocks"]) == int(want["blocks"])
+        assert int(counts["covered"]) == int(want["covered"]) > 0
+        assert 0 < int(counts["tapped"]) <= int(counts["covered"])
+        # the frame's call counts nothing and gives the same images
+        plain = rk.masked_raster(*args)
+        assert plain[2] is None and torch.equal(plain[0], key) and torch.equal(plain[1], ids)

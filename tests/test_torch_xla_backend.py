@@ -16,7 +16,9 @@ path (``unclerenderer_tpu/render/common.py _use_pallas`` false), on the CPU:
   (compact ids): ids, depth,
   object ids, compact ids and every counter bit-equal, hdr/colour within
   1e-4 (the bar of ``tests/test_torch_frame.py``); the frames dispatch to
-  no plain version of K1-K9, only to X1's; the kernel path's frame differs
+  no plain version of K1-K9, only to X1's and, with masked models, M1's
+  (the reference's one masked raster serves both backends); the kernel
+  path's frame differs
   from the reference's XLA frame (its PCF table), so the comparison sees the
   backend;
 * a 2-rank gloo sharded frame at ``tests/test_render.py``'s multi-device
@@ -292,6 +294,9 @@ def test_frames_match_reference_xla_path(case, dispatches):
     j_state = JState.initial(SIZE, SIZE)
     t_state = interop.to_port(j_state, FrameState, "cpu")
     step = jax.jit(functools.partial(j_deferred, settings=j_settings))
+    # X1, and M1 (the masked raster of both backends) where masked models are on
+    want_dispatch = {"exhaustive_raster"} | ({"masked_raster"} if t_settings.has_masked_models
+                                             else set())
     for i in range(n_frames):
         a = 0.05 * i
         params = j_frame_params(data, SIZE, SIZE, camera_pos=(4.0 * np.sin(a), 1.5,
@@ -302,7 +307,7 @@ def test_frames_match_reference_xla_path(case, dispatches):
         got = _assert_frame(t_out, j_out, f"{case} deferred frame {i}")
         np.testing.assert_array_equal(t_next.hzb.numpy(), np.asarray(j_state.hzb))
         assert (got["tri_id"] >= 0).sum() > 1000
-        assert dispatches == {"exhaustive_raster"}
+        assert dispatches == want_dispatch
         if case == "masked" and i == 1:
             # the kernel path's frame from the same state differs at shadow
             # edges by more than the tolerance: the comparison tells them apart
@@ -317,7 +322,7 @@ def test_frames_match_reference_xla_path(case, dispatches):
     if case == "masked":  # the forward frame once: the masked scene's
         j_out = jax.jit(functools.partial(j_forward, settings=j_settings))(scene, params)
         _assert_frame(forward_frame(t_scene, t_params, t_settings), j_out, "forward")
-        assert dispatches == {"exhaustive_raster"}
+        assert dispatches == want_dispatch
 
 
 def test_sharded_xla_frames_match_single_device(tmp_path, monkeypatch):

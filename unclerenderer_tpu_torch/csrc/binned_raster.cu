@@ -60,8 +60,9 @@
 // grid step; here the lines arrive in no order.  Device printf drops what
 // overflows its FIFO, and the runtime lets the FIFO grow only before the
 // process's first launch of a kernel that prints (PyTorch's device asserts
-// count), so the wrapper checks the FIFO against the launch's lines and
-// raises where they may not fit (printf_fifo below; ops/_cuda.py).
+// count), so the wrapper checks the FIFO against the launch's block slots
+// (a static bound of its lines) and raises where they may not fit
+// (printf_fifo below; ops/_cuda.py).
 //
 // Exactness (the threshold, the warp skip, the min-id tie rule):
 // raster_common.cuh.  The group merge applies the same tie rule, so the

@@ -96,6 +96,11 @@ SIGNATURES = {
     "exhaustive_raster": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     # a, b, ka, kb, out, n, stream
     "merge_select": [_P, _P, _P, _P, _P, _L, _P],
+    # M1: coef, tri_id, valid, rows, tile_start (or NULL), tile_count (or NULL),
+    # arec, atlas, out_key, out_id, stats (or NULL), n_blocks, chunk, tile_h,
+    # tile_w, width, height, y_offset, full_height, atlas_width, lanes,
+    # atlas_dtype, bilinear, stream
+    "masked_raster": [_P] * 11 + [_I] * 12 + [_P],
 }
 
 # kernel wrapper -> its C entry, where the two names differ
@@ -104,7 +109,7 @@ ENTRY = {"materialize_rows": "copy_bytes", "copy_rows": "copy_bytes", "materiali
 # launches per kernel wrapper (K2/K3 share giant_raster; with records, K1 and
 # K2/K3 count under binned_raster_attrs and giant_raster_attrs; K1 under
 # kernel_debug_print under binned_raster_debug; K4 on f32 rows under
-# shadow_select9_f32)
+# shadow_select9_f32; M1, the masked raster, under masked_raster)
 LAUNCHES = {name: 0 for name in [n for n in SIGNATURES if n not in ENTRY.values()] + list(ENTRY)}
 
 # kernel wrapper -> bound C function, and device index -> raw current

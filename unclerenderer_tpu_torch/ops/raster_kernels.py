@@ -17,6 +17,12 @@
   version); the kernel finds each tile's rows as its band's row mask AND
   its column's (``band_masks_plain``, ``column_masks_plain``).  Not a port
   of a TPU kernel: the reference runs it as XLA.
+* ``masked_raster`` (M1, ``csrc/masked_raster.cu``): one level of the
+  alpha-masked raster -- each tile's bin block range (or, at
+  ``masked_tri_cap == 0``, every chunk of the table) with the alpha test
+  inside (``masked_raster_ref``, the data-dependent ``nonzero`` path, is
+  its plain version).  Not a port of a TPU kernel either: the reference
+  runs its masked raster as XLA under every backend.
 
 Debug print (``debug=True``, the reference's ``debug_print`` under
 ``RenderSettings.kernel_debug_print``): K1 prints one line
@@ -45,13 +51,17 @@ import torch
 from ..core.passes import scope
 from . import _cuda
 from .binning import BinnedTriangles, bin_triangles
+from . import texture as tex
+from .fma import fma
 from .raster import (
     COEF_COLS,
     DEPTH_MAX,
+    INT32_MAX,
     RasterSetup,
     batched_blocks,
     block_winners,
     compact_mask,
+    eval_keys,
     flip_depth_key,
     merge_blocks,
     rasterize,
@@ -223,9 +233,6 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
     _check_records("binned_raster", records, want_ids)
     entry = ("binned_raster_debug" if debug else
              "binned_raster" if records is None else "binned_raster_attrs")
-    # the debug launch sizes its printf lines by the live block count, read
-    # back to the host on either device
-    n_lines = int(tile_count.sum()) if debug else 0
     if _cuda.on_cpu(entry, coef):
         return binned_raster_ref(coef, tri_id, valid, tile_start, tile_count,
                                  tile_h, tile_w, n_tx, y_offset, want_ids, ortho, records, debug)
@@ -252,15 +259,20 @@ def binned_raster(coef, tri_id, valid, tile_start, tile_count, tile_h, tile_w,
         out_attr = torch.empty((n_tiles, pix, records.shape[1]), dtype=torch.float32,
                                device=coef.device)
     if debug:
-        if n_tiles:
-            need = PRINTF_LINE_BYTES * n_lines
+        # at most one line a block slot: a static bound of the live blocks'
+        # lines, so nothing is read back; checked when not capturing (a
+        # frame program captures only after the same frame ran op by op)
+        need = PRINTF_LINE_BYTES * n_blocks
+        if n_tiles and not torch.cuda.is_current_stream_capturing():
             have = _cuda.printf_fifo(need)
             if have < need:
                 raise RuntimeError(
                     f"binned_raster debug print: the device printf FIFO holds {have} bytes and "
-                    f"this launch prints up to {need}; it can grow only before the process's "
-                    "first kernel launch: call unclerenderer_tpu_torch.ops._cuda.printf_fifo("
-                    f"{need}) before any other CUDA work")
+                    f"this launch may print {need} ({n_blocks} block slots); it can grow only "
+                    "before the process's first kernel launch: call "
+                    f"unclerenderer_tpu_torch.ops._cuda.printf_fifo({need}) before any other "
+                    "CUDA work")
+        if n_tiles:
             _cuda.launch(
                 "binned_raster_debug", dev, coef.data_ptr(), tri_id.data_ptr(), valid.data_ptr(),
                 tile_start.data_ptr(), tile_count.data_ptr(), _cuda.ptr(records),
@@ -581,6 +593,326 @@ def rasterize_exhaustive(setup: RasterSetup, width: int, height: int, tile_h: in
                      t_count, width, height, tile_h, tile_w, float(y_offset), int(want_ids),
                      int(ortho), int(depth_mode == DEPTH_MAX))
     return (depth, tri_id, masks) if want_masks else (depth, tri_id)
+
+
+# ---------------------------------------------------------------------------
+# M1: the alpha-masked raster, one level
+# ---------------------------------------------------------------------------
+
+# (pixel, slot) pairs one group of blocks holds at once: the groups are
+# sized to memory (any size gives the same result)
+ALPHA_PAIR_BUDGET = 1 << 24
+ALPHA_COLS = 19  # render/common.py _alpha_records
+
+
+def _alpha_lod(u, v, au, bu, av, bv, a1, b1, denom, tw_, th_):
+    """Analytic per-(pixel, candidate) LOD of the in-raster alpha test: u =
+    U/D with U = au*qx + bu*qy + cu, D = a1*qx + b1*qy + c1, so du/dx =
+    (au - u*a1)/D; the footprint rule of ``tex.footprint_lod`` (max axis
+    length in texels, squared).  Contracted as the reference is; its log2
+    differs from PyTorch's by an ulp now and then."""
+    inv_d = 1.0 / denom
+    dudx = fma(-u, a1, au) * inv_d
+    dudy = fma(-u, b1, bu) * inv_d
+    dvdx = fma(-v, a1, av) * inv_d
+    dvdy = fma(-v, b1, bv) * inv_d
+    px, qx = dudx * tw_, dvdx * th_
+    py, qy = dudy * tw_, dvdy * th_
+    lx = fma(px, px, qx * qx)
+    ly = fma(py, py, qy * qy)
+    return 0.5 * torch.log2(torch.clamp(torch.maximum(lx, ly), min=1e-12))
+
+
+def _alpha_tap(quad_flat, atlas_width, rect0, uv, lod, bilinear: bool):
+    """Alpha-test texture tap at the analytic LOD, honouring the material
+    filter: nearest-mip bilinear under ``texture_filter="bilinear"``
+    (``bilinear``), trilinear otherwise."""
+    if bilinear:
+        level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
+        return tex.sample_level_any(quad_flat, atlas_width, rect0, uv, level)
+    return tex.sample_trilinear_any(quad_flat, atlas_width, rect0, uv, lod)
+
+
+# Edge-test margin of the masked raster's candidate filter (``_edge_may_pass``):
+# a multiple of the f32 unit roundoff 2^-24 with room to spare.
+EDGE_SLACK = 2.0 ** -20
+
+
+def _edge_may_pass(coef, X, Y, width: int, height: int):
+    """Superset filter of the raster's edge tests: False only where a pixel
+    centre (X, Y) cannot pass the three contracted edge tests of
+    ``eval_keys`` (``fma(a, X, b*Y) + c`` against a threshold >= 0).  Each
+    edge is summed in plain f32 against -m, m = 2^-20 * (|a| W + |b| H +
+    |c|) + 2^-120: either summation order lies within ~4 * 2^-24 * (|a X| +
+    |b Y| + |c|) of the exact value (3 and 4 roundings), so a pair that the
+    contracted form passes is kept, however thin its triangle -- a sliver's
+    rounded edge functions can cover pixels beyond its bounding box (a
+    pixel 3 columns past one, at 128x128 in tests/test_torch_forward.py),
+    where the reference, which evaluates every pixel of a tile, covers them.
+    A NaN keeps the pair.  coef (..., 16, C); X, Y pixel centres (..., P,
+    1), or each a (min, max) pair of a rectangle's extreme centres: each
+    edge is then tested at its best corner (the exact edge function is
+    linear, so no pixel of the rectangle exceeds it there), which keeps
+    every (rectangle, slot) pair that a pixel of the rectangle may pass."""
+    ok = None
+    for e in range(3):
+        a, b, c = coef[..., None, e, :], coef[..., None, 3 + e, :], coef[..., None, 6 + e, :]
+        m = (a.abs() * width + b.abs() * height + c.abs()) * EDGE_SLACK + 2.0 ** -120
+        xe = X if isinstance(X, torch.Tensor) else torch.where(a > 0, X[1], X[0])
+        ye = Y if isinstance(Y, torch.Tensor) else torch.where(b > 0, Y[1], Y[0])
+        may = ~((a * xe + b * ye + c) < -m)
+        ok = may if ok is None else ok & may
+    return ok
+
+
+def _alpha_candidates(tiles, coef, valid, tile_h, tile_w, n_tx, width, height, y_offset,
+                      full_h):
+    """The (block, pixel, slot) triples of a group of blocks whose pixel
+    lies in the image and may pass the slot's edge tests
+    (``_edge_may_pass`` over the ``full_h``-row frame); the reference
+    evaluates every pixel of the block's tile and crops the padded tiles'
+    pixels.  The image is ``height`` rows from global row ``y_offset``.
+    tiles (G,), coef (G, 16, C), valid (G, C) -> (g, p, c, pixel x, pixel y
+    in the image)."""
+    pix = tile_h * tile_w
+    col = torch.arange(pix, device=tiles.device)
+    px = ((tiles % n_tx) * tile_w)[:, None] + col % tile_w
+    py = ((tiles // n_tx) * tile_h)[:, None] + col // tile_w
+    X = (px.to(torch.float32) + 0.5)[:, :, None]
+    Y = ((py + y_offset).to(torch.float32) + 0.5)[:, :, None]
+    cand = (_edge_may_pass(coef, X, Y, width, full_h) & valid[:, None, :]
+            & ((px < width) & (py < height))[:, :, None])
+    g, p, c = cand.nonzero(as_tuple=True)
+    return g, p, c, px[g, p], py[g, p]
+
+
+def _alpha_eval(coef, arec, x, y, quad_flat, atlas_width, bilinear: bool):
+    """Depth key of candidate (pixel, triangle) pairs that the triangle
+    covers, whose depth is in [0, 1] and whose alpha passes the cutoff, -1
+    for the others.  coef (N, 16), arec (N, 19), x/y (N,) pixel ints.  The
+    edge tests and depth are the opaque raster's (``eval_keys``); the
+    interpolation is the reference's ``a*qx + b*qy + c`` contracted as
+    ``fma(a, qx, b*qy) + c``, like them.  The alpha tap runs only for the
+    pairs that are covered and in depth range (it enters only through
+    ``ok &``).  Returns (key (N,), covered pairs)."""
+    qx, qy = x.to(torch.float32) + 0.5, y.to(torch.float32) + 0.5
+    key, ok = eval_keys(coef[:, :, None], torch.ones_like(qx, dtype=torch.bool)[:, None],
+                        qx[:, None], qy[:, None])
+    key, ok = key.reshape(-1), ok.reshape(-1)
+    idx = ok.nonzero(as_tuple=True)[0]
+    ar, qx, qy = arec[idx], qx[idx], qy[idx]
+
+    def form(a, b, c):
+        return fma(a, qx, b * qy) + c
+
+    denom = form(ar[:, 9], ar[:, 10], ar[:, 11])
+    denom = torch.where(denom != 0.0, denom, torch.ones_like(denom))
+    u = form(ar[:, 0], ar[:, 1], ar[:, 2]) / denom
+    v = form(ar[:, 3], ar[:, 4], ar[:, 5]) / denom
+    ca = form(ar[:, 6], ar[:, 7], ar[:, 8]) / denom
+    lod = _alpha_lod(u, v, ar[:, 0], ar[:, 1], ar[:, 3], ar[:, 4], ar[:, 9], ar[:, 10], denom,
+                     ar[:, 14], ar[:, 15])
+    texel = _alpha_tap(quad_flat, atlas_width, ar[:, 12:16], torch.stack([u, v], dim=-1), lod,
+                       bilinear)
+    tex_a = torch.where(ar[:, 16] > 0.5, texel[:, 3], torch.ones_like(u))
+    passed = ar[:, 17] * ca * tex_a >= ar[:, 18]
+    ok[idx] = passed
+    return torch.where(ok, key, torch.full_like(key, -1.0)), int(idx.shape[0])
+
+
+def _alpha_level(blocks, quad_flat, atlas_width, arec, tile_h, tile_w, width, height, full_h,
+                 bilinear: bool, y_offset: int = 0):
+    """One masked raster level: per pixel the max key of the candidates that
+    pass, and the min triangle id among those at it -- per block, then per
+    tile in the reference (its segment merges); the order of such merges
+    does not matter.  ``blocks`` = (coef (B, 16, C), rows (B, C) into
+    arec, ids (B, C), valid (B, C) bool, tile (B,)).  The image is
+    ``height`` rows from global row ``y_offset`` of a ``full_h``-row frame.
+    Returns (key image, id image, pair counts): keys -1 and ids -1 where
+    nothing won, a zero key +0.0 (which zero a max keeps is not fixed)."""
+    coef, rows, ids, valid, tiles = blocks
+    n_tx = -(-width // tile_w)
+    dev = coef.device
+    per_block = tile_h * tile_w * coef.shape[-1]
+    pix_i = [torch.zeros(0, dtype=torch.int64, device=dev)]
+    keys = [torch.zeros(0, dtype=torch.float32, device=dev)]
+    kids = [torch.zeros(0, dtype=torch.int32, device=dev)]
+    counts = {"blocks": int(tiles.shape[0]), "covered": 0}
+    step = max(1, ALPHA_PAIR_BUDGET // per_block)
+    for b0 in range(0, tiles.shape[0], step):
+        sl = slice(b0, b0 + step)
+        g, p, c, x, y = _alpha_candidates(tiles[sl], coef[sl], valid[sl], tile_h, tile_w, n_tx,
+                                          width, height, y_offset, full_h)
+        cr = rows[sl][g, c].long()
+        key, covered = _alpha_eval(coef[sl].transpose(1, 2)[g, c], arec[cr], x, y + y_offset,
+                                   quad_flat, atlas_width, bilinear)
+        won = key >= 0.0
+        pix_i.append((y * width + x)[won])
+        keys.append(key[won])
+        kids.append(ids[sl][g, c][won])
+        counts["covered"] += covered
+    pix_i, keys, kids = torch.cat(pix_i), torch.cat(keys), torch.cat(kids)
+    n = width * height
+    key_img = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+    key_img = key_img.scatter_reduce(0, pix_i, keys, reduce="amax", include_self=True) + 0.0
+    at = keys == key_img[pix_i]
+    id_img = torch.full((n,), INT32_MAX, dtype=torch.int32, device=dev)
+    id_img = id_img.scatter_reduce(0, pix_i[at], kids[at].to(torch.int32), reduce="amin",
+                                   include_self=True)
+    id_img = torch.where(key_img >= 0.0, id_img, torch.full_like(id_img, -1))
+    return key_img.reshape(height, width), id_img.reshape(height, width), counts
+
+
+def _masked_atlas(atlas):
+    """M1's atlas layout: (lanes, atlas dtype code); ValueError for a layout
+    the samplers do not take."""
+    if atlas.dim() != 2 or atlas.dtype not in tex.ATLAS_DTYPE_CODE:
+        raise ValueError("masked_raster: the atlas must be (rows, lanes) u8, f32 or bf16")
+    lanes = atlas.shape[1]
+    c = 16 if lanes == 256 else lanes // 4
+    if lanes != 256 and (lanes % 4 or c < 4):
+        raise ValueError(f"masked_raster: a quad atlas has 4C lanes, C >= 4; got {lanes}")
+    if atlas.dtype == torch.uint8 and c != 16:
+        raise ValueError("masked_raster: a u8 atlas holds the 16-channel combined material "
+                         f"(64 or 256 lanes); got {lanes}")
+    return lanes, tex.ATLAS_DTYPE_CODE[atlas.dtype]
+
+
+def _masked_inputs(coef, tri_id, valid, rows, tile_start, tile_count, arec, tile_h, tile_w,
+                   width, height):
+    """The level's arrays as (B, C) and its tile count; ValueError for what
+    M1 does not take."""
+    n_blocks, chunk = coef.shape[0], coef.shape[-1]
+    tri_id, valid, rows = (x.reshape(n_blocks, -1) for x in (tri_id, valid, rows))
+    if (coef.dtype != torch.float32 or coef.dim() != 3 or coef.shape[1] != COEF_COLS
+            or valid.dtype != torch.float32 or tri_id.dtype != torch.int32
+            or rows.dtype != torch.int32
+            or any(x.shape[1] != chunk for x in (tri_id, valid, rows))):
+        raise ValueError("masked_raster: expects coef (B, 16, C) f32, valid (B, C) f32 and "
+                         "tri_id / rows (B, C) i32")
+    if arec.dtype != torch.float32 or arec.dim() != 2 or arec.shape[1] != ALPHA_COLS:
+        raise ValueError("masked_raster: arec must be a (R, 19) f32 table")
+    if tile_h < 1 or tile_w < 1:
+        raise ValueError(f"masked_raster: tiles of {tile_h}x{tile_w}")
+    n_tiles = -(-width // tile_w) * -(-height // tile_h)
+    if (tile_start is None) != (tile_count is None):
+        raise ValueError("masked_raster: tile_start and tile_count go together")
+    if tile_start is not None and (
+            tile_start.dtype != torch.int32 or tile_count.dtype != torch.int32
+            or tuple(tile_start.shape) != (n_tiles,) or tuple(tile_count.shape) != (n_tiles,)):
+        raise ValueError(f"masked_raster: tile_start / tile_count must be ({n_tiles},) i32")
+    return tri_id, valid, rows, n_tiles
+
+
+def table_chunks(setup: RasterSetup, chunk: int):
+    """M1's exhaustive-form blocks: the setup's table in chunks of
+    ``chunk`` rows, (coef (n_chunks, 16, chunk), ids (n_chunks, chunk) i32,
+    valid (n_chunks, chunk) f32); the padding rows are invalid, and a row's
+    id is its table row (also its alpha record's row)."""
+    dev = setup.coef.device
+    t = setup.coef.shape[0]
+    n_chunks = max(1, -(-t // chunk))
+    rows = torch.arange(n_chunks * chunk, dtype=torch.int32, device=dev).reshape(n_chunks, chunk)
+    valid = (rows < t) & setup.valid[rows.clamp(max=t - 1)]
+    coef = torch.zeros((n_chunks * chunk, COEF_COLS), dtype=torch.float32, device=dev)
+    coef[:t] = setup.coef
+    coef = coef.reshape(n_chunks, chunk, COEF_COLS).transpose(1, 2).contiguous()
+    return coef, rows.clamp(max=t - 1), valid.to(torch.float32)
+
+
+def masked_raster_ref(coef, tri_id, valid, rows, tile_start, tile_count, arec, atlas,
+                      atlas_width, tile_h, tile_w, width, height, y_offset=0, full_height=None,
+                      bilinear=False, stats=False):
+    """Plain version of M1 (``masked_raster``'s contract): the masked raster
+    of the reference's XLA frame, by a data-dependent compaction of the
+    (pixel, slot) pairs that may pass their edge tests (``nonzero``).
+    Binned form: tile t owns blocks [tile_start[t], tile_start[t] +
+    tile_count[t]).  Exhaustive form (``tile_start`` None): every tile
+    against every chunk of the table that a pixel of the tile may reach
+    (``_edge_may_pass`` at the tile's corners) -- the others cannot cover
+    a pixel of it.  Its counts tap every covered pair."""
+    full_h = height if full_height is None else full_height
+    ids, valid, rows, n_tiles = _masked_inputs(coef, tri_id, valid, rows, tile_start,
+                                               tile_count, arec, tile_h, tile_w, width, height)
+    _masked_atlas(atlas)
+    dev = coef.device
+    valid = valid > 0.0
+    n_tx = -(-width // tile_w)
+    if tile_start is None:
+        tile = torch.arange(n_tiles, device=dev)
+        tx0 = ((tile % n_tx) * tile_w).to(torch.float32)[:, None]
+        ty0 = ((tile // n_tx) * tile_h + y_offset).to(torch.float32)[:, None]
+        xs, ys = (tx0 + 0.5, tx0 + (tile_w - 0.5)), (ty0 + 0.5, ty0 + (tile_h - 0.5))
+        live = [(_edge_may_pass(coef[c], xs, ys, width, full_h) & valid[c]).any(dim=1)
+                for c in range(coef.shape[0])]
+        live = (torch.stack(live, dim=1) if live else
+                torch.zeros((n_tiles, 0), dtype=torch.bool, device=dev))
+        b_tile, blk = live.nonzero(as_tuple=True)
+    else:
+        counts = tile_count.long()
+        b_tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev), counts)
+        first = torch.repeat_interleave(tile_start.long() - torch.cumsum(counts, 0) + counts,
+                                        counts)
+        blk = first + torch.arange(b_tile.shape[0], device=dev)
+    blocks = (coef[blk], rows[blk], ids[blk], valid[blk], b_tile)
+    key, win, counts = _alpha_level(blocks, atlas, atlas_width, arec, tile_h, tile_w, width,
+                                    height, full_h, bilinear, y_offset)
+    if not stats:
+        return key, win, None
+    n = {k: torch.tensor(v, dtype=torch.int64, device=dev) for k, v in counts.items()}
+    return key, win, {"blocks": n["blocks"], "covered": n["covered"], "tapped": n["covered"]}
+
+
+def masked_raster(coef, tri_id, valid, rows, tile_start, tile_count, arec, atlas, atlas_width,
+                  tile_h, tile_w, width, height, y_offset=0, full_height=None, bilinear=False,
+                  stats=False):
+    """M1 wrapper (``csrc/masked_raster.cu``): one level of the alpha-masked
+    raster, by its plain version ``masked_raster_ref`` for CPU tensors and
+    by the ``masked_raster`` kernel for CUDA tensors.
+
+    coef (B, 16, C) f32, tri_id (B, C) or (B, 1, C) i32 (the ids the ties
+    compare), valid likewise f32 (> 0 valid), rows (B, C) i32: each slot's
+    row of arec (R, 19) f32 (render/common.py ``_alpha_records``).  Binned
+    form: tile_start / tile_count (n_tiles,) i32, each tile's contiguous
+    block range (``tile_block_ranges``); exhaustive form: both None, every
+    tile against every block (the chunks of the table).  atlas (rows,
+    lanes): the quad atlas (4C lanes, f32 or bf16, or u8 at C = 16) or the
+    256-lane packed-trilinear one, ``atlas_width`` texels a row of its
+    image; ``bilinear``: the nearest-mip bilinear tap of
+    ``texture_filter="bilinear"``, else trilinear.  The image is ``height``
+    rows from global row ``y_offset`` (an int) of a ``full_height``-row
+    frame (default ``height``), in tiles of ``tile_h`` x ``tile_w``.
+
+    Returns (key (height, width) f32, id (height, width) i32, counts):
+    keys -1 and ids -1 where nothing won; per pixel the max key of the
+    pairs that pass (edge and depth tests, valid slot, alpha test), then
+    the min id among those at it.  ``stats``: counts {"blocks" (live),
+    "covered" (pairs passing the edge and depth tests), "tapped" (alpha
+    tests run)}, 0-d int64 device tensors; else None."""
+    if _cuda.on_cpu("masked_raster", coef):
+        return masked_raster_ref(coef, tri_id, valid, rows, tile_start, tile_count, arec, atlas,
+                                 atlas_width, tile_h, tile_w, width, height, y_offset,
+                                 full_height, bilinear, stats)
+    tri_id, valid, rows, n_tiles = _masked_inputs(coef, tri_id, valid, rows, tile_start,
+                                                  tile_count, arec, tile_h, tile_w, width, height)
+    lanes, dtype = _masked_atlas(atlas)
+    if int(y_offset) != y_offset:
+        raise ValueError(f"masked_raster: y_offset must be a whole row, got {y_offset}")
+    tiles = [] if tile_start is None else [tile_start, tile_count]
+    dev = _cuda.check_cuda("masked_raster", coef, tri_id, valid, rows, arec, atlas, *tiles)
+    out_key = torch.empty((height, width), dtype=torch.float32, device=coef.device)
+    out_id = torch.empty((height, width), dtype=torch.int32, device=coef.device)
+    counts = torch.zeros(3, dtype=torch.int64, device=coef.device) if stats else None
+    if n_tiles:
+        _cuda.launch("masked_raster", dev, coef.data_ptr(), tri_id.data_ptr(), valid.data_ptr(),
+                     rows.data_ptr(), _cuda.ptr(tile_start), _cuda.ptr(tile_count),
+                     arec.data_ptr(), atlas.data_ptr(), out_key.data_ptr(), out_id.data_ptr(),
+                     _cuda.ptr(counts), coef.shape[0], coef.shape[-1], tile_h, tile_w, width,
+                     height, int(y_offset), height if full_height is None else full_height,
+                     atlas_width, lanes, dtype, int(bilinear))
+    if counts is None:
+        return out_key, out_id, None
+    return out_key, out_id, {"blocks": counts[0], "covered": counts[1], "tapped": counts[2]}
 
 
 # ---------------------------------------------------------------------------

@@ -301,6 +301,28 @@ def sample_pyramid_tri_level(tri_flat, atlas_width: int, rect0, uv, level):
                  _lerp(quad[..., 2 * c:3 * c], quad[..., 3 * c:], fx), fy)
 
 
+def atlas_is_packed_tri(quad_flat) -> bool:
+    """The combined packed-trilinear atlas has 16 * 16 = 256 lanes, the
+    combined quad atlas 64."""
+    return quad_flat.shape[-1] == 256
+
+
+def sample_level_any(quad_flat, atlas_width: int, rect0, uv, level):
+    """Bilinear tap at an integer mip on either atlas layout."""
+    if atlas_is_packed_tri(quad_flat):
+        return sample_pyramid_tri_level(quad_flat, atlas_width, rect0, uv, level)
+    return sample_pyramid_bilinear(quad_flat, atlas_width, rect0, uv, level)
+
+
+def sample_trilinear_any(quad_flat, atlas_width: int, rect0, uv, lod, select_kernel=False):
+    """Trilinear tap on either layout: one row gather on the packed atlas
+    (``select_kernel``: decoded by K8), two on the quad atlas."""
+    if atlas_is_packed_tri(quad_flat):
+        return sample_pyramid_tri(quad_flat, atlas_width, rect0, uv, lod,
+                                  select_kernel=select_kernel)
+    return sample_pyramid_trilinear(quad_flat, atlas_width, rect0, uv, lod)
+
+
 def sample_pyramid_tri(tri_flat, atlas_width: int, rect0, uv, lod, select_kernel: bool = False):
     """Trilinear tap with ONE row gather over the packed atlas
     (``build_pyramid_tri_atlas``): lanes 0:4C of the row are the mip-L
@@ -384,14 +406,15 @@ def mat_select_ref(tri_flat: torch.Tensor, rows_idx: torch.Tensor, params7: torc
     return _lerp_fb(a, b, frac)
 
 
-_ATLAS_DTYPE_CODE = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
+# the atlas element types the kernels read (K8, M1), as their C entries code them
+ATLAS_DTYPE_CODE = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def mat_select(tri_flat: torch.Tensor, rows_idx: torch.Tensor, params7: torch.Tensor):
     """K8 wrapper (same contract as ``mat_select_ref``) for the C = 16
     material rows at which the reference reaches its kernel
     (``sample_pyramid_tri``); the same on both devices."""
-    if tri_flat.dim() != 2 or tri_flat.shape[-1] != 256 or tri_flat.dtype not in _ATLAS_DTYPE_CODE:
+    if tri_flat.dim() != 2 or tri_flat.shape[-1] != 256 or tri_flat.dtype not in ATLAS_DTYPE_CODE:
         raise ValueError("mat_select: atlas must be (rows, 256) u8, f32 or bf16 (C = 16)")
     n = rows_idx.shape[0]
     if params7.shape != (7, n) or params7.dtype != torch.float32:
@@ -410,7 +433,7 @@ def mat_select(tri_flat: torch.Tensor, rows_idx: torch.Tensor, params7: torch.Te
         raise ValueError("mat_select: the atlas must be 16-byte aligned")
     out = torch.empty((n, 16), dtype=torch.float32, device=tri_flat.device)
     _cuda.launch("mat_select", dev, tri_flat.data_ptr(), rows_idx.data_ptr(), params7.data_ptr(),
-                 out.data_ptr(), n, _ATLAS_DTYPE_CODE[tri_flat.dtype])
+                 out.data_ptr(), n, ATLAS_DTYPE_CODE[tri_flat.dtype])
     return out
 
 

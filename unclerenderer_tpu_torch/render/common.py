@@ -12,7 +12,9 @@ Two backends, as in the reference (``use_kernel_path``): the kernel path
 (the binned raster K1/K2 and the kernels K4-K9 under their flags), and
 ``raster_backend="xla"``, the reference's XLA path: the exhaustive raster
 X1, plain draw-mask gathers, and no K4-K9 (the frames pack the per-texel
-f16 PCF table instead, ``ops/shadow.py pack_shadow9``)."""
+f16 PCF table instead, ``ops/shadow.py pack_shadow9``).  The masked raster
+is M1 (``ops/raster_kernels.py masked_raster``) on both, as the reference
+runs its one XLA masked raster under every backend."""
 
 from __future__ import annotations
 
@@ -26,23 +28,27 @@ from ..ops import texture as tex
 from ..ops.fma import fdiff, fdot, fma
 from ..ops.binning import bin_triangles
 from ..ops.raster import (
-    COEF_COLS,
     CULL_BACK,
     CULL_FRONT,
     DEPTH_MAX,
     DEPTH_MIN,
-    INT32_MAX,
     RasterSetup,
     VertexAoS,
     VertexSoA,
     compact_mask,
     compact_setup,
-    eval_keys,
     normalize_ortho_setup,
     triangle_setup_any,
     viewport_homogeneous,
 )
-from ..ops.raster_kernels import BIG_TILE_H, merge_levels, rasterize_binned, rasterize_exhaustive
+from ..ops import raster_kernels
+from ..ops.raster_kernels import (
+    BIG_TILE_H,
+    merge_levels,
+    rasterize_binned,
+    rasterize_exhaustive,
+    tile_block_ranges,
+)
 from ..ops.shadow import hom_dot4
 from . import packing as PK
 from .params import DeviceScene, RenderSettings
@@ -291,38 +297,6 @@ def raster_shadow(scene: DeviceScene, light_view_proj, tri_mask, settings: Rende
 # Alpha-masked raster
 # ---------------------------------------------------------------------------
 
-# (pixel, slot) pairs one group of blocks holds at once: the groups are
-# sized to memory (any size gives the same result)
-ALPHA_PAIR_BUDGET = 1 << 24
-
-
-def _alpha_lod(u, v, au, bu, av, bv, a1, b1, denom, tw_, th_):
-    """Analytic per-(pixel, candidate) LOD of the in-raster alpha test: u =
-    U/D with U = au*qx + bu*qy + cu, D = a1*qx + b1*qy + c1, so du/dx =
-    (au - u*a1)/D; the footprint rule of ``tex.footprint_lod`` (max axis
-    length in texels, squared).  Contracted as the reference is; its log2
-    differs from PyTorch's by an ulp now and then."""
-    inv_d = 1.0 / denom
-    dudx = fma(-u, a1, au) * inv_d
-    dudy = fma(-u, b1, bu) * inv_d
-    dvdx = fma(-v, a1, av) * inv_d
-    dvdy = fma(-v, b1, bv) * inv_d
-    px, qx = dudx * tw_, dvdx * th_
-    py, qy = dudy * tw_, dvdy * th_
-    lx = fma(px, px, qx * qx)
-    ly = fma(py, py, qy * qy)
-    return 0.5 * torch.log2(torch.clamp(torch.maximum(lx, ly), min=1e-12))
-
-
-def _alpha_tap(quad_flat, atlas_width, rect0, uv, lod, settings: RenderSettings):
-    """Alpha-test texture tap at the analytic LOD, honouring the material
-    filter: nearest-mip bilinear under "bilinear", trilinear otherwise."""
-    if settings.texture_filter == "bilinear":
-        level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
-        return _sample_level_any(quad_flat, atlas_width, rect0, uv, level)
-    return _sample_trilinear_any(quad_flat, atlas_width, rect0, uv, lod)
-
-
 def _alpha_records(scene: DeviceScene, setup: RasterSetup):
     """The (T, 19) alpha record of every triangle: the interpolation
     numerators (a, b, c) of u, v, vertex alpha and 1 (columns 0:12), the
@@ -356,172 +330,35 @@ def _alpha_records(scene: DeviceScene, setup: RasterSetup):
     ], dim=1)
 
 
-# Edge-test margin of the masked raster's candidate filter (``_edge_may_pass``):
-# a multiple of the f32 unit roundoff 2^-24 with room to spare.
-EDGE_SLACK = 2.0 ** -20
-
-
-def _edge_may_pass(coef, X, Y, width: int, height: int):
-    """Superset filter of the raster's edge tests: False only where a pixel
-    centre (X, Y) cannot pass the three contracted edge tests of
-    ``eval_keys`` (``fma(a, X, b*Y) + c`` against a threshold >= 0).  Each
-    edge is summed in plain f32 against -m, m = 2^-20 * (|a| W + |b| H +
-    |c|) + 2^-120: either summation order lies within ~4 * 2^-24 * (|a X| +
-    |b Y| + |c|) of the exact value (3 and 4 roundings), so a pair that the
-    contracted form passes is kept, however thin its triangle -- a sliver's
-    rounded edge functions can cover pixels beyond its bounding box (a
-    pixel 3 columns past one, at 128x128 in tests/test_torch_forward.py),
-    where the reference, which evaluates every pixel of a tile, covers them.
-    A NaN keeps the pair.  coef (..., 16, C); X, Y pixel centres (..., P,
-    1), or each a (min, max) pair of a rectangle's extreme centres: each
-    edge is then tested at its best corner (the exact edge function is
-    linear, so no pixel of the rectangle exceeds it there), which keeps
-    every (rectangle, slot) pair that a pixel of the rectangle may pass."""
-    ok = None
-    for e in range(3):
-        a, b, c = coef[..., None, e, :], coef[..., None, 3 + e, :], coef[..., None, 6 + e, :]
-        m = (a.abs() * width + b.abs() * height + c.abs()) * EDGE_SLACK + 2.0 ** -120
-        xe = X if isinstance(X, torch.Tensor) else torch.where(a > 0, X[1], X[0])
-        ye = Y if isinstance(Y, torch.Tensor) else torch.where(b > 0, Y[1], Y[0])
-        may = ~((a * xe + b * ye + c) < -m)
-        ok = may if ok is None else ok & may
-    return ok
-
-
-def _alpha_candidates(tiles, coef, valid, tile_h, tile_w, n_tx, width, height, y_offset,
-                      full_h):
-    """The (block, pixel, slot) triples of a group of blocks whose pixel
-    lies in the image and may pass the slot's edge tests
-    (``_edge_may_pass`` over the ``full_h``-row frame); the reference
-    evaluates every pixel of the block's tile and crops the padded tiles'
-    pixels.  The image is ``height`` rows from global row ``y_offset``.
-    tiles (G,), coef (G, 16, C), valid (G, C) -> (g, p, c, pixel x, pixel y
-    in the image)."""
-    pix = tile_h * tile_w
-    col = torch.arange(pix, device=tiles.device)
-    px = ((tiles % n_tx) * tile_w)[:, None] + col % tile_w
-    py = ((tiles // n_tx) * tile_h)[:, None] + col // tile_w
-    X = (px.to(torch.float32) + 0.5)[:, :, None]
-    Y = ((py + y_offset).to(torch.float32) + 0.5)[:, :, None]
-    cand = (_edge_may_pass(coef, X, Y, width, full_h) & valid[:, None, :]
-            & ((px < width) & (py < height))[:, :, None])
-    g, p, c = cand.nonzero(as_tuple=True)
-    return g, p, c, px[g, p], py[g, p]
-
-
-def _alpha_eval(coef, arec, x, y, quad_flat, atlas_width, settings: RenderSettings):
-    """Depth key of candidate (pixel, triangle) pairs that the triangle
-    covers, whose depth is in [0, 1] and whose alpha passes the cutoff, -1
-    for the others.  coef (N, 16), arec (N, 19), x/y (N,) pixel ints.  The
-    edge tests and depth are the opaque raster's (``eval_keys``); the
-    interpolation is the reference's ``a*qx + b*qy + c`` contracted as
-    ``fma(a, qx, b*qy) + c``, like them.  The alpha tap runs only for the
-    pairs that are covered and in depth range (it enters only through
-    ``ok &``).  Returns (key (N,), covered pairs)."""
-    qx, qy = x.to(torch.float32) + 0.5, y.to(torch.float32) + 0.5
-    key, ok = eval_keys(coef[:, :, None], torch.ones_like(qx, dtype=torch.bool)[:, None],
-                        qx[:, None], qy[:, None])
-    key, ok = key.reshape(-1), ok.reshape(-1)
-    idx = ok.nonzero(as_tuple=True)[0]
-    ar, qx, qy = arec[idx], qx[idx], qy[idx]
-
-    def form(a, b, c):
-        return fma(a, qx, b * qy) + c
-
-    denom = form(ar[:, 9], ar[:, 10], ar[:, 11])
-    denom = torch.where(denom != 0.0, denom, torch.ones_like(denom))
-    u = form(ar[:, 0], ar[:, 1], ar[:, 2]) / denom
-    v = form(ar[:, 3], ar[:, 4], ar[:, 5]) / denom
-    ca = form(ar[:, 6], ar[:, 7], ar[:, 8]) / denom
-    lod = _alpha_lod(u, v, ar[:, 0], ar[:, 1], ar[:, 3], ar[:, 4], ar[:, 9], ar[:, 10], denom,
-                     ar[:, 14], ar[:, 15])
-    texel = _alpha_tap(quad_flat, atlas_width, ar[:, 12:16], torch.stack([u, v], dim=-1), lod,
-                       settings)
-    tex_a = torch.where(ar[:, 16] > 0.5, texel[:, 3], torch.ones_like(u))
-    passed = ar[:, 17] * ca * tex_a >= ar[:, 18]
-    ok[idx] = passed
-    return torch.where(ok, key, torch.full_like(key, -1.0)), int(idx.shape[0])
-
-
-def _alpha_level(blocks, scene: DeviceScene, arec, tile_h, tile_w, width, height,
-                 settings: RenderSettings, y_offset: int = 0):
-    """One masked raster level: per pixel the max key of the candidates that
-    pass, and the min triangle id among those at it -- per block, then per
-    tile in the reference (its segment merges); the order of such merges
-    does not matter.  ``blocks`` = (coef (B, 16, C), rows (B, C) into
-    arec/bbox, ids (B, C), valid (B, C) bool, tile (B,)).  The image is
-    ``height`` rows from global row ``y_offset``.  Returns (key image, id
-    image, pair counts): keys -1 and ids -1 where nothing won."""
-    coef, rows, ids, valid, tiles = blocks
-    n_tx = -(-width // tile_w)
-    dev = coef.device
+def _masked_level(scene: DeviceScene, settings: RenderSettings, arec, blocks, tile_h: int,
+                  tile_w: int, height: int, y_offset: int, stats: bool):
+    """One masked raster level through M1 (``ops/raster_kernels.py
+    masked_raster``) on the scene's material atlas at the settings' filter;
+    ``blocks`` = (coef, tri_id, valid, arec rows, tile_start, tile_count)."""
     quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
-    atlas_width = scene.quad_img.shape[1]
-    per_block = tile_h * tile_w * coef.shape[-1]
-    pix_i = [torch.zeros(0, dtype=torch.int64, device=dev)]
-    keys = [torch.zeros(0, dtype=torch.float32, device=dev)]
-    kids = [torch.zeros(0, dtype=torch.int32, device=dev)]
-    counts = {"blocks": int(tiles.shape[0]), "pairs": int(tiles.shape[0]) * per_block,
-              "candidates": 0, "covered": 0}
-    step = max(1, ALPHA_PAIR_BUDGET // per_block)
-    for b0 in range(0, tiles.shape[0], step):
-        sl = slice(b0, b0 + step)
-        g, p, c, x, y = _alpha_candidates(tiles[sl], coef[sl], valid[sl], tile_h, tile_w, n_tx,
-                                          width, height, y_offset, settings.height)
-        cr = rows[sl][g, c]
-        key, covered = _alpha_eval(coef[sl].transpose(1, 2)[g, c], arec[cr], x, y + y_offset,
-                                   quad_flat, atlas_width, settings)
-        won = key >= 0.0
-        pix_i.append((y * width + x)[won])
-        keys.append(key[won])
-        kids.append(ids[sl][g, c][won])
-        counts["candidates"] += int(g.shape[0])
-        counts["covered"] += covered
-    pix_i, keys, kids = torch.cat(pix_i), torch.cat(keys), torch.cat(kids)
-    n = width * height
-    key_img = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
-    key_img = key_img.scatter_reduce(0, pix_i, keys, reduce="amax", include_self=True)
-    at = keys == key_img[pix_i]
-    id_img = torch.full((n,), INT32_MAX, dtype=torch.int32, device=dev)
-    id_img = id_img.scatter_reduce(0, pix_i[at], kids[at].to(torch.int32), reduce="amin",
-                                   include_self=True)
-    id_img = torch.where(key_img >= 0.0, id_img, torch.full_like(id_img, -1))
-    return key_img.reshape(height, width), id_img.reshape(height, width), counts
+    return raster_kernels.masked_raster(*blocks, arec, quad_flat, scene.quad_img.shape[1], tile_h,
+                                        tile_w, settings.width, height, y_offset,
+                                        settings.height, settings.texture_filter == "bilinear",
+                                        stats)
 
 
 def _rasterize_alpha(setup: RasterSetup, arec, scene: DeviceScene, settings: RenderSettings,
-                     height: int, y_offset: int = 0):
+                     height: int, y_offset: int = 0, stats: bool = False):
     """Exhaustive masked raster (``masked_tri_cap == 0``): every tile
     against every chunk of the table, as the reference's scan; a pixel
     takes the max key, then (argmax's first index within a chunk, a strict
-    ``>`` across chunks) the min triangle id.  Only (tile, chunk) blocks
-    with a valid triangle that may pass its edge tests at a pixel of the
-    tile (``_edge_may_pass`` at the tile's corners) are evaluated; the
-    others cannot cover a pixel of it.  The image is ``height`` rows from
+    ``>`` across chunks) the min triangle id -- M1's exhaustive form, which
+    skips a chunk no valid triangle of which may pass its edge tests at a
+    pixel of the tile (``ops/raster_kernels.py _edge_may_pass`` at the
+    tile's corners): such a chunk cannot cover a pixel of it.  The image is
+    ``height`` rows from
     global row ``y_offset``.  Returns (key image, tri_id, counts): key -1
-    and id -1 where nothing won."""
-    width = settings.width
-    tile_h, tile_w, chunk = min(settings.tile_h, settings.height), settings.tile_w, settings.chunk
-    n_tx, n_ty = -(-width // tile_w), -(-height // tile_h)
-    dev = setup.coef.device
-    t = setup.coef.shape[0]
-    n_chunks = max(1, -(-t // chunk))
-    rows = torch.arange(n_chunks * chunk, device=dev).reshape(n_chunks, chunk)
-    valid = (rows < t) & setup.valid[rows.clamp(max=t - 1)]
-    rows = rows.clamp(max=t - 1)
-    coef = torch.zeros((n_chunks * chunk, COEF_COLS), dtype=torch.float32, device=dev)
-    coef[:t] = setup.coef
-    coef = coef.reshape(n_chunks, chunk, COEF_COLS).transpose(1, 2)
-    tile = torch.arange(n_tx * n_ty, device=dev)
-    tx0 = ((tile % n_tx) * tile_w).to(torch.float32)[:, None]
-    ty0 = ((tile // n_tx) * tile_h + y_offset).to(torch.float32)[:, None]
-    xs, ys = (tx0 + 0.5, tx0 + (tile_w - 0.5)), (ty0 + 0.5, ty0 + (tile_h - 0.5))
-    live = [(_edge_may_pass(coef[c], xs, ys, width, settings.height) & valid[c]).any(dim=1)
-            for c in range(n_chunks)]
-    b_tile, b_chunk = torch.stack(live, dim=1).nonzero(as_tuple=True)
-    blocks = (coef[b_chunk], rows[b_chunk], rows[b_chunk], valid[b_chunk], b_tile)
-    key, ids, counts = _alpha_level(blocks, scene, arec, tile_h, tile_w, width, height,
-                                    settings, y_offset)
+    and id -1 where nothing won; counts (``stats``) as
+    ``_rasterize_alpha_binned``'s, one level."""
+    coef, rows, valid = raster_kernels.table_chunks(setup, settings.chunk)
+    key, ids, counts = _masked_level(scene, settings, arec, (coef, rows, valid, rows, None, None),
+                                     min(settings.tile_h, settings.height), settings.tile_w,
+                                     height, y_offset, stats)
     return key, ids, [counts]
 
 
@@ -550,13 +387,13 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
     whole chunks); level 1 bins them to the scene tiles (span 4, budget
     4.0), level 2 bins level 1's big triangles to 32 x 128 tiles (span 8,
     budget 2.0), and the levels merge by max key, min id on ties.  Only
-    the blocks in use are evaluated (an unused block's slots are all
-    invalid).  As in the reference, pairs past a level's bin budget and
+    the blocks in use are evaluated.  As in the reference, pairs past a level's bin budget and
     triangles too big for level 2 are dropped; with ``stats`` the counts
-    report them (``bin_overflow``, ``big_dropped``) beside the pair counts
-    of each level.  The image is ``height`` rows from global row
-    ``y_offset``.  Returns (key image, tri_id, counts) as
-    ``_rasterize_alpha``."""
+    report them (``bin_overflow``, ``big_dropped``) beside M1's counts of
+    each level (live blocks, covered and tapped pairs), all device tensors.
+    Each level is one M1 launch over all its block slots, dead blocks too.
+    The image is ``height`` rows from global row ``y_offset``.  Returns
+    (key image, tri_id, counts) as ``_rasterize_alpha``."""
     width = settings.width
     chunk = min(settings.chunk, 64)
     t_count = setup.coef.shape[0]
@@ -574,14 +411,17 @@ def _rasterize_alpha_binned(setup: RasterSetup, arec, scene: DeviceScene,
         lvl_setup, arec_ids, tri_ids = setup, None, None
 
     def level(bins, tile_h, tile_w):
-        live = bins.blk_live.nonzero(as_tuple=True)[0]
-        ids = bins.tri_id[live, 0]
-        rows = ids.long()
+        # each tile walks only its live block range
+        n_tiles = -(-width // tile_w) * -(-height // tile_h)
+        ids = bins.tri_id[:, 0]
+        rows = ids
         if arec_ids is not None:
-            rows = torch.clamp(torch.searchsorted(arec_ids, ids), 0, arec.shape[0] - 1)
-        blocks = (bins.coef[live], rows, ids, bins.valid[live, 0] > 0.0, bins.blk_tile[live].long())
-        return _alpha_level(blocks, scene, arec, tile_h, tile_w, width, height, settings,
-                            y_offset)
+            rows = torch.clamp(torch.searchsorted(arec_ids, ids), 0,
+                               arec.shape[0] - 1).to(torch.int32)
+        start, count = tile_block_ranges(bins, n_tiles)
+        return _masked_level(scene, settings, arec,
+                             (bins.coef, ids, bins.valid, rows, start, count), tile_h, tile_w,
+                             height, y_offset, stats)
 
     full_h = None if height == settings.height else settings.height
     tile_h, big_th = _masked_tile_heights(settings)
@@ -613,11 +453,16 @@ def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
                           settings: RenderSettings, verts, stats: bool = False,
                           attr=None, dist=None):
     """Rasterize the alpha-masked geometry with an in-raster alpha test (the
-    base-colour tap at the analytic LOD, ``_alpha_lod``), then depth-combine
-    with the opaque visibility buffer: a masked pixel wins only with a
-    strictly greater key, so opaque wins ties.  Returns (depth, tri_id,
-    counts); with ``stats`` counts holds the pair counts and drops of each
-    masked level (the reference counts neither), else None.
+    base-colour tap at the analytic LOD, ``ops/raster_kernels.py
+    _alpha_lod``) by M1, then depth-combine with the opaque visibility
+    buffer: a masked pixel wins only with a strictly greater key, so opaque
+    wins ties.  Returns (depth, tri_id, counts); with ``stats`` counts
+    holds M1's counts (live blocks, covered and tapped pairs) and the drops
+    of each masked level as device tensors (the reference counts none of
+    them), else None.  At every ``masked_tri_cap`` the shapes are static and
+    nothing is read back, so the frame programs capture it
+    (``render/program.py``, whose only refusal left is a row-sharded
+    ``dist``).
 
     ``attr`` (fused resolve: the opaque raster's (H, W, 128) record image)
     is returned fourth, its masked-won pixels replaced in place by their
@@ -635,7 +480,7 @@ def raster_masked_combine(scene: DeviceScene, masked_mask, depth, tri_id,
                                                        stats)
     else:
         h, y0, crop = _slab(settings.height, dist, tile_h)
-        m_key, m_tri, counts = _rasterize_alpha(setup, arec, scene, settings, h, y0)
+        m_key, m_tri, counts = _rasterize_alpha(setup, arec, scene, settings, h, y0, stats)
     if crop is not None:
         m_key, m_tri = m_key[crop], m_tri[crop]
     m_depth = torch.where(m_key >= 0.0, m_key, torch.zeros_like(m_key))
@@ -700,28 +545,6 @@ def _interp3(w, av, offset, n):
     return fdot([(w[0][..., None], a[0]), (w[1][..., None], a[1]), (w[2][..., None], a[2])])
 
 
-def _atlas_is_packed_tri(quad_flat) -> bool:
-    """The combined packed-trilinear atlas has 16 * 16 = 256 lanes, the
-    combined quad atlas 64."""
-    return quad_flat.shape[-1] == 256
-
-
-def _sample_level_any(quad_flat, atlas_width, rect0, uv, level):
-    """Bilinear tap at an integer mip on either atlas layout."""
-    if _atlas_is_packed_tri(quad_flat):
-        return tex.sample_pyramid_tri_level(quad_flat, atlas_width, rect0, uv, level)
-    return tex.sample_pyramid_bilinear(quad_flat, atlas_width, rect0, uv, level)
-
-
-def _sample_trilinear_any(quad_flat, atlas_width, rect0, uv, lod, select_kernel=False):
-    """Trilinear tap on either layout: one row gather on the packed atlas
-    (``select_kernel``: decoded by K8), two on the quad atlas."""
-    if _atlas_is_packed_tri(quad_flat):
-        return tex.sample_pyramid_tri(quad_flat, atlas_width, rect0, uv, lod,
-                                      select_kernel=select_kernel)
-    return tex.sample_pyramid_trilinear(quad_flat, atlas_width, rect0, uv, lod)
-
-
 def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
                   settings: RenderSettings):
     """D3D12_FILTER_ANISOTROPIC analog: ``max_anisotropy`` trilinear taps
@@ -733,7 +556,8 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
     compacted list of the anisotropic pixels (extent > 0; static cap =
     that fraction of the image, at least 1024) and every other pixel takes
     one centre tap, which equals its N coincident taps; pixels past the cap
-    keep the centre tap and are counted."""
+    keep the centre tap and are counted.  The shapes are static and nothing
+    is read back, so the frame programs capture it."""
     n = settings.max_anisotropy
     sk = settings.mat_select_kernel and use_kernel_path(settings)
     lod, dmaj, extent = footprint
@@ -743,7 +567,7 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
         for k in range(n):
             t = ((k + 0.5) / n - 0.5) * extent
             # the reference's uv + dmaj * t contracts to one FMA on XLA:CPU
-            acc = acc + _sample_trilinear_any(quad_flat, atlas_width, rect,
+            acc = acc + tex.sample_trilinear_any(quad_flat, atlas_width, rect,
                                               fma(dmaj, t[..., None], uv), lod, select_kernel=sk)
         return acc / n
 
@@ -762,9 +586,11 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
         return x.reshape((n_pix,) + x.shape[len(lead):])[safe]
 
     acc = line_taps(flat(rect0), flat(suv), flat(lod), flat(dmaj), flat(extent))
-    center = _sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod, select_kernel=sk)
-    img = center.reshape((n_pix,) + center.shape[len(lead):]).clone()
-    img[ids[ok].long()] = acc[ok]
+    center = tex.sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod, select_kernel=sk)
+    # a static scatter: the rows past the cap go to a dump row, cut off after
+    tail = center.shape[len(lead):]
+    img = torch.cat([center.reshape((n_pix,) + tail), center.new_zeros((1,) + tail)])
+    img = img.index_put_((torch.where(ok, ids, n_pix).long(),), acc)[:n_pix]
     overflow = (amask.sum() - ok.sum()).to(torch.int32)
     return img.reshape(center.shape), overflow
 
@@ -905,8 +731,8 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
                                     uv_below=ub, same_tri_bx=same_bx, same_tri_by=same_by)
         if settings.texture_filter == "bilinear":
             level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
-            return _sample_level_any(quad_flat, atlas_width, rect0, suv, level)
-        return _sample_trilinear_any(
+            return tex.sample_level_any(quad_flat, atlas_width, rect0, suv, level)
+        return tex.sample_trilinear_any(
             quad_flat, atlas_width, rect0, suv, lod,
             select_kernel=settings.mat_select_kernel and use_kernel_path(settings))
 

@@ -20,9 +20,10 @@ frame from the host, where the op-by-op frame makes thousands.
 * ``ShadowProgram``: ``render/common.py raster_shadow`` of the casters the
   parameters make visible, captured to write the map into the frame
   program's static map buffer.
-* ``supported(settings)``: whether a frame of ``settings`` runs with no
-  host synchronisation and no data-dependent shape, which capture needs;
-  else the reason.  Refused settings run op by op.
+* ``supported(settings, dist)``: whether a frame runs with no host
+  synchronisation and no data-dependent shape, which capture needs; else
+  the reason.  Every setting is; the one refusal left is a row-sharded
+  ``dist``, whose frames run op by op.
 * ``eager()``: inside it the Renderer runs the card's frames op by op
   (the counterpart of ``jax.disable_jit``); the comparisons and the
   measurement paths use it.
@@ -78,25 +79,14 @@ def eager_active() -> bool:
 
 def supported(settings: RenderSettings, dist=None) -> tuple[bool, str]:
     """``(True, "")`` when a frame of ``settings`` can be captured: it makes
-    no host synchronisation and every shape is static.  Otherwise False and
-    the reason, one clause per setting that syncs (the masked raster, the
-    anisotropic tap compaction, K1's debug print, a row-sharded ``dist``).
-    ``tests/test_torch_program.py`` holds each reason to the op that makes
-    it, and every setting accepted here to a trace with none."""
-    why = []
-    if settings.has_masked_models:
-        why.append("the masked raster compacts its (pixel, slot) candidates by nonzero and "
-                   "boolean indexing (render/common.py _alpha_candidates, _alpha_eval, "
-                   "_alpha_level, _rasterize_alpha_binned, _rasterize_alpha)")
-    if settings.texture_filter == "anisotropic" and 0.0 < settings.aniso_compact_frac < 1.0:
-        why.append("the anisotropic tap compaction scatters by a boolean index "
-                   "(render/common.py _sample_aniso)")
-    if settings.kernel_debug_print:
-        why.append("kernel_debug_print reads K1's line count back to size its printf FIFO "
-                   "(ops/raster_kernels.py binned_raster)")
+    no host synchronisation and every shape is static -- every setting
+    (the masked raster, the anisotropic tap compaction and K1's debug
+    print included).  A row-sharded ``dist`` is refused, with
+    its reason.  ``tests/test_torch_program.py`` holds every setting to a
+    trace with no forbidden op."""
     if dist is not None and dist.n_dev > 1:
-        why.append("the row-sharded frame runs host-driven collectives (parallel/dist.py)")
-    return not why, "; ".join(why)
+        return False, "the row-sharded frame runs host-driven collectives (parallel/dist.py)"
+    return True, ""
 
 
 def params_layout(fields: dict) -> tuple:
@@ -168,9 +158,6 @@ class FrameProgram:
     def __init__(self, scene, settings: RenderSettings, kind: str, flat: torch.Tensor,
                  layout: tuple, state: FrameState | None = None,
                  shadow_map: torch.Tensor | None = None):
-        ok, why = supported(settings)
-        if not ok:
-            raise ValueError(f"FrameProgram: these settings cannot be captured: {why}")
         if kind not in KINDS:
             raise ValueError(f"FrameProgram: kind must be one of {KINDS}, got {kind!r}")
         if flat.device.type != "cuda":

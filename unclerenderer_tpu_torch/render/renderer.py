@@ -45,9 +45,9 @@ every later frame replays it.  The frame state then lives in the program's
 static buffers (``frame_state`` is them; assigning it copies into them),
 and each frame's outputs are clones the next replay leaves alone.  A
 changed ``settings`` or scene (``update_settings``, ``reload_scene``)
-drops the programs, where the reference recompiles.  Settings that
-``program.supported`` refuses run op by op (logged once), and so do the
-CPU, ``program.eager()`` blocks, ``profile_trace`` and the graph dump;
+drops the programs, where the reference recompiles.  Every setting is
+captured (``program.supported``); the CPU, ``program.eager()`` blocks,
+``profile_trace`` and the graph dump run op by op;
 ``stats()["frame_program"]`` says how the last frame ran.
 """
 
@@ -360,7 +360,6 @@ class Renderer:
         self._program = None
         self._shadow_program = None
         self._warm = None
-        self._refusals_logged: set = set()
         self.frame_program = "eager: no frame rendered yet"
         cfg = config or RendererConfig()
         if settings is None:
@@ -577,12 +576,6 @@ class Renderer:
         where none is current), or "eager: <why>" (op by op)."""
         if self.device.type != "cuda":
             return f"eager: {program.CPU_REASON}"
-        ok, why = program.supported(self.settings)
-        if not ok:
-            if why not in self._refusals_logged:
-                self._refusals_logged.add(why)
-                log_info(f"frames run op by op: {why}")
-            return f"eager: {why}"
         if program.eager_active():
             return "eager: inside program.eager()"
         if self._deferred() and self._graph_dump_pending:

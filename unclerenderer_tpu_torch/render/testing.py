@@ -578,3 +578,151 @@ def write_scene(root, n_objects: int = 4, seed: int = 0, sphere_res: tuple = (12
     path = root / "Scenes" / f"{name}.json"
     path.write_text(json.dumps(scene, indent=1))
     return path
+
+
+# ---------------------------------------------------------------------------
+# M1's inputs on synthetic setups (ops/raster_kernels.py masked_raster)
+# ---------------------------------------------------------------------------
+
+# the special setups of the masked raster: random triangles; coplanar copies
+# (equal keys: the min id wins); depth planes of +0 and -0 (keys of exactly 0
+# that tie); slivers (a sliver's rounded edges cover pixels past its box);
+# vertex alphas within ulps of the cutoff
+MASKED_CASES = ("random", "ties", "zero", "slivers", "cutoff")
+# (mip-0 rects of the synthetic atlas: (x0, y0, w0, h0), chains to the right)
+MASKED_RECTS = ((0.0, 0.0, 32.0, 32.0), (64.0, 0.0, 16.0, 16.0), (64.0, 32.0, 8.0, 8.0),
+                (0.0, 32.0, 32.0, 16.0))
+MASKED_ATLAS_W, MASKED_ATLAS_H = 128, 64
+
+
+def masked_raster_setup(case: str, seed: int, device, width: int = 256, height: int = 256,
+                        n: int = 120):
+    """A ``RasterSetup`` of ``n`` triangles over a ``width`` x ``height``
+    image and its (T, 19) alpha records (``render/common.py
+    _alpha_records``' columns) for one of ``MASKED_CASES``; one row in ten is
+    invalid and holds NaN coefficients.  The slivers' boxes are shrunk, so
+    that the binning places them in tiles where their edges cover pixels
+    past the box.  Returns (setup, arec)."""
+    from ..ops.fma import fdot
+    from ..ops.raster import CULL_NONE, RasterSetup, triangle_setup_from_components
+
+    if case not in MASKED_CASES:
+        raise ValueError(f"masked_raster_setup: case must be one of {MASKED_CASES}")
+    rng = np.random.default_rng(seed)
+    ctr = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    ctr[:, 2] = rng.uniform(0.1, 0.9, n)
+    size = 0.08
+    d1 = rng.normal(0, size, (n, 3)).astype(np.float32)
+    d2 = rng.normal(0, size, (n, 3)).astype(np.float32)
+    if case == "slivers":  # d2 almost along d1: slivers 1e-3 to 3e-2 of their length wide
+        d1 *= 3.0
+        thin = size * np.exp(rng.uniform(np.log(1e-3), np.log(3e-2), (n, 1)))
+        d2 = (d1 * rng.uniform(-1.0, 1.0, (n, 1)) + rng.normal(0, 1.0, (n, 3)) * thin
+              ).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, (n, 3)).astype(np.float32)  # perspective: keys nz / nw
+    if case in ("ties", "zero"):  # every other row a copy of the one before
+        for a in (ctr, d1, d2, w):
+            a[1::2] = a[0::2][: n // 2]
+    v = np.stack([ctr - d1, ctr + d2, ctr + d1], 1)
+    t = {k: torch.from_numpy(np.ascontiguousarray(x)).to(device) for k, x in
+         (("v", v), ("w", w))}
+    px = [(t["v"][:, k, 0] * 0.5 + 0.5) * width * t["w"][:, k] for k in range(3)]
+    py = [(0.5 - t["v"][:, k, 1] * 0.5) * height * t["w"][:, k] for k in range(3)]
+    pw = [t["w"][:, k] for k in range(3)]
+    zc = [t["v"][:, k, 2] * t["w"][:, k] for k in range(3)]
+    s = triangle_setup_from_components(
+        px[0], py[0], pw[0], px[1], py[1], pw[1], px[2], py[2], pw[2], *zc,
+        torch.ones(n, dtype=torch.bool, device=device), CULL_NONE, width, height)
+    coef, valid = s.coef.clone(), s.valid.clone()
+    if case == "zero":  # depth planes of exactly +0 and -0: a tie at key 0
+        coef[0::2, 9:12] = 0.0
+        coef[1::2, 9:12] = -0.0
+    bbox = s.bbox.clone()
+    if case == "slivers":  # every other box shrunk to 2 px about its centre: the
+        # raster must cover the pixels past it that the edges pass, as a
+        # sliver's rounded edges do past its true box
+        mid = torch.stack([bbox[0] + bbox[2], bbox[1] + bbox[3]]) * 0.5
+        bbox[:, 1::2] = torch.cat([mid - 1.0, mid + 1.0])[:, 1::2]
+    dead = torch.from_numpy(np.arange(n) % 10 == 7).to(device)
+    valid &= ~dead
+    coef[dead, :15] = float("nan")
+    setup = RasterSetup(coef=coef, valid=valid, bbox=bbox)
+
+    def interp(x):  # (T, 3) per-vertex values -> their (a, b, c) numerators
+        return torch.stack([fdot([(coef[:, 3 * r + k], x[:, k]) for k in range(3)])
+                            for r in range(3)], dim=1)
+
+    uv = torch.from_numpy(rng.uniform(-0.5, 1.5, (n, 3, 2)).astype(np.float32)).to(device)
+    if case == "cutoff":  # no map: the alpha is the vertex alpha, 0.5 within ulps
+        alpha = np.full((n, 3), 0.5, np.float32)
+        has = np.zeros(n, np.float32)
+        cutoff = np.nextafter(np.float32(0.5), np.float32(rng.choice([-1, 1], n)) * np.inf,
+                              dtype=np.float32)
+        cutoff[::3] = 0.5
+    else:
+        alpha = rng.uniform(0.6, 1.0, (n, 3)).astype(np.float32)
+        has = (rng.random(n) < 0.8).astype(np.float32)
+        cutoff = rng.uniform(0.0, 0.6, n).astype(np.float32)
+        if case in ("ties", "zero"):
+            cutoff[:] = 0.0  # every copy passes: the tie decides
+    rects = np.asarray(MASKED_RECTS, np.float32)[rng.integers(0, len(MASKED_RECTS), n)]
+    host = [torch.from_numpy(x).to(device) for x in (alpha, rects, has[:, None],
+                                                     rng.uniform(0.8, 1.2, (n, 1))
+                                                     .astype(np.float32), cutoff[:, None])]
+    arec = torch.cat([interp(uv[..., 0]), interp(uv[..., 1]), interp(host[0]),
+                      interp(torch.ones_like(host[0])), *host[1:]], dim=1)
+    return setup, arec
+
+
+def masked_raster_atlas(layout: str, dtype, device, seed: int = 0):
+    """A random material atlas the masked raster samples: ``layout`` "quad4"
+    (4 channels a texel, 16 lanes: the per-slot atlas), "quad16" (the
+    combined material's 64 lanes) or "packed" (the 256-lane
+    packed-trilinear atlas), ``MASKED_ATLAS_W`` texels a row, in ``dtype``
+    (u8 only at 16 channels).  Returns (flat (rows, lanes), atlas width)."""
+    lanes = {"quad4": 16, "quad16": 64, "packed": 256}[layout]
+    rng = np.random.default_rng(seed)
+    shape = (MASKED_ATLAS_H * MASKED_ATLAS_W, lanes)
+    if dtype == torch.uint8:
+        flat = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+    else:
+        flat = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dtype)
+    return flat.to(device), MASKED_ATLAS_W
+
+
+def masked_raster_args(setup, arec, atlas, atlas_width: int, width: int, height: int,
+                       form: str = "binned", chunk: int = 64, tile=(16, 64), y_offset: int = 0,
+                       full_height: int | None = None, bilinear: bool = False,
+                       misaligned: bool = False):
+    """The positional arguments of one ``masked_raster`` call on ``setup``:
+    ``form`` "binned" (the masked level-1 binning of the frame,
+    ``bin_triangles`` at span 4 and budget 4.0, every block slot passed
+    with each tile's range) or "exhaustive" (the table in chunks,
+    ``table_chunks``); ``misaligned`` passes
+    the tables as views one element into a larger buffer."""
+    from ..ops.binning import bin_triangles
+    from ..ops.raster_kernels import table_chunks, tile_block_ranges
+
+    th, tw = tile
+    if form == "binned":
+        bins = bin_triangles(setup, width, height, th, tw, chunk, max_span=4, budget_factor=4.0,
+                             y_offset=y_offset, full_height=full_height)
+        start, count = tile_block_ranges(bins, -(-width // tw) * -(-height // th))
+        ids = bins.tri_id[:, 0]
+        tables = [bins.coef, ids, bins.valid, ids, arec]
+    elif form == "exhaustive":
+        coef, rows, valid = table_chunks(setup, chunk)
+        start = count = None
+        tables = [coef, rows, valid, rows, arec]
+    else:
+        raise ValueError(f"masked_raster_args: form must be binned or exhaustive, got {form!r}")
+    if misaligned:
+        def shift(x):
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+            view = buf[1:].view(x.shape)
+            view.copy_(x)
+            return view
+        tables = [shift(x) for x in tables]
+    coef, ids, valid, rows, arec = tables
+    return (coef, ids, valid, rows, start, count, arec, atlas, atlas_width, th, tw, width, height,
+            y_offset, full_height, bilinear)
