@@ -110,8 +110,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    pixels past their boxes, alphas within ulps of the cutoff -- at 256^2,
    on quad (4-channel f32/bf16, 16-channel u8) and packed (u8, bf16, f32)
    atlases, binned and exhaustive, chunks 32-256, y_offset 0 and 48, both
-   filters and misaligned tables: key bits, ids, live blocks and covered
-   pairs equal to the plain version's.
+   filters and misaligned tables, and on a dense setup (9,000 triangles
+   at 64^2: every tile split, candidate lists that fill): key bits, ids,
+   live blocks and covered pairs equal to the plain version's.
    Then the launch path: every kernel wrapper's host microseconds per call
    on a tiny input (``launch_us``: 2 x 3 runs of 1000 calls, no
    synchronisation inside a run) beside ``clone`` of the same input, taken
@@ -136,7 +137,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the pairs and triangles the masked levels drop past their bin budgets,
    which the reference does not count (logged, not gated); its two M1
    calls (levels 1 and 2) are held bit-equal to the plain version and
-   timed as the other kernels' (the kernels line's M1 calls).
+   timed as the other kernels' (the kernels line's M1 calls), with each
+   level's per-tile block counts (most, mean, tiles with none, tiles
+   split), and the pairs that the plain version covers, the alpha taps the
+   level needs and those M1 makes, in the level and in its busiest tile
+   (``unclerenderer_tpu_torch/sweeps/masked.py level_counts``; the sweep
+   times M1 against its form before the redesign).
    The fused path: one fused frame equal to the unfused frame from the same
    state (every output and the carried state bit-equal, colour exactly
    equal), on the default and the masked geometry; 10 counted fused frames
@@ -165,7 +171,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    Renderer ms/frame in turns with direct ``deferred_frame`` calls on the
    cached map and prebuilt params (host clock around
    ``torch.cuda.synchronize()``, 3 runs of 10 frames each) and peak memory;
-   the CLI at 1080p, ``--frames 3``, ``--orbit 4`` and ``--renderer
+   the CLI at 1080p, ``--frames 3`` (one ``capture:`` line, then the
+   steady state over replays), ``--orbit 4`` and ``--renderer
    forward``, whose PNGs decode with the port's ``load_png``.  The forward
    Renderer on the same files at 1080p: 10 counted ``render_frame`` calls
    (K1, K2, K4, K5 launched), drop counters 0, more than 30% covered, colour
@@ -547,22 +554,22 @@ def work_masked(coef, tri_id, valid, rows, start, count, arec, atlas, atlas_widt
     """M1: (bytes, operations).  Bytes: the slots of the blocks the tiles
     walk (16 coefficients, flag, id, record row) and the valid slots' alpha
     records (19 floats) read once, the tile ranges, the two images written
-    once, and each tapped pair's texels (4 a bilinear tap, 8 a trilinear
-    one).  Operations: what this run's data needs, not M1's walk: the edge
-    and depth tests of the covered pairs and the alpha tests of the tapped
-    ones, from the kernel's own counts (one more launch, outside every
-    counted run)."""
+    once, and the texels of the taps the level needs (4 a bilinear tap, 8 a
+    trilinear one).  Operations: what this run's data needs, not M1's walk:
+    the edge and depth tests of the covered pairs and the alpha tests of
+    the taps it needs.  Both counts come from the plain version
+    (``masked_needed_taps``: each pixel's covered pairs in descending key,
+    then ascending id, down to its winner), not from the kernel's own."""
     from unclerenderer_tpu_torch.ops import raster_kernels as rk
 
-    n = rk.masked_raster(coef, tri_id, valid, rows, start, count, arec, atlas, atlas_width,
-                         tile_h, tile_w, width, height, y_offset, full_height, bilinear,
-                         stats=True)[2]
+    n = rk.masked_needed_taps(coef, tri_id, valid, rows, start, count, arec, atlas, atlas_width,
+                              tile_h, tile_w, width, height, y_offset, full_height, bilinear)
     walked = coef.shape[0] if start is None else int(count.sum())
     slots = int((valid.reshape(coef.shape[0], -1)[:walked] > 0).sum())
-    taps = int(n["tapped"])
+    taps = n["needed"]
     moved = (walked * coef.shape[-1] * 4 * 19 + slots * 4 * 19 + nbytes(start, count)
              + height * width * 8 + taps * (4 if bilinear else 8) * atlas.element_size())
-    return moved, MASKED_PAIR_OPS * int(n["covered"]) + TAP_OPS * taps
+    return moved, MASKED_PAIR_OPS * n["covered"] + TAP_OPS * taps
 
 
 def past_box(setup, b_id, differ, tile_h, tile_w, y_offset):
@@ -1283,8 +1290,12 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
     check(img is not None and img.shape == (HEIGHT, WIDTH, 4), "CLI PNG does not decode to 1080p")
     check(len(np.unique(img[..., :3].reshape(-1, 3), axis=0)) > 100, "CLI PNG is constant")
     steady = [ln for ln in res.stderr.splitlines() if "steady-state" in ln]
+    captured = [ln for ln in res.stderr.splitlines() if "capture:" in ln]
+    check(len(steady) == 1 and len(captured) == 1,
+          f"CLI --frames 3: {len(captured)} capture and {len(steady)} steady-state lines, "
+          "expected one each (the capture before the steady state)")
     log("renderer", f"CLI --frames 3: exit 0 in {cli_s:.1f} s, {out_png.name} decodes to "
-                    f"{img.shape} ({steady[-1].split('] ')[-1] if steady else 'no timing line'})")
+                    f"{img.shape} ({captured[0].split('] ')[-1]}; {steady[0].split('] ')[-1]})")
     t0 = time.perf_counter()
     res = subprocess.run(cmd + ["--orbit", "4", "--output", str(scene_dir / "orbit.png")],
                          cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -2396,6 +2407,13 @@ def main() -> int:
                         m_args, f"{case} {layout} {dtype} {form} chunk {chunk} y_offset {y0}")[
                             "tapped"]
                     m1_calls += 1
+    m_setup, m_arec = masked_raster_setup("random", 5, dev, 64, 64, n=9000)
+    m_atlas, m_aw = masked_raster_atlas("packed", torch.uint8, dev, seed=3)
+    for form in ("binned", "exhaustive"):
+        m1_taps += masked_versus_plain(
+            masked_raster_args(m_setup, m_arec, m_atlas, m_aw, 64, 64, form, 32),
+            f"dense {form}")["tapped"]
+        m1_calls += 1
     log("kernels", f"masked_raster bit-equal to plain on {m1_calls} calls ({m1_taps} alpha taps) "
                    f"over the special setups {MASKED_CASES} (coplanar ties, +0/-0 keys, slivers "
                    "past their boxes, alphas within ulps of the cutoff) at 256^2: quad atlases "
@@ -2997,6 +3015,8 @@ def main() -> int:
 
     # ---- 3b. M1 on the masked 1080p frame's own level-1 and level-2 inputs:
     # bit-equal, timed, its bound (the kernels line's M1 calls)
+    from unclerenderer_tpu_torch.sweeps import masked as masked_sweep
+
     m1_calls = recorded(["masked_raster"], m_scene, m_params[0], m_settings)["masked_raster"]
     check(len(m1_calls) == 2, f"the masked frame made {len(m1_calls)} M1 calls, expected 2")
     for level, (ca, ck) in enumerate(m1_calls, 1):
@@ -3010,6 +3030,10 @@ def main() -> int:
                       f"graph {call['graph_ms']:.4f} ms, plain {call['plain_ms']:.2f} ms, bound "
                       f"{call['bound_ms']:.4f} ms ({call['bytes']} B, {call['ops']} ops, "
                       f"{call['bound_by']}) (on {smi})")
+        # what the level holds: per-tile block counts, the taps it needs
+        # and M1's own, in the level and in its busiest tile alone
+        call["level_counts"] = masked_sweep.level_counts(ca[:16], ck)
+        log("masked", f"M1 level {level} counts: {call['level_counts']}")
     del m1_calls
 
     def masked_checks(out):

@@ -147,3 +147,53 @@ def test_cli_defaults_to_the_card(scene):
         main(["--scene", str(scene), "--width", "32", "--height", "32", "--shadow-size", "32",
               "--output", str(scene.parent / "never.png")])
     assert not (scene.parent / "never.png").exists()
+
+
+def test_cli_steady_state_times_replays_only(scene, tmp_path, monkeypatch):
+    """``--frames 4`` where the Renderer captures its frame program (the
+    card's path, played here on the CPU by a stand-in program whose frames
+    are the op-by-op ones): the capturing frame is rendered and logged on
+    its own ``capture:`` line before the steady state, whose timed window
+    -- between the two clock reads around the loop -- holds the 3 frames
+    after it, all replays."""
+    import types
+
+    from unclerenderer_tpu_torch import app
+
+    events = []
+
+    def frame_mode(self):
+        return "graph" if self._frame_counter > 0 else "eager: warm-up"
+
+    def program_frame(self, fields, shadow=True):
+        events.append(("frame", "capture" if self._program is None else "replay"))
+        if self._program is None:
+            self._program = types.SimpleNamespace(state=None)
+        return types.SimpleNamespace(run=lambda: self._eager_frame(fields, shadow=shadow))
+
+    eager_frame = Renderer._eager_frame
+
+    def eager(self, fields, dump=False, shadow=True):
+        if not any(e == ("frame", "capture") for e in events):
+            events.append(("frame", "eager"))
+        return eager_frame(self, fields, dump=dump, shadow=shadow)
+
+    def clock():
+        events.append(("clock",))
+        return len(events)
+
+    monkeypatch.setattr(Renderer, "_frame_mode", frame_mode)
+    monkeypatch.setattr(Renderer, "_program_frame", program_frame)
+    monkeypatch.setattr(Renderer, "_eager_frame", eager)
+    monkeypatch.setattr(app, "time", types.SimpleNamespace(monotonic=clock))
+    monkeypatch.setattr(app, "log_info", lambda msg: events.append(("log", msg)))
+    assert main(["--scene", str(scene), "--width", "32", "--height", "32", "--shadow-size", "32",
+                 "--device", "cpu", "--frames", "4", "--output", str(tmp_path / "o.png")]) == 0
+    steady = next(i for i, e in enumerate(events) if e[0] == "log" and "steady-state" in e[1])
+    stop = max(i for i, e in enumerate(events[:steady]) if e == ("clock",))
+    start = max(i for i, e in enumerate(events[:stop]) if e == ("clock",))
+    assert events[start + 1:stop] == [("frame", "replay")] * 3, events
+    capture = [i for i, e in enumerate(events) if e == ("frame", "capture")]
+    logged = [i for i, e in enumerate(events) if e[0] == "log" and e[1].startswith("capture:")]
+    assert len(capture) == 1 and len(logged) == 1 and capture[0] < logged[0] < start, events
+    assert events.index(("frame", "eager")) < capture[0]

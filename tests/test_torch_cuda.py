@@ -6,6 +6,7 @@ GPU (which has no JAX, hence no conftest):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``."""
 
 import contextlib
+import os
 from pathlib import Path
 
 import numpy as np
@@ -34,7 +35,25 @@ pytestmark = pytest.mark.cuda
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    return torch.device("cuda", 0)
+    dev = torch.device("cuda", 0)
+    _renew_cupti(dev)
+    return dev
+
+
+def _renew_cupti(dev):
+    """One profiler trace that tears CUPTI down at its end, and CUPTI kept
+    alive after it (``TEARDOWN_CUPTI=0``, as the profiler itself sets it
+    for CUDA graphs).  On the card's machine a trace that follows another
+    one's teardown may record none of its device rows, and a trace of
+    rows it did not launch (a fill kernel of earlier work); after this,
+    each trace of ``_kernels_launched`` holds its own launches' rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.environ["TEARDOWN_CUPTI"] = "1"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    os.environ["TEARDOWN_CUPTI"] = "0"
 
 
 def _setup(n, seed, size, dev, w=256, h=256):
@@ -572,21 +591,64 @@ def test_probe_rows_kernel_paths_match_plain(cuda_device):
         _same(g if isinstance(g, tuple) else (g,), w if isinstance(w, tuple) else (w,))
 
 
+_WINDOW = "kernels_launched_window"
+
+
 def _kernels_launched(fn, attempts=5):
-    """Names of the device kernels one call of ``fn`` launches (profiler).
-    A trace with no device event at all (the profiler drops one now and
-    then) is taken again, so ``fn`` may run more than once."""
-    from torch.profiler import ProfilerActivity, profile
+    """Names of the device rows (kernels, copies, fills) that one call of
+    ``fn`` launches, in the order they ran, from a ``torch.profiler``
+    trace: the rows whose launch -- the CUDA API call of the same
+    correlation id -- lies on this thread inside a range around ``fn``.
+    Rows of other work that the trace also holds are not the call's.  A
+    trace that misses the row of a launch inside the range (the profiler
+    drops rows now and then) is taken again, so ``fn`` may run more than
+    once, CUPTI renewed before each retry (``_renew_cupti``); no complete
+    trace in ``attempts`` fails the test."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from unclerenderer_tpu_torch.core.traceparse import load_events
 
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+            with record_function(_WINDOW):
+                fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            names = _window_rows(load_events(path))
         if names:
-            break
-    return names
+            return names
+        _renew_cupti(torch.device("cuda", torch.cuda.current_device()))
+    pytest.fail(f"no complete profiler trace of the call in {attempts} attempts")
+
+
+def _window_rows(events):
+    """Names of a Chrome trace's device rows whose launch lies inside the
+    ``_WINDOW`` range on the range's thread, in the order they ran; [] if
+    a launch there (a kernel launch, copy or fill call) has no row."""
+    from unclerenderer_tpu_torch.core.traceparse import DEVICE_CATS, LAUNCH_CATS
+
+    spans = [e for e in events if e.get("ph") == "X"]
+    window = [e for e in spans if e.get("cat") == "user_annotation" and e.get("name") == _WINDOW]
+    if len(window) != 1:
+        return []
+    w = window[0]
+    t0, t1 = float(w["ts"]), float(w["ts"]) + float(w.get("dur", 0))
+    inside = {(e.get("args") or {}).get("correlation"): e for e in spans
+              if e.get("cat") in LAUNCH_CATS and (e.get("pid"), e.get("tid")) == (
+                  w.get("pid"), w.get("tid")) and t0 <= float(e["ts"]) <= t1}
+    rows = sorted((float(e["ts"]), (e.get("args") or {}).get("correlation"), str(e.get("name", "")))
+                  for e in spans if e.get("cat") in DEVICE_CATS
+                  and (e.get("args") or {}).get("correlation") in inside)
+    launched = {c for c, e in inside.items()
+                if any(k in str(e.get("name", "")) for k in ("Launch", "Memcpy", "Memset"))}
+    if not launched <= {c for _, c, _ in rows}:
+        return []
+    return [name for _, _, name in rows]
 
 
 # (rows, C): the frame's draw-mask table, the other widths of the vector
@@ -1232,3 +1294,44 @@ def test_masked_raster_kernel_bit_equal_one_launch(cuda_device, case, layout, dt
         # the frame's call counts nothing and gives the same images
         plain = rk.masked_raster(*args)
         assert plain[2] is None and torch.equal(plain[0], key) and torch.equal(plain[1], ids)
+
+
+@pytest.mark.parametrize("form", ["binned", "exhaustive"])
+@pytest.mark.parametrize("layout,dtype", [("quad4", torch.float32), ("packed", torch.uint8)])
+@pytest.mark.parametrize("case", ["random", "ties"])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_masked_raster_split_tiles_and_full_lists(cuda_device, case, layout, dtype, form, chunk):
+    """M1 on a dense setup -- 9,000 triangles over 64 x 64 pixels: every
+    tile holds more blocks than M1 splits at (``MASKED_SPLIT``), and the
+    covered pairs a won pixel outnumber a pixel's candidate list
+    (``MASKED_LIST``), so some list fills within a stage -- bit-equal to the
+    plain version, with its live-block and covered counts, and tapped pairs
+    at most the covered ones."""
+    from unclerenderer_tpu_torch.render.testing import (
+        masked_raster_args,
+        masked_raster_atlas,
+        masked_raster_setup,
+    )
+
+    setup, arec = masked_raster_setup(case, 5, cuda_device, 64, 64, n=9000)
+    atlas, aw = masked_raster_atlas(layout, dtype, cuda_device, seed=3)
+    args = masked_raster_args(setup, arec, atlas, aw, 64, 64, form, chunk)
+    if form == "binned":
+        start, count = args[4], args[5]
+        assert int(count.min()) > rk.MASKED_SPLIT
+        tile, _, nb = rk.masked_split(start, count, args[0].shape[0])
+        assert tile.shape[0] > count.shape[0] and int(nb.max()) <= rk.MASKED_SPLIT
+    key, ids, counts = rk.masked_raster(*args, stats=True)
+    want_key, want_ids, want = rk.masked_raster_ref(*args, stats=True)
+    assert torch.equal(key.view(torch.int32), want_key.view(torch.int32))
+    assert torch.equal(ids, want_ids)
+    won = int((ids >= 0).sum())
+    assert won > 0 and int(want["covered"]) > rk.MASKED_LIST * won
+    assert int(counts["blocks"]) == int(want["blocks"])
+    assert int(counts["covered"]) == int(want["covered"])
+    assert 0 < int(counts["tapped"]) <= int(counts["covered"])
+    # again with no counts, and once more: the split tiles' words and
+    # tickets are laid out anew by every call
+    for _ in range(2):
+        again = rk.masked_raster(*args)
+        assert torch.equal(again[0], key) and torch.equal(again[1], ids)

@@ -12,7 +12,12 @@ deferred one.  ``--orbit N`` renders an N-frame camera orbit with
 ``Renderer.render_frames`` and writes ``out_000.png`` .. ``out_<N-1>.png``.  PNGs are written with the
 stdlib (``textures/png.py save_png``).  ``--trace DIR`` writes a
 ``torch.profiler`` Chrome trace of ``max(1, frames - 1)`` frames after the
-first into DIR (open it in Perfetto); ``--profile-passes`` logs the deferred
+first into DIR (open it in Perfetto).  ``--frames N`` logs the first
+frame's time (the kernel build included) and the steady state's ms/frame
+over N - 1 more frames; on the card, where the frame after the first
+captures the frame program (``render/program.py``), that frame is rendered
+before the steady state and logged on its own ``capture:`` line, so the
+steady state times replays only; ``--profile-passes`` logs the deferred
 stages' times (``Renderer.profile_passes``; deferred only, as the
 reference's).  ``--interactive`` runs the terminal viewer
 (``viewer.py run_viewer``) on the Renderer, and ``--output`` names its
@@ -141,6 +146,14 @@ def main(argv=None) -> int:
             log_info(f"pass {row['name']:<22} avg {row['avg_ms']:7.2f} ms  "
                      f"min {row['min_ms']:7.2f}  max {row['max_ms']:7.2f}")
     if args.frames > 1:
+        if renderer.will_capture():
+            # this frame captures the frame program: timed on its own line,
+            # so that the steady state below times replays only
+            t0 = time.monotonic()
+            renderer.render_frame()
+            sync()
+            log_info(f"capture: {(time.monotonic() - t0) * 1e3:.1f} ms (one frame captured into "
+                     "the frame program, not in the steady state)")
         t0 = time.monotonic()
         for _ in range(args.frames - 1):
             renderer.render_frame()

@@ -27,9 +27,10 @@
 //   reads the last tile level through L2 and walks the remaining small
 //   levels in shared memory, then resets the counter to 0, so every launch
 //   -- back to back or replayed from a CUDA graph -- starts from 0.  The
-//   counter is one unsigned int a device, owned by the wrapper
-//   (ops/hzb.py); launches of this kernel on two streams of one device at
-//   once would share it and are not supported.
+//   counter is the library's own unsigned int on each device (a __device__
+//   variable, zero when the library loads, so a call launches nothing
+//   else); launches of this kernel on two streams of one device at once
+//   would share it and are not supported.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -198,9 +199,24 @@ int launch_hzb_tail(const float* top, float* out, unsigned* counter, int top_h, 
 
 }  // namespace
 
-// counter: one unsigned int on the device, 0 between launches
-extern "C" int hzb_tail(const float* top, float* out, unsigned* counter, int top_h, int top_w,
-                        int n_levels, void* stream) {
-  return launch_hzb_tail<32, 64, 256>(top, out, counter, top_h, top_w, n_levels,
+namespace {
+__device__ unsigned g_ticket;  // the library's counter on each device: 0 at load
+constexpr int kMaxDevices = 64;
+}  // namespace
+
+extern "C" int hzb_tail(const float* top, float* out, int top_h, int top_w, int n_levels,
+                        void* stream) {
+  static unsigned* own[kMaxDevices];  // g_ticket's address on each device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (own[dev] == nullptr) {
+    void* p = nullptr;
+    e = cudaGetSymbolAddress(&p, g_ticket);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    own[dev] = static_cast<unsigned*>(p);
+  }
+  return launch_hzb_tail<32, 64, 256>(top, out, own[dev], top_h, top_w, n_levels,
                                       static_cast<cudaStream_t>(stream));
 }

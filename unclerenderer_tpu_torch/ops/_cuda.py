@@ -81,9 +81,8 @@ SIGNATURES = {
     "shadow_select9_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     # table, idx, out, n, c, is_bf16, stream
     "gather_rows": [_P, _P, _P, _L, _I, _I, _P],
-    # top, out, counter (one u32, 0 between launches), top_h, top_w, levels,
-    # stream
-    "hzb_tail": [_P, _P, _P, _I, _I, _I, _P],
+    # top, out, top_h, top_w, levels, stream
+    "hzb_tail": [_P, _P, _I, _I, _I, _P],
     # env, env_rows, params (9, n), out, n, lanes, is_bf16, stream
     "env_select": [_P, _P, _P, _P, _L, _I, _I, _P],
     # atlas (rows, 256), rows_idx, params (7, n), out (n, 16), n, dtype, stream
@@ -97,10 +96,10 @@ SIGNATURES = {
     # a, b, ka, kb, out, n, stream
     "merge_select": [_P, _P, _P, _P, _P, _L, _P],
     # M1: coef, tri_id, valid, rows, tile_start (or NULL), tile_count (or NULL),
-    # arec, atlas, out_key, out_id, stats (or NULL), n_blocks, chunk, tile_h,
-    # tile_w, width, height, y_offset, full_height, atlas_width, lanes,
+    # arec, atlas, out_key, out_id, stats (or NULL), scratch, n_blocks, chunk,
+    # tile_h, tile_w, width, height, y_offset, full_height, atlas_width, lanes,
     # atlas_dtype, bilinear, stream
-    "masked_raster": [_P] * 11 + [_I] * 12 + [_P],
+    "masked_raster": [_P] * 12 + [_I] * 12 + [_P],
 }
 
 # kernel wrapper -> its C entry, where the two names differ

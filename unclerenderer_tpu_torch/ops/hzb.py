@@ -67,20 +67,6 @@ def tail_dims(top_h: int, top_w: int, n_levels: int) -> tuple:
     return tuple(dims)
 
 
-# device index -> K6's ticket counter (one unsigned int, 0 between launches)
-_COUNTERS: dict = {}
-
-
-def _counter(top: torch.Tensor, dev: int) -> torch.Tensor:
-    c = _COUNTERS.get(dev)
-    if c is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("hzb_tail: call it once outside CUDA-graph capture first "
-                               "(its counter is made then)")
-        c = _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=top.device)
-    return c
-
-
 def hzb_tail(top: torch.Tensor, dims) -> torch.Tensor:
     """K6 wrapper (same contract as ``hzb_tail_ref``) for the levels that
     follow ``top`` by the halving rule (``tail_dims``); others are refused
@@ -95,8 +81,8 @@ def hzb_tail(top: torch.Tensor, dims) -> torch.Tensor:
         top = top.contiguous()
     dev = _cuda.check_cuda("hzb_tail", top)
     out = torch.empty(sum(w * h for w, h in dims), dtype=torch.float32, device=top.device)
-    _cuda.launch("hzb_tail", dev, top.data_ptr(), out.data_ptr(), _counter(top, dev).data_ptr(),
-                 top.shape[0], top.shape[1], len(dims))
+    _cuda.launch("hzb_tail", dev, top.data_ptr(), out.data_ptr(), top.shape[0], top.shape[1],
+                 len(dims))
     return out
 
 

@@ -44,6 +44,8 @@ fallback between the two.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -694,11 +696,13 @@ def _alpha_eval(coef, arec, x, y, quad_flat, atlas_width, bilinear: bool):
     interpolation is the reference's ``a*qx + b*qy + c`` contracted as
     ``fma(a, qx, b*qy) + c``, like them.  The alpha tap runs only for the
     pairs that are covered and in depth range (it enters only through
-    ``ok &``).  Returns (key (N,), covered pairs)."""
+    ``ok &``).  Returns (key (N,), covered pairs, the covered pairs' keys
+    before the alpha test (N,), -1 for the others)."""
     qx, qy = x.to(torch.float32) + 0.5, y.to(torch.float32) + 0.5
     key, ok = eval_keys(coef[:, :, None], torch.ones_like(qx, dtype=torch.bool)[:, None],
                         qx[:, None], qy[:, None])
     key, ok = key.reshape(-1), ok.reshape(-1)
+    cover_key = torch.where(ok, key, torch.full_like(key, -1.0))
     idx = ok.nonzero(as_tuple=True)[0]
     ar, qx, qy = arec[idx], qx[idx], qy[idx]
 
@@ -717,11 +721,11 @@ def _alpha_eval(coef, arec, x, y, quad_flat, atlas_width, bilinear: bool):
     tex_a = torch.where(ar[:, 16] > 0.5, texel[:, 3], torch.ones_like(u))
     passed = ar[:, 17] * ca * tex_a >= ar[:, 18]
     ok[idx] = passed
-    return torch.where(ok, key, torch.full_like(key, -1.0)), int(idx.shape[0])
+    return torch.where(ok, key, torch.full_like(key, -1.0)), int(idx.shape[0]), cover_key
 
 
 def _alpha_level(blocks, quad_flat, atlas_width, arec, tile_h, tile_w, width, height, full_h,
-                 bilinear: bool, y_offset: int = 0):
+                 bilinear: bool, y_offset: int = 0, needed: bool = False):
     """One masked raster level: per pixel the max key of the candidates that
     pass, and the min triangle id among those at it -- per block, then per
     tile in the reference (its segment merges); the order of such merges
@@ -729,7 +733,11 @@ def _alpha_level(blocks, quad_flat, atlas_width, arec, tile_h, tile_w, width, he
     arec, ids (B, C), valid (B, C) bool, tile (B,)).  The image is
     ``height`` rows from global row ``y_offset`` of a ``full_h``-row frame.
     Returns (key image, id image, pair counts): keys -1 and ids -1 where
-    nothing won, a zero key +0.0 (which zero a max keeps is not fixed)."""
+    nothing won, a zero key +0.0 (which zero a max keeps is not fixed).
+    ``needed`` adds the count ``needed``: the alpha taps that the level
+    needs at the least, each pixel's covered pairs taken in descending key,
+    then ascending id, up to the first that passes -- the pairs whose
+    packed word (``masked_pack``) is at least the winner's."""
     coef, rows, ids, valid, tiles = blocks
     n_tx = -(-width // tile_w)
     dev = coef.device
@@ -738,14 +746,19 @@ def _alpha_level(blocks, quad_flat, atlas_width, arec, tile_h, tile_w, width, he
     keys = [torch.zeros(0, dtype=torch.float32, device=dev)]
     kids = [torch.zeros(0, dtype=torch.int32, device=dev)]
     counts = {"blocks": int(tiles.shape[0]), "covered": 0}
+    covers = []  # (pixel, covered pair's word) with ``needed``
     step = max(1, ALPHA_PAIR_BUDGET // per_block)
     for b0 in range(0, tiles.shape[0], step):
         sl = slice(b0, b0 + step)
         g, p, c, x, y = _alpha_candidates(tiles[sl], coef[sl], valid[sl], tile_h, tile_w, n_tx,
                                           width, height, y_offset, full_h)
         cr = rows[sl][g, c].long()
-        key, covered = _alpha_eval(coef[sl].transpose(1, 2)[g, c], arec[cr], x, y + y_offset,
-                                   quad_flat, atlas_width, bilinear)
+        key, covered, cover_key = _alpha_eval(coef[sl].transpose(1, 2)[g, c], arec[cr], x,
+                                              y + y_offset, quad_flat, atlas_width, bilinear)
+        if needed:
+            hit = cover_key >= 0.0
+            covers.append(((y * width + x)[hit],
+                           masked_pack(cover_key[hit], ids[sl][g, c][hit])))
         won = key >= 0.0
         pix_i.append((y * width + x)[won])
         keys.append(key[won])
@@ -760,6 +773,9 @@ def _alpha_level(blocks, quad_flat, atlas_width, arec, tile_h, tile_w, width, he
     id_img = id_img.scatter_reduce(0, pix_i[at], kids[at].to(torch.int32), reduce="amin",
                                    include_self=True)
     id_img = torch.where(key_img >= 0.0, id_img, torch.full_like(id_img, -1))
+    if needed:
+        win_word = masked_pack(key_img, id_img)
+        counts["needed"] = sum(int((word >= win_word[pix]).sum()) for pix, word in covers)
     return key_img.reshape(height, width), id_img.reshape(height, width), counts
 
 
@@ -831,6 +847,33 @@ def masked_raster_ref(coef, tri_id, valid, rows, tile_start, tile_count, arec, a
     against every chunk of the table that a pixel of the tile may reach
     (``_edge_may_pass`` at the tile's corners) -- the others cannot cover
     a pixel of it.  Its counts tap every covered pair."""
+    key, win, counts = _masked_ref(coef, tri_id, valid, rows, tile_start, tile_count, arec,
+                                   atlas, atlas_width, tile_h, tile_w, width, height, y_offset,
+                                   full_height, bilinear)
+    if not stats:
+        return key, win, None
+    n = {k: torch.tensor(v, dtype=torch.int64, device=coef.device) for k, v in counts.items()}
+    return key, win, {"blocks": n["blocks"], "covered": n["covered"], "tapped": n["covered"]}
+
+
+def masked_needed_taps(coef, tri_id, valid, rows, tile_start, tile_count, arec, atlas,
+                       atlas_width, tile_h, tile_w, width, height, y_offset=0, full_height=None,
+                       bilinear=False) -> dict:
+    """The counts of M1's level that its data fixes, from the plain version
+    and not from the kernel (ints): ``blocks`` (the live blocks),
+    ``covered`` (the pairs that pass the edge and depth tests) and
+    ``needed``, the alpha taps of each pixel's covered pairs in descending
+    key, then ascending id, up to and including the first that passes (all
+    of them where none passes): the least any exact form can tap."""
+    return _masked_ref(coef, tri_id, valid, rows, tile_start, tile_count, arec, atlas,
+                       atlas_width, tile_h, tile_w, width, height, y_offset, full_height,
+                       bilinear, needed=True)[2]
+
+
+def _masked_ref(coef, tri_id, valid, rows, tile_start, tile_count, arec, atlas, atlas_width,
+                tile_h, tile_w, width, height, y_offset, full_height, bilinear, needed=False):
+    """``masked_raster_ref``'s level: (key image, id image, ``_alpha_level``'s
+    counts)."""
     full_h = height if full_height is None else full_height
     ids, valid, rows, n_tiles = _masked_inputs(coef, tri_id, valid, rows, tile_start,
                                                tile_count, arec, tile_h, tile_w, width, height)
@@ -855,12 +898,75 @@ def masked_raster_ref(coef, tri_id, valid, rows, tile_start, tile_count, arec, a
                                         counts)
         blk = first + torch.arange(b_tile.shape[0], device=dev)
     blocks = (coef[blk], rows[blk], ids[blk], valid[blk], b_tile)
-    key, win, counts = _alpha_level(blocks, atlas, atlas_width, arec, tile_h, tile_w, width,
-                                    height, full_h, bilinear, y_offset)
-    if not stats:
-        return key, win, None
-    n = {k: torch.tensor(v, dtype=torch.int64, device=dev) for k, v in counts.items()}
-    return key, win, {"blocks": n["blocks"], "covered": n["covered"], "tapped": n["covered"]}
+    return _alpha_level(blocks, atlas, atlas_width, arec, tile_h, tile_w, width, height, full_h,
+                        bilinear, y_offset, needed)
+
+
+MASKED_SPLIT = 1  # csrc/masked_raster.cu kSplit: a tile with more blocks is split
+MASKED_LIST = 8  # csrc/masked_raster.cu kList: a pixel's candidate list
+
+
+def masked_pack(key: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """M1's packed winner words (plain version), int64: ``(bits(key) + 1)
+    << 32 | (0x7fffffff - id)`` for keys in [0, 1] (-0 taken as +0), 0 where
+    ``key`` < 0 (nothing won).  A larger word is a larger key, then a smaller
+    id, for every int32 id, so the max word over any set of pairs is their
+    winner: the merge of the split tiles (a 64-bit ``atomicMax``)."""
+    bits = torch.where(key == 0.0, torch.zeros_like(key), key).view(torch.int32).long()
+    word = ((bits + 1) << 32) | ((0x7FFFFFFF - ids.long()) & 0xFFFFFFFF)
+    return torch.where(key >= 0.0, word, torch.zeros_like(word))
+
+
+def masked_unpack(word: torch.Tensor):
+    """``masked_pack``'s inverse with M1's output conventions: (key f32, id
+    i32), -1 and -1 where the word is 0, +0.0 for a zero key."""
+    hit = word != 0
+    bits = ((word >> 32) - 1).to(torch.int32)
+    key = torch.where(hit, bits.view(torch.float32), torch.full_like(bits.view(torch.float32), -1))
+    ids = (0x7FFFFFFF - (word & 0xFFFFFFFF)).to(torch.int32)
+    return key, torch.where(hit, ids, torch.full_like(ids, -1))
+
+
+def masked_split(tile_start: torch.Tensor, tile_count: torch.Tensor, n_blocks: int,
+                 split: int = MASKED_SPLIT):
+    """M1's work items in the binned form (plain version of
+    ``masked_plan_kernel``): a tile with more than ``split`` blocks becomes
+    ceil(count / split) items of at most ``split`` blocks, a tile of 0
+    blocks none (its -1s are written after the items), any other tile one
+    item; split 0 splits nothing.  Items that would overflow M1's table
+    (n_tiles + n_blocks entries: only ranges that overlap) give every tile
+    one item.  Returns (tile, first block, blocks) of each item, in tile
+    order, as int64 tensors."""
+    count = tile_count.long()
+    n_tiles = count.shape[0]
+    one = (count > 0).long()
+    parts = (torch.where(count > split, -(-count // max(split, 1)), one) if split > 0 else one)
+    if int(parts.sum()) > n_tiles + n_blocks:
+        parts = torch.ones_like(count)
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=count.device), parts)
+    part = torch.arange(tile.shape[0], device=count.device) - torch.repeat_interleave(
+        torch.cumsum(parts, 0) - parts, parts)
+    whole = parts[tile] == 1
+    j0 = torch.where(whole, torch.zeros_like(part), part * split)
+    nb = torch.where(whole, count[tile], torch.minimum(count[tile] - j0,
+                                                        torch.full_like(j0, split)))
+    return tile, tile_start.long()[tile] + j0, nb
+
+
+@functools.lru_cache(maxsize=None)
+def _masked_scratch_entry():
+    fn = _cuda.library().masked_raster_scratch
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    return fn
+
+
+def masked_scratch_bytes(binned: bool, n_blocks: int, n_tiles: int, width: int,
+                         height: int) -> int:
+    """Bytes of M1's scratch, as its C entry lays it out
+    (``csrc/masked_raster.cu masked_raster_scratch``): binned form, a
+    packed word a pixel, the item table and each tile's counts; both
+    forms, the item counters.  Loads the kernels' library."""
+    return int(_masked_scratch_entry()(int(binned), n_blocks, n_tiles, width, height))
 
 
 def masked_raster(coef, tri_id, valid, rows, tile_start, tile_count, arec, atlas, atlas_width,
@@ -904,12 +1010,18 @@ def masked_raster(coef, tri_id, valid, rows, tile_start, tile_count, arec, atlas
     out_id = torch.empty((height, width), dtype=torch.int32, device=coef.device)
     counts = torch.zeros(3, dtype=torch.int64, device=coef.device) if stats else None
     if n_tiles:
+        # the kernel's work items and the split tiles' packed words, laid out
+        # by its first kernel: no contents needed
+        scratch = torch.empty(masked_scratch_bytes(tile_start is not None, coef.shape[0],
+                                                   n_tiles, width, height) // 8,
+                              dtype=torch.int64, device=coef.device)
         _cuda.launch("masked_raster", dev, coef.data_ptr(), tri_id.data_ptr(), valid.data_ptr(),
                      rows.data_ptr(), _cuda.ptr(tile_start), _cuda.ptr(tile_count),
                      arec.data_ptr(), atlas.data_ptr(), out_key.data_ptr(), out_id.data_ptr(),
-                     _cuda.ptr(counts), coef.shape[0], coef.shape[-1], tile_h, tile_w, width,
-                     height, int(y_offset), height if full_height is None else full_height,
-                     atlas_width, lanes, dtype, int(bilinear))
+                     _cuda.ptr(counts), scratch.data_ptr(), coef.shape[0], coef.shape[-1],
+                     tile_h, tile_w, width, height, int(y_offset),
+                     height if full_height is None else full_height, atlas_width, lanes, dtype,
+                     int(bilinear))
     if counts is None:
         return out_key, out_id, None
     return out_key, out_id, {"blocks": counts[0], "covered": counts[1], "tapped": counts[2]}

@@ -590,6 +590,11 @@ class Renderer:
             return "graph"
         return "eager: warm-up (the kernels build; the next frame captures the program)"
 
+    def will_capture(self) -> bool:
+        """Whether the next frame captures the frame program (on the card,
+        the frame after the op-by-op warm-up of a (settings, scene))."""
+        return self._frame_mode() == "graph" and self._program is None
+
     def _eager_frame(self, fields: dict, dump: bool = False, shadow: bool = True) -> dict:
         """One frame op by op (under ``record_graph`` with ``dump``); the
         state is carried through ``frame_state``.  ``shadow`` False takes the

@@ -260,6 +260,9 @@ VARIANTS = {
     "two launches 64x64, 512 threads": dict(launch="launch_two", th=64, tw=64, threads=512),
 }
 CLUSTERS = {"cluster of 8": "sweep_cluster_8", "cluster of 16": "sweep_cluster_16"}
+# every C entry here: top, out, counter (the previous source: its level
+# table), top_h, top_w, levels, stream
+SIGNATURE = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def entry_name(label: str) -> str:
@@ -288,12 +291,11 @@ def entries(sources: dict) -> dict:
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         paths = dict(zip(sources, pool.map(lambda kv: _cuda.build_source(*kv), sources.items())))
     libs = {name: ctypes.PyDLL(str(path)) for name, path in paths.items()}
-    sig = _cuda.SIGNATURES["hzb_tail"]
-    fns = {label: _bound(getattr(libs["sweep_hzb_tail"], entry_name(label)), sig)
+    fns = {label: _bound(getattr(libs["sweep_hzb_tail"], entry_name(label)), SIGNATURE)
            for label in VARIANTS}
-    fns.update({label: _bound(getattr(libs["sweep_hzb_cluster"], entry), sig)
+    fns.update({label: _bound(getattr(libs["sweep_hzb_cluster"], entry), SIGNATURE)
                 for label, entry in CLUSTERS.items()})
-    fns["previous"] = _bound(libs["sweep_previous_hzb_tail"].hzb_tail, sig)
+    fns["previous"] = _bound(libs["sweep_previous_hzb_tail"].hzb_tail, SIGNATURE)
     return fns
 
 
