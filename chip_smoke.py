@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Twelve paths of the port are driven: five through ``deferred_frame``,
+Thirteen paths of the port are driven: five through ``deferred_frame``,
 
 * default -- the default frame of the combined material (u8 combined quad
   atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
@@ -61,8 +61,8 @@ run through the entry points of the last modules ported:
   each rank's row slab (``y_offset``: the first row of the tile-aligned
   region around the slab), the shadow map's slabs all-gathered.
 
-One more path is the JAX package's second backend, and the last the masked
-frame as a user renders it:
+Three more paths are the JAX package's second backend, the masked frame as
+a user renders it, and the graft entry:
 
 * xla      -- ``RenderSettings(raster_backend="xla")`` through the
   Renderer on the renderer cell's files: the exhaustive raster X1
@@ -73,7 +73,12 @@ frame as a user renders it:
   masked raster under every backend);
 * masked-program -- the headline geometry written with masked models and
   rendered by the Renderer at the default ``RendererConfig``: its masked
-  frames captured and replayed as CUDA graphs (K1, K2, K4, K5 and M1).
+  frames captured and replayed as CUDA graphs (K1, K2, K4, K5 and M1);
+* entry    -- the port's graft entry, ``unclerenderer_tpu_torch/
+  graft_entry.py`` (the counterpart of ``__graft_entry__.py``): the
+  128^2 frame of ``entry()`` captured by ``compile_check`` (K1, K2, K4,
+  K5 and M1 in the graph) and ``dryrun_multichip(8)``, the row-sharded frame on
+  ``raster_backend="xla"`` (X1 and M1 on every rank's slab).
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -264,6 +269,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    Renderers turn the masked raster on from the scene, and each replay
    launches M1 twice (levels 1 and 2; gated).
 
+17. entry -- (after phase 13, on the built kernels) ``graft_entry.entry()``
+   and ``compile_check``: the 128^2 frame op by op, then captured as one
+   CUDA graph under ``torch.cuda.set_sync_debug_mode("error")`` and
+   replayed, colour and every state field bit-equal to op by op, K1, K2,
+   K4, K5 and M1 launched in the graph (counted from 0 over the check);
+   every K1, K2, K4, K5 and M1 call of the check's first op-by-op frame
+   held bit for bit to its plain version on the same inputs; capture
+   seconds and pool MiB logged; ``dryrun_multichip(8)``: 8 ranks on
+   ``cuda:0`` over gloo at 64x128 on ``raster_backend="xla"`` with IBL,
+   HZB and masked models, 4 carried frames with camera motion against the
+   single-device frame (tri_id bit-equal, colour within 1e-5 with the seam
+   rows, exposure within 1e-4), every rank counted (X1 and M1 launched,
+   none of K1-K9), and on rank 5 (``row0`` 80) every X1 and M1 call of
+   those frames held bit for bit to its plain version at its
+   ``y_offset``.  Each part's seconds logged.
+
 The Renderer phases (7, 10-12, 14-16) run as users run the Renderer: on the
 card its frames after the first of a (settings, scene) are replays of the
 captured program, for every setting ``program.supported`` accepts; their
@@ -280,8 +301,8 @@ and report the bound that counts every (pixel, valid row) pair
 The kernels JSON gives each kernel's ``launches`` on its path's counted run
 (the record-emitting entries: the fused path's; ``shadow_select9_f32``: the
 sampling path's; ``binned_raster_debug``: the debug child's frame, whose
-``ms`` and ``plain_ms`` are its launches' and ``no_debug_ms`` the same
-launches without the flag; ``exhaustive_raster``: the xla Renderer's, whose
+``ms``, ``graph_ms`` and ``plain_ms`` are its launches' and
+``no_debug_ms`` the same launches without the flag; ``exhaustive_raster``: the xla Renderer's, whose
 ``ms``, ``graph_ms``, ``plain_ms`` and ``bound_ms`` are the whole camera and
 map images', and ``mask_ms``, ``tile_ms`` its two kernels' device ms in
 them, ``mask_bytes`` their masks'),
@@ -289,8 +310,10 @@ them, ``mask_bytes`` their masks'),
 10 replayed frames of phase 16, its ``ms``/``graph_ms``/``plain_ms``/
 ``bound_ms`` the masked 1080p frame's two calls; ``renderer_launches`` on
 the Renderer's, ``forward_renderer_launches`` on the forward Renderer's,
-``viewer_launches`` on the viewer's 10 frames and ``multichip_launches``
-on rank 1 of the 2-rank 1080p frames.  The last three lines of stdout
+``viewer_launches`` on the viewer's 10 frames, ``multichip_launches``
+on rank 1 of the 2-rank 1080p frames, ``entry_launches`` over phase 17's
+compile check (two op-by-op frames and one replay) and
+``dryrun_launches`` summed over the 8 ranks of its dry run.  The last three lines of stdout
 are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
 one CUDA card and imports no JAX.
@@ -386,6 +409,24 @@ def compare(a, b):
         diff = diff[~torch.isnan(diff)]
         err = max(err, float(diff.max()) if diff.numel() else 0.0)
     return bad, err
+
+
+def same_bits(a, b) -> bool:
+    """Whether matching outputs hold the same bit patterns, signed zeros
+    included (``compare`` counts -0 equal to +0); a NaN matches a NaN."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for x, y in zip(as_tuple(a), as_tuple(b)):
+        if x is None and y is None:
+            continue
+        if x.is_floating_point() or x.dtype == torch.uint32:
+            ne = x.view(ints[x.element_size()]) != y.view(ints[y.element_size()])
+            if x.is_floating_point():
+                ne &= ~(torch.isnan(x) & torch.isnan(y))
+            if bool(ne.any()):
+                return False
+        elif not torch.equal(x, y):
+            return False
+    return True
 
 
 def nbytes(*tensors) -> int:
@@ -823,6 +864,7 @@ def debug_phase(kernels, smi) -> dict:
     k = kernels["binned_raster_debug"]
     for c in got["calls"]:
         k["ms"] += c["ms"]
+        k["graph_ms"] += c["graph_ms"]
         k["plain_ms"] += c["plain_ms"]
         k["no_debug_ms"] += c["no_debug_ms"]
         k["bytes_s"] += c["bytes"] / HBM_BYTES_PER_S
@@ -830,9 +872,11 @@ def debug_phase(kernels, smi) -> dict:
     log("debug", f"one 256x256 frame with kernel_debug_print in a child process ({child_s:.1f} "
                  f"s): {got['launches']} debug launches printed {len(lines)} lines, the plain "
                  f"version's multiset, one per live block ({got['live_blocks']}); printf FIFO "
-                 f"{got['fifo_bytes']} B; per launch (lines, ms with / without the flag): "
-                 f"{[(c['lines'], round(c['ms'], 4), round(c['no_debug_ms'], 4)) for c in got['calls']]} "
-                 f"(CUDA events, 20 launches each, in turns, on {smi})")
+                 f"{got['fifo_bytes']} B; per launch (lines, ms with / without the flag, "
+                 "graph ms with it): "
+                 f"{[(c['lines'], round(c['ms'], 4), round(c['no_debug_ms'], 4), round(c['graph_ms'], 4)) for c in got['calls']]} "
+                 f"(CUDA events, 20 launches each, in turns; graph: 10 in one CUDA graph; on "
+                 f"{smi})")
     return {"lines": len(lines), "child_s": child_s, "replay_lines": per_frame,
             **{k_: v for k_, v in got.items() if k_ not in ("ref_lines", "replay_ref_lines")}}
 
@@ -1322,6 +1366,54 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
 
 
 MC_KERNELS = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
+ENTRY_KERNELS = MC_KERNELS + ("masked_raster",)  # the entry's 128^2 frame (masked models)
+DRYRUN_KERNELS = ("exhaustive_raster", "masked_raster")  # the xla backend's
+ENTRY_RECORD_RANK = 5  # the 8-rank dry run's rank whose calls are held: row0 80
+# the argument index of a raster wrapper's y_offset (X1 takes it by keyword)
+Y_OFFSET_AT = {"binned_raster": 8, "giant_raster": 7, "masked_raster": 13}
+
+
+def kernel_targets(names) -> dict:
+    """{kernel: (module, wrapper attribute, plain version)} for ``names``:
+    the module attribute through which the frames call each wrapper
+    (``render/common.py`` imports X1's by name), for ``Recorder``."""
+    from unclerenderer_tpu_torch.ops import raster_kernels as rk
+    from unclerenderer_tpu_torch.ops import shadow as shadow_mod
+    from unclerenderer_tpu_torch.ops import texture as tex_mod
+    from unclerenderer_tpu_torch.ops.raster import rasterize as rasterize_plain
+    from unclerenderer_tpu_torch.render import common as common_mod
+
+    every = {"binned_raster": (rk, "binned_raster", rk.binned_raster_ref),
+             "giant_raster": (rk, "giant_raster", rk.giant_raster_ref),
+             "shadow_select9": (shadow_mod, "select9", shadow_mod.select9_ref),
+             "gather_rows": (tex_mod, "gather_rows", tex_mod.gather_rows_ref),
+             "exhaustive_raster": (common_mod, "rasterize_exhaustive", rasterize_plain),
+             "masked_raster": (rk, "masked_raster", rk.masked_raster_ref)}
+    return {n: every[n] for n in names}
+
+
+def hold_calls(where: str, recs: dict, targets: dict) -> tuple:
+    """Every call that ``recs`` (``Recorder``s of ``targets``, left already)
+    recorded, run again through its wrapper and its plain version on the
+    same inputs: each output equal bit for bit (``same_bits``).  Fails for
+    a kernel that made no call.  Returns ({kernel: calls held}, {raster
+    kernel: the sorted y_offsets of its calls})."""
+    held, y_offsets = {}, {}
+    for name, (m, a, ref) in targets.items():
+        calls = recs[name].calls
+        check(calls, f"{where}: {name} made no call")
+        for ca, ck in calls:
+            got, want = getattr(m, a)(*ca, **ck), ref(*ca, **ck)
+            bad, err = compare(got, want)
+            check(bad == 0, f"{where}: {name} != plain: {bad} elements (err {err})")
+            check(same_bits(got, want), f"{where}: {name}'s bit patterns differ from plain "
+                                        "(signed zeros)")
+        held[name] = len(calls)
+        if name == "exhaustive_raster":
+            y_offsets[name] = sorted({float(ck["y_offset"]) for _ca, ck in calls})
+        elif name in Y_OFFSET_AT:
+            y_offsets[name] = sorted({float(ca[Y_OFFSET_AT[name]]) for ca, _ck in calls})
+    return held, y_offsets
 SEAM_ATOL = 1e-5  # sharded vs single-device colour: the exposure grid's sum order only
 
 
@@ -1709,17 +1801,14 @@ def multichip_rank(rank, group, spec):
     process on ``cuda:0``): the sharded frames of ``spec`` with the launch
     counts set to 0 just before and read just after, their slabs gathered
     on rank 0; on ``spec["record_rank"]`` (whose ``row0`` is not 0) every
-    K1, K2, K4 and K5 call of one more sharded frame against its plain
-    version, bit-equal; on rank 0 the single-device frames from the same
-    state, tri_id, depth, ids, counters and HZB bit-equal, colour within
-    ``SEAM_ATOL`` (seam rows too); with ``spec["turns"]`` ms/frame sharded
-    and single-device in turns.  Returns this rank's report."""
+    K1, K2, K4 and K5 call of one more sharded frame held bit for bit to its
+    plain version (``hold_calls``); on rank 0 the single-device frames from
+    the same state, tri_id, depth, ids, counters and HZB bit-equal, colour
+    within ``SEAM_ATOL`` (seam rows too); with ``spec["turns"]`` ms/frame
+    sharded and single-device in turns.  Returns this rank's report."""
     import torch.distributed as dist
 
     from unclerenderer_tpu_torch.ops import _cuda
-    from unclerenderer_tpu_torch.ops import raster_kernels as rk
-    from unclerenderer_tpu_torch.ops import shadow as shadow_mod
-    from unclerenderer_tpu_torch.ops import texture as tex_mod
     from unclerenderer_tpu_torch.parallel.dist import RowShards
     from unclerenderer_tpu_torch.parallel.multichip import (
         gather_frame,
@@ -1769,10 +1858,7 @@ def multichip_rank(rank, group, spec):
     rep["launches"] = dict(_cuda.LAUNCHES)
 
     # every K1/K2/K4/K5 call of one sharded frame on the recording rank
-    targets = {"binned_raster": (rk, "binned_raster", rk.binned_raster_ref),
-               "giant_raster": (rk, "giant_raster", rk.giant_raster_ref),
-               "shadow_select9": (shadow_mod, "select9", shadow_mod.select9_ref),
-               "gather_rows": (tex_mod, "gather_rows", tex_mod.gather_rows_ref)}
+    targets = kernel_targets(MC_KERNELS)
     record = rank == spec["record_rank"]
     with contextlib.ExitStack() as stack:
         recs = ({n: stack.enter_context(Recorder(m, a)) for n, (m, a, _r) in targets.items()}
@@ -1783,17 +1869,7 @@ def multichip_rank(rank, group, spec):
         sync()
     if record:
         check(rows.row0 > 0, "the recording rank must own a slab below the first")
-        rep["held"], rep["y_offsets"] = {}, {}
-        for name, (m, a, ref) in targets.items():
-            calls = recs[name].calls
-            check(calls, f"rank {rank}: {name} made no call")
-            for ca, ck in calls:
-                bad, err = compare(getattr(m, a)(*ca, **ck), ref(*ca, **ck))
-                check(bad == 0, f"rank {rank}: {name} != plain: {bad} elements (err {err})")
-            rep["held"][name] = len(calls)
-            if name in ("binned_raster", "giant_raster"):  # y_offset: K1's 9th, K2's 8th
-                at = 8 if name == "binned_raster" else 7
-                rep["y_offsets"][name] = sorted({float(ca[at]) for ca, _ck in calls})
+        rep["held"], rep["y_offsets"] = hold_calls(f"rank {rank}", recs, targets)
         check(any(y > 0 for ys in rep["y_offsets"].values() for y in ys),
               f"rank {rank}: no raster call at a non-zero y_offset")
 
@@ -1922,6 +1998,110 @@ def multichip_phase(smi) -> dict:
     return rep
 
 
+def entry_dryrun_rank(rank, group, spec) -> dict:
+    """A rank of phase 17's dry run (``graft_entry.dryrun_multichip``'s
+    ``rank_fn``): ``graft_entry._dryrun_rank``; on ``ENTRY_RECORD_RANK``
+    every X1 and M1 call of its frames recorded, then, after its counted
+    run, held bit for bit to its plain version at its ``y_offset``."""
+    from unclerenderer_tpu_torch import graft_entry
+    from unclerenderer_tpu_torch.parallel.dist import RowShards
+
+    if rank != ENTRY_RECORD_RANK:
+        return graft_entry._dryrun_rank(rank, group, spec)
+    targets = kernel_targets(DRYRUN_KERNELS)
+    with contextlib.ExitStack() as stack:
+        recs = {n: stack.enter_context(Recorder(m, a)) for n, (m, a, _r) in targets.items()}
+        rep = graft_entry._dryrun_rank(rank, group, spec)
+    rep["row0"] = RowShards(group, spec["settings"]["height"]).row0
+    check(rep["row0"] > 0, "the recording rank must own a slab below the first")
+    rep["held"], rep["y_offsets"] = hold_calls(f"rank {rank}", recs, targets)
+    return rep
+
+
+def entry_phase(smi) -> dict:
+    """Phase 17: the port's graft entry (``unclerenderer_tpu_torch/
+    graft_entry.py``), the kernels built already: ``entry()`` and
+    ``compile_check`` (the 128^2 frame captured as a CUDA graph with no
+    host sync, replayed, bit-equal to op by op), counted from 0 over the
+    check, K1, K2, K4, K5 and M1 launched in the graph; every kernel call
+    of the check's first op-by-op frame recorded and held bit for bit to
+    its plain version; ``dryrun_multichip(8)`` (8 gloo ranks on this card,
+    ``raster_backend="xla"``, 4 carried frames against the single-device
+    frame), each rank counted (X1 and M1 launched, none of K1-K9), and on
+    rank 5 (``row0`` 80) every X1 and M1 call of its frames held bit for
+    bit to its plain version at its ``y_offset`` (``entry_dryrun_rank``).
+    Logs each part's seconds."""
+    from unclerenderer_tpu_torch import graft_entry
+    from unclerenderer_tpu_torch.ops import _cuda
+
+    check(_cuda.build()[1] == 0.0, "entry: the kernels must be built before the phase")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    rep = {"entry_s": time.perf_counter() - t0}
+
+    targets, recs = kernel_targets(ENTRY_KERNELS), {}
+
+    def recorded(*a):
+        """``fn``; its first call (the check's first op-by-op frame) with
+        every kernel call recorded."""
+        if recs:
+            return fn(*a)
+        with contextlib.ExitStack() as stack:
+            recs.update({n: stack.enter_context(Recorder(m, at))
+                         for n, (m, at, _r) in targets.items()})
+            return fn(*a)
+
+    recorded.settings = fn.settings
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    got = graft_entry.compile_check(recorded, args)
+    torch.cuda.synchronize()
+    rep["compile_check_s"] = time.perf_counter() - t0
+    rep["launches"] = dict(_cuda.LAUNCHES)
+    rep.update(capture_s=got["capture_s"], graph_launches=got["launches"],
+               pool_bytes=got["pool_bytes"], shape=list(got["shape"]))
+    check(got["shape"] == (128, 128, 3), f"entry: colour of shape {got['shape']}")
+    for name in ENTRY_KERNELS:
+        check(got["launches"].get(name, 0) > 0, f"entry: the captured frame launches no {name}")
+    rep["held"], _y = hold_calls("entry", recs, targets)
+    log("entry", f"entry() in {rep['entry_s']:.2f} s; compile_check in "
+                 f"{rep['compile_check_s']:.2f} s: entry OK {tuple(got['shape'])}, captured in "
+                 f"{got['capture_s']:.3f} s with no host sync, pool "
+                 f"{got['pool_bytes'] / 2**20:.1f} MiB, launches a replay {got['launches']}; "
+                 "the replay bit-equal to op by op (colour and every state field); launches "
+                 f"over the check (2 op-by-op frames, 1 replay) "
+                 f"{ {k: v for k, v in rep['launches'].items() if v} }; the first op-by-op "
+                 f"frame's {rep['held']} calls bit-equal to their plain versions")
+    del fn, args, got, recs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(8, rank_fn=entry_dryrun_rank)
+    rep["dryrun"] = dry
+    for r, rank in enumerate(dry["per_rank"]):
+        for name in DRYRUN_KERNELS:
+            check(rank["launches"][name] > 0, f"entry: dry-run rank {r} launched no {name}")
+        check(not any(rank["launches"][n] for n in MC_KERNELS),
+              f"entry: dry-run rank {r} launched a kernel-path kernel on the xla backend")
+    rec = dry["per_rank"][ENTRY_RECORD_RANK]
+    for name in DRYRUN_KERNELS:
+        check(any(y > 0 for y in rec["y_offsets"][name]),
+              f"entry: rank {ENTRY_RECORD_RANK} made no {name} call at a non-zero y_offset")
+    rep["dryrun_s"] = time.perf_counter() - t0
+    log("entry", f"dryrun_multichip(8) in {rep['dryrun_s']:.1f} s (ranks "
+                 f"{dry['ranks_s']:.1f} s): 8 ranks on one card over gloo, 64x128, xla, "
+                 f"{dry['frames']} frames: tri_id bit-equal, colour err {dry['color_err']:.3g} "
+                 f"(seam rows {dry['seam_err']:.3g}), exposure err {dry['ev_err']:.3g}; rank "
+                 f"{ENTRY_RECORD_RANK} (row0 {rec['row0']}) held {rec['held']} X1/M1 calls bit "
+                 f"for bit to their plain versions at y_offsets {rec['y_offsets']}; launches per "
+                 f"rank {[{k: v for k, v in r['launches'].items() if v} for r in dry['per_rank']]}")
+    rep["seconds"] = time.perf_counter() - t_phase
+    log("entry", f"phase done in {rep['seconds']:.1f} s")
+    return rep
+
+
 def k1_debug_child(out: Path) -> int:
     """The debug phase's child process (``--k1-debug-child``): device printf
     writes to this process's fd 1, which the parent reads.  Grows the printf
@@ -2026,6 +2206,7 @@ def k1_debug_child(out: Path) -> int:
         moved, ops, *_pairs = work_binned(*ca, **ck)
         per_call.append({"shape": list(ca[0].shape), "tiles": int(ca[3].shape[0]),
                          "lines": int(ca[4].sum()), "ms": ms_on, "no_debug_ms": ms_off,
+                         "graph_ms": graph_ms(lambda: rk.binned_raster(*ca, **ck), reps=10),
                          "plain_ms": cuda_ms(plain, reps=1), "bytes": moved, "ops": ops})
     out.write_text(json.dumps({"fifo_bytes": fifo, "launches": launches, "live_blocks": live,
                                "ref_lines": ref_lines, "calls": per_call,
@@ -3303,6 +3484,8 @@ def main() -> int:
 
     # ---- 13. the row-sharded frame in ranks on this card
     report["multichip"] = multichip_phase(smi)
+    # ---- 17. the graft entry: the captured 128^2 frame and the xla dry run
+    report["entry"] = entry_phase(smi)
 
     report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                              "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],
@@ -3344,6 +3527,8 @@ def main() -> int:
          "forward_renderer_launches": report["renderer"]["forward"]["launches"][n],
          "viewer_launches": report["viewer"]["launches"][n],
          "multichip_launches": report["multichip"]["full"]["per_rank"][1]["launches"][n],
+         "entry_launches": report["entry"]["launches"][n],
+         "dryrun_launches": sum(r["launches"][n] for r in report["entry"]["dryrun"]["per_rank"]),
          **({"no_records_ms": k["no_records_ms"]} if n in attr_kernels else {}),
          **({"no_debug_ms": k["no_debug_ms"]} if n == "binned_raster_debug" else {}),
          # X1's line times the whole map and camera images; its two kernels apart

@@ -1335,3 +1335,21 @@ def test_masked_raster_split_tiles_and_full_lists(cuda_device, case, layout, dty
     for _ in range(2):
         again = rk.masked_raster(*args)
         assert torch.equal(again[0], key) and torch.equal(again[1], ids)
+
+
+# --------------------------------------------- the graft entry (graft_entry.py)
+
+
+def test_graft_entry_compile_check_replay_equals_op_by_op(cuda_device):
+    """``compile_check(*entry())``: the 128^2 frame captured as one CUDA
+    graph with no host sync, replayed, colour and every new state field
+    bit-equal to an op-by-op call (it raises otherwise), with K1, K2, K4
+    and K5 among the graph's launches."""
+    from unclerenderer_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    assert all(t.device.type == "cuda" for t in (args[0].tri_model, args[1].view, args[2].hzb))
+    rep = graft_entry.compile_check(fn, args)
+    assert rep["shape"] == (128, 128, 3) and rep["capture_s"] > 0 and rep["pool_bytes"] >= 0
+    for name in ("binned_raster", "giant_raster", "shadow_select9", "gather_rows"):
+        assert rep["launches"].get(name, 0) > 0, name

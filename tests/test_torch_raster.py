@@ -143,3 +143,59 @@ def test_compaction_caps_match_reference():
             assert tc.shadow_compaction_cap(TS(**kw), t) == jc.shadow_compaction_cap(JS(**kw), t)
     assert tc.compaction_cap(TS(has_masked_models=False), 263184) == 163840
     assert tc.shadow_compaction_cap(TS(), 263184) == 163840
+
+
+def _indexed_meshes(seed):
+    """Two UV spheres and a cube (shared vertices, ``indices``) placed at
+    random before a perspective camera, the first sphere around the camera
+    (vertices behind it, w < 0): (clip (V, 4) f32, tris (T, 3) i32)."""
+    from unclerenderer_tpu_torch import mathlib as m
+    from unclerenderer_tpu_torch.scene.mesh import create_cube, create_sphere
+
+    rng = np.random.default_rng(seed)
+    eye = rng.uniform(-0.5, 0.5, 3).astype(np.float32) + np.float32([0.0, 0.5, -3.0])
+    centers = [eye + np.float32([0.0, 0.0, 0.4])] + list(rng.uniform(-2.0, 2.0, (2, 3)))
+    pos, tris = [], []
+    for mesh, c in zip((create_sphere(1.0, 12, 8), create_cube(1.5), create_sphere(0.7, 9, 6)),
+                       centers):
+        tris.append(mesh.indices.reshape(-1, 3).astype(np.int32) + sum(len(p) for p in pos))
+        pos.append(mesh.position + np.asarray(c, np.float32))
+    pos = np.concatenate(pos)
+    vp = m.look_at_lh(eye, np.zeros(3, np.float32), [0, 1, 0]) @ m.perspective_reverse_z_infinite(
+        np.radians(60.0), 1.25, 0.1)
+    clip = (np.concatenate([pos, np.ones((len(pos), 1), np.float32)], 1) @ vp).astype(np.float32)
+    return clip, np.concatenate(tris)
+
+
+def _bits_eq(got, want, msg):
+    got, want = got.numpy(), np.asarray(want)
+    if got.dtype == np.float32:  # signed zeros too
+        got, want = got.view(np.int32), want.view(np.int32)
+    np.testing.assert_array_equal(got, want, err_msg=msg)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("cull", [jr.CULL_NONE, jr.CULL_BACK, jr.CULL_FRONT])
+def test_triangle_setup_indexed_bit_equal(seed, cull):
+    """``triangle_setup`` (the indexed-mesh setup, exported from ``ops``)
+    and the de-indexed ``triangle_setup_expanded`` against the reference's,
+    jitted as its frames run: coef, valid and bbox bit for bit, the
+    near-degenerate pole triangles' orientation under CULL_NONE and the
+    bbox's signed zeros included."""
+    from unclerenderer_tpu_torch import ops as tops
+
+    w, h = 160, 128
+    clip, tris = _indexed_meshes(seed)
+    mask = np.random.default_rng(seed + 7).random(len(tris)) < 0.9
+    j_pix = jr.viewport_homogeneous(jnp.asarray(clip), w, h)
+    want = jax.jit(jr.triangle_setup, static_argnums=(4, 5, 6))(
+        j_pix, jnp.asarray(clip[:, 2]), jnp.asarray(tris), jnp.asarray(mask), cull, w, h)
+    t_clip = T(clip)
+    t_pix = tops.viewport_homogeneous(t_clip, w, h)
+    got = tops.triangle_setup(t_pix, t_clip[:, 2], T(tris), T(mask), cull, w, h)
+    flat = T(tris.reshape(-1)).long()
+    expanded = tops.triangle_setup_expanded(t_pix[flat], t_clip[flat, 2], T(mask), cull, w, h)
+    assert (clip[:, 3] < 0).any() and 0 < int(got.valid.sum()) < len(tris)
+    for name, setup in (("indexed", got), ("expanded", expanded)):
+        for f in ("coef", "valid", "bbox"):
+            _bits_eq(getattr(setup, f), getattr(want, f), f"{name} {f}")

@@ -25,13 +25,14 @@ import torch
 
 
 def array_to_tensor(x, device="cuda") -> torch.Tensor:
-    a = np.asarray(x)
+    # np.array(order="C") copies and keeps a 0-d array 0-d (ascontiguousarray
+    # would make it (1,))
+    a = np.array(x, order="C")
     if a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def tensor_to_array(t: torch.Tensor, u32: bool = False) -> np.ndarray:

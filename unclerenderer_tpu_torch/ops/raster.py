@@ -94,6 +94,17 @@ class VertexAoS:
         return self.pix_h.reshape(-1, 9)
 
 
+def triangle_setup(pix_h, z_clip, tris, tri_mask, cull_mode=CULL_BACK, width: int = 0,
+                   height: int = 0) -> RasterSetup:
+    """Setup for an indexed mesh: (V, 3) homogeneous pixel vertices, (V,)
+    clip z and (T, 3) vertex indices (the frames de-index their geometry
+    and use ``triangle_setup_expanded``)."""
+    tris = tris.long()
+    return triangle_setup_from_verts(pix_h[tris[:, 0]], pix_h[tris[:, 1]], pix_h[tris[:, 2]],
+                                     z_clip[tris[:, 0]], z_clip[tris[:, 1]], z_clip[tris[:, 2]],
+                                     tri_mask, cull_mode, width, height)
+
+
 def triangle_setup_expanded(pix_h, z_clip, tri_mask, cull_mode=CULL_BACK, width: int = 0,
                             height: int = 0) -> RasterSetup:
     """Setup for de-indexed geometry: vertex i of triangle t at row 3t + i."""
@@ -157,17 +168,24 @@ def triangle_setup_from_components(
     front = det < 0.0  # D3D front face (clockwise)
     if cull_mode == CULL_BACK:
         keep = front
-        sign = torch.full_like(det, -1.0)
+        sign = sign_a = torch.full_like(det, -1.0)
     elif cull_mode == CULL_FRONT:
         keep = ~front
-        sign = torch.ones_like(det)
+        sign = sign_a = torch.ones_like(det)
     else:
         keep = torch.ones_like(front)
         sign = torch.where(front, -1.0, 1.0)
+        # The reference recomputes the orientation in each output's fusion,
+        # and there the determinant of e0a and of the depth planes' a
+        # columns contracts from its b term (measured against the jitted
+        # setup, column by column): a near-degenerate row's sign differs.
+        sign_a = torch.where(fma(e0c, w0, fma(e0b, y0v, e0a * x0)) < 0.0, -1.0, 1.0)
 
-    e0a, e0b, e0c = e0a * sign, e0b * sign, e0c * sign
-    e1a, e1b, e1c = e1a * sign, e1b * sign, e1c * sign
-    e2a, e2b, e2c = e2a * sign, e2b * sign, e2c * sign
+    ea = (e0a * sign_a, e1a * sign_a, e2a * sign_a)  # the planes' a columns
+    e0a, e1a, e2a = ea[0], e1a * sign, e2a * sign
+    e0b, e0c = e0b * sign, e0c * sign
+    e1b, e1c = e1b * sign, e1c * sign
+    e2b, e2c = e2b * sign, e2c * sign
 
     valid = tri_mask & keep & (det != 0.0)
 
@@ -186,10 +204,10 @@ def triangle_setup_from_components(
             return fdot([(e0, v0), (e1, v1), (e2, v2)])
         return fma(e2, v2, fma(e1, v1, e0 * v0))
 
-    nza = plane(e0a, e1a, e2a, z0, z1, z2, False)
+    nza = plane(*ea, z0, z1, z2, False)
     nzb = plane(e0b, e1b, e2b, z0, z1, z2, True)
     nzc = plane(e0c, e1c, e2c, z0, z1, z2, False)
-    nwa = plane(e0a, e1a, e2a, w0, w1, w2, False)
+    nwa = plane(*ea, w0, w1, w2, False)
     nwb = plane(e0b, e1b, e2b, w0, w1, w2, True)
     nwc = plane(e0c, e1c, e2c, w0, w1, w2, False)
 
@@ -215,8 +233,9 @@ def triangle_setup_from_components(
     zero = torch.zeros_like(sx_min)
     bx0 = torch.where(any_behind, zero, torch.floor(sx_min))
     by0 = torch.where(any_behind, zero, torch.floor(sy_min))
-    bx1 = torch.where(any_behind, zero + wmax, torch.ceil(sx_max))
-    by1 = torch.where(any_behind, zero + hmax, torch.ceil(sy_max))
+    # + 0.0: the reference's clip writes +0 where a ceil gave -0 (clamp keeps -0)
+    bx1 = torch.where(any_behind, wmax, torch.ceil(sx_max)) + 0.0
+    by1 = torch.where(any_behind, hmax, torch.ceil(sy_max)) + 0.0
     bbox = torch.stack(
         [bx0.clamp(0.0, wmax), by0.clamp(0.0, hmax),
          bx1.clamp(0.0, wmax), by1.clamp(0.0, hmax)],
