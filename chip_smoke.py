@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (``unclerenderer_tpu_torch``) on one
 NVIDIA GPU.  Run from the repository root: ``python3 chip_smoke.py``.
 
-Thirteen paths of the port are driven: five through ``deferred_frame``,
+Fourteen paths of the port are driven: five through ``deferred_frame``,
 
 * default -- the default frame of the combined material (u8 combined quad
   atlas), which runs K1 (binned raster), K2/K3 (giant raster), K4 (PCF
@@ -61,8 +61,8 @@ run through the entry points of the last modules ported:
   each rank's row slab (``y_offset``: the first row of the tile-aligned
   region around the slab), the shadow map's slabs all-gathered.
 
-Three more paths are the JAX package's second backend, the masked frame as
-a user renders it, and the graft entry:
+Four more paths are the JAX package's second backend, the masked frame as
+a user renders it, the graft entry and the bench entry:
 
 * xla      -- ``RenderSettings(raster_backend="xla")`` through the
   Renderer on the renderer cell's files: the exhaustive raster X1
@@ -78,7 +78,13 @@ a user renders it, and the graft entry:
   graft_entry.py`` (the counterpart of ``__graft_entry__.py``): the
   128^2 frame of ``entry()`` captured by ``compile_check`` (K1, K2, K4,
   K5 and M1 in the graph) and ``dryrun_multichip(8)``, the row-sharded frame on
-  ``raster_backend="xla"`` (X1 and M1 on every rank's slab).
+  ``raster_backend="xla"`` (X1 and M1 on every rank's slab);
+* bench    -- the port's bench, ``python -m unclerenderer_tpu_torch.bench``
+  (the counterpart of ``bench.py``), at the judged configuration: its two
+  parity gates (X1 against K1/K2, the kernel path's frame against the xla
+  frame), then the headline's chained frames as replays of one frame
+  program that rasterizes the 4096^2 map in every frame (K1, K2, K4, K5)
+  and its four secondary rows.
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
@@ -284,6 +290,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    none of K1-K9), and on rank 5 (``row0`` 80) every X1 and M1 call of
    those frames held bit for bit to its plain version at its
    ``y_offset``.  Each part's seconds logged.
+18. bench -- (after phase 17, on the built kernels) first, in this
+   process, frame 0 of the bench's ``shadow2048`` (2048^2 map) and
+   ``sponza_faithful`` (``bin_mid_divisor=4``) rows op by op at 1920x1080
+   on the bench's own inputs, every K1, K2, K4 and K5 call held bit for
+   bit to its plain version; then ``python -m
+   unclerenderer_tpu_torch.bench`` as a child process at its defaults
+   (1920x1080, the 4096^2 map, 340 spheres and the ground: 263,184
+   triangles, 10 frames a chain): exit 0, the last stdout line parses,
+   ``value`` finite and > 0, ``triangles`` 263,184, ``pallas_parity`` and
+   ``frame_parity`` true, the headline's drop counters 0, every row's
+   ``*_ms`` finite (``shadow2048``, ``bilinear``, ``anisotropic``,
+   ``sponza_faithful``) and no ``*_error`` key; from the child's stderr
+   launch line, K1, K2, K4 and K5 launched in every timed headline replay,
+   K1 and K2 at least twice (the map's raster as well as the camera's: the
+   map is not cached) and X1 in the gates.  The headline is logged beside
+   phase 15's replayed default Renderer ms/frame (a cached map), not
+   gated.
 
 The Renderer phases (7, 10-12, 14-16) run as users run the Renderer: on the
 card its frames after the first of a (settings, scene) are replays of the
@@ -312,8 +335,9 @@ them, ``mask_bytes`` their masks'),
 the Renderer's, ``forward_renderer_launches`` on the forward Renderer's,
 ``viewer_launches`` on the viewer's 10 frames, ``multichip_launches``
 on rank 1 of the 2-rank 1080p frames, ``entry_launches`` over phase 17's
-compile check (two op-by-op frames and one replay) and
-``dryrun_launches`` summed over the 8 ranks of its dry run.  The last three lines of stdout
+compile check (two op-by-op frames and one replay),
+``dryrun_launches`` summed over the 8 ranks of its dry run and
+``bench_launches`` over phase 18's timed headline replays.  The last three lines of stdout
 are the kernels JSON, the card's
 ``nvidia-smi`` name/power-limit line, and the result JSON.  The script needs
 one CUDA card and imports no JAX.
@@ -2102,6 +2126,144 @@ def entry_phase(smi) -> dict:
     return rep
 
 
+HEADLINE_TRIANGLES = 263184  # N_OBJECTS spheres and cubes at SPHERE_RES, and the ground
+BENCH_ROWS = ("shadow2048", "bilinear", "anisotropic", "sponza_faithful")
+BENCH_TIMEOUT = 600  # seconds for the bench child (it took 51 s on an H100 at 700 W)
+# the bench rows whose kernel inputs no earlier phase gives: the half-size
+# map, and the faithful row's mid-level budget (its geometry: the sphere
+# tier without Sponza's glTF)
+BENCH_HELD_ROWS = (("shadow2048", dict(shadow_map_size=SHADOW // 2), "procedural"),
+                   ("sponza_faithful", dict(bin_mid_divisor=4), "sponza"))
+
+
+def bench_rows_held(dev) -> dict:
+    """Frame 0 of each of ``BENCH_HELD_ROWS``, rendered op by op on the
+    bench's own inputs (``bench._synthetic_scene`` at its defaults), with
+    every K1, K2, K4 and K5 call recorded and held bit for bit to its plain
+    version (``hold_calls``).  Returns {row: {kernel: calls held}}."""
+    from unclerenderer_tpu_torch import bench
+    from unclerenderer_tpu_torch.render.deferred import deferred_frame
+    from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
+
+    base = RenderSettings(width=WIDTH, height=HEIGHT, renderer_type="deferred",
+                          shadow_map_size=SHADOW, raster_backend="auto")
+    targets, held = kernel_targets(MC_KERNELS), {}
+    for name, change, geometry in BENCH_HELD_ROWS:
+        scene, _data, settings, params_at = bench._synthetic_scene(
+            dataclasses.replace(base, **change), N_OBJECTS, SPHERE_RES, True,
+            geometry=geometry, device=dev)
+        with contextlib.ExitStack() as stack:
+            recs = {n: stack.enter_context(Recorder(m, at)) for n, (m, at, _r) in targets.items()}
+            out, _state = deferred_frame(scene, to_device(params_at(0), dev),
+                                         FrameState.initial(WIDTH, HEIGHT, dev), settings)
+        check(bool(torch.isfinite(out["color"]).all()), f"bench {name}: non-finite colour")
+        held[name], _y = hold_calls(f"bench {name}", recs, targets)
+        del scene, out, recs
+        gc_collect_cuda()
+    return held
+
+
+def bench_phase(smi, program_ms: float) -> dict:
+    """Phase 18: the port's bench (``python -m unclerenderer_tpu_torch.bench``)
+    as a child process at its defaults, the judged configuration (no
+    ``BENCH_*`` override passed on), the kernels built already.  Gates: exit
+    0; the last stdout line parses; ``value`` finite and > 0; 263,184
+    triangles and the 4096^2 map; both parity gates true; the headline's
+    drop counters all 0; every row's ``*_ms`` finite and no ``*_error``;
+    from the child's launch line, K1, K2, K4 and K5 at least once a
+    headline replay -- K1 and K2 at least twice, the map's raster in every
+    frame (a cached map would launch K2 once a frame) -- and X1 in the
+    gates.  Before the child, frame 0 of the two rows whose kernel inputs
+    no earlier phase gives (``BENCH_HELD_ROWS``: the 2048^2 map, and
+    ``bin_mid_divisor=4``) is rendered op by op on the bench's inputs and
+    every K1, K2, K4 and K5 call held bit for bit to its plain version
+    (``bench_rows_held``).  Logs the headline beside phase 15's replayed
+    default Renderer (``program_ms``, whose map is cached): the difference
+    is the map's cost a frame (not gated)."""
+    import os
+    import subprocess
+
+    from unclerenderer_tpu_torch.bench import LAUNCH_TAG, METRIC
+    from unclerenderer_tpu_torch.ops import _cuda
+
+    check(_cuda.build()[1] == 0.0, "bench: the kernels must be built before the phase")
+    t0 = time.perf_counter()
+    held = bench_rows_held(torch.device("cuda"))
+    rep = {"held": held, "held_s": time.perf_counter() - t0}
+    log("bench", f"frame 0 of the rows {[n for n, _c, _g in BENCH_HELD_ROWS]} op by op at "
+                 f"{WIDTH}x{HEIGHT} on the bench's inputs ("
+                 + ", ".join(f"{n} {c}" for n, c, _g in BENCH_HELD_ROWS)
+                 + f"): {held} K1/K2/K4/K5 calls bit-equal to their plain versions in "
+                 f"{rep['held_s']:.1f} s")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "unclerenderer_tpu_torch.bench"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    rep.update(seconds=time.perf_counter() - t0, rc=res.returncode)
+    check(res.returncode == 0, f"bench: exit {res.returncode}; stderr tail: {res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    check(lines, "bench: no stdout")
+    try:
+        line = json.loads(lines[-1])
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"chip_smoke: bench: the last stdout line does not parse ({e}): "
+                         f"{lines[-1][:500]}")
+    rep["line"] = line
+    value = line.get("value")
+    check(line.get("metric") == METRIC, f"bench: metric {line.get('metric')}")
+    check(isinstance(value, (int, float)) and np.isfinite(value) and value > 0,
+          f"bench: value {value}")
+    check(line.get("triangles") == HEADLINE_TRIANGLES, f"bench: {line.get('triangles')} triangles")
+    check(line.get("shadow_map_size") == SHADOW, f"bench: map {line.get('shadow_map_size')}")
+    check(line.get("pallas_parity") is True and line.get("frame_parity") is True,
+          f"bench: parity gates {line.get('pallas_parity')}, {line.get('frame_parity')}")
+    drops = line.get("drop_counters")
+    check(drops and not any(drops.values()) and line.get("dropped_work") is False,
+          f"bench: headline drop counters {drops}")
+    errors = [k for k in line if k.endswith("_error")]
+    check(not errors, f"bench: {errors} in the line")
+    for name in BENCH_ROWS:
+        ms = line.get(f"{name}_ms")
+        check(isinstance(ms, (int, float)) and np.isfinite(ms) and ms > 0,
+              f"bench: row {name} ms {ms}")
+    tagged = [ln for ln in res.stderr.splitlines() if ln.startswith(LAUNCH_TAG + " ")]
+    check(len(tagged) == 1, f"bench: {len(tagged)} launch lines on stderr")
+    launches = json.loads(tagged[0][len(LAUNCH_TAG) + 1:])
+    rep["launches"] = launches
+    frames, head = launches["headline_frames"], launches["headline"]
+    check(frames > 0, "bench: no headline replay counted")
+    for name in MC_KERNELS:
+        check(head.get(name, 0) >= frames, f"bench: {name} launched {head.get(name, 0)} times "
+                                           f"in {frames} headline replays")
+    for name in ("binned_raster", "giant_raster"):
+        check(head.get(name, 0) >= 2 * frames,
+              f"bench: {name} launched {head.get(name, 0)} times in {frames} replays: the "
+              "map is not rasterized in every frame")
+    check(not head.get("exhaustive_raster"), "bench: the headline launched X1")
+    check(launches["gates"].get("exhaustive_raster", 0) > 0, "bench: the gates launched no X1")
+    rep["program_ms"] = program_ms
+    log("bench", f"python -m unclerenderer_tpu_torch.bench: exit 0 in {rep['seconds']:.1f} s; "
+                 f"headline {value} ms/frame (runs {line['value_runs']}), {line['triangles']} "
+                 f"triangles, map {line['shadow_map_size']}^2 rasterized in every replay; rows "
+                 + ", ".join(f"{n} {line[n + '_ms']}" for n in BENCH_ROWS)
+                 + f"; gates {line['pallas_parity']}, {line['frame_parity']} (launches "
+                 f"{launches['gates']}); {frames} headline replays launched {head}; setup "
+                 f"{line['setup_and_compile_s']} s, kernel build {line['kernel_build_s']} s; "
+                 f"phase 15's replayed Renderer (cached map) {program_ms:.2f} ms/frame, so the "
+                 f"map costs {value - program_ms:.2f} ms a frame (separate processes; on {smi})")
+    return rep
+
+
+def gc_collect_cuda() -> None:
+    """Free what this process no longer holds, so that a child process
+    has the card's memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def k1_debug_child(out: Path) -> int:
     """The debug phase's child process (``--k1-debug-child``): device printf
     writes to this process's fd 1, which the parent reads.  Grows the printf
@@ -3486,6 +3648,8 @@ def main() -> int:
     report["multichip"] = multichip_phase(smi)
     # ---- 17. the graft entry: the captured 128^2 frame and the xla dry run
     report["entry"] = entry_phase(smi)
+    # ---- 18. the bench entry, a child process at the judged configuration
+    report["bench"] = bench_phase(smi, report["program"]["median_ms"]["graph"])
 
     report["kernels"] = {n: {"calls": k["calls"], "ms": k["ms"], "plain_ms": k["plain_ms"],
                              "graph_ms": k["graph_ms"], "library_ms": k["library_ms"],
@@ -3529,6 +3693,7 @@ def main() -> int:
          "multichip_launches": report["multichip"]["full"]["per_rank"][1]["launches"][n],
          "entry_launches": report["entry"]["launches"][n],
          "dryrun_launches": sum(r["launches"][n] for r in report["entry"]["dryrun"]["per_rank"]),
+         "bench_launches": report["bench"]["launches"]["headline"].get(n, 0),
          **({"no_records_ms": k["no_records_ms"]} if n in attr_kernels else {}),
          **({"no_debug_ms": k["no_debug_ms"]} if n == "binned_raster_debug" else {}),
          # X1's line times the whole map and camera images; its two kernels apart

@@ -1353,3 +1353,48 @@ def test_graft_entry_compile_check_replay_equals_op_by_op(cuda_device):
     assert rep["shape"] == (128, 128, 3) and rep["capture_s"] > 0 and rep["pool_bytes"] >= 0
     for name in ("binned_raster", "giant_raster", "shadow_select9", "gather_rows"):
         assert rep["launches"].get(name, 0) > 0, name
+
+
+# ------------------------------------------------ the bench entry (bench.py)
+
+
+def test_bench_parity_gates_hold(cuda_device):
+    """The bench's two gates on the card: X1 against K1/K2 on the 256^2
+    frame, and the kernel path's 256^2 frame against the xla frame."""
+    from unclerenderer_tpu_torch import bench
+
+    _cuda.reset_launches()
+    assert bench._pallas_parity_gate(cuda_device) is True
+    assert bench._frame_parity_gate(cuda_device) is True
+    assert _cuda.LAUNCHES["exhaustive_raster"] == 3  # the raster gate, the xla camera and map
+    assert _cuda.LAUNCHES["binned_raster"] > 0 and _cuda.LAUNCHES["giant_raster"] > 0
+
+
+def test_bench_chain_replays_match_the_cpu(cuda_device, monkeypatch):
+    """Two chains of 3 frames at 64^2: on the card frame 0 op by op, then
+    replays of the captured program (the map rasterized in each: K2 twice
+    a replay), against the same chains op by op on the CPU: each frame's
+    colour mean within 1e-3 (the card/CPU tolerance), drop counters equal;
+    each chain's last frame (a replay) pixel by pixel: depth and ids
+    bit-equal, colour within 1e-3."""
+    from unclerenderer_tpu_torch import bench
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+
+    monkeypatch.setenv("BENCH_FRAMES", "3")
+    settings = RenderSettings(width=64, height=64, shadow_map_size=64)
+    runs = {d: bench._synthetic_runner(settings, 4, (32, 24), True, geometry="procedural",
+                                       device=d) for d in (cuda_device, "cpu")}
+    for chain in range(2):
+        _cuda.reset_launches()
+        got = runs[cuda_device][0]()
+        launched = dict(_cuda.LAUNCHES)
+        want = runs["cpu"][0]()
+        np.testing.assert_allclose(got["color"].cpu().numpy(), want["color"].numpy(), rtol=0,
+                                   atol=1e-3, err_msg=f"chain {chain}")
+        g, h = got["last"], want["last"]
+        for k in ("depth", "tri_id"):
+            assert torch.equal(g[k].cpu(), h[k]), (chain, k)
+        assert int((h["tri_id"] >= 0).sum()) > 100
+        assert float((g["color"].cpu() - h["color"]).abs().max()) <= 1e-3, chain
+        assert runs[cuda_device][3]() == runs["cpu"][3](), f"chain {chain}"
+        assert launched["giant_raster"] == 2 * 3, launched  # camera and map, every frame

@@ -3,7 +3,20 @@ resolution for Windows-authored assets."""
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
+
+# names the reference checkout's ``Assets`` directory (Sponza's glTF and DDS
+# set, the reference scenes), which the repository does not hold
+ASSETS_ENV = "UNCLERENDERER_ASSETS"
+
+
+def reference_asset(relative: str) -> str:
+    """``relative`` under the directory that ``UNCLERENDERER_ASSETS`` names,
+    or "" (no file) when the variable is unset: callers then take their
+    absent-asset fallback."""
+    root = os.environ.get(ASSETS_ENV, "")
+    return str(Path(root) / relative) if root else ""
 
 
 def resolve_path_case_insensitive(path: Path) -> Path:

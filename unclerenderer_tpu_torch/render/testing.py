@@ -1,10 +1,13 @@
 """Synthetic scenes for tests, smoke runs and benchmarks.
 
-The procedural half of ``unclerenderer_tpu/render/testing.py``, JAX-free: a
-grid of cubes/spheres (plus an optional floor and back wall of giant
-triangles) with procedural materials, assembled into the port's
-``DeviceScene`` on the card (or on the device the caller names) through
-the Renderer's upload (``params.upload_scene``).  The host-side geometry
+The port of ``unclerenderer_tpu/render/testing.py``, JAX-free: a grid of
+cubes/spheres (plus an optional floor and back wall of giant triangles)
+with procedural materials, or the Sponza tiers built from Sponza's glTF
+and DDS set where ``UNCLERENDERER_ASSETS`` names the reference's assets
+(its real material chains; box-shell geometry from its accessor
+metadata), assembled into the port's ``DeviceScene`` on the card (or on
+the device the caller names) through the Renderer's upload
+(``params.upload_scene``).  The host-side geometry
 and texture building is the port's own copy of the reference's numpy
 modules (``mathlib``, ``scene``, ``textures``).  ``write_scene`` writes the
 same geometry as scene files (scene JSON, glTF, PNG, DDS) for the
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import struct
 from pathlib import Path
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import mathlib as m
+from ..core.paths import reference_asset
 from ..scene.build import GltfMaterial, SceneData, SceneModel
 from ..scene.mesh import compute_mesh_bounds, create_cube, create_sphere
 from ..textures.atlas import build_pyramid_quad_atlas, build_pyramid_tri_atlas
@@ -30,6 +35,7 @@ from ..textures.image import (
     default_grid_texture,
     encode_combined_u8,
     generate_mips,
+    load_image,
     solid_color_texture,
 )
 from ..textures.png import encode_png
@@ -127,10 +133,19 @@ def synthetic_scene_data(
             v_off += mesh.position.shape[0]
             t_off += tris.shape[0]
 
+    _finish(data, parts, tri_parts, tri_model_parts, scene_min, scene_max)
+    return data
+
+
+def _finish(data, parts, tri_parts, tri_model_parts, scene_min, scene_max) -> None:
+    """Fill ``data`` from its models' vertex parts (positions, normals,
+    tangents, uvs, colours) and triangles: the de-indexed layout (vertex i
+    of triangle t at row 3t + i), the scene's centre and radius, and the
+    per-model constant tables (factors from the materials, opaque, cutoff
+    0.5, identity UV transforms, AABBs, object ids, all visible)."""
     position, normal, tangent, uv, color = (np.concatenate(p) for p in parts)
-    tri_indices = np.concatenate(tri_parts)
     data.tri_model = np.concatenate(tri_model_parts)
-    flat = tri_indices.reshape(-1)  # de-indexed layout
+    flat = np.concatenate(tri_parts).reshape(-1)
     data.position = position[flat]
     data.normal = normal[flat]
     data.tangent = tangent[flat]
@@ -139,12 +154,14 @@ def synthetic_scene_data(
     data.tri_indices = np.arange(flat.size, dtype=np.uint32).reshape(-1, 3)
     data.scene_center = ((scene_min + scene_max) * 0.5).astype(np.float32)
     data.scene_radius = max(float(np.linalg.norm(scene_max - scene_min) * 0.5), 1.0)
-
     n = len(data.models)
     data.base_color_factor = np.stack([mm.material.base_color_factor for mm in data.models])
-    data.base_color_alpha = np.array([mm.material.base_color_alpha for mm in data.models], np.float32)
-    data.metallic_factor = np.array([mm.material.metallic_factor for mm in data.models], np.float32)
-    data.roughness_factor = np.array([mm.material.roughness_factor for mm in data.models], np.float32)
+    data.base_color_alpha = np.array([mm.material.base_color_alpha for mm in data.models],
+                                     np.float32)
+    data.metallic_factor = np.array([mm.material.metallic_factor for mm in data.models],
+                                    np.float32)
+    data.roughness_factor = np.array([mm.material.roughness_factor for mm in data.models],
+                                     np.float32)
     data.emissive_factor = np.stack([mm.material.emissive_factor for mm in data.models])
     data.alpha_mode = np.zeros(n, np.uint32)
     data.alpha_cutoff = np.full(n, 0.5, np.float32)
@@ -158,7 +175,6 @@ def synthetic_scene_data(
     data.bounds_max_arr = np.stack([mm.bounds_max for mm in data.models])
     data.object_ids = np.array([mm.object_id for mm in data.models], np.uint32)
     data.visible_mask = np.ones(n, bool)
-    return data
 
 
 def _material_maps(ci: int, tex_size: int):
@@ -204,6 +220,251 @@ def _rich_material_chains(n_combos: int, tex_size: int):
     return combos
 
 
+# ------------------------------------------------------------ the Sponza tiers
+
+# the packed atlas of the real Sponza chains, per process: a bench run builds
+# several scenes over the same chains, and packing the 512-cap atlas is slow
+_atlas_memo: dict = {}
+# Sponza's glTF in the reference checkout (its geometry .bin is not needed):
+# "" takes it from UNCLERENDERER_ASSETS when a tier is built; tests patch it
+_SPONZA_GLTF = ""
+# keyed by (max_combos, max_dim), as the reference keys it (not by path)
+_sponza_chain_cache: dict = {}
+
+
+def _sponza_gltf() -> Path:
+    """``_SPONZA_GLTF``, else Sponza's glTF under ``UNCLERENDERER_ASSETS`` as
+    the variable stands now (no file when it is unset)."""
+    return Path(_SPONZA_GLTF or reference_asset("sponza/untitled.gltf"))
+
+
+def sponza_material_chains(max_combos: int | None = None, max_dim: int = 512):
+    """Combined 16-channel chains of Sponza's real material table
+    (``_SPONZA_GLTF``): the glTF's materials, textures and images tables
+    only (no buffers); each material's baseColor (sRGB) and normal DDS
+    chains (``textures/image.py load_image``), leading mips dropped down to
+    ``max_dim``, fused as the Renderer fuses them (``combined_chain([base,
+    None, normal, None])``).  Materials without a baseColor texture are
+    skipped.  Returns ``(chains, factors)``, factors a dict a material
+    (``base_color_factor``, ``metallic``, ``roughness``), or None when the
+    glTF or every chain is absent (callers take the procedural set)."""
+    key = (max_combos, max_dim)
+    if key in _sponza_chain_cache:
+        return _sponza_chain_cache[key]
+    gltf_path = _sponza_gltf()
+    if not gltf_path.is_file():
+        return None
+    g = json.loads(gltf_path.read_text())
+    imgs = [i.get("uri", "") for i in g.get("images", [])]
+    texs = g.get("textures", [])
+    root = gltf_path.parent
+
+    def chain_for(tex_index, srgb):
+        if tex_index is None:
+            return None
+        chain = load_image(root / imgs[texs[tex_index]["source"]], srgb=srgb)
+        if chain is None:
+            return None
+        while chain and max(chain[0].shape[:2]) > max_dim and len(chain) > 1:
+            chain = chain[1:]
+        return chain
+
+    chains, factors = [], []
+    mats = g.get("materials", [])
+    if max_combos is not None:
+        mats = mats[:max_combos]
+    for mt in mats:
+        pbr = mt.get("pbrMetallicRoughness", {})
+        base = chain_for(pbr.get("baseColorTexture", {}).get("index"), True)
+        normal = chain_for(mt.get("normalTexture", {}).get("index"), False)
+        if base is None:
+            continue
+        chains.append(combined_chain([base, None, normal, None]))
+        factors.append({
+            "base_color_factor": np.asarray(pbr.get("baseColorFactor", [1, 1, 1, 1])[:3],
+                                            np.float32),
+            "metallic": np.float32(pbr.get("metallicFactor", 1.0)),
+            "roughness": np.float32(pbr.get("roughnessFactor", 1.0)),
+        })
+    if not chains:
+        return None
+    # the cached tuple itself: its id keys the atlas memo (the reference
+    # returns a new tuple at the first call, whose id the memo keeps)
+    out = _sponza_chain_cache[key] = (chains, factors)
+    return out
+
+
+def _sponza_sheet(g_u, g_v, origin, du, dv, normal, urep, vrep):
+    """One grid-meshed quad sheet, (g_u x g_v) quads = 2 g_u g_v triangles:
+    (positions, normals, tangents, uvs, triangles)."""
+    uu, vv = np.meshgrid(
+        np.linspace(0.0, 1.0, g_u + 1, dtype=np.float32),
+        np.linspace(0.0, 1.0, g_v + 1, dtype=np.float32), indexing="ij")
+    pts = (origin[None, None]
+           + uu[..., None] * du[None, None]
+           + vv[..., None] * dv[None, None]).reshape(-1, 3)
+    uvs = np.stack([uu * urep, vv * vrep], -1).reshape(-1, 2)
+    iu, iv = np.meshgrid(np.arange(g_u), np.arange(g_v), indexing="ij")
+    q00 = (iu * (g_v + 1) + iv).reshape(-1)
+    q01, q10 = q00 + 1, q00 + (g_v + 1)
+    q11 = q10 + 1
+    tris = np.stack(
+        [np.stack([q00, q10, q11], -1), np.stack([q00, q11, q01], -1)],
+        1).reshape(-1, 3).astype(np.uint32)
+    nrm = np.broadcast_to(normal, (pts.shape[0], 3)).astype(np.float32)
+    tanu = du / max(float(np.linalg.norm(du)), 1e-20)
+    tan = np.concatenate(
+        [np.broadcast_to(tanu, (pts.shape[0], 3)),
+         np.ones((pts.shape[0], 1), np.float32)], 1).astype(np.float32)
+    return pts.astype(np.float32), nrm, tan, uvs.astype(np.float32), tris
+
+
+def _sponza_patch(ext, bmin, bmax, ax, sign, ua_, va_, g_u, g_v, cell_cap):
+    """(origin, du, dv, inward normal) of a face's (g_u x g_v)-cell patch,
+    shrunk to cells of at most ``cell_cap`` and centred on the face."""
+    patch_u = min(float(ext[ua_]), g_u * cell_cap)
+    patch_v = min(float(ext[va_]), g_v * cell_cap)
+    origin = bmin.copy()
+    origin[ua_] += (ext[ua_] - patch_u) * 0.5
+    origin[va_] += (ext[va_] - patch_v) * 0.5
+    origin[ax] = bmax[ax] if sign else bmin[ax]
+    du = np.zeros(3, np.float32)
+    dv = np.zeros(3, np.float32)
+    du[ua_] = patch_u
+    dv[va_] = patch_v
+    normal = np.zeros(3, np.float32)
+    # inward-facing: the +axis face looks toward -axis and vice versa
+    normal[ax] = -1.0 if sign else 1.0
+    return origin, du, dv, normal
+
+
+def sponza_faithful_scene_data(seed: int = 0) -> SceneData | None:
+    """The geometry-faithful Sponza tier, from ``_SPONZA_GLTF``'s accessor
+    metadata alone: each primitive's real triangle count, POSITION AABB and
+    material binding, as box-shell sheets inside the AABB (the glTF's z
+    mirrored for the left-handed world, scaled 0.01 and moved +5 in x, as
+    the reference's sponza.json places it).  Triangles go to the six faces
+    by area with inward normals and UV repeats of 1-16; a face whose cells
+    would pass 1.0 m shrinks to a centred patch (``_CELL_CAP``), a shortfall
+    is topped up by a strip on the largest face, and the sheets are trimmed
+    to the accessor's exact count.  ``sponza_chain_of_model`` is each
+    model's chain in ``sponza_material_chains``' skip order.  Pure numpy,
+    bit-equal to the reference's; None without the glTF (callers take the
+    sphere tier)."""
+    gltf_path = _sponza_gltf()
+    if not gltf_path.is_file():
+        return None
+    g = json.loads(gltf_path.read_text())
+    mats = g.get("materials", [])
+    # chain index per glTF material, in sponza_material_chains' order
+    chain_of_mat: dict[int, int] = {}
+    for mi, mt in enumerate(mats):
+        if mt.get("pbrMetallicRoughness", {}).get(
+                "baseColorTexture", {}).get("index") is not None:
+            chain_of_mat[mi] = len(chain_of_mat)
+
+    prims = []
+    for mesh in g.get("meshes", []):
+        for p in mesh.get("primitives", []):
+            acc_p = g["accessors"][p["attributes"]["POSITION"]]
+            n_tris = (g["accessors"][p["indices"]]["count"] // 3
+                      if "indices" in p else acc_p["count"] // 3)
+            prims.append((n_tris, np.asarray(acc_p["min"], np.float32),
+                          np.asarray(acc_p["max"], np.float32), p.get("material", 0)))
+    if not prims:
+        return None
+
+    data = SceneData()
+    parts = ([], [], [], [], [])  # positions, normals, tangents, uvs, colours
+    tri_parts, tri_model_parts = [], []
+    v_off = t_off = 0
+    scene_min = np.full(3, np.inf, np.float32)
+    scene_max = np.full(3, -np.inf, np.float32)
+    scale = np.float32(0.01)
+    trans = np.array([5.0, 0.0, 0.0], np.float32)
+    cell_cap = 1.0  # _CELL_CAP: world metres a grid cell at most
+
+    for pi, (n_tris, bmin, bmax, mat_i) in enumerate(prims):
+        # RH -> LH: negate z, swapping the z bounds so min <= max holds
+        zmin, zmax = -bmax[2], -bmin[2]
+        bmin = np.array([bmin[0], bmin[1], zmin], np.float32) * scale + trans
+        bmax = np.array([bmax[0], bmax[1], zmax], np.float32) * scale + trans
+        ext = np.maximum(bmax - bmin, 1e-3)
+
+        faces, areas = [], []  # (axis, sign, ua, va) and each face's area
+        for ax in range(3):
+            ua_, va_ = [(1, 2), (0, 2), (0, 1)][ax]
+            area = float(ext[ua_] * ext[va_])
+            for sign in (0, 1):
+                faces.append((ax, sign, ua_, va_))
+                areas.append(area)
+        areas = np.asarray(areas)
+        quota = np.maximum((areas / areas.sum() * (n_tris / 2.0)), 1.0)
+        sheets, made = [], 0
+        for f_i, (ax, sign, ua_, va_) in enumerate(faces):
+            if made >= n_tris:
+                break
+            want = int(quota[f_i]) if f_i < len(faces) - 1 else max((n_tris - made + 1) // 2, 1)
+            aspect = max(float(ext[ua_] / max(ext[va_], 1e-3)), 1e-3)
+            g_u = max(1, int(np.sqrt(want * aspect)))
+            g_v = max(1, want // g_u)
+            origin, du, dv, normal = _sponza_patch(ext, bmin, bmax, ax, sign, ua_, va_, g_u, g_v,
+                                                   cell_cap)
+            urep = float(np.clip(round(ext[ua_] / 1.5), 1, 16))
+            vrep = float(np.clip(round(ext[va_] / 1.5), 1, 16))
+            sheets.append(_sponza_sheet(g_u, g_v, origin, du, dv, normal, urep, vrep))
+            made += 2 * g_u * g_v
+        # top up a shortfall with a strip on the largest face
+        while made < n_tris:
+            ax, sign, ua_, va_ = faces[int(np.argmax(areas))]
+            need = n_tris - made
+            g_u = max(1, int(np.sqrt(need / 2)))
+            g_v = max(1, -(-need // (2 * g_u)))
+            origin, du, dv, normal = _sponza_patch(ext, bmin, bmax, ax, sign, ua_, va_, g_u, g_v,
+                                                   cell_cap)
+            sheets.append(_sponza_sheet(g_u, g_v, origin, du, dv, normal, 1.0, 1.0))
+            made += 2 * g_u * g_v
+        # the sheets, trimmed to the accessor's exact count (the layout is
+        # de-indexed below, so trimming triangles is a slice)
+        pts = np.concatenate([sh[0] for sh in sheets])
+        offs = np.cumsum([0] + [sh[0].shape[0] for sh in sheets])[:-1]
+        tris = np.concatenate([sh[4] + np.uint32(o) for sh, o in zip(sheets, offs)])[:n_tris]
+        parts[0].append(pts)
+        for k in (1, 2, 3):  # normals, tangents, uvs
+            parts[k].append(np.concatenate([sh[k] for sh in sheets]))
+        parts[4].append(np.ones((pts.shape[0], 4), np.float32))
+        tri_parts.append(tris + np.uint32(v_off))
+        tri_model_parts.append(np.full(tris.shape[0], pi, np.uint32))
+
+        mat = GltfMaterial()
+        pbr = mats[mat_i].get("pbrMetallicRoughness", {}) if mat_i < len(mats) else {}
+        mat.base_color_factor = np.asarray(pbr.get("baseColorFactor", [1, 1, 1, 1])[:3],
+                                           np.float32)
+        mat.metallic_factor = float(pbr.get("metallicFactor", 1.0))
+        mat.roughness_factor = float(pbr.get("roughnessFactor", 1.0))
+        data.models.append(SceneModel(
+            name=f"sponza_prim_{pi}", object_id=pi + 1, world=np.eye(4, dtype=np.float32),
+            center=(bmin + bmax) * 0.5, radius=float(np.linalg.norm(bmax - bmin) * 0.5),
+            bounds_min=bmin, bounds_max=bmax, visible=True, material=mat,
+            tri_start=t_off, tri_count=int(tris.shape[0]),
+        ))
+        data.texture_paths.append(("", "", "", ""))
+        scene_min = np.minimum(scene_min, bmin)
+        scene_max = np.maximum(scene_max, bmax)
+        v_off += pts.shape[0]
+        t_off += tris.shape[0]
+
+    _finish(data, parts, tri_parts, tri_model_parts, scene_min, scene_max)
+    # the material chain of each model: its primitive's real glTF binding
+    data.sponza_chain_of_model = np.asarray(
+        [chain_of_mat.get(p[3], pi % max(len(chain_of_mat), 1)) for pi, p in enumerate(prims)],
+        np.int32)
+    return data
+
+
+SOURCES = ("procedural", "sponza")
+
+
 def synthetic_device_scene(
     n_objects: int = 4,
     seed: int = 0,
@@ -214,6 +475,8 @@ def synthetic_device_scene(
     rich_materials: bool = False,
     packed_trilinear: bool | str = False,
     atlas_u8: bool = False,
+    texture_source: str = "procedural",
+    geometry_source: str = "procedural",
     device="cuda",
 ):
     """Returns ``(DeviceScene, SceneData)``, the scene on ``device`` (the
@@ -227,13 +490,30 @@ def synthetic_device_scene(
     fused baseColor+MR+normal(+emissive) maps in one combined 16-channel
     chain (render with ``combined_material=True``); it models no MASK
     material.  packed_trilinear (True, False or "auto", resolved against the
-    6 materials) builds the 256-lane packed-trilinear atlas instead of the
-    64-lane quad atlas."""
-    data = synthetic_scene_data(n_objects, seed, sphere_res=sphere_res, ground=ground)
+    material count) builds the 256-lane packed-trilinear atlas instead of the
+    64-lane quad atlas.
+
+    ``geometry_source="sponza"`` takes the geometry-faithful Sponza tier
+    (``sponza_faithful_scene_data``) and falls back to the sphere grid when
+    its glTF is absent.  Under rich_materials, ``texture_source="sponza"``
+    takes Sponza's real chains (``sponza_material_chains``, capped at
+    ``UNCLE_SPONZA_CAP`` texels, 512 by default) with the glTF's base
+    colour, metallic and roughness factors, no emissive map and each
+    model's chain ``sponza_chain_of_model`` (or its index) modulo the
+    material count; without the assets the 6 procedural materials.  The
+    defaults are the procedural tiers."""
+    for name, value in (("texture_source", texture_source), ("geometry_source", geometry_source)):
+        if value not in SOURCES:
+            raise ValueError(f"synthetic_device_scene: {name} must be one of {SOURCES}, "
+                             f"got {value!r}")
+    data = sponza_faithful_scene_data(seed) if geometry_source == "sponza" else None
+    if data is None:
+        data = synthetic_scene_data(n_objects, seed, sphere_res=sphere_res, ground=ground)
     if rich_materials:
         if with_masked:
             raise ValueError("rich_materials does not model MASK materials")
-        tex_ids, has_map, quad_img, slot_rect0 = _rich_materials(data, packed_trilinear, atlas_u8)
+        tex_ids, has_map, quad_img, slot_rect0 = _rich_materials(data, packed_trilinear, atlas_u8,
+                                                                 texture_source)
     else:
         tex_ids, has_map, quad_img, slot_rect0 = _per_slot_materials(data, with_texture,
                                                                      with_masked)
@@ -266,26 +546,56 @@ def _per_slot_materials(data, with_texture: bool, with_masked: bool):
     return tex_ids, has_map, quad_img, rect0[tex_ids].astype(np.float32)
 
 
-def _rich_materials(data, packed_trilinear, atlas_u8: bool):
-    """(tex_ids, has_map, atlas, per-slot rects) of the 6 combined
-    materials; sets the emissive factors."""
+def _rich_materials(data, packed_trilinear, atlas_u8: bool, texture_source: str):
+    """(tex_ids, has_map, atlas, per-slot rects) of the combined materials:
+    Sponza's real chains (``texture_source="sponza"`` with the assets) or
+    the 6 procedural ones; sets the models' factors."""
     n = data.num_models
-    n_combos = 6
-    combo_chains = _rich_material_chains(n_combos, tex_size=256)
-    mat_dtype = np.float32
-    if atlas_u8:
-        combo_chains = [[encode_combined_u8(lv) for lv in ch] for ch in combo_chains]
-        mat_dtype = np.uint8
-    build = (build_pyramid_tri_atlas if resolve_packed_trilinear(packed_trilinear, n_combos)
-             else build_pyramid_quad_atlas)
-    quad_img, rect0 = build(combo_chains, wrap=True, dtype=mat_dtype)
-    model_combo = np.arange(n, dtype=np.int32) % n_combos
+    sponza = None
+    if texture_source == "sponza":
+        sponza = sponza_material_chains(max_dim=int(os.environ.get("UNCLE_SPONZA_CAP", "512")))
+    if sponza is not None:
+        combo_chains, sp_factors = sponza
+    else:
+        combo_chains, sp_factors = _rich_material_chains(6, tex_size=256), None
+    n_combos = len(combo_chains)
+    packed = resolve_packed_trilinear(packed_trilinear, n_combos)
+    memo_key = (id(sponza), n_combos, bool(atlas_u8), packed)
+    cached = _atlas_memo.get(memo_key) if sponza is not None else None
+    if cached is not None:
+        quad_img, rect0 = cached
+    else:
+        mat_dtype = np.float32
+        if atlas_u8:
+            combo_chains = [[encode_combined_u8(lv) for lv in ch] for ch in combo_chains]
+            mat_dtype = np.uint8
+        build = build_pyramid_tri_atlas if packed else build_pyramid_quad_atlas
+        quad_img, rect0 = build(combo_chains, wrap=True, dtype=mat_dtype)
+        if sponza is not None:
+            _atlas_memo[memo_key] = (quad_img, rect0)
+    chain_of_model = getattr(data, "sponza_chain_of_model", None)
+    if chain_of_model is not None:  # the faithful tier's real material bindings
+        model_combo = np.asarray(chain_of_model, np.int32) % n_combos
+    else:
+        model_combo = np.arange(n, dtype=np.int32) % n_combos
     tex_ids = np.repeat(model_combo[:, None], 4, axis=1).astype(np.int32)
     has_map = np.ones((n, 4), bool)
-    has_map[:, 3] = model_combo == 0  # emissive map on combo 0 only
-    data.emissive_factor = np.where(
-        (model_combo == 0)[:, None], np.float32(1.0), np.float32(0.0)
-    ) * np.ones((n, 3), np.float32)
+    if sp_factors is not None:
+        # the glTF's constants ride with their textures; the set has no
+        # emissive or MR maps
+        has_map[:, 3] = False
+        data.emissive_factor = np.zeros((n, 3), np.float32)
+        data.base_color_factor = np.stack([sp_factors[c]["base_color_factor"]
+                                           for c in model_combo])
+        data.metallic_factor = np.asarray([sp_factors[c]["metallic"] for c in model_combo],
+                                          np.float32)
+        data.roughness_factor = np.asarray([sp_factors[c]["roughness"] for c in model_combo],
+                                           np.float32)
+    else:
+        has_map[:, 3] = model_combo == 0  # emissive map on combo 0 only
+        data.emissive_factor = np.where(
+            (model_combo == 0)[:, None], np.float32(1.0), np.float32(0.0)
+        ) * np.ones((n, 3), np.float32)
     slot_rect0 = np.repeat(rect0[model_combo].astype(np.float32)[:, None, :], 4, axis=1)
     return tex_ids, has_map, quad_img, slot_rect0
 
