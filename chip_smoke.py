@@ -198,7 +198,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    in phase 3); 10 counted frames with the gates of phase 5; ms/frame and
    peak GiB in turns with the default configuration (3 pairs of 3 frames);
    the pass markers' ``record_function`` ranges a default frame, and
-   ms/frame with them replaced by a no-op, in turns (no gate).  Phase 4
+   ms/frame with them entered and untraced, in turns (no gate).  Phase 4
    adds 256x256 card/CPU pairs: each setting alone and all three, deferred,
    all three in the forward frame, and the anisotropic filter with
    compacted taps under forward differences (one frame each).
@@ -3270,8 +3270,11 @@ def main() -> int:
 
     def marker_cost(frame_scene, frame_params, frame_settings):
         """The pass markers' record_function calls in one default frame, and
-        ms/frame with the markers on and replaced by a no-op, in turns (on
-        off off on on off, 3 frames each).  No gate."""
+        ms/frame with the markers' ranges entered (as while a profiler
+        records) and with the markers as they run untraced, in turns (on off
+        off on on off, 3 frames each).  No gate."""
+        from unclerenderer_tpu_torch.core import passes as passes_mod
+
         prof = torch.autograd.profiler
         on = prof.record_function
         n_calls = [0]
@@ -3280,21 +3283,22 @@ def main() -> int:
             n_calls[0] += 1
             return on(name)
 
-        with patched(prof, "record_function", counting):
+        with patched(prof, "record_function", counting), \
+                patched(passes_mod, "tracing", lambda: True):
             run(frame_scene, frame_params[:1], frame_settings,
                 FrameState.initial(WIDTH, HEIGHT, dev))
         runs = {"on": [], "off": []}
         state = FrameState.initial(WIDTH, HEIGHT, dev)
         for label in ("on", "off", "off", "on", "on", "off"):
-            with patched(prof, "record_function",
-                         on if label == "on" else lambda name: contextlib.nullcontext()):
+            with patched(passes_mod, "tracing", passes_mod.tracing if label == "off"
+                         else lambda: True):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 _, state = run(frame_scene, frame_params[:3], frame_settings, state)
                 torch.cuda.synchronize()
             runs[label].append((time.perf_counter() - t0) * 1000.0 / 3)
         log("markers", f"{n_calls[0]} record_function ranges a default frame; ms/frame with the "
-                       f"markers {[round(x, 2) for x in runs['on']]}, replaced by a no-op "
+                       f"ranges entered {[round(x, 2) for x in runs['on']]}, untraced "
                        f"{[round(x, 2) for x in runs['off']]} (in turns, 3 frames each, on {smi})")
         return {"ranges_per_frame": n_calls[0], "ms_per_frame": runs}
 

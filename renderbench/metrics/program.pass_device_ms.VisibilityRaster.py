@@ -1,0 +1,6 @@
+"""``program.pass_device_ms.VisibilityRaster``: ``spans.replay_ms``, a replay's device ms read
+under the profiler (``renderbench/spans.py``)."""
+
+from renderbench import spans
+
+read = spans.replay_ms("FrameProgram", "VisibilityRaster")

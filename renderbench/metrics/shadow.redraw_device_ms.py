@@ -1,0 +1,6 @@
+"""``shadow.redraw_device_ms``: ``spans.replay_ms``, a replay's device ms read
+under the profiler (``renderbench/spans.py``)."""
+
+from renderbench import spans
+
+read = spans.replay_ms("ShadowProgram")

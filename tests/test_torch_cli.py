@@ -165,11 +165,11 @@ def test_cli_steady_state_times_replays_only(scene, tmp_path, monkeypatch):
     def frame_mode(self):
         return "graph" if self._frame_counter > 0 else "eager: warm-up"
 
-    def program_frame(self, fields, shadow=True):
+    def program_params(self, fields):
         events.append(("frame", "capture" if self._program is None else "replay"))
         if self._program is None:
             self._program = types.SimpleNamespace(state=None)
-        return types.SimpleNamespace(run=lambda: self._eager_frame(fields, shadow=shadow))
+        return types.SimpleNamespace(run=lambda: self._eager_frame(fields))
 
     eager_frame = Renderer._eager_frame
 
@@ -183,7 +183,7 @@ def test_cli_steady_state_times_replays_only(scene, tmp_path, monkeypatch):
         return len(events)
 
     monkeypatch.setattr(Renderer, "_frame_mode", frame_mode)
-    monkeypatch.setattr(Renderer, "_program_frame", program_frame)
+    monkeypatch.setattr(Renderer, "_program_params", program_params)
     monkeypatch.setattr(Renderer, "_eager_frame", eager)
     monkeypatch.setattr(app, "time", types.SimpleNamespace(monotonic=clock))
     monkeypatch.setattr(app, "log_info", lambda msg: events.append(("log", msg)))

@@ -1250,6 +1250,168 @@ def test_program_capture_that_syncs_raises(program_scene, cuda_device, tmp_path)
                                                                          res.stderr[-2000:])
 
 
+# ------------------------------------------------ spans inside the replayed frame
+
+SPAN_SIZE = 512  # big enough that a pass's kernels, not the gaps between them, fill it
+
+
+@pytest.fixture(scope="module")
+def span_renderer(program_scene, cuda_device):
+    """A GpuTiming Renderer at 512^2 replaying its frame program (the light
+    fixed: the map is drawn once), the span store emptied."""
+    from unclerenderer_tpu_torch.core import passes
+    from unclerenderer_tpu_torch.core.config import RendererConfig
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+    from unclerenderer_tpu_torch.render.renderer import Renderer
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("UNCLERENDERER_SCENE_CACHE", "")
+        s = SPAN_SIZE
+        r = Renderer(program_scene, settings=RenderSettings(width=s, height=s, shadow_map_size=s),
+                     config=RendererConfig(enable_gpu_timing=True), device=cuda_device)
+    for _ in range(3):
+        r.render_frame()
+    assert r.frame_program == "graph" and r._program.spans.sink is not None
+    torch.cuda.synchronize()
+    passes.collect()
+    passes.STORE.reset()
+    return r
+
+
+def test_program_spans_add_no_host_sync(span_renderer):
+    """Replayed frames with tracing on (GpuTiming, and a profiler) under
+    sync debug mode "error": reading the previous replay's events waits
+    for nothing; every replay but the last is read at the next one."""
+    from unclerenderer_tpu_torch.core import passes
+
+    r = span_renderer
+    torch.cuda.synchronize()
+    passes.collect()
+    passes.STORE.reset()
+    spans = r._program.spans
+    seen = spans.read + spans.unread
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            r.render_frame()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            for _ in range(2):
+                r.render_frame()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    assert spans.read + spans.unread - seen == 4
+    passes.collect()
+    assert spans.read + spans.unread - seen == 5
+    st = r.stats()
+    timing = st["frame_timing"]
+    assert timing[0]["name"] == "Frame" and {"MaterialResolve", "VisibilityRaster"} <= {
+        row["name"] for row in timing}
+    assert st["programs"]["FrameProgram"]["replays_read"] == spans.read
+    assert st["programs"]["FrameProgram"]["capture_s"] > 0
+
+
+def test_stats_holds_the_last_frames_timing(span_renderer):
+    """``render_frame()`` then ``stats()`` with no sync between: the last
+    replay is read, not counted unread, and its "Frame" and pass samples
+    are in the table."""
+    import time
+
+    r = span_renderer
+    spans = r._program.spans
+    r.stats()
+    read, unread = spans.read, spans.unread
+    t = time.monotonic()
+    r.render_frame()
+    r.stats()
+    assert (spans.read, spans.unread) == (read + 1, unread)
+    for name in ("Frame", "MaterialResolve", "VisibilityRaster"):
+        assert r._frame_times._samples[name][-1][0] >= t, name
+
+
+def test_program_pass_spans_match_op_by_op_passes(span_renderer, tmp_path):
+    """The replayed MaterialResolve and VisibilityRaster device ms within
+    10% of the same Renderer's op-by-op frames, bucketed from a profiler
+    trace (``core/traceparse.py``)."""
+    from unclerenderer_tpu_torch.core import passes
+
+    r = span_renderer
+    torch.cuda.synchronize()
+    passes.collect()
+    passes.STORE.reset()
+    for _ in range(6):
+        r.render_frame()
+        torch.cuda.synchronize()  # as a present: each replay read at the next
+    passes.collect()
+    replays = passes.STORE.spans("FrameProgram")
+    eager = r.profile_trace_passes(frames=3, trace_dir=tmp_path)
+    eager = {row["name"]: row["avg_ms"] for row in eager.stats()}
+    assert len(replays) == 6
+    for name in ("MaterialResolve", "VisibilityRaster"):
+        replayed = sum(f[name] for f in replays.values()) / len(replays)
+        assert abs(replayed - eager[name]) <= 0.10 * eager[name], (name, replayed, eager[name])
+
+
+def test_program_spans_lie_inside_the_frame(span_renderer):
+    """Each replay's pass spans lie inside its first-to-last span, which
+    lies inside CUDA events placed before and after the ``render_frame``
+    call (``program.frame_device_ms``'s)."""
+    from unclerenderer_tpu_torch.core import passes
+
+    r = span_renderer
+    torch.cuda.synchronize()
+    passes.collect()
+    passes.STORE.reset()
+    outside = []
+    for _ in range(4):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        r.render_frame()
+        b.record()
+        b.synchronize()
+        outside.append(a.elapsed_time(b))
+    passes.collect()
+    recs = [x for x in passes.STORE.records if x.program == "FrameProgram"]
+    frames = sorted({x.frame for x in recs})
+    assert len(frames) == 4
+    for frame, around in zip(frames, outside):
+        mine = [x for x in recs if x.frame == frame]
+        (whole,) = [x.ms for x in mine if x.name == "FrameProgram"]
+        inner = [x for x in mine if x.name != "FrameProgram"]
+        assert len(inner) >= 10
+        assert all(0.0 <= x.start_ms and x.start_ms + x.ms <= whole + 1e-3 for x in inner)
+        top = [x for x in inner if x.name not in passes.TIMED_SUB_SCOPES]
+        assert sum(x.ms for x in top) <= whole <= around, (frame, whole, around)
+
+
+def test_gpu_timing_times_an_op_by_op_frame_on_the_device(span_renderer):
+    """GpuTiming of an op-by-op frame on the card: "Frame" and its passes
+    from events recorded around it (no host sync in ``render_frame``), the
+    frame's whole span at least the sum of its timed passes."""
+    import time
+
+    from unclerenderer_tpu_torch.core import passes
+    from unclerenderer_tpu_torch.render import program
+
+    r = span_renderer
+    r.stats()
+    passes.STORE.reset()
+    t = time.monotonic()
+    with program.eager():
+        r.render_frame()
+    assert r.frame_program.startswith("eager")
+    r.stats()
+    assert r._eager_spans.read >= 1
+    recs = [x for x in passes.STORE.records if x.program == "EagerFrame"]
+    (whole,) = [x.ms for x in recs if x.name == "EagerFrame"]
+    top = [x.ms for x in recs if x.name not in ("EagerFrame",) + passes.TIMED_SUB_SCOPES]
+    assert len(top) >= 8 and 0 < sum(top) <= whole
+    assert r._frame_times._samples["Frame"][-1][0] >= t
+    assert r._frame_times._samples["Frame"][-1][1] == whole
+
+
 # ------------------------------------------------------------- M1: the masked raster
 
 MASKED_LAYOUTS = [("quad4", torch.float32), ("quad4", torch.bfloat16), ("quad16", torch.uint8),

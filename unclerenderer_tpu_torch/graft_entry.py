@@ -29,7 +29,6 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
-import gc
 import sys
 import tempfile
 import time
@@ -38,6 +37,7 @@ import numpy as np
 import torch
 
 from . import interop
+from .core import passes
 from .ops import _cuda
 from .parallel.multichip import run_ranks
 from .render import program
@@ -137,14 +137,10 @@ def compile_check(fn, args) -> dict:
             torch.cuda.set_sync_debug_mode(prev)
 
     graph, launches = torch.cuda.CUDAGraph(), collections.Counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved()
-    t0 = time.perf_counter()
-    got = program._capture(graph, body, launches)
-    capture_s = time.perf_counter() - t0
-    pool_bytes = torch.cuda.memory_reserved() - reserved
-    program._replay(graph, launches)
+    spans = passes.DeviceSpans("compile_check")
+    device = next(iter(devices))
+    got, capture_s, pool_bytes = program._capture(graph, body, launches, spans, device)
+    program._replay(graph, launches, spans)
     torch.cuda.synchronize()
     diff = _differing(got, want)
     if diff:

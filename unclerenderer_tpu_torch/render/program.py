@@ -28,6 +28,11 @@ frame from the host, where the op-by-op frame makes thousands.
   (the counterpart of ``jax.disable_jit``); the comparisons and the
   measurement paths use it.
 
+Each program records its spans as timing events in its graph
+(``core/passes.py DeviceSpans``: the first and last node, the top-level
+passes, the resolve's sub-scopes), read after a replay where tracing is
+on, and counts its replays read and unread.
+
 The kernels' wrappers launch on PyTorch's current stream
 (``ops/_cuda.py launch``), so they are captured with the rest; the
 launches recorded at capture are added to ``_cuda.LAUNCHES`` at every
@@ -50,6 +55,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import passes
 from ..ops import _cuda
 from . import common
 from .deferred import deferred_frame
@@ -118,25 +124,38 @@ def _clone(tree):
     return tree.clone()
 
 
-def _replay(graph: torch.cuda.CUDAGraph, counts: collections.Counter) -> None:
-    """Replay ``graph`` and count the launches its capture recorded."""
+def _replay(graph: torch.cuda.CUDAGraph, counts: collections.Counter,
+            spans: passes.DeviceSpans) -> None:
+    """Replay ``graph`` (its spans' previous replay read first) and count
+    the launches its capture recorded."""
+    spans.launch()
     graph.replay()
     for name, n in counts.items():
         _cuda.LAUNCHES[name] += n
 
 
-def _capture(graph: torch.cuda.CUDAGraph, body, counts: collections.Counter):
-    """``body()`` captured into ``graph``; the kernel launches it records
-    go to ``counts`` (they run at each replay, not now).  Returns what
-    ``body`` returns."""
+def _capture(graph: torch.cuda.CUDAGraph, body, counts: collections.Counter,
+             spans: passes.DeviceSpans, device):
+    """``body()`` captured into ``graph`` between ``spans``' first and last
+    events; the kernel launches it records go to ``counts`` (they run at
+    each replay, not now).  Returns (what ``body`` returns, the capture's
+    seconds, the device memory reserved meanwhile)."""
+    # capture frees the allocator's cached blocks first; freed here, the
+    # memory it reserves after is the graph's private pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
     prev, _cuda.CAPTURED = _cuda.CAPTURED, counts
+    t0 = time.perf_counter()
     try:
         # thread-local: the Renderer's background scene reload may use the
         # card from another thread meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            return body()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"), spans.capturing():
+            out = body()
     finally:
         _cuda.CAPTURED = prev
+    seconds = time.perf_counter() - t0
+    return out, seconds, torch.cuda.memory_reserved(device) - reserved
 
 
 class FrameProgram:
@@ -172,15 +191,10 @@ class FrameProgram:
         self.shadow_map = shadow_map
         self.launches: collections.Counter = collections.Counter()
         self.graph = torch.cuda.CUDAGraph()
-        # capture frees the allocator's cached blocks first; freed here, the
-        # memory it reserves after is the graph's private pool
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(flat.device)
-        t0 = time.perf_counter()
-        self.out = _capture(self.graph, self._frame, self.launches)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(flat.device) - reserved
+        self.spans = passes.DeviceSpans("FrameProgram")
+        with passes.scope("FrameProgram.capture"):
+            self.out, self.capture_s, self.pool_bytes = _capture(
+                self.graph, self._frame, self.launches, self.spans, flat.device)
 
     def _frame(self) -> dict:
         params = unpack_params(self.flat, self.layout)
@@ -200,13 +214,16 @@ class FrameProgram:
     def replay(self) -> dict:
         """One frame: the graph replayed and its launches counted.  Returns
         the static outputs, which the next replay overwrites."""
-        _replay(self.graph, self.launches)
+        with passes.scope("FrameProgram.replay"):
+            _replay(self.graph, self.launches, self.spans)
         return self.out
 
     def run(self) -> dict:
         """One frame, its outputs cloned: they stay as they are when the
         next frame replays."""
-        return _clone(self.replay())
+        out = self.replay()
+        with passes.scope("FrameProgram.clone"):
+            return _clone(out)
 
 
 class ShadowProgram:
@@ -224,7 +241,10 @@ class ShadowProgram:
         self.overflow = torch.zeros((), dtype=torch.int32, device=program.flat.device)
         self.launches: collections.Counter = collections.Counter()
         self.graph = torch.cuda.CUDAGraph()
-        _capture(self.graph, self._raster, self.launches)
+        self.spans = passes.DeviceSpans("ShadowProgram")
+        with passes.scope("ShadowProgram.capture"):
+            _, self.capture_s, self.pool_bytes = _capture(
+                self.graph, self._raster, self.launches, self.spans, program.flat.device)
 
     def _raster(self) -> None:
         p = self.program
@@ -238,5 +258,5 @@ class ShadowProgram:
     def run(self) -> torch.Tensor:
         """Render the map into the frame program's buffer; returns the
         (device) dropped-caster count."""
-        _replay(self.graph, self.launches)
+        _replay(self.graph, self.launches, self.spans)
         return self.overflow

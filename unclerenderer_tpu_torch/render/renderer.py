@@ -18,13 +18,22 @@ Deliberately not carried over from the reference:
   every kernel launch of ``ops/_cuda.py``, each under its pass), and a
   failing dump raises where the reference logs and goes on.
 
-Observability (the reference's): ``enable_gpu_timing`` adds a ``"Frame"``
-sample per ``render_frame`` (synchronising only then) to
-``stats()["frame_timing"]``; ``profile_passes`` times the deferred stages
-one by one (``render/framegraph.py``); ``profile_trace`` writes a
-``torch.profiler`` Chrome trace of rendered frames and
-``profile_trace_passes`` buckets its device time by pass
-(``core/traceparse.py``).
+Observability (the reference's): ``enable_gpu_timing`` fills
+``stats()["frame_timing"]``: a replayed frame's ``"Frame"`` and per-pass
+samples from the timing events its program records
+(``core/passes.py DeviceSpans``), read at the next replay or at
+``stats()`` (which waits for the last), and an op-by-op frame's from events
+recorded around it on the card, by the host clock on the CPU;
+``profile_passes`` times the deferred stages one by one
+(``render/framegraph.py``); ``profile_trace`` writes a ``torch.profiler``
+Chrome trace of rendered frames and ``profile_trace_passes`` buckets its
+device time by pass (``core/traceparse.py``).  A call's parts are host
+spans there (``core/passes.py scope``): ``Renderer.frame`` (its
+``Renderer.params``, ``Renderer.shadow`` with the drop count's read
+``Renderer.shadow.drop_read``, ``FrameProgram.replay`` and
+``FrameProgram.clone``), the present's ``Renderer.present.readback`` and
+``Renderer.present.u8``, and ``Renderer.frames`` (a replay and a
+``Renderer.frames.gather`` a frame).
 
 The built scene goes through the on-disk cache (``core/scenecache.py``) as
 the reference's does: a warm start maps the stored host arrays and uploads
@@ -521,9 +530,12 @@ class Renderer:
         """Honour, refuse or log every RendererConfig key: no toggle silently
         does nothing."""
         set_task_system_enabled(cfg.use_task_system)
-        # GpuTiming: a "Frame" sample per render_frame (stats()["frame_timing"])
+        # GpuTiming: a "Frame" sample per frame, and one per pass of a
+        # frame on the card (stats()["frame_timing"])
         self._gpu_timing = bool(cfg.enable_gpu_timing)
         self._frame_times = PassTimingStats() if self._gpu_timing else None
+        self._eager_spans = passes.DeviceSpans("EagerFrame")
+        self._eager_spans.sink = self._add_frame_timing if self._gpu_timing else None
         # GraphDump: the first deferred frame's op list, once
         self._graph_dump_pending = bool(cfg.enable_graph_dump)
         # GpuDebugPrint (RendererConfig.h:38): the stats block drawn inside
@@ -615,11 +627,9 @@ class Renderer:
             self._warm = (self.settings, self.device_scene)
         return out
 
-    def _program_frame(self, fields: dict, shadow: bool = True) -> program.FrameProgram:
+    def _program_params(self, fields: dict) -> program.FrameProgram:
         """The current frame program, captured at its first use, with
-        ``fields`` loaded into its parameter buffer and (``shadow``) the map
-        re-rendered into its map buffer where the light or visibility
-        changed."""
+        ``fields`` loaded into its parameter buffer."""
         host = _host_params(fields, self.device)
         prog = self._program
         if prog is None:
@@ -632,13 +642,26 @@ class Renderer:
             self._program = prog
             if deferred:
                 self._frame_state = prog.state
+            if self._gpu_timing:
+                prog.spans.sink = self._add_frame_timing
             log_info(f"frame program captured: {prog.kind}, {sum(prog.launches.values())} kernel "
                      f"launches, pool {prog.pool_bytes / 2**30:.2f} GiB, {prog.capture_s:.2f} s")
         else:
             prog.load_params(host)
-        if shadow:
-            self._shadow_map(None, prog)
         return prog
+
+    def _add_frame_timing(self, spans: list) -> None:
+        """GpuTiming's samples of a replay (or an op-by-op frame) read from
+        its events: the frame's whole span as "Frame", and each pass and
+        sub-scope (the ms of a name that recurs summed)."""
+        by_name: dict = {}
+        for sp in spans:
+            if sp.name in ("FrameProgram", "EagerFrame"):
+                by_name["Frame"] = sp.ms
+            elif sp.name != sp.program:
+                by_name[sp.name] = by_name.get(sp.name, 0.0) + sp.ms
+        for name, ms in by_name.items():
+            self._frame_times.add_sample(name, ms)
 
     def frame_params(self, delta_time: float = 1.0 / 60.0) -> FrameParams:
         return _params_on_device(self._frame_fields(delta_time), self.device)
@@ -698,30 +721,34 @@ class Renderer:
         where there is one)."""
         if not self.settings.enable_shadows:
             return None
-        key = (tuple(m.light_vector_from_scene_direction(self.light.direction).tolist()),
-               tuple(np.asarray(self.scene_data.visible_mask).tolist()))
-        if self._shadow_cache is None or key != self._shadow_key:
-            if prog is not None:
-                if self._shadow_program is None or self._shadow_program.program is not prog:
-                    self._shadow_program = program.ShadowProgram(prog)
-                overflow = self._shadow_program.run()
-                depth = prog.shadow_map
-            else:
-                opaque, masked = common.tri_draw_masks(self.device_scene, params.model_visible,
-                                                       self.settings)
-                depth, overflow = common.raster_shadow(
-                    self.device_scene, params.light_view_proj, opaque | masked, self.settings)
-                current = self._program
-                if current is not None and current.shadow_map is not None:
-                    current.shadow_map.copy_(depth)
-                    depth = current.shadow_map
-            self._shadow_cache = depth
-            self._shadow_overflow = int(overflow)
-            if self._shadow_overflow:
-                log_warning(f"shadow compaction dropped {self._shadow_overflow} casters -- "
-                            "raise RenderSettings.shadow_compact_cap")
-            self._shadow_key = key
-        return self._shadow_cache
+        with passes.scope("Renderer.shadow"):
+            key = (tuple(m.light_vector_from_scene_direction(self.light.direction).tolist()),
+                   tuple(np.asarray(self.scene_data.visible_mask).tolist()))
+            if self._shadow_cache is None or key != self._shadow_key:
+                if prog is not None:
+                    if self._shadow_program is None or self._shadow_program.program is not prog:
+                        self._shadow_program = program.ShadowProgram(prog)
+                        if self._gpu_timing:
+                            self._shadow_program.spans.sink = self._add_frame_timing
+                    overflow = self._shadow_program.run()
+                    depth = prog.shadow_map
+                else:
+                    opaque, masked = common.tri_draw_masks(self.device_scene, params.model_visible,
+                                                           self.settings)
+                    depth, overflow = common.raster_shadow(
+                        self.device_scene, params.light_view_proj, opaque | masked, self.settings)
+                    current = self._program
+                    if current is not None and current.shadow_map is not None:
+                        current.shadow_map.copy_(depth)
+                        depth = current.shadow_map
+                self._shadow_cache = depth
+                with passes.scope("Renderer.shadow.drop_read"):
+                    self._shadow_overflow = int(overflow)
+                if self._shadow_overflow:
+                    log_warning(f"shadow compaction dropped {self._shadow_overflow} casters -- "
+                                "raise RenderSettings.shadow_compact_cap")
+                self._shadow_key = key
+            return self._shadow_cache
 
     def _deferred(self) -> bool:
         """The deferred frame renders unless ``renderer_type`` asks for the
@@ -736,29 +763,37 @@ class Renderer:
         fallback: a frame that fails (a kernel that does not build or
         launch, a capture or a replay included) raises; the reference's
         retry with the forward renderer is not carried over.  Under
-        ``enable_gpu_timing`` the frame is synchronised and its time
-        sampled as "Frame"; under ``enable_graph_dump`` the first deferred
-        frame runs op by op under ``record_graph`` and writes
-        ``render_graph_dump.txt``."""
-        t0 = time.monotonic() if self._gpu_timing else 0.0
-        fields = self._frame_fields(delta_time)
-        mode = self._frame_mode()
-        if mode == "graph":
-            out = self._program_frame(fields).run()
-        else:
-            dump = self._deferred() and self._graph_dump_pending
-            self._graph_dump_pending &= not dump
-            out = self._eager_frame(fields, dump=dump)
-        if self._deferred() and self.settings.enable_taa:
-            self._taa_history_ready = True
-        self.frame_program = mode
-        self._frame_counter += 1
-        self._last_out = out
-        if self._gpu_timing:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self._frame_times.add_sample("Frame", (time.monotonic() - t0) * 1e3)
-        return out
+        ``enable_gpu_timing`` a frame's "Frame" and pass samples come from
+        timing events (a replayed frame's program's, or recorded around an
+        op-by-op frame on the card), read later with no host sync; on the
+        CPU its "Frame" from the host clock; under
+        ``enable_graph_dump`` the first deferred frame runs op by op under
+        ``record_graph`` and writes ``render_graph_dump.txt``."""
+        with passes.scope("Renderer.frame"):
+            t0 = time.perf_counter()
+            mode = self._frame_mode()
+            with passes.scope("Renderer.params"):
+                fields = self._frame_fields(delta_time)
+                prog = self._program_params(fields) if mode == "graph" else None
+            if prog is not None:
+                # the map re-rendered into the program's buffer where the
+                # light or the visibility changed
+                self._shadow_map(None, prog)
+                out = prog.run()
+            else:
+                dump = self._deferred() and self._graph_dump_pending
+                self._graph_dump_pending &= not dump
+                timed = self._gpu_timing and self.device.type == "cuda"
+                with self._eager_spans.running() if timed else contextlib.nullcontext():
+                    out = self._eager_frame(fields, dump=dump)
+                if self._gpu_timing and not timed:
+                    self._frame_times.add_sample("Frame", (time.perf_counter() - t0) * 1e3)
+            if self._deferred() and self.settings.enable_taa:
+                self._taa_history_ready = True
+            self.frame_program = mode
+            self._frame_counter += 1
+            self._last_out = out
+            return out
 
     def render_frames(self, n: int, delta_time: float = 1.0 / 60.0, mutate=None) -> torch.Tensor:
         """Render ``n`` carried frames back to back and return their stacked
@@ -774,35 +809,41 @@ class Renderer:
         reference's chain, keep no drop counters."""
         if n < 1:
             raise ValueError(f"render_frames: n must be >= 1, got {n}")
-        deferred = self._deferred()
-        fields_list = []
-        for i in range(n):
-            if mutate is not None:
-                mutate(self, i)
-            fields_list.append(self._frame_fields(delta_time))
-            self._frame_counter += 1
-            if deferred and self.settings.enable_taa:
-                self._taa_history_ready = True
-        colors, drops = None, ({} if not deferred else None)
-        for i, fields in enumerate(fields_list):
-            mode = self._frame_mode()
-            if mode == "graph":
-                out = self._program_frame(fields, shadow=i == 0).replay()
-            else:
-                out = self._eager_frame(fields, shadow=i == 0)
-            self.frame_program = mode
-            if colors is None:
-                colors = torch.empty((n,) + tuple(out["color"].shape), dtype=out["color"].dtype,
-                                     device=out["color"].device)
-            colors[i].copy_(out["color"])
-            if deferred:
-                rs = out["raster_stats"]
-                drops = ({k: v.clone() for k, v in rs.items()} if drops is None else
-                         {k: torch.maximum(drops[k], v) for k, v in rs.items()})
-        # stats()/pick() re-render on demand; the chain's drops stay visible
-        self._chain_drop_counters = drops
-        self._last_out = None
-        return colors
+        with passes.scope("Renderer.frames"):
+            deferred = self._deferred()
+            fields_list = []
+            for i in range(n):
+                if mutate is not None:
+                    mutate(self, i)
+                fields_list.append(self._frame_fields(delta_time))
+                self._frame_counter += 1
+                if deferred and self.settings.enable_taa:
+                    self._taa_history_ready = True
+            colors, drops = None, ({} if not deferred else None)
+            for i, fields in enumerate(fields_list):
+                mode = self._frame_mode()
+                if mode == "graph":
+                    with passes.scope("Renderer.params"):
+                        prog = self._program_params(fields)
+                    if i == 0:
+                        self._shadow_map(None, prog)
+                    out = prog.replay()
+                else:
+                    out = self._eager_frame(fields, shadow=i == 0)
+                self.frame_program = mode
+                with passes.scope("Renderer.frames.gather"):
+                    if colors is None:
+                        colors = torch.empty((n,) + tuple(out["color"].shape),
+                                             dtype=out["color"].dtype, device=out["color"].device)
+                    colors[i].copy_(out["color"])
+                    if deferred:
+                        rs = out["raster_stats"]
+                        drops = ({k: v.clone() for k, v in rs.items()} if drops is None else
+                                 {k: torch.maximum(drops[k], v) for k, v in rs.items()})
+            # stats()/pick() re-render on demand; the chain's drops stay visible
+            self._chain_drop_counters = drops
+            self._last_out = None
+            return colors
 
     def _latest_out(self) -> dict:
         """The last rendered frame's outputs (one frame is rendered if there
@@ -814,8 +855,11 @@ class Renderer:
     def render_to_u8(self, delta_time: float = 1.0 / 60.0) -> np.ndarray:
         """Render and convert to (H, W, 3) uint8 as the UNORM backbuffer
         stores it."""
-        color = self.render_frame(delta_time)["color"].cpu().numpy()
-        return np.clip(np.rint(color * 255.0), 0, 255).astype(np.uint8)
+        color = self.render_frame(delta_time)["color"]
+        with passes.scope("Renderer.present.readback"):
+            color = color.cpu().numpy()
+        with passes.scope("Renderer.present.u8"):
+            return np.clip(np.rint(color * 255.0), 0, 255).astype(np.uint8)
 
     # ------------------------------------------------------------------
     # introspection, picking, state
@@ -884,11 +928,14 @@ class Renderer:
     def stats(self) -> dict:
         """Scene and culling counts of the last rendered frame, its drop
         counters (the worst frame of the last ``render_frames`` folded in),
-        exposure, TAA state, device memory and how the last frame ran
-        (``frame_program``: "graph" or "eager: <why>").  Does not advance the
+        exposure, TAA state, device memory, how the last frame ran
+        (``frame_program``: "graph" or "eager: <why>"), the programs it
+        holds (``programs``) and GpuTiming's table, the last frame's samples
+        in it (read once its events complete).  Does not advance the
         frames.  A forward frame culls nothing: every model counts as
         visible."""
         out = self._latest_out()
+        passes.collect(wait=True)
         total = self.scene_data.num_models
         n_visible = int(out["model_visible"].sum()) if "model_visible" in out else total
         rs = {k: int(v) for k, v in out["raster_stats"].items()}
@@ -913,8 +960,23 @@ class Renderer:
             "taa_history_valid": bool(self.frame_state.taa_valid),
             "frame_program": self.frame_program,
             **self.memory_stats(),
+            **self._program_stats(),
             **({"frame_timing": self._frame_times.stats()} if self._gpu_timing else {}),
         }
+
+    def _program_stats(self) -> dict:
+        """``{"programs": {name: ...}}`` of the frame and shadow programs
+        held: capture seconds, pool bytes, and the traced replays read and
+        unread (a replay overwritten before its events were read, as each
+        but the last of a ``render_frames`` clip)."""
+        progs = {p.spans.program: p for p in (self._program, self._shadow_program)
+                 if p is not None}
+        if not progs:
+            return {}
+        return {"programs": {name: {"capture_s": p.capture_s, "pool_bytes": p.pool_bytes,
+                                    "replays_read": p.spans.read,
+                                    "replays_unread": p.spans.unread}
+                             for name, p in progs.items()}}
 
     def memory_stats(self) -> dict:
         """Device memory in use, total and peak in bytes; empty on the CPU."""
