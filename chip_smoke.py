@@ -124,6 +124,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    filters and misaligned tables, and on a dense setup (9,000 triangles
    at 64^2: every tile split, candidate lists that fill): key bits, ids,
    live blocks and covered pairs equal to the plain version's.
+   The present's u8 conversion (``present_u8``, ``csrc/present_u8.cu``:
+   not a TPU kernel, the reference converts on the host) on a random
+   1080p colour with every level's half, its float32 neighbours, +-0,
+   +-inf and NaN, aligned, misaligned and odd: equal to the plain version
+   and to numpy's formula, and timed at 1920x1080x3 as the others.
    Then the launch path: every kernel wrapper's host microseconds per call
    on a tiny input (``launch_us``: 2 x 3 runs of 1000 calls, no
    synchronisation inside a run) beside ``clone`` of the same input, taken
@@ -172,7 +177,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    with the launch counts set to 0 just before and read just after (K1,
    K2, K4, K5 launched; the first frame's and the cached frames' counts
    logged), then 10 frames of ``render_frames``: drop counters 0, models
-   visible, finite colour, more than 30% covered; one Renderer frame held
+   visible, finite colour, more than 30% covered; one ``render_to_u8``
+   (one conversion on the card, bytes equal to numpy's conversion of the
+   frame's colour); one Renderer frame held
    against ``deferred_frame`` called directly (the cached map bit-equal to
    the frame's own shadow raster; depth, ids, counters bit-equal, colour
    within 1e-3) and against the frame without the stats block (its text
@@ -562,6 +569,10 @@ def work_merge(a, b, ka, kb):
     return nbytes(a, b, ka, kb, a), 0
 
 
+def work_present(color):
+    return nbytes(color) + color.numel(), color.numel()  # f32 in, u8 out; one product a value
+
+
 # the warp skip that X1's bound counts: K2's rectangle (rows, columns) and pixels a thread
 # (the image's need, not X1's design: csrc/exhaustive_raster.cu's warps are smaller)
 X1_RECT = (8, 32)
@@ -820,6 +831,7 @@ def tiny_inputs(dev):
         "exhaustive_raster": ((s, 64, 16), {"tile_h": 16, "tile_w": 64}),
         "masked_raster": (masked_raster_args(m_setup, m_arec, m_atlas, m_aw, 64, 16, chunk=32),
                           {}),
+        "present_u8": ((f32,), {}),
     }
 
 
@@ -1128,6 +1140,7 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
     import subprocess
 
     from unclerenderer_tpu_torch.ops import _cuda
+    from unclerenderer_tpu_torch.ops.present import to_u8_host
     from unclerenderer_tpu_torch.render import common as common_mod
     from unclerenderer_tpu_torch.render.deferred import deferred_frame
     from unclerenderer_tpu_torch.render.params import FrameState, RenderSettings
@@ -1220,6 +1233,14 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
     rep.update(launches=launches, first_frame_launches=first, cached_frame_launches=cached,
                covered=covered, stats=st, stats_after_render_frames=st_chain)
     del colors
+
+    # ---- the present: converted on the card, its bytes read back
+    before = _cuda.LAUNCHES["present_u8"]
+    img = r.render_to_u8()
+    presents = _cuda.LAUNCHES["present_u8"] - before
+    check(presents == 1 and np.array_equal(img, to_u8_host(r._last_out["color"].cpu().numpy())),
+          f"render_to_u8: {presents} conversions, or bytes other than numpy's conversion")
+    rep["present_launches"] = presents
 
     # ---- one Renderer frame against deferred_frame called directly
     params = r.frame_params()
@@ -2395,6 +2416,7 @@ def main() -> int:
 
     from unclerenderer_tpu_torch.ops import _cuda
     from unclerenderer_tpu_torch.ops import hzb as hzb_mod
+    from unclerenderer_tpu_torch.ops import present as present_mod
     from unclerenderer_tpu_torch.ops import probes
     from unclerenderer_tpu_torch.ops import raster_kernels as rk
     from unclerenderer_tpu_torch.ops import shadow as shadow_mod
@@ -2504,6 +2526,12 @@ def main() -> int:
         "masked_raster": dict(module=rk, ref=rk.masked_raster_ref, work=work_masked,
                               source=csrc + "masked_raster.cu",
                               replaces="unclerenderer_tpu/render/common.py:689"),
+        # the present's u8 conversion: not a TPU kernel either; the reference
+        # converts on the host (render_to_u8's numpy formula), no PyTorch call
+        # computes it
+        "present_u8": dict(module=present_mod, ref=present_mod.present_u8_ref, work=work_present,
+                           source=csrc + "present_u8.cu",
+                           replaces="unclerenderer_tpu/render/renderer.py:779"),
     }
     for name, k in kernels.items():
         k.setdefault("attr", name)
@@ -2698,6 +2726,24 @@ def main() -> int:
                    "(1-8 byte types, aligned, misaligned, odd, 24 MB at five offsets) bit-equal "
                    "to plain on random inputs")
 
+    # ---- 3a. the present's u8 conversion vs plain: a 1080p colour with every level's half
+    # (k + 0.5) / 255, its float32 neighbours and the special values scattered over it
+    n = HEIGHT * WIDTH * 3 + 3
+    colour = rng.uniform(-0.5, 1.5, n).astype(np.float32)
+    halves = ((np.arange(255) + 0.5) / 255).astype(np.float32)
+    near = [halves] + [np.nextafter(halves, np.float32(d * np.inf)) for d in (1, -1)]
+    picks = np.concatenate(near + [special, np.array([3.4e38, -3.4e38], np.float32)])
+    colour[rng.choice(n, picks.size, replace=False)] = picks
+    colour = torch.from_numpy(colour).to(dev)
+    for sl in (slice(0, n - 3), slice(1, 1002), slice(0, 37)):  # aligned, misaligned, odd
+        versus_plain("present_u8", colour[sl])
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = np.clip(np.rint(colour.cpu().numpy() * 255.0), 0, 255).astype(np.uint8)
+    check(np.array_equal(present_mod.present_u8(colour).cpu().numpy(), want),
+          "present_u8 != numpy's formula")
+    log("kernels", "present_u8 bit-equal to plain and to numpy's formula (halves and their "
+                   "neighbours, +-0, +-inf, NaN, the largest floats; aligned, misaligned, odd)")
+
     # ---- 3a. K5 vs plain on random inputs
     table = torch.from_numpy(rng.standard_normal((8192, 5)).astype(np.float32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, 8192, 263_187).astype(np.int32)).to(dev)
@@ -2867,6 +2913,10 @@ def main() -> int:
                           f"{1e3 * max(bytes_s, ops_s):.4f} ms "
                           f"({'B' if bytes_s >= ops_s else 'O'}; every pair in full: "
                           f"{all_pairs_ms:.4f} ms) (on {smi})")
+
+    # the present's conversion at the frame's size (its main path is render_to_u8, phase 7)
+    measure("present_u8", (colour[:HEIGHT * WIDTH * 3].view(HEIGHT, WIDTH, 3),), {})
+    del colour
 
     def recorded(names, frame_scene, frame_params, frame_settings):
         """The calls of kernels ``names`` in one full-size frame: name ->
@@ -3674,6 +3724,8 @@ def main() -> int:
     def main_path_launches(name):
         if name == "binned_raster_debug":
             return report["debug"]["launches"]
+        if name == "present_u8":  # one render_to_u8 of the Renderer phase
+            return report["renderer"]["present_launches"]
         path = ("slice" if name in default_kernels else "fused" if name in attr_kernels else
                 "sampling" if name == "shadow_select9_f32" else
                 "probes" if name in probe_kernels else
@@ -3704,7 +3756,7 @@ def main() -> int:
          **({"mask_ms": k["frame"]["mask_ms"], "tile_ms": k["frame"]["tile_ms"],
              "mask_bytes": k["frame"]["mask_bytes"], "tpu_kernel": False}
             if n == "exhaustive_raster" else {}),
-         **({"tpu_kernel": False} if n == "masked_raster" else {})}
+         **({"tpu_kernel": False} if n in ("masked_raster", "present_u8") else {})}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

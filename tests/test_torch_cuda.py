@@ -1560,3 +1560,157 @@ def test_bench_chain_replays_match_the_cpu(cuda_device, monkeypatch):
         assert float((g["color"].cpu() - h["color"]).abs().max()) <= 1e-3, chain
         assert runs[cuda_device][3]() == runs["cpu"][3](), f"chain {chain}"
         assert launched["giant_raster"] == 2 * 3, launched  # camera and map, every frame
+
+
+# ------------------------------------- the present (ops/present.py, render_to_u8)
+
+
+def _numpy_u8(x: np.ndarray) -> np.ndarray:
+    """The reference's conversion (``unclerenderer_tpu/render/renderer.py:779``)."""
+    with np.errstate(invalid="ignore", over="ignore"):  # NaN's cast, the largest floats
+        return np.clip(np.rint(x * 255.0), 0, 255).astype(np.uint8)
+
+
+def _present_case(case, dev):
+    """(colour, out or None, the kernel expected).  ``frame1080``: a random
+    1080p colour in [-0.5, 1.5] with every level's half (k + 0.5) / 255
+    and its two float32 neighbours each side, +-0, +-inf, the largest
+    floats and NaN scattered over it; ``odd``, ``tiny``: lengths of no
+    whole quad (tails 3 and 3); ``misaligned``: a colour view one float
+    past a 16-byte boundary; ``out_misaligned``: an output view one byte
+    past a 4-byte boundary."""
+    rng = np.random.default_rng(2200)
+    if case == "frame1080":
+        x = rng.uniform(-0.5, 1.5, (1080, 1920, 3)).astype(np.float32)
+        half = ((np.arange(255) + 0.5) / 255).astype(np.float32)
+        near = [half]
+        for toward in (np.float32(np.inf), np.float32(-np.inf)):
+            y = half
+            for _ in range(2):
+                y = np.nextafter(y, toward)
+                near.append(y)
+        big = np.finfo(np.float32).max
+        special = np.concatenate(near + [np.array([0.0, -0.0, np.inf, -np.inf, big, -big,
+                                                   np.nan, -np.nan], np.float32)])
+        flat = x.reshape(-1)
+        flat[rng.choice(flat.size, special.size, replace=False)] = special
+        return torch.from_numpy(x).to(dev), None, "present_quads"
+    n = {"odd": 1001 * 3, "tiny": 3}.get(case, 4001)
+    flat = torch.from_numpy(rng.uniform(-0.5, 1.5, n + 1).astype(np.float32)).to(dev)
+    if case == "misaligned":
+        return flat[1:], None, "present_scalars"
+    if case == "out_misaligned":
+        out = torch.empty(n + 1, dtype=torch.uint8, device=dev)[1:]
+        return flat[:n], out, "present_scalars"
+    return flat[:n].reshape(-1, 3), None, "present_quads"
+
+
+@pytest.mark.parametrize("case", ["frame1080", "odd", "tiny", "misaligned", "out_misaligned"])
+def test_present_u8_kernel_bit_equal_one_launch(cuda_device, case):
+    """The u8 conversion kernel byte-equal to its plain version and to
+    numpy's formula (NaN to 0), one launch of the vector kernel on aligned
+    buffers, of the scalar kernel on a misaligned view."""
+    from unclerenderer_tpu_torch.ops.present import present_u8, present_u8_ref
+
+    x, out, kernel = _present_case(case, cuda_device)
+    before = _cuda.LAUNCHES["present_u8"]
+    got = []
+    names = _kernels_launched(lambda: got.append(present_u8(x, out=out)))
+    assert _cuda.LAUNCHES["present_u8"] == before + len(got)
+    assert len(names) == 1 and kernel in names[0], names
+    assert got[0].dtype == torch.uint8 and got[0].shape == x.shape
+    assert out is None or got[0] is out
+    assert torch.equal(got[0], present_u8_ref(x))
+    np.testing.assert_array_equal(got[0].cpu().numpy(), _numpy_u8(x.cpu().numpy()))
+
+
+def test_present_u8_kernel_refuses_what_it_does_not_take(cuda_device):
+    from unclerenderer_tpu_torch.ops.present import present_u8
+
+    x = torch.zeros((8, 8, 3), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        present_u8(x.half())
+    with pytest.raises(ValueError, match="uint8"):
+        present_u8(x, out=torch.empty((8, 8, 3), dtype=torch.int8, device=cuda_device))
+    with pytest.raises(ValueError, match="shape"):
+        present_u8(x, out=torch.empty((8, 8, 4), dtype=torch.uint8, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        present_u8(x.transpose(0, 1))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        present_u8(x, out=torch.empty((8, 8, 3), dtype=torch.uint8))
+
+
+def test_render_to_u8_on_the_card_equals_numpys_conversion(program_scene, cuda_device,
+                                                           monkeypatch):
+    """``render_to_u8`` on a 128^2 card Renderer, op by op, capturing and
+    replaying: numpy's conversion of the same frame's colour, one launch of
+    the conversion a present."""
+    r, orbit = _program_renderer(program_scene, cuda_device, monkeypatch)
+    modes = []
+    for _ in range(4):
+        orbit()
+        before = _cuda.LAUNCHES["present_u8"]
+        img = r.render_to_u8()
+        assert _cuda.LAUNCHES["present_u8"] == before + 1
+        modes.append(r.frame_program)
+        assert img.dtype == np.uint8 and img.shape == (PROGRAM_SIZE, PROGRAM_SIZE, 3)
+        np.testing.assert_array_equal(img, _numpy_u8(r._last_out["color"].cpu().numpy()))
+    assert modes[0].startswith("eager") and modes[-1] == "graph", modes
+
+
+def test_render_to_u8_arrays_outlive_later_presents(program_scene, cuda_device, monkeypatch):
+    """An array ``render_to_u8`` returned is unchanged by two later calls
+    that present other frames, and shares no memory with theirs."""
+    r, orbit = _program_renderer(program_scene, cuda_device, monkeypatch)
+    for _ in range(3):  # op by op, capture, replay
+        orbit()
+        r.render_to_u8()
+    first = r.render_to_u8()
+    kept = first.copy()
+    later = []
+    for _ in range(2):
+        orbit()
+        later.append(r.render_to_u8())
+    np.testing.assert_array_equal(first, kept)
+    assert not np.array_equal(later[-1], kept)
+    assert not any(np.shares_memory(first, img) for img in later)
+    assert not np.shares_memory(later[0], later[1])
+
+
+def test_render_to_u8_card_trace_holds_the_present_spans(program_scene, cuda_device,
+                                                        monkeypatch, tmp_path):
+    """A profiler trace of a replayed ``render_to_u8`` on the card:
+    ``Renderer.frame``, then ``Renderer.present.u8`` (the conversion's
+    kernel launched in it), then ``Renderer.present.readback`` (the u8
+    frame's copy launched in it), all under the caller's range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from unclerenderer_tpu_torch.core.traceparse import LAUNCH_CATS, load_events
+
+    r, orbit = _program_renderer(program_scene, cuda_device, monkeypatch)
+    for _ in range(3):
+        orbit()
+        r.render_to_u8()
+    assert r.frame_program == "graph"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("caller"):
+            r.render_to_u8()
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    events = [e for e in load_events(tmp_path / "t.json") if e.get("ph") == "X"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            spans.setdefault(e["name"], (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+
+    def inside(t, name):
+        return spans[name][0] <= t[0] and t[1] <= spans[name][1]
+
+    for name in ("Renderer.frame", "Renderer.present.u8", "Renderer.present.readback"):
+        assert inside(spans[name], "caller"), name
+    assert spans["Renderer.frame"][1] <= spans["Renderer.present.u8"][0]
+    assert spans["Renderer.present.u8"][1] <= spans["Renderer.present.readback"][0]
+    calls = [(float(e["ts"]), str(e.get("name", ""))) for e in events
+             if e.get("cat") in LAUNCH_CATS]
+    assert any("LaunchKernel" in n and inside((t, t), "Renderer.present.u8") for t, n in calls)
+    assert any("Memcpy" in n and inside((t, t), "Renderer.present.readback") for t, n in calls)

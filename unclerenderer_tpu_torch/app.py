@@ -35,6 +35,7 @@ import numpy as np
 
 from .core.config import load_config
 from .core.logging import log_info, log_warning, set_log_level
+from .ops.present import to_u8_host
 from .render.params import RenderSettings
 from .textures.png import save_png
 
@@ -122,8 +123,7 @@ def main(argv=None) -> int:
         total = time.monotonic() - t0
         stem = Path(args.output)
         for i, frame in enumerate(colors):
-            u8 = np.clip(np.rint(frame * 255.0), 0, 255).astype(np.uint8)
-            save_png(stem.with_name(f"{stem.stem}_{i:03d}{stem.suffix}"), u8)
+            save_png(stem.with_name(f"{stem.stem}_{i:03d}{stem.suffix}"), to_u8_host(frame))
         log_info(
             f"orbit: {args.orbit} frames, {total / args.orbit * 1e3:.2f} ms/frame incl. the "
             f"first frame's kernel build; wrote {stem.stem}_000{stem.suffix}.."

@@ -100,6 +100,8 @@ SIGNATURES = {
     # tile_h, tile_w, width, height, y_offset, full_height, atlas_width, lanes,
     # atlas_dtype, bilinear, stream
     "masked_raster": [_P] * 12 + [_I] * 12 + [_P],
+    # the present's u8 conversion: f32 colour, u8 out, n values, stream
+    "present_u8": [_P, _P, _L, _P],
 }
 
 # kernel wrapper -> its C entry, where the two names differ
@@ -108,7 +110,8 @@ ENTRY = {"materialize_rows": "copy_bytes", "copy_rows": "copy_bytes", "materiali
 # launches per kernel wrapper (K2/K3 share giant_raster; with records, K1 and
 # K2/K3 count under binned_raster_attrs and giant_raster_attrs; K1 under
 # kernel_debug_print under binned_raster_debug; K4 on f32 rows under
-# shadow_select9_f32; M1, the masked raster, under masked_raster)
+# shadow_select9_f32; M1, the masked raster, under masked_raster; the
+# present's u8 conversion under present_u8)
 LAUNCHES = {name: 0 for name in [n for n in SIGNATURES if n not in ENTRY.values()] + list(ENTRY)}
 
 # kernel wrapper -> bound C function, and device index -> raw current

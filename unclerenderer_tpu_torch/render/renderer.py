@@ -76,6 +76,7 @@ from ..core import passes, scenecache
 from ..core.config import RendererConfig
 from ..core.logging import log_error, log_info, log_warning
 from ..core.tasks import parallel_map, schedule_task, set_task_system_enabled
+from ..ops.present import present_u8, to_u8_host
 from ..scene.build import SceneData, build_scene
 from ..scene.camera import Camera
 from ..scene.scene_json import SceneLightDesc, load_scene_json
@@ -442,6 +443,7 @@ class Renderer:
         self._shadow_key = None
         self._chain_drop_counters = None
         self._last_out = None
+        self._present_u8 = None  # the card's present: the u8 frame before its read-back
         self._pending_reload = None
         self.selected_object_id = 0
         self.selected_name = ""
@@ -854,12 +856,27 @@ class Renderer:
 
     def render_to_u8(self, delta_time: float = 1.0 / 60.0) -> np.ndarray:
         """Render and convert to (H, W, 3) uint8 as the UNORM backbuffer
-        stores it."""
+        stores it.  On the card the conversion runs there
+        (``ops/present.py present_u8``, into a buffer kept while the frame
+        size holds) and only its bytes are read back, into fresh pinned host
+        memory; on the CPU the colour is read back and converted on the host.
+        The array returned owns its memory: later calls leave it as it is."""
         color = self.render_frame(delta_time)["color"]
+        if color.is_cuda:
+            with passes.scope("Renderer.present.u8"):
+                if self._present_u8 is None or self._present_u8.shape != color.shape:
+                    self._present_u8 = torch.empty(color.shape, dtype=torch.uint8,
+                                                   device=color.device)
+                present_u8(color, out=self._present_u8)
+            with passes.scope("Renderer.present.readback"):
+                host = torch.empty(color.shape, dtype=torch.uint8, pin_memory=True)
+                host.copy_(self._present_u8, non_blocking=True)
+                torch.cuda.current_stream(color.device).synchronize()
+                return host.numpy()
         with passes.scope("Renderer.present.readback"):
             color = color.cpu().numpy()
         with passes.scope("Renderer.present.u8"):
-            return np.clip(np.rint(color * 255.0), 0, 255).astype(np.uint8)
+            return to_u8_host(color)
 
     # ------------------------------------------------------------------
     # introspection, picking, state
@@ -1163,7 +1180,7 @@ class Renderer:
                 "exposure_ev": float(self.frame_state.exposure_ev),
             })
         self.composite_overlays(img)
-        return np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+        return to_u8_host(img)
 
     def composite_overlays(self, img: np.ndarray) -> np.ndarray:
         """Selection AABB wireframe and corner axis gizmo onto an (H, W, 3)
