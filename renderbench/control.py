@@ -1,8 +1,9 @@
-"""The control of the comparison that decides ``correct``: the reference
-put in the program's place with the scene's vertex inputs (positions,
-normals, tangents, texture coordinates) rounded to bfloat16 -- the step a
-later change would take to halve the vertex stage's bytes -- against the
-float64 reference, over the frames a run carries from the initial state
+"""The control of the comparison that decides ``correct``: the
+configuration's reference (``run.checked_reference``, which refuses a cell
+it does not draw) put in the program's place with the scene's vertex
+inputs (positions, normals, tangents, texture coordinates) rounded to
+bfloat16 -- the step a later change would take to halve the vertex
+stage's bytes -- against the float64 reference, over the frames a run carries from the initial state
 (set-up's first frames and the carried run early in the window, drawn
 from the seed as a run draws them) and the frame state at the carried
 run.  Its readings must exceed the configuration's limits.
@@ -25,7 +26,6 @@ if str(HERE.parent) not in sys.path:
     sys.path.insert(0, str(HERE.parent))
 
 from renderbench import check, scenegen  # noqa: E402
-from renderbench.reference.frames import ReferenceScene  # noqa: E402
 from renderbench.traffic import Traffic  # noqa: E402
 
 
@@ -37,6 +37,7 @@ def control_readings(bench: dict, workload: str, seed: int, device="cuda",
     from renderbench import run
 
     _cell, config, spec = run.cell_files(bench, workload, overrides)
+    reference = run.checked_reference(config, spec)
     chk = spec["check"]
     with tempfile.TemporaryDirectory(prefix="renderbench-control-") as tmp:
         scene_json = scenegen.write_scene(Path(tmp) / "scene", seed=seed, **config["scene"])
@@ -48,8 +49,9 @@ def control_readings(bench: dict, workload: str, seed: int, device="cuda",
     content = scenegen.scene_content(seed=seed, **config["scene"])
     sides = {}
     for label, bf16 in (("reference", False), ("control", True)):
-        ref = ReferenceScene(content, config["render_settings"],
-                             config.get("renderer_config", {}), device, bf16_vertices=bf16)
+        ref = reference.ReferenceScene(content, config["render_settings"],
+                                       config.get("renderer_config", {}), device,
+                                       bf16_vertices=bf16)
         n_models = ref.scene.n_models
         state, out, at = ref.initial_state(), {}, None
         for k in range(carry_at + chk["run_frames"]):
@@ -75,9 +77,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     bench = run.load_bench()
     for seed in args.seeds:
-        print(json.dumps({"workload": args.workload,
-                          **control_readings(bench, args.workload, seed)}),
-              flush=True)
+        try:
+            res = control_readings(bench, args.workload, seed)
+        except run.Refused as e:
+            print(e, file=sys.stderr)
+            return 4
+        print(json.dumps({"workload": args.workload, **res}), flush=True)
     return 0
 
 

@@ -4,8 +4,11 @@ deferred pipeline draws, written plainly from its description.
 Culling (frustum planes, then the previous frame's hierarchical Z) ->
 the shadow map (back faces of every visible model, nearest depth) -> the
 camera's visibility (front faces, reverse Z; alpha-masked materials
-tested at their own texel) -> attributes and materials (trilinear,
-wrapping, level of detail from the 2x2 quad's derivatives, normal map) ->
+tested at their own texel, trilinear under either material sampler, as
+the Renderer's masked raster tests them: the D3D12 shader clips on the
+anisotropic sample where that is the sampler) -> attributes and
+materials (trilinear, or anisotropic, wrapping, the footprint from the
+2x2 quad's derivatives, normal map) ->
 GGX direct light with 4-tap PCF shadows, split-sum IBL, the sky where
 nothing was drawn -> TAA (history clamped to the 3x3 neighbourhood) ->
 auto exposure (16x16 block log-average, adapted) -> the Khronos PBR
@@ -315,6 +318,31 @@ def sample_materials(scene: Scene, mat, uv, lod) -> torch.Tensor:
         if sel.numel():
             out[sel] = trilinear_wrap(chain, uv[sel], lod[sel])
     return out
+
+
+def sample_materials_aniso(scene: Scene, mat, uv, dx, dy, size, taps: int) -> torch.Tensor:
+    """The anisotropic sampler (D3D12_FILTER_ANISOTROPIC, MaxAnisotropy =
+    ``taps``): with the footprint's squared axes in texels rho_x =
+    |dx * size|^2 and rho_y = |dy * size|^2, the larger rho_maj and the
+    smaller rho_min (each at least 1e-12), the ratio n = sqrt(rho_maj /
+    rho_min) clamped to [1, taps] and the level of detail 1/2 log2(max(
+    rho_min, rho_maj / n^2)): the mean of ``taps`` trilinear taps at that
+    level, spread along the major axis's uv derivative d at uv + d ((k +
+    1/2) / taps - 1/2) (1 - 1/n), k = 0 .. taps - 1.  An isotropic
+    footprint (n = 1) is the trilinear tap."""
+    rho_x = ((dx * size) ** 2).sum(-1)
+    rho_y = ((dy * size) ** 2).sum(-1)
+    rho_maj = torch.maximum(rho_x, rho_y).clamp(min=1e-12)
+    rho_min = torch.minimum(rho_x, rho_y).clamp(min=1e-12)
+    n = torch.sqrt(rho_maj / rho_min).clamp(1.0, float(taps))
+    lod = 0.5 * torch.log2(torch.maximum(rho_min, rho_maj / (n * n)))
+    major = torch.where((rho_x >= rho_y)[:, None], dx, dy)
+    spread = 1.0 - 1.0 / n
+    out = torch.zeros(uv.shape[0], 8, dtype=F64, device=uv.device)
+    for k in range(taps):
+        t = ((k + 0.5) / taps - 0.5) * spread
+        out += sample_materials(scene, mat, uv + major * t[:, None], lod)
+    return out / taps
 
 
 def material_size(scene: Scene, mat) -> torch.Tensor:

@@ -5,11 +5,13 @@ scene of ``scene.py``.
 It imports nothing of the program and takes nothing the program made: the
 scene comes from the generator's data (``scenegen.scene_content``), the
 camera and sun from the traffic, the settings and constants from the
-configuration file.  A state is the reference's own (``initial_state``,
-carried frame to frame) or a snapshot of the program's
-(``state_from_program``: TAA history and exposure; the reference then
-culls nothing by the hierarchical Z on that first frame, having no depth
-of the frame before).
+configuration file.  ``DRAWS`` says which settings it follows and which
+values of each it draws; the harness refuses a cell whose configuration
+or traffic asks for anything else (``run.py refusal``).  A state is the
+reference's own (``initial_state``, carried frame to frame) or a snapshot
+of the program's (``state_from_program``: TAA history and exposure; the
+reference then culls nothing by the hierarchical Z on that first frame,
+having no depth of the frame before).
 """
 
 from __future__ import annotations
@@ -35,7 +37,63 @@ CONFIG_DEFAULTS = {
 SWITCHES = {"enable_shadows": True, "enable_sky": True, "enable_ibl": True,
             "enable_tonemap": True, "enable_auto_exposure": True, "enable_taa": True,
             "enable_cas": True, "enable_gpu_culling": True, "enable_hzb": True}
+#: the material samplers drawn (``RenderSettings.texture_filter``)
+FILTERS = ("trilinear", "anisotropic")
 DELTA_TIME = 1.0 / 60.0
+
+
+def _flag(v) -> bool:
+    return isinstance(v, bool)
+
+
+def _count(lo: int):
+    def ok(v) -> bool:
+        return isinstance(v, int) and not isinstance(v, bool) and v >= lo
+    return ok
+
+
+def _number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def _one_of(*values):
+    return lambda v: isinstance(v, str) and v in values
+
+
+_PER_FRAME = {**{k: _flag for k in SWITCHES}, "texture_filter": _one_of(*FILTERS),
+              "max_anisotropy": _count(1)}
+#: ``RenderSettings`` keys that only choose between implementations with
+#: identical output (``render/params.py``'s docstring: the TPU choices, the
+#: kernel flags, the one kernel path under ``"auto"`` and ``"pallas"``), and
+#: the tile, chunk and cap sizes, whose drops a run counts in ``failed``
+_SAME_IMAGE = {
+    **{k: _flag for k in ("pallas_interpret", "bin_align_scatter", "env_matmul_gather",
+                          "hzb_pallas_tail", "env_select_kernel", "mat_select_kernel",
+                          "bin_mat_idx")},
+    "compact_mode": lambda v: isinstance(v, str), "raster_backend": _one_of("auto", "pallas"),
+    **{k: _count(1) for k in ("tile_h", "tile_w", "chunk", "giant_tile_h", "giant_tile_w",
+                              "bin_giant_chunk", "shadow_chunk", "shadow_tile_h",
+                              "shadow_tile_w", "shadow_big_tile_h", "shadow_big_tile_w",
+                              "shadow_giant_tile_h", "shadow_giant_tile_w")},
+    **{k: _count(-1) for k in ("masked_tri_cap", "compact_cap", "shadow_compact_cap")},
+    **{k: _number for k in ("bin_budget_factor", "shadow_bin_budget_factor")},
+}
+#: What the reference draws, by where a setting comes from: for each key it
+#: follows, a test of the values it draws.  A configuration's
+#: ``render_settings`` and ``renderer_config`` and each value of its
+#: traffic's ``settings_cycle`` may set a key outside these only to the
+#: program's default.  A settings cycle changes no size: the reference
+#: reads those once, from the configuration.
+DRAWS = {
+    "render_settings": {"width": _count(1), "height": _count(1),
+                        "shadow_map_size": _count(1), **_PER_FRAME, **_SAME_IMAGE},
+    "settings_cycle": {**_PER_FRAME, **_SAME_IMAGE},
+    # the Renderer's constants, and what changes no byte compared: its
+    # timing, its task system, the stats block (left out of the comparison)
+    "renderer_config": {**{k: _number for k in CONFIG_DEFAULTS},
+                        **{k: _flag for k in ("enable_gpu_timing", "use_task_system",
+                                              "enable_gpu_debug_print")}},
+}
 
 
 @dataclasses.dataclass
@@ -48,9 +106,10 @@ class State:
 
 class ReferenceScene:
     """The scene of ``content`` at ``settings`` (``RenderSettings`` keyword
-    values: ``width``, ``height``, ``shadow_map_size`` and the
-    ``SWITCHES``) and ``config`` (``RendererConfig`` keyword values), on
-    ``device``; ``bf16_vertices``: ``Scene``'s (the control)."""
+    values: ``width``, ``height``, ``shadow_map_size``, the ``SWITCHES``,
+    ``texture_filter`` and ``max_anisotropy``) and ``config``
+    (``RendererConfig`` keyword values), on ``device``; ``bf16_vertices``:
+    ``Scene``'s (the control)."""
 
     def __init__(self, content: dict, settings: dict, config: dict, device,
                  bf16_vertices: bool = False):
@@ -58,6 +117,8 @@ class ReferenceScene:
         self.width, self.height = int(settings["width"]), int(settings["height"])
         self.map_size = int(settings.get("shadow_map_size", 4096))
         self.switches = {k: bool(settings.get(k, v)) for k, v in SWITCHES.items()}
+        self.sampler = {"texture_filter": settings.get("texture_filter", FILTERS[0]),
+                        "max_anisotropy": int(settings.get("max_anisotropy", 4))}
         self.cfg = dict(CONFIG_DEFAULTS)
         self.cfg.update({k: v for k, v in config.items() if k in CONFIG_DEFAULTS})
         if not self.cfg["shadow_bias"]:
@@ -87,13 +148,15 @@ class ReferenceScene:
     def frame(self, n: int, view: dict, state: State, settings: dict | None = None,
               shown=None, changed: bool = False):
         """Frame ``n`` at ``view`` (``camera_pos``, ``look_at``,
-        ``light_direction``) from ``state``, with the ``SWITCHES`` of
-        ``settings`` over the configuration's, the models ``shown`` (all by
-        default); ``changed``: the settings changed just before it (the
-        TAA history restarts).  Returns ((H, W, 3) bytes, the new state)."""
+        ``light_direction``) from ``state``, with the ``SWITCHES`` and the
+        sampler of ``settings`` over the configuration's, the models
+        ``shown`` (all by default); ``changed``: the settings changed just
+        before it (the TAA history restarts).  Returns ((H, W, 3) bytes, the
+        new state)."""
         s, cfg = self.scene, self.cfg
-        sw = {**self.switches, **{k: bool(v) for k, v in (settings or {}).items()
-                                  if k in SWITCHES}}
+        settings = settings or {}
+        sw = {**self.switches, **{k: bool(v) for k, v in settings.items() if k in SWITCHES},
+              **self.sampler, **{k: v for k, v in settings.items() if k in self.sampler}}
         if changed:
             state = dataclasses.replace(state, history=None, frames=0)
         w, h = self.width, self.height
@@ -161,7 +224,8 @@ class ReferenceScene:
 
     def _shade(self, p, sw, shown, tri, t, x, y):
         """The lit HDR colour (n, 3) of the pixels (x, y) that show triangle
-        ``t``, under switches ``sw``, the models ``shown`` casting shadows."""
+        ``t``, under the switches and sampler ``sw``, the models ``shown``
+        casting shadows."""
         s, cfg = self.scene, self.cfg
         a, b, c = tri.edges(t)
 
@@ -184,8 +248,11 @@ class ReferenceScene:
         d_dx = interp(bary(bx + 1.5, by + 0.5), s.uv[t]) - uv_tl
         d_dy = interp(bary(bx + 0.5, by + 1.5), s.uv[t]) - uv_tl
         mat = s.tri_material[t]
-        lod = fr.footprint_lod(d_dx, d_dy, fr.material_size(s, mat)[:, None])
-        tex = fr.sample_materials(s, mat, uv, lod)
+        size = fr.material_size(s, mat)[:, None]
+        if sw["texture_filter"] == "anisotropic":
+            tex = fr.sample_materials_aniso(s, mat, uv, d_dx, d_dy, size, sw["max_anisotropy"])
+        else:
+            tex = fr.sample_materials(s, mat, uv, fr.footprint_lod(d_dx, d_dy, size))
 
         albedo = s.base_factor[mat, :3] * tex[:, 0:3]
         rough = s.roughness[mat] * tex[:, 4]

@@ -18,13 +18,20 @@ Everything a cell is made of is found by name: the configuration in
 ``configs/<config>.json``, the traffic in ``traffic/<traffic>.json`` (read
 by ``traffic.py``), each metric, end to end or per layer, in
 ``metrics/<name>.py``, whose ``read(ctx)`` returns a number or None (then
-the metric is left out; ``readers.py`` holds the arithmetic).  A metric
-module may name program functions in ``CALLS``; the traced run records
-their calls in the profiled op-by-op frames for it.
+the metric is left out; ``readers.py`` holds the arithmetic), and the
+reference in ``reference/<name>.py``, the name a configuration gives
+under ``"reference"`` (default ``frames``).  A metric module may name
+program functions in ``CALLS``; the traced run records their calls in the
+profiled op-by-op frames for it.
 
-``correct`` compares frames the timed path presented with the reference
-(``reference/``), an independent float64 renderer of the generator's
-scene data (``check.py``): the reference carries its own frame state from
+A run whose configuration or traffic asks for a setting the reference does
+not draw (its ``DRAWS``) is refused before anything is written or built:
+one line on standard error names the key and the value, and the command
+exits 4.
+
+``correct`` compares frames the timed path presented with the reference,
+an independent float64 renderer of the generator's scene data
+(``check.py``): the reference carries its own frame state from
 the first frame through set-up to a position early in the window (its
 frames and the program's frame state there compared), and renders runs
 from positions spread over the whole window from the program's frame
@@ -39,6 +46,7 @@ T0 = time.perf_counter()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import importlib  # noqa: E402
 import importlib.util  # noqa: E402
@@ -84,6 +92,72 @@ def cell_files(bench: dict, workload: str, overrides: dict | None = None
     for key in ("scene", "render_settings"):
         config[key].update({k: v for k, v in (overrides or {}).items() if k in config[key]})
     return cell, config, traffic
+
+
+class Refused(ValueError):
+    """A cell asks for a setting its reference does not draw."""
+
+
+def reference_module(config: dict, directory: Path = HERE / "reference"):
+    """The reference that ``config`` names (``"reference"``, default
+    ``"frames"``): ``<directory>/<name>.py``, loaded from its file as a
+    module of ``renderbench.reference``; it exports ``ReferenceScene`` and
+    ``DRAWS``."""
+    name = config.get("reference", "frames")
+    path = directory / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {config['name']!r} names the reference "
+                                f"{name!r}: no file {path}")
+    spec = importlib.util.spec_from_file_location(f"renderbench.reference.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclasses look their module up while it loads
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _same(value, default) -> bool:
+    """A JSON value against the program's default (a JSON list is a tuple)."""
+    return (tuple(value) if isinstance(value, list) else value) == default
+
+
+def refusal(config: dict, traffic: dict, draws: dict) -> str | None:
+    """Why the reference's ``draws`` cannot judge the cell of ``config`` and
+    ``traffic``: the first key of the configuration's ``render_settings``
+    or ``renderer_config``, or of a value of the traffic's
+    ``settings_cycle``, set to a value that ``draws`` does not allow for
+    it, or, where ``draws`` does not name it, to another value than the
+    program's default; None where it can."""
+    from unclerenderer_tpu_torch.core.config import RendererConfig
+    from unclerenderer_tpu_torch.render.params import RenderSettings
+
+    def defaults(cls):
+        return {f.name: f.default for f in dataclasses.fields(cls)}
+
+    settings = defaults(RenderSettings)
+    places = [("render_settings", config.get("render_settings", {}), settings),
+              ("renderer_config", config.get("renderer_config", {}), defaults(RendererConfig))]
+    places += [("settings_cycle", v, settings)
+               for v in (traffic.get("settings_cycle") or {}).get("values", [])]
+    for place, values, default in places:
+        for key, value in values.items():
+            allowed = draws[place].get(key)
+            if allowed is not None and allowed(value):
+                continue
+            if allowed is None and key in default and _same(value, default[key]):
+                continue
+            return (f"renderbench: the reference {config.get('reference', 'frames')!r} does "
+                    f"not draw {place} {key}={json.dumps(value)}")
+    return None
+
+
+def checked_reference(config: dict, traffic: dict):
+    """The configuration's reference module, or ``Refused`` where it cannot
+    judge the cell."""
+    ref = reference_module(config)
+    why = refusal(config, traffic, ref.DRAWS)
+    if why:
+        raise Refused(why)
+    return ref
 
 
 def metric_module(name: str):
@@ -280,16 +354,14 @@ def traced_phases(renderer, traffic: Traffic, n: int, device, tmp: Path, modules
 
 def compare_with_reference(content: dict, config: dict, traffic: Traffic, kept: dict,
                            plan: dict, device) -> tuple[bool, dict, dict]:
-    """The reference's frames at every kept position: carried from the
-    initial state through ``plan["carry"]`` frames (the program's state
-    snapshot at the last of them compared too), and each sampled run from
-    its snapshot (``plan["runs"]``: (first frame, count, snapshot)).
-    Returns (correct, the held readings beside their limits, every
-    reading)."""
-    from renderbench.reference.frames import ReferenceScene
-
-    ref = ReferenceScene(content, config["render_settings"], config.get("renderer_config", {}),
-                         device)
+    """The configuration's reference's frames at every kept position:
+    carried from the initial state through ``plan["carry"]`` frames (the
+    program's state snapshot at the last of them compared too), and each
+    sampled run from its snapshot (``plan["runs"]``: (first frame, count,
+    snapshot)).  Returns (correct, the held readings beside their limits,
+    every reading)."""
+    ref = checked_reference(config, traffic.spec).ReferenceScene(
+        content, config["render_settings"], config.get("renderer_config", {}), device)
     n_models = ref.scene.n_models
     pairs, due, state_pair = [], 0, None
 
@@ -341,6 +413,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace_on: bo
     ``cell_files``)."""
     device = torch.device(device)
     _cell, config, spec = cell_files(bench, workload, overrides)
+    checked_reference(config, spec)
     key = "per_layer" if trace_on else "end_to_end"
     modules = {m["name"]: metric_module(m["name"]) for m in cell_metrics(bench, key, workload)}
     chk = spec["check"]
@@ -460,7 +533,12 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     bench = load_bench()
-    cell, _config, _traffic = cell_files(bench, args.workload)
+    cell, config, traffic = cell_files(bench, args.workload)
+    try:
+        checked_reference(config, traffic)
+    except Refused as e:
+        print(e, file=sys.stderr)
+        return 4
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
         print(f"renderbench: needs {cell['chips']} CUDA device(s); "
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",

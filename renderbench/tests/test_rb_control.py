@@ -22,7 +22,8 @@ def _setup(monkeypatch):
 
 
 @pytest.mark.parametrize("cell", ["sponza263k_deferred.viewer_orbit",
-                                  "sponza263k_masked.viewer_orbit"])
+                                  "sponza263k_masked.viewer_orbit",
+                                  "sponza263k_masked.offline_chain"])
 def test_control_is_not_correct(cell):
     res = control.control_readings(run.load_bench(), cell, 2**31 + 77, "cpu", SMALL)
     assert not res["passes"], res["check"]

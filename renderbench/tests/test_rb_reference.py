@@ -3,7 +3,9 @@ program runs its kernels' plain versions: carried frames of the same
 camera, sun, settings and visibility from the generator's one scene, held
 to the configuration's limits -- over a moving sun, the masked scene, a
 settings cycle and a hide cycle, the traffic features the generator
-offers."""
+offers, under both material samplers the reference draws.  The program's
+trilinear frames fail against the anisotropic reference: the comparison
+tells the two samplers apart."""
 
 import json
 from pathlib import Path
@@ -45,16 +47,16 @@ def _setup(monkeypatch):
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("mix", sorted(MIXES))
-def test_reference_is_the_program_on_the_cpu(tmp_path, masked, mix):
+def _readings(tmp_path, masked, traffic_spec, prog_settings, ref_settings):
+    """The readings of the program's carried frames at ``prog_settings``
+    against the reference's at ``ref_settings``, under ``traffic_spec``."""
     kw = dict(n_objects=8, seed=2**33 + 3, sphere_res=(8, 6), n_materials=8, tex_size=32,
               masked=masked)
     scene_json = scenegen.write_scene(tmp_path, **kw)
-    prog = Renderer(scene_json, settings=RenderSettings(**SETTINGS), config=RendererConfig(),
-                    device="cpu")
-    ref = ReferenceScene(scenegen.scene_content(**kw), SETTINGS, {}, "cpu")
-    traffic = Traffic({**BASE, **MIXES[mix]}, scene_json, 7)
+    prog = Renderer(scene_json, settings=RenderSettings(**prog_settings),
+                    config=RendererConfig(), device="cpu")
+    ref = ReferenceScene(scenegen.scene_content(**kw), ref_settings, {}, "cpu")
+    traffic = Traffic(traffic_spec, scene_json, 7)
     state, pairs = ref.initial_state(), []
     for n in range(5):
         traffic.apply(prog, n)
@@ -68,5 +70,24 @@ def test_reference_is_the_program_on_the_cpu(tmp_path, masked, mix):
                                          ("taa_history", "taa_valid", "exposure_ev",
                                           "exposure_valid")})
     values.update(check.state_readings(prog_state, state))
+    return values
+
+
+@pytest.mark.parametrize("texture_filter", ["trilinear", "anisotropic"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("mix", sorted(MIXES))
+def test_reference_is_the_program_on_the_cpu(tmp_path, masked, mix, texture_filter):
+    settings = {**SETTINGS, "texture_filter": texture_filter, "max_anisotropy": 4}
+    values = _readings(tmp_path, masked, {**BASE, **MIXES[mix]}, settings, settings)
     assert all(values[k] <= lim for k, lim in LIMITS.items()), values
     assert np.isfinite(values["max_level"])
+
+
+def test_trilinear_frames_fail_the_anisotropic_reference(tmp_path):
+    """On the orbit's oblique view of the floor (1.5 m up, 4 m out), where
+    the footprints stretch, the program's trilinear frames read past a held
+    limit of the deferred configuration against the anisotropic
+    reference."""
+    aniso = {**SETTINGS, "texture_filter": "anisotropic", "max_anisotropy": 4}
+    values = _readings(tmp_path, False, BASE, SETTINGS, aniso)
+    assert any(values[k] > lim for k, lim in LIMITS.items()), values

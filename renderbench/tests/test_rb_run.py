@@ -20,7 +20,8 @@ SMALL = dict(n_objects=8, sphere_res=[8, 6], n_materials=8, tex_size=32, width=9
              shadow_map_size=128)
 SEED = 2**31 + 4242
 CELLS = ("sponza263k_deferred.viewer_orbit", "sponza263k_masked.viewer_orbit",
-         "sponza263k_deferred.moving_sun", "sponza263k_deferred.offline_chain")
+         "sponza263k_deferred.moving_sun", "sponza263k_deferred.offline_chain",
+         "sponza263k_masked.offline_chain")
 
 
 @pytest.fixture(autouse=True)

@@ -16,8 +16,9 @@ A traffic file (``traffic/<name>.json``) holds:
   drawn from the seed in ``start_azimuth_rad`` (a clip keeps its first
   frame's sun: ``render_frames`` holds the light);
 * ``settings_cycle`` (optional): ``{"every": N, "values": [{...}, ...]}``,
-  each value the same ``RenderSettings`` switches (those the reference
-  follows, ``reference/frames.py SWITCHES``): frames kN .. kN + N - 1 render
+  each value the same ``RenderSettings`` keys (those the configuration's
+  reference draws in a cycle, its ``DRAWS["settings_cycle"]``; a run
+  refuses others, ``run.py refusal``): frames kN .. kN + N - 1 render
   at ``values[k % len(values)]``, set by ``Renderer.update_settings`` before
   the first frame and wherever they change (present mode);
 * ``hide_cycle`` (optional): ``{"every": N, "stride": k}``: from frame jN
