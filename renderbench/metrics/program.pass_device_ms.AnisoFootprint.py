@@ -1,0 +1,6 @@
+"""``program.pass_device_ms.AnisoFootprint``: ``spans.replay_ms``, a replay's device ms read
+under the profiler (``renderbench/spans.py``), summed over the material slots tapped."""
+
+from renderbench import spans
+
+read = spans.replay_ms("FrameProgram", "AnisoFootprint")

@@ -30,9 +30,12 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_pass_names_equal_the_reference():
+    """The reference's names, in its order, after the port's own
+    sub-scopes (the anisotropic tap's, deeper than any of the reference's)."""
     assert ttp.PASS_NAMES == jtp.PASS_NAMES
-    assert ttp.SUB_SCOPES == jtp.SUB_SCOPES
-    assert ttp.PASS_NAMES_FINE == jtp.PASS_NAMES_FINE
+    assert ttp.SUB_SCOPES == ttp.PORT_SUB_SCOPES + jtp.SUB_SCOPES
+    assert ttp.PASS_NAMES_FINE == ttp.PORT_SUB_SCOPES + jtp.PASS_NAMES_FINE
+    assert not set(ttp.PORT_SUB_SCOPES) & set(jtp.PASS_NAMES_FINE)
 
 
 def test_pass_names_cover_registrations():

@@ -33,6 +33,11 @@ one check.  ``STORE``'s records take their launch time from
 ``time.time_ns()``, the clock of the profiler's Chrome trace: a trace's
 ``ts`` is ``time.time_ns() / 1e3`` less its ``baseTimeNanoseconds / 1e3``.
 
+``COUNTERS`` holds a frame's device counters (the anisotropic tap's pixel
+and tap counts, ``render/common.py resolve_materials``): the Renderer adds
+each frame's to the store's running sums on the device while a profiler
+records, and ``totals()`` reads the sums once, after the frames.
+
 Leaf module: every ``ops`` module can use it without the ``render`` layer.
 """
 
@@ -52,10 +57,14 @@ _CAPTURING: list = []  # the DeviceSpans of the capture in progress
 _PENDING: list = []  # DeviceSpans whose last replay is unread
 _NO_RANGE = contextlib.nullcontext()
 
-#: the material resolve's sub-scopes, timed in a captured frame
-TIMED_SUB_SCOPES = ("RecGather", "InterpAttr", "MaterialTap", "NormalMap")
-#: the most timing events a program records (its first and last included)
-MAX_EVENTS = 40
+#: the material resolve's sub-scopes, timed in a captured frame (the
+#: anisotropic ones inside each ``MaterialTap``)
+TIMED_SUB_SCOPES = ("RecGather", "InterpAttr", "MaterialTap", "NormalMap", "AnisoFootprint",
+                    "AnisoTaps")
+#: the most timing events a program records (its first and last included):
+#: those of the masked anisotropic frame with a tap per material slot, whose
+#: 26 spans are the most a frame opens
+MAX_EVENTS = 54
 
 
 @contextlib.contextmanager
@@ -248,3 +257,25 @@ def collect(wait: bool = False) -> None:
     ``wait``: once it has completed, a host sync)."""
     for spans in list(_PENDING):
         spans.settle(wait)
+
+
+class CounterStore:
+    """Running sums of the frames' device counters, kept on the device:
+    ``add`` launches one add a counter and reads nothing back."""
+
+    def __init__(self):
+        self.sums: dict = {}
+
+    def reset(self) -> None:
+        self.sums.clear()
+
+    def add(self, counters: dict) -> None:
+        for k, v in counters.items():
+            self.sums[k] = self.sums[k] + v if k in self.sums else v.clone()
+
+    def totals(self) -> dict:
+        """``{name: int}`` of the sums (a host sync)."""
+        return {k: int(v) for k, v in self.sums.items()}
+
+
+COUNTERS = CounterStore()

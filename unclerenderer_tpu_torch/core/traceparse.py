@@ -43,9 +43,14 @@ PASS_NAMES = (
     "CAS",
 )
 
+#: the port's own sub-scopes, which the reference has no counterpart of:
+#: the anisotropic tap's, nested in ``MaterialTap``
+PORT_SUB_SCOPES = ("AnisoFootprint", "AnisoTaps")
+
 #: nested sub-scopes, listed BEFORE the passes so the first-match
-#: attribution picks the finer bucket (deepest first)
-SUB_SCOPES = (
+#: attribution picks the finer bucket (deepest first); the reference's
+#: after the port's own
+SUB_SCOPES = PORT_SUB_SCOPES + (
     "Untile", "LevelMerge", "GpuDebugPrint", "GiantCompact", "GiantKernel",
     "RecGather", "InterpAttr", "MaterialTap", "NormalMap",
     "FineBinning", "RasterKernel", "MidLevel", "GiantLevel", "Compaction",

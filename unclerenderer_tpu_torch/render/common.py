@@ -545,6 +545,30 @@ def _interp3(w, av, offset, n):
     return fdot([(w[0][..., None], a[0]), (w[1][..., None], a[1]), (w[2][..., None], a[2])])
 
 
+def _aniso_cap(n_pix: int, frac: float) -> int:
+    """The compacted anisotropic taps' static cap: ``frac`` of the image's
+    pixels in whole 1024s, at least 1024."""
+    return max(1024, (int(n_pix * frac) // 1024) * 1024)
+
+
+def aniso_counters(extent, valid, settings: RenderSettings) -> dict:
+    """The anisotropic tap's counters of one material slot, int64 on the
+    device: ``aniso_pixels`` (the valid pixels), ``aniso_line_pixels``
+    (those with ``extent`` > 0, whose N taps are not coincident) and
+    ``aniso_taps`` (the trilinear taps taken at them: N each on the dense
+    path; under ``aniso_compact_frac`` a centre tap each and N more at each
+    compacted pixel)."""
+    pixels = valid.sum()
+    line = ((extent > 0.0) & valid).sum()
+    n = settings.max_anisotropy
+    frac = settings.aniso_compact_frac
+    if 0.0 < frac < 1.0:
+        taps = pixels + n * torch.clamp(line, max=_aniso_cap(valid.numel(), frac))
+    else:
+        taps = n * pixels
+    return {"aniso_pixels": pixels, "aniso_line_pixels": line, "aniso_taps": taps}
+
+
 def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
                   settings: RenderSettings):
     """D3D12_FILTER_ANISOTROPIC analog: ``max_anisotropy`` trilinear taps
@@ -577,7 +601,7 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
                                                                      device=suv.device)
     lead = suv.shape[:-1]
     n_pix = lead.numel()
-    cap = max(1024, (int(n_pix * frac) // 1024) * 1024)
+    cap = _aniso_cap(n_pix, frac)
     amask = ((extent > 0.0) & valid).reshape(n_pix)
     ids, ok = compact_mask(amask, cap)
     safe = torch.where(ok, ids, torch.zeros_like(ids)).long()
@@ -610,7 +634,9 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     combined-material tap (``combined_material``), else one tap per enabled
     slot (``slot_enabled``) on the per-map atlas.  The result carries
     ``aniso_tap_overflow`` (0 unless the compacted anisotropic taps
-    overflowed their cap; per-slot, the last slot's count).
+    overflowed their cap; per-slot, the last slot's count) and
+    ``aniso_counts`` (``aniso_counters`` summed over the slots tapped; empty
+    unless the filter is anisotropic).
 
     A row slab (sharded frame): ``tri_id`` holds the slab's rows from
     global row ``row0``, pixel centres stay global; ``next_tri_row`` /
@@ -690,6 +716,7 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     # the anisotropic sampler's overflow count; with per-slot taps each slot
     # overwrites it, as the reference does (render/common.py:1219)
     aniso_overflow = [torch.zeros((), dtype=torch.int32, device=dev)]
+    aniso_counts: dict = {}  # aniso_counters, summed over the slots tapped
 
     def sample_slot(slot):
         with scope("MaterialTap"):
@@ -713,16 +740,20 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
             d_dx = tex.apply_texture_transform(uv_tr, t_os, t_rot) - s_tl
             d_dy = tex.apply_texture_transform(uv_bl, t_os, t_rot) - s_tl
         if settings.texture_filter == "anisotropic":
-            if quad_lod:
-                footprint = tex.footprint_lod_aniso(d_dx, d_dy, base_w, base_h,
-                                                    settings.max_anisotropy)
-            else:
-                footprint = tex.uv_screen_lod_aniso(suv, base_w, base_h, same_x, same_y,
-                                                    settings.max_anisotropy, uv_above=ua,
-                                                    uv_below=ub, same_tri_bx=same_bx,
-                                                    same_tri_by=same_by)
-            s, aniso_overflow[0] = _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint,
-                                                 valid, settings)
+            with scope("AnisoFootprint"):
+                if quad_lod:
+                    footprint = tex.footprint_lod_aniso(d_dx, d_dy, base_w, base_h,
+                                                        settings.max_anisotropy)
+                else:
+                    footprint = tex.uv_screen_lod_aniso(suv, base_w, base_h, same_x, same_y,
+                                                        settings.max_anisotropy, uv_above=ua,
+                                                        uv_below=ub, same_tri_bx=same_bx,
+                                                        same_tri_by=same_by)
+            for k, v in aniso_counters(footprint[2], valid, settings).items():
+                aniso_counts[k] = aniso_counts[k] + v if k in aniso_counts else v
+            with scope("AnisoTaps"):
+                s, aniso_overflow[0] = _sample_aniso(quad_flat, atlas_width, rect0, suv,
+                                                     footprint, valid, settings)
             return s
         if quad_lod:
             lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
@@ -778,6 +809,7 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     return {
         "valid": valid,
         "aniso_tap_overflow": aniso_overflow[0],
+        "aniso_counts": aniso_counts,
         "model_id": model_id,
         "object_id_f": M(PK.M_OBJID),
         "world_pos": world_pos,

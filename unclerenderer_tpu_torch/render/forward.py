@@ -33,7 +33,8 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
     caller rendered (the Renderer's cached map); without one the frame
     rasters its own.  Returns 'color' (H, W, 3) linear in [0, 1], 'depth',
     'tri_id' (compact ids under compaction, as the reference's), 'object_id'
-    (uint32) and 'raster_stats'."""
+    (uint32), 'raster_stats' and, under the anisotropic filter,
+    'aniso_counts' (``common.aniso_counters`` summed over the slots)."""
     check_supported(settings)
     dev = scene.tri_geo.device
     width, height = settings.width, settings.height
@@ -120,10 +121,13 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
     object_id = torch.where(g["valid"], g["object_id_f"].to(torch.int32),
                             torch.zeros_like(tri_id, dtype=torch.int32)).view(torch.uint32)
     raster_stats["shadow_compact_overflow"] = shadow_overflow
-    return {
+    out = {
         "color": color,
         "depth": depth,
         "tri_id": tri_id,
         "object_id": object_id,
         "raster_stats": raster_stats,
     }
+    if settings.texture_filter == "anisotropic":
+        out["aniso_counts"] = g["aniso_counts"]
+    return out

@@ -792,10 +792,18 @@ class Renderer:
                     self._frame_times.add_sample("Frame", (time.perf_counter() - t0) * 1e3)
             if self._deferred() and self.settings.enable_taa:
                 self._taa_history_ready = True
+            self._count(out)
             self.frame_program = mode
             self._frame_counter += 1
             self._last_out = out
             return out
+
+    @staticmethod
+    def _count(out: dict) -> None:
+        """A frame's device counters into ``passes.COUNTERS`` while a
+        profiler records (anisotropic frames have them)."""
+        if "aniso_counts" in out and passes.tracing():
+            passes.COUNTERS.add(out["aniso_counts"])
 
     def render_frames(self, n: int, delta_time: float = 1.0 / 60.0, mutate=None) -> torch.Tensor:
         """Render ``n`` carried frames back to back and return their stacked
@@ -832,6 +840,7 @@ class Renderer:
                     out = prog.replay()
                 else:
                     out = self._eager_frame(fields, shadow=i == 0)
+                self._count(out)
                 self.frame_program = mode
                 with passes.scope("Renderer.frames.gather"):
                     if colors is None:
@@ -950,7 +959,9 @@ class Renderer:
         holds (``programs``) and GpuTiming's table, the last frame's samples
         in it (read once its events complete).  Does not advance the
         frames.  A forward frame culls nothing: every model counts as
-        visible."""
+        visible.  An anisotropic frame adds its tap's counts
+        (``common.aniso_counters``: ``aniso_pixels``, ``aniso_line_pixels``,
+        ``aniso_taps``)."""
         out = self._latest_out()
         passes.collect(wait=True)
         total = self.scene_data.num_models
@@ -976,6 +987,7 @@ class Renderer:
             "exposure_ev": float(self.frame_state.exposure_ev),
             "taa_history_valid": bool(self.frame_state.taa_valid),
             "frame_program": self.frame_program,
+            **{k: int(v) for k, v in out.get("aniso_counts", {}).items()},
             **self.memory_stats(),
             **self._program_stats(),
             **({"frame_timing": self._frame_times.stats()} if self._gpu_timing else {}),
