@@ -9,8 +9,11 @@ Fourteen paths of the port are driven: five through ``deferred_frame``,
   select) and K5 (draw-mask gather);
 * packed  -- the packed-trilinear material configuration: the u8 combined
   PACKED atlas (256 lanes), a procedural seamless env cube built here, and
-  the four kernel flags on, which adds K6 (HZB tail), K7 (env select), K8
-  (material select) and K9 (block-index copy);
+  the four kernel flags on, which adds K6 (HZB tail), K7 (env select) and K9
+  (block-index copy); its material tap runs T1 and T2 (``tap_footprint``,
+  ``material_tap``, ``csrc/material_tap.cu``: not TPU kernels, the
+  reference's element-wise quad-LOD tap), and K8 (material select) the
+  plain tap's decode, captured from the frame with the plain tap forced;
 * masked  -- the reference's own ``RenderSettings()`` (alpha-masked models
   on, per-slot material taps) on its masked scene (every 4th model a MASK
   material; per-map quad atlas), with the Renderer's ``masked_tri_cap``:
@@ -101,7 +104,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    NaN/signed-zero/equal keys for K10, odd lengths, misaligned views and 1-8
    byte types for the K9/K11/K12 copy) and on the
    inputs captured from one full-size frame of the default and the packed
-   path, with both versions timed (the kernel over 50 eager calls, in turns
+   path (T1 and T2 from its trilinear and anisotropic x4 frames with
+   ``mat_select_kernel`` off, as the benchmark's cells run them), with both
+   versions timed (the kernel over 50 eager calls, in turns
    with its library call where it has one, and replayed from a CUDA graph; K1 and
    K2 get a line per launch with its level, its live (pixel, row) pairs
    and those its warp skip keeps, and both bounds below).
@@ -573,6 +578,57 @@ def work_present(color):
     return nbytes(color) + color.numel(), color.numel()  # f32 in, u8 out; one product a value
 
 
+# the material tap's f32 operations: T1 a pixel (the edges, the three quad
+# corners' weights and uvs, four transforms, the axes and the level), T2 a
+# trilinear tap (its coordinates at two mips, then per channel 8 decodes and
+# 7 blends of 4 operations)
+TAP_FOOTPRINT_OPS = 160
+TAP_OPS = 32 + 16 * (8 + 7 * 4)
+
+
+def record_sectors(lanes) -> int:
+    """The distinct 32-byte sectors of an f32 resolve record that ``lanes`` touch."""
+    return len({4 * lane // 32 for lane in lanes})
+
+
+def work_tap_footprint(full, uv, lanes, row0=0, max_aniso=0):
+    """T1: the record sectors of the vertices, their uvs and the slot's
+    transform and size; the centre uv; the planes written."""
+    n = full.shape[0] * full.shape[1]
+    lane_os, lane_rot, lane_rect = lanes
+    read = [*range(9), *(19 + 16 * k + c for k in range(3) for c in range(2)),
+            *range(lane_os, lane_os + 4), lane_rot, lane_rot + 1, lane_rect + 2, lane_rect + 3]
+    return n * (32 * record_sectors(read) + 8 + 4 * (6 if max_aniso else 3)), \
+        n * TAP_FOOTPRINT_OPS
+
+
+def work_material_tap(tri_flat, atlas_width, full, rect_lane, planes, n_taps=0, select=False):
+    """T2: the planes, the rect's record sector, the distinct (row, lane
+    group) pairs of every tap's 8 groups, the (n, 16) output."""
+    from unclerenderer_tpu_torch.ops import texture as tex
+    from unclerenderer_tpu_torch.ops.fma import fma
+
+    n = planes.shape[1]
+    rect0 = full[..., rect_lane:rect_lane + 4].reshape(-1, 4)
+    suv = planes[0:2].t()
+    l0 = tex._to_int(torch.floor(torch.clamp(planes[2], min=0.0)))
+    taps = [suv] if not n_taps else [
+        fma(planes[3:5].t(), (((k + 0.5) / n_taps - 0.5) * planes[5])[:, None], suv)
+        for k in range(n_taps)]
+    keys = []
+    for uv in taps:
+        x, y, w, h, _tx, _ty, _fx, _fy, ix, iy = tex._tap_coords(rect0, uv, l0)
+        *_, ix2, iy2 = tex._tap_coords(rect0, uv, l0 + 1)
+        rows = ((y + torch.remainder(iy, h)) * atlas_width + x + torch.remainder(ix, w)).long()
+        cell = (4 + 3 * torch.clamp(iy2 - (iy >> 1) + 1, 0, 1)
+                + torch.clamp(ix2 - (ix >> 1) + 1, 0, 1)).long()
+        groups = torch.stack([torch.full_like(cell, g) for g in range(4)]
+                             + [cell, cell + 1, cell + 3, cell + 4])
+        keys.append((rows % tri_flat.shape[0])[None] * 13 + groups)
+    moved = distinct(torch.cat(keys)) * 16 * tri_flat.element_size()
+    return moved + n * (4 * planes.shape[0] + 32 + 64), n * len(taps) * TAP_OPS
+
+
 # the warp skip that X1's bound counts: K2's rectangle (rows, columns) and pixels a thread
 # (the image's need, not X1's design: csrc/exhaustive_raster.cu's warps are smaller)
 X1_RECT = (8, 32)
@@ -832,6 +888,9 @@ def tiny_inputs(dev):
         "masked_raster": (masked_raster_args(m_setup, m_arec, m_atlas, m_aw, 64, 16, chunk=32),
                           {}),
         "present_u8": ((f32,), {}),
+        "tap_footprint": ((rec.view(4, 4, 128), f32[:8].reshape(4, 4, 2), (73, 89, 97)), {}),
+        "material_tap": ((torch.zeros((4, 256), dtype=torch.uint8, device=dev), 2,
+                          rec.view(4, 4, 128), 97, f32[:3].reshape(3, 4).repeat(1, 4)), {}),
     }
 
 
@@ -1301,8 +1360,9 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
             err = max(err, float((og["color"].cpu() - oc["color"]).abs().max()))
         check(err <= COLOR_ATOL, f"renderer cross {label}: color err {err}")
         used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
-        if settings is flags:
-            for name in ("hzb_tail", "env_select", "mat_select", "materialize_rows"):
+        if settings is flags:  # the packed atlas's tap is T1 and T2, not K8
+            for name in ("hzb_tail", "env_select", "tap_footprint", "material_tap",
+                         "materialize_rows"):
                 check(used.get(name, 0) > 0, f"renderer cross {label}: {name} not launched")
         log("renderer", f"card vs CPU Renderer {RENDERER_SMALL}^2 ({label}): 2 carried frames, "
                         f"depth/ids/counters bit-equal, color max err {err:.3g}; card launches "
@@ -2532,6 +2592,15 @@ def main() -> int:
         "present_u8": dict(module=present_mod, ref=present_mod.present_u8_ref, work=work_present,
                            source=csrc + "present_u8.cu",
                            replaces="unclerenderer_tpu/render/renderer.py:779"),
+        # the material tap, T1 and T2: not TPU kernels either; the reference's
+        # XLA element-wise resolve (the quad corners and footprint; the
+        # packed trilinear tap, once or max_anisotropy times)
+        "tap_footprint": dict(module=tex_mod, ref=tex_mod.tap_footprint_ref,
+                              work=work_tap_footprint, source=csrc + "material_tap.cu",
+                              replaces="unclerenderer_tpu/render/common.py:1071"),
+        "material_tap": dict(module=tex_mod, ref=tex_mod.material_tap_ref,
+                             work=work_material_tap, source=csrc + "material_tap.cu",
+                             replaces="unclerenderer_tpu/ops/texture.py:452"),
     }
     for name, k in kernels.items():
         k.setdefault("attr", name)
@@ -2545,6 +2614,10 @@ def main() -> int:
     default_kernels = ("binned_raster", "giant_raster", "shadow_select9", "gather_rows")
     attr_kernels = ("binned_raster_attrs", "giant_raster_attrs")
     packed_kernels = ("hzb_tail", "env_select", "mat_select", "materialize_rows")
+    tap_kernels = ("tap_footprint", "material_tap")
+    # the packed frame's path: its material tap is T1 and T2, K8 only the
+    # plain tap's decode
+    packed_path = ("hzb_tail", "env_select", "materialize_rows") + tap_kernels
     probe_kernels = ("merge_select", "copy_rows", "materialize")
     sampling_kernels = ("binned_raster", "giant_raster", "shadow_select9_f32", "gather_rows")
     report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -2952,7 +3025,12 @@ def main() -> int:
                 measure(name, ca, ck, label)
 
     capture(default_kernels, scene, params[0], settings)
-    capture(packed_kernels, packed, packed_params[0], packed_settings)
+    with patched(common_mod, "tap_kernels_engage", lambda *a: False):  # K8 in the plain tap
+        capture(packed_kernels, packed, packed_params[0], packed_settings)
+    # T1 and T2 as the cells run them (mat_select_kernel off): trilinear, anisotropic x4
+    for filt in ("trilinear", "anisotropic"):
+        capture(tap_kernels, packed, packed_params[0],
+                dataclasses.replace(packed_settings, texture_filter=filt, mat_select_kernel=False))
 
     # ---- 4. cross-device frames: kernels on the card vs plain versions on the CPU
     small = RenderSettings(width=256, height=256, shadow_map_size=512,
@@ -3274,7 +3352,7 @@ def main() -> int:
         a_out, a_state = deferred_frame(frame_scene, frame_params, st, a_settings)
         b_out, b_state = deferred_frame(frame_scene, frame_params, st, b_settings)
         for k, v in a_out.items():
-            if k == "raster_stats":
+            if isinstance(v, dict):  # raster_stats, tap_counts
                 check({n: int(x) for n, x in v.items()} == {n: int(x) for n, x in b_out[k].items()},
                       f"{label}: counters differ")
             else:
@@ -3375,7 +3453,7 @@ def main() -> int:
     report["sampling"] = sampling_path(scene, params, settings)
     report["markers"] = marker_cost(scene, params, settings)
     del scene
-    report["packed"] = counted("packed", default_kernels + packed_kernels, packed,
+    report["packed"] = counted("packed", default_kernels + packed_path, packed,
                                packed_params, packed_settings)
     flags_off = dataclasses.replace(packed_settings, **{k: False for k in KERNEL_FLAGS})
     report["packed_flags_off"] = timed("packed-flags-off", packed, packed_params, flags_off,
@@ -3756,7 +3834,8 @@ def main() -> int:
          **({"mask_ms": k["frame"]["mask_ms"], "tile_ms": k["frame"]["tile_ms"],
              "mask_bytes": k["frame"]["mask_bytes"], "tpu_kernel": False}
             if n == "exhaustive_raster" else {}),
-         **({"tpu_kernel": False} if n in ("masked_raster", "present_u8") else {})}
+         **({"tpu_kernel": False} if n in ("masked_raster", "present_u8", "tap_footprint",
+                                           "material_tap") else {})}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

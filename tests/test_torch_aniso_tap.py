@@ -182,7 +182,8 @@ def test_counters_stay_out_of_the_drop_counters(scenes):
         assert passes.COUNTERS.totals() == {}
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
             outs = [r.render_frame() for _ in range(2)]
-        want = {k: sum(int(o["aniso_counts"][k]) for o in outs) for k in out["aniso_counts"]}
+        want = {k: sum(int(o[key][k]) for o in outs) for key in ("aniso_counts", "tap_counts")
+                for k in out[key]}
         assert passes.COUNTERS.totals() == want
         stats = r.stats()
         assert stats["aniso_pixels"] == int((outs[-1]["tri_id"] >= 0).sum()) > 0

@@ -102,6 +102,12 @@ SIGNATURES = {
     "masked_raster": [_P] * 12 + [_I] * 12 + [_P],
     # the present's u8 conversion: f32 colour, u8 out, n values, stream
     "present_u8": [_P, _P, _L, _P],
+    # the material tap's footprint: rec (n, 128), uv (n, 2), out planes, n, width,
+    # row0, the slot's offset-scale / rotation / rect lanes, max_aniso (0: trilinear)
+    "tap_footprint": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    # the material taps: atlas (rows, 256), rec, planes, out (n, 16), n,
+    # atlas_width, atlas rows, rect lane, n_taps (0: trilinear), dtype, select
+    "material_tap": [_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _P],
 }
 
 # kernel wrapper -> its C entry, where the two names differ
@@ -111,7 +117,8 @@ ENTRY = {"materialize_rows": "copy_bytes", "copy_rows": "copy_bytes", "materiali
 # K2/K3 count under binned_raster_attrs and giant_raster_attrs; K1 under
 # kernel_debug_print under binned_raster_debug; K4 on f32 rows under
 # shadow_select9_f32; M1, the masked raster, under masked_raster; the
-# present's u8 conversion under present_u8)
+# present's u8 conversion under present_u8; the material tap's two kernels
+# under tap_footprint and material_tap)
 LAUNCHES = {name: 0 for name in [n for n in SIGNATURES if n not in ENTRY.values()] + list(ENTRY)}
 
 # kernel wrapper -> bound C function, and device index -> raw current

@@ -6,14 +6,18 @@ packed-trilinear atlas (one 16C-lane row gather, ``sample_pyramid_tri``) --
 with the trilinear, bilinear and anisotropic footprints, and its IBL path
 (seamless packed-trilinear env cube, hat-function matmuls for the BRDF LUT
 and the irradiance tail), and the quad-atlas env samplers
-(``sample_cube_pyramid``, ``sample_cube_pyramid_level``).  Three kernels
+(``sample_cube_pyramid``, ``sample_cube_pyramid_level``).  Five kernels
 live here, each with its plain version (``*_ref``) beside it:
 
 * ``gather_rows`` -- K5 (``csrc/gather_rows.cu``), the draw-mask row gather;
 * ``mat_select`` -- K8 (``csrc/mat_select.cu``), the packed material decode
-  under ``RenderSettings.mat_select_kernel``;
+  under ``RenderSettings.mat_select_kernel`` (on the plain tap only);
 * ``env_select`` -- K7 (``csrc/env_select.cu``), the seamless env decode
-  under ``RenderSettings.env_select_kernel``.
+  under ``RenderSettings.env_select_kernel``;
+* ``tap_footprint`` and ``material_tap`` -- T1 and T2
+  (``csrc/material_tap.cu``), the material resolve's quad-LOD footprint and
+  its trilinear or anisotropic taps on the packed atlas, from the resolve
+  record image (``render/common.py resolve_materials``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .fma import fma
+from .fma import fdiff, fdot, fma
 
 ADDRESS_WRAP = 0
 ADDRESS_CLAMP = 1
@@ -194,6 +198,55 @@ def apply_texture_transform(uv, offset_scale, rotation):
         dim=-1,
     )
     return rot + offset_scale[..., 0:2]
+
+
+def edge_fn(pa, pb, X, Y):
+    """Screen-space edge function of the pixel's triangle, contracted like
+    the reference (near-degenerate triangles amplify any rounding
+    difference through the barycentric divide)."""
+    cx = fdiff(pa[..., 1], pb[..., 2], pa[..., 2], pb[..., 1])
+    cy = fdiff(pa[..., 2], pb[..., 0], pa[..., 0], pb[..., 2])
+    cz = fdiff(pa[..., 0], pb[..., 1], pa[..., 1], pb[..., 0])
+    return fdot([(cx, X), (cy, Y)], cz)
+
+
+def interp3(w, av, offset, n):
+    """sum_k w_k * attr_k over the three vertex blocks of the resolve record."""
+    a = [av[..., 9 + k * 16 + offset:9 + k * 16 + offset + n] for k in range(3)]
+    return fdot([(w[0][..., None], a[0]), (w[1][..., None], a[1]), (w[2][..., None], a[2])])
+
+
+def quad_corner_uvs(av, row0: int = 0):
+    """D3D 2x2-quad derivatives with helper-lane semantics, evaluated
+    analytically from the pixel's own triangle: the uv at the pixel's
+    quad's TL, TR and BL centres (bases ``x & ~1``, ``y & ~1``, rows global
+    from ``row0``).  av (H, W, >= 57): the record's vertex lanes."""
+    height, width = av.shape[:2]
+    dev = av.device
+    xi = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
+    yi = torch.arange(row0, row0 + height, dtype=torch.int32, device=dev)[:, None]
+    bx = (xi & ~1).to(torch.float32)
+    by = (yi & ~1).to(torch.float32)
+    p0, p1, p2 = av[..., 0:3], av[..., 3:6], av[..., 6:9]
+
+    def uv_at(X, Y):
+        f0 = edge_fn(p1, p2, X, Y)
+        f1 = edge_fn(p2, p0, X, Y)
+        f2 = edge_fn(p0, p1, X, Y)
+        fs = f0 + f1 + f2
+        fs = torch.where(fs != 0.0, fs, torch.ones_like(fs))
+        return interp3((f0 / fs, f1 / fs, f2 / fs), av, 10, 2)
+
+    return uv_at(bx + 0.5, by + 0.5), uv_at(bx + 1.5, by + 0.5), uv_at(bx + 0.5, by + 1.5)
+
+
+def quad_derivatives(corners, offset_scale, rotation):
+    """(d/dx, d/dy) of the transformed uv, as the shader's quad sees them,
+    from ``quad_corner_uvs``'s corners."""
+    uv_tl, uv_tr, uv_bl = corners
+    s_tl = apply_texture_transform(uv_tl, offset_scale, rotation)
+    return (apply_texture_transform(uv_tr, offset_scale, rotation) - s_tl,
+            apply_texture_transform(uv_bl, offset_scale, rotation) - s_tl)
 
 
 def cube_direction_to_face_uv(direction):
@@ -370,6 +423,20 @@ def sample_pyramid_tri(tri_flat, atlas_width: int, rect0, uv, lod, select_kernel
     return _lerp(a, b, frac[..., None])
 
 
+def sample_aniso_line(quad_flat, atlas_width: int, rect0, uv, lod, dmaj, extent, n: int,
+                      select_kernel: bool = False):
+    """The dense anisotropic taps: ``n`` trilinear taps at ``lod`` along
+    ``dmaj`` (t = ((k + 0.5) / n - 0.5) * extent), averaged."""
+    acc = 0.0
+    for k in range(n):
+        t = ((k + 0.5) / n - 0.5) * extent
+        # the reference's uv + dmaj * t contracts to one FMA on XLA:CPU
+        acc = acc + sample_trilinear_any(quad_flat, atlas_width, rect0,
+                                         fma(dmaj, t[..., None], uv), lod,
+                                         select_kernel=select_kernel)
+    return acc / n
+
+
 # The K7/K8 blends contract like the reference's kernels do under XLA:CPU
 # (measured bit-equal on 20k random rows each); the CUDA kernels use the
 # same __fmaf_rn sequence.
@@ -434,6 +501,97 @@ def mat_select(tri_flat: torch.Tensor, rows_idx: torch.Tensor, params7: torch.Te
     out = torch.empty((n, 16), dtype=torch.float32, device=tri_flat.device)
     _cuda.launch("mat_select", dev, tri_flat.data_ptr(), rows_idx.data_ptr(), params7.data_ptr(),
                  out.data_ptr(), n, ATLAS_DTYPE_CODE[tri_flat.dtype])
+    return out
+
+
+def tap_footprint_ref(full, uv, lanes, row0: int = 0, max_aniso: int = 0):
+    """Plain version of T1: a material slot's tap coordinates and footprint
+    as SoA planes (K, H*W) f32 -- su, sv, lod (``footprint_lod``), and with
+    ``max_aniso`` > 0 dmaj.u, dmaj.v, extent (``footprint_lod_aniso``) --
+    from the (H, W, 128) resolve record image ``full`` (vertices, their uvs,
+    and the slot's offset-scale, rotation and rect at ``lanes``), the
+    pixels' centre uv (H, W, 2) and the quad corners' (``quad_corner_uvs``
+    from global row ``row0``)."""
+    lane_os, lane_rot, lane_rect = lanes
+    t_os = full[..., lane_os:lane_os + 4]
+    t_rot = full[..., lane_rot:lane_rot + 2]
+    rect0 = full[..., lane_rect:lane_rect + 4]
+    suv = apply_texture_transform(uv, t_os, t_rot)
+    d_dx, d_dy = quad_derivatives(quad_corner_uvs(full[..., 0:57], row0), t_os, t_rot)
+    base_w = rect0[..., 2] * t_os[..., 2].abs()
+    base_h = rect0[..., 3] * t_os[..., 3].abs()
+    if max_aniso:
+        lod, dmaj, extent = footprint_lod_aniso(d_dx, d_dy, base_w, base_h, max_aniso)
+        planes = (suv[..., 0], suv[..., 1], lod, dmaj[..., 0], dmaj[..., 1], extent)
+    else:
+        planes = (suv[..., 0], suv[..., 1], footprint_lod(d_dx, d_dy, base_w, base_h))
+    return torch.stack(planes).reshape(len(planes), -1)
+
+
+def _check_records(name, full):
+    if full.dim() != 3 or full.shape[-1] != 128 or full.dtype != torch.float32:
+        raise ValueError(f"{name}: the record image must be (H, W, 128) f32")
+
+
+def tap_footprint(full, uv, lanes, row0: int = 0, max_aniso: int = 0):
+    """T1 wrapper (same contract as ``tap_footprint_ref``)."""
+    _check_records("tap_footprint", full)
+    if uv.shape != full.shape[:2] + (2,) or uv.dtype != torch.float32:
+        raise ValueError("tap_footprint: uv must be (H, W, 2) f32")
+    if _cuda.on_cpu("tap_footprint", full):
+        return tap_footprint_ref(full, uv, lanes, row0, max_aniso)
+    # the frame's record image and centre uv are contiguous: no copy, no dispatch
+    if not full.is_contiguous():
+        full = full.contiguous()
+    if not uv.is_contiguous():
+        uv = uv.contiguous()
+    dev = _cuda.check_cuda("tap_footprint", full, uv)
+    n = full.shape[0] * full.shape[1]
+    out = torch.empty((6 if max_aniso else 3, n), dtype=torch.float32, device=full.device)
+    _cuda.launch("tap_footprint", dev, full.data_ptr(), uv.data_ptr(), out.data_ptr(), n,
+                 full.shape[1], row0, *lanes, max_aniso)
+    return out
+
+
+def material_tap_ref(tri_flat, atlas_width: int, full, rect_lane: int, planes, n_taps: int = 0,
+                     select: bool = False):
+    """Plain version of T2: per pixel of the (H, W, 128) record image, the
+    slot's trilinear tap (``sample_pyramid_tri``) at ``tap_footprint``'s
+    planes -- one at su, sv (``n_taps`` 0), or ``sample_aniso_line``'s
+    ``n_taps`` along dmaj --, the slot's rect at ``rect_lane``; ``select``:
+    the packed decode by K8 (``mat_select_kernel``).  Returns (H*W, 16)
+    f32."""
+    rect0 = full[..., rect_lane:rect_lane + 4].reshape(-1, 4)
+    suv, lod = planes[0:2].t(), planes[2]
+    if n_taps == 0:
+        return sample_pyramid_tri(tri_flat, atlas_width, rect0, suv, lod, select_kernel=select)
+    return sample_aniso_line(tri_flat, atlas_width, rect0, suv, lod, planes[3:5].t(), planes[5],
+                             n_taps, select_kernel=select)
+
+
+def material_tap(tri_flat, atlas_width: int, full, rect_lane: int, planes, n_taps: int = 0,
+                 select: bool = False):
+    """T2 wrapper (same contract as ``material_tap_ref``) for the packed
+    (rows, 256) u8, f32 or bf16 atlas (C = 16)."""
+    if tri_flat.dim() != 2 or tri_flat.shape[-1] != 256 or tri_flat.dtype not in ATLAS_DTYPE_CODE:
+        raise ValueError("material_tap: atlas must be (rows, 256) u8, f32 or bf16 (C = 16)")
+    _check_records("material_tap", full)
+    n = full.shape[0] * full.shape[1]
+    if planes.shape != (6 if n_taps else 3, n) or planes.dtype != torch.float32:
+        raise ValueError("material_tap: planes must be tap_footprint's (3 or 6, H*W) f32")
+    if _cuda.on_cpu("material_tap", tri_flat):
+        return material_tap_ref(tri_flat, atlas_width, full, rect_lane, planes, n_taps, select)
+    if not full.is_contiguous():
+        full = full.contiguous()
+    if not planes.is_contiguous():
+        planes = planes.contiguous()
+    dev = _cuda.check_cuda("material_tap", tri_flat, full, planes)
+    if tri_flat.data_ptr() % 16:  # vector loads of its lane groups
+        raise ValueError("material_tap: the atlas must be 16-byte aligned")
+    out = torch.empty((n, 16), dtype=torch.float32, device=tri_flat.device)
+    _cuda.launch("material_tap", dev, tri_flat.data_ptr(), full.data_ptr(), planes.data_ptr(),
+                 out.data_ptr(), n, atlas_width, tri_flat.shape[0], rect_lane, n_taps,
+                 ATLAS_DTYPE_CODE[tri_flat.dtype], int(select))
     return out
 
 

@@ -18,6 +18,7 @@ runs its one XLA masked raster under every backend."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -25,7 +26,7 @@ import torch
 from ..core.passes import named_pass, scope
 from ..ops import pbr
 from ..ops import texture as tex
-from ..ops.fma import fdiff, fdot, fma
+from ..ops.fma import fdot
 from ..ops.binning import bin_triangles
 from ..ops.raster import (
     CULL_BACK,
@@ -529,22 +530,6 @@ def _same_next(tri_id, dim: int, after=None):
     return torch.cat([same, edge], dim=dim)
 
 
-def _edge_fn(pa, pb, X, Y):
-    """Screen-space edge function of the pixel's triangle, contracted like
-    the reference (near-degenerate triangles amplify any rounding
-    difference through the barycentric divide)."""
-    cx = fdiff(pa[..., 1], pb[..., 2], pa[..., 2], pb[..., 1])
-    cy = fdiff(pa[..., 2], pb[..., 0], pa[..., 0], pb[..., 2])
-    cz = fdiff(pa[..., 0], pb[..., 1], pa[..., 1], pb[..., 0])
-    return fdot([(cx, X), (cy, Y)], cz)
-
-
-def _interp3(w, av, offset, n):
-    """sum_k w_k * attr_k over the three vertex blocks of the record."""
-    a = [av[..., 9 + k * 16 + offset:9 + k * 16 + offset + n] for k in range(3)]
-    return fdot([(w[0][..., None], a[0]), (w[1][..., None], a[1]), (w[2][..., None], a[2])])
-
-
 def _aniso_cap(n_pix: int, frac: float) -> int:
     """The compacted anisotropic taps' static cap: ``frac`` of the image's
     pixels in whole 1024s, at least 1024."""
@@ -587,13 +572,8 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
     lod, dmaj, extent = footprint
 
     def line_taps(rect, uv, lod, dmaj, extent):
-        acc = 0.0
-        for k in range(n):
-            t = ((k + 0.5) / n - 0.5) * extent
-            # the reference's uv + dmaj * t contracts to one FMA on XLA:CPU
-            acc = acc + tex.sample_trilinear_any(quad_flat, atlas_width, rect,
-                                              fma(dmaj, t[..., None], uv), lod, select_kernel=sk)
-        return acc / n
+        return tex.sample_aniso_line(quad_flat, atlas_width, rect, uv, lod, dmaj, extent, n,
+                                     select_kernel=sk)
 
     frac = settings.aniso_compact_frac
     if not 0.0 < frac < 1.0:
@@ -619,6 +599,23 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
     return img.reshape(center.shape), overflow
 
 
+def tap_kernels_engage(quad_flat, settings: RenderSettings) -> bool:
+    """Whether a material tap runs as the two kernels T1 and T2
+    (``tex.tap_footprint``, ``tex.material_tap``): on the card, on the
+    kernel path, on the packed 256-lane atlas (C = 16) in u8, f32 or bf16,
+    with the quad-derivative LOD, trilinear or the dense anisotropic taps.
+    Every other tap (the CPU, the xla backend, bilinear, forward-difference
+    LOD, the compacted anisotropic taps, the quad atlas) runs the plain
+    code, which is also the kernels' reference."""
+    if settings.texture_filter == "anisotropic":
+        dense = not 0.0 < settings.aniso_compact_frac < 1.0
+    else:
+        dense = settings.texture_filter == "trilinear"
+    return (dense and quad_flat.is_cuda and use_kernel_path(settings)
+            and settings.lod_derivatives == "quad" and tex.atlas_is_packed_tri(quad_flat)
+            and quad_flat.dtype in tex.ATLAS_DTYPE_CODE)
+
+
 @named_pass("MaterialResolve")
 def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings,
                       compact_ids=None, full_override=None, row0: int = 0, next_tri_row=None,
@@ -636,7 +633,10 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     ``aniso_tap_overflow`` (0 unless the compacted anisotropic taps
     overflowed their cap; per-slot, the last slot's count) and
     ``aniso_counts`` (``aniso_counters`` summed over the slots tapped; empty
-    unless the filter is anisotropic).
+    unless the filter is anisotropic) and ``tap_counts``: ``tap_pixels``
+    (the valid pixels tapped, summed over the slots) and
+    ``tap_kernel_pixels`` (those the kernels T1 and T2 took,
+    ``tap_kernels_engage``).
 
     A row slab (sharded frame): ``tri_id`` holds the slab's rows from
     global row ``row0``, pixel centres stay global; ``next_tri_row`` /
@@ -661,17 +661,17 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     qx, qy = xx + 0.5, yy + 0.5
 
     with scope("InterpAttr"):
-        e0 = _edge_fn(p1, p2, qx, qy)
-        e1 = _edge_fn(p2, p0, qx, qy)
-        e2 = _edge_fn(p0, p1, qx, qy)
+        e0 = tex.edge_fn(p1, p2, qx, qy)
+        e1 = tex.edge_fn(p2, p0, qx, qy)
+        e2 = tex.edge_fn(p0, p1, qx, qy)
         ssum = e0 + e1 + e2
         ssum = torch.where(ssum != 0.0, ssum, torch.ones_like(ssum))
         bary = (e0 / ssum, e1 / ssum, e2 / ssum)
-        world_pos = _interp3(bary, av, 0, 3)
-        v_normal = _interp3(bary, av, 3, 3)
-        tangent4 = _interp3(bary, av, 6, 4)
-        uv = _interp3(bary, av, 10, 2)
-        v_color = _interp3(bary, av, 12, 4)
+        world_pos = tex.interp3(bary, av, 0, 3)
+        v_normal = tex.interp3(bary, av, 3, 3)
+        tangent4 = tex.interp3(bary, av, 6, 4)
+        uv = tex.interp3(bary, av, 10, 2)
+        v_color = tex.interp3(bary, av, 12, 4)
 
     def M(c, n=1):
         return mrec[..., c:c + n] if n > 1 else mrec[..., c]
@@ -682,27 +682,16 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     uv_rot = M(PK.M_UVROT, 8)
     rects = M(PK.M_RECT, 16)
 
+    quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
+    atlas_width = scene.quad_img.shape[1]
+    kernels = tap_kernels_engage(quad_flat, settings)
     quad_lod = settings.lod_derivatives == "quad"
-    if quad_lod:
+    if quad_lod and not kernels:
         # D3D 2x2-quad derivatives with helper-lane semantics, evaluated
         # analytically from the pixel's own triangle at the quad corners
-        xi = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
-        yi = torch.arange(row0, row0 + height, dtype=torch.int32, device=dev)[:, None]
-        bx = (xi & ~1).to(torch.float32)
-        by = (yi & ~1).to(torch.float32)
-
-        def uv_at(X, Y):
-            f0 = _edge_fn(p1, p2, X, Y)
-            f1 = _edge_fn(p2, p0, X, Y)
-            f2 = _edge_fn(p0, p1, X, Y)
-            fs = f0 + f1 + f2
-            fs = torch.where(fs != 0.0, fs, torch.ones_like(fs))
-            return _interp3((f0 / fs, f1 / fs, f2 / fs), av, 10, 2)
-
-        uv_tl = uv_at(bx + 0.5, by + 0.5)
-        uv_tr = uv_at(bx + 1.5, by + 0.5)
-        uv_bl = uv_at(bx + 0.5, by + 1.5)
-    else:
+        # (on the kernel path T1 evaluates them)
+        corners = tex.quad_corner_uvs(av, row0)
+    elif not quad_lod:
         # forward differences of the pixels' uvs, gated by the triangle
         # ids of the neighbours (+x/+y, then -x/-y); the frame's edge rows
         # and columns count as the same triangle (a 0 difference)
@@ -711,16 +700,33 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         same_bx = _same_next(tri_id.flip(1), 1).flip(1)
         same_by = _same_next(tri_id.flip(0), 0, prev_tri_row).flip(0)
 
-    quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
-    atlas_width = scene.quad_img.shape[1]
     # the anisotropic sampler's overflow count; with per-slot taps each slot
     # overwrites it, as the reference does (render/common.py:1219)
     aniso_overflow = [torch.zeros((), dtype=torch.int32, device=dev)]
     aniso_counts: dict = {}  # aniso_counters, summed over the slots tapped
+    slots_tapped = [0]
+    aniso = settings.texture_filter == "anisotropic"
+    select = settings.mat_select_kernel and use_kernel_path(settings)
 
     def sample_slot(slot):
+        slots_tapped[0] += 1
         with scope("MaterialTap"):
-            return _sample_slot(slot)
+            return _kernel_slot(slot) if kernels else _sample_slot(slot)
+
+    def _kernel_slot(slot):
+        """``_sample_slot`` as T1 and T2, from the record image."""
+        base = 9 + PK.GEO
+        lanes = (base + PK.M_UVOS + slot * 4, base + PK.M_UVROT + slot * 2,
+                 base + PK.M_RECT + slot * 4)
+        n_taps = settings.max_anisotropy if aniso else 0
+        with scope("AnisoFootprint") if aniso else contextlib.nullcontext():
+            planes = tex.tap_footprint(full, uv, lanes, row0, n_taps)
+        if aniso:
+            for k, v in aniso_counters(planes[5].reshape(valid.shape), valid, settings).items():
+                aniso_counts[k] = aniso_counts[k] + v if k in aniso_counts else v
+        with scope("AnisoTaps") if aniso else contextlib.nullcontext():
+            s = tex.material_tap(quad_flat, atlas_width, full, lanes[2], planes, n_taps, select)
+        return s.reshape(valid.shape + (s.shape[-1],))
 
     def _sample_slot(slot):
         """The material tap of ``slot`` (``settings.texture_filter``) with
@@ -736,10 +742,8 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         ua, ub = row_halo(suv) if row_halo is not None and not quad_lod else (None, None)
         if quad_lod:
             # derivatives of the transformed uv, as the shader's quad sees
-            s_tl = tex.apply_texture_transform(uv_tl, t_os, t_rot)
-            d_dx = tex.apply_texture_transform(uv_tr, t_os, t_rot) - s_tl
-            d_dy = tex.apply_texture_transform(uv_bl, t_os, t_rot) - s_tl
-        if settings.texture_filter == "anisotropic":
+            d_dx, d_dy = tex.quad_derivatives(corners, t_os, t_rot)
+        if aniso:
             with scope("AnisoFootprint"):
                 if quad_lod:
                     footprint = tex.footprint_lod_aniso(d_dx, d_dy, base_w, base_h,
@@ -763,9 +767,8 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         if settings.texture_filter == "bilinear":
             level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
             return tex.sample_level_any(quad_flat, atlas_width, rect0, suv, level)
-        return tex.sample_trilinear_any(
-            quad_flat, atlas_width, rect0, suv, lod,
-            select_kernel=settings.mat_select_kernel and use_kernel_path(settings))
+        return tex.sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod,
+                                        select_kernel=select)
 
     albedo = M(PK.M_BCF, 3) * v_color[..., :3]
     alpha = M(PK.M_ALPHA) * v_color[..., 3]
@@ -806,10 +809,13 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
             mapped = pbr.apply_normal_map(v_normal, tangent4, tangent_normal)
             shading_normal = torch.where(has[..., SLOT_NORMAL:SLOT_NORMAL + 1], mapped,
                                          pbr.normalize(v_normal))
+    n_valid = valid.sum()
     return {
         "valid": valid,
         "aniso_tap_overflow": aniso_overflow[0],
         "aniso_counts": aniso_counts,
+        "tap_counts": {"tap_pixels": n_valid * slots_tapped[0],
+                       "tap_kernel_pixels": n_valid * (slots_tapped[0] if kernels else 0)},
         "model_id": model_id,
         "object_id_f": M(PK.M_OBJID),
         "world_pos": world_pos,

@@ -294,7 +294,8 @@ def deferred_frame(scene: DeviceScene, params: FrameParams, state: FrameState,
     }
     if compact_ids is not None:
         out["tri_remap"] = compact_ids
+    # the tap's pixel and tap counts: read where asked, never a drop
+    out["tap_counts"] = {k: dist.psum(v) for k, v in g["tap_counts"].items()}
     if settings.texture_filter == "anisotropic":
-        # the tap's pixel and tap counts: read where asked, never a drop
         out["aniso_counts"] = {k: dist.psum(v) for k, v in g["aniso_counts"].items()}
     return out, new_state

@@ -33,8 +33,9 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
     caller rendered (the Renderer's cached map); without one the frame
     rasters its own.  Returns 'color' (H, W, 3) linear in [0, 1], 'depth',
     'tri_id' (compact ids under compaction, as the reference's), 'object_id'
-    (uint32), 'raster_stats' and, under the anisotropic filter,
-    'aniso_counts' (``common.aniso_counters`` summed over the slots)."""
+    (uint32), 'raster_stats', 'tap_counts' (``common.resolve_materials``)
+    and, under the anisotropic filter, 'aniso_counts'
+    (``common.aniso_counters`` summed over the slots)."""
     check_supported(settings)
     dev = scene.tri_geo.device
     width, height = settings.width, settings.height
@@ -128,6 +129,7 @@ def forward_frame(scene: DeviceScene, params: FrameParams, settings: RenderSetti
         "object_id": object_id,
         "raster_stats": raster_stats,
     }
+    out["tap_counts"] = g["tap_counts"]
     if settings.texture_filter == "anisotropic":
         out["aniso_counts"] = g["aniso_counts"]
     return out

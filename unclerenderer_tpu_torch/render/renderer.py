@@ -801,9 +801,12 @@ class Renderer:
     @staticmethod
     def _count(out: dict) -> None:
         """A frame's device counters into ``passes.COUNTERS`` while a
-        profiler records (anisotropic frames have them)."""
-        if "aniso_counts" in out and passes.tracing():
-            passes.COUNTERS.add(out["aniso_counts"])
+        profiler records: the material tap's (every frame) and the
+        anisotropic tap's (anisotropic frames)."""
+        if passes.tracing():
+            for key in ("tap_counts", "aniso_counts"):
+                if key in out:
+                    passes.COUNTERS.add(out[key])
 
     def render_frames(self, n: int, delta_time: float = 1.0 / 60.0, mutate=None) -> torch.Tensor:
         """Render ``n`` carried frames back to back and return their stacked
@@ -959,9 +962,10 @@ class Renderer:
         holds (``programs``) and GpuTiming's table, the last frame's samples
         in it (read once its events complete).  Does not advance the
         frames.  A forward frame culls nothing: every model counts as
-        visible.  An anisotropic frame adds its tap's counts
-        (``common.aniso_counters``: ``aniso_pixels``, ``aniso_line_pixels``,
-        ``aniso_taps``)."""
+        visible.  The material tap's counts (``tap_pixels``,
+        ``tap_kernel_pixels``: ``common.resolve_materials``), and an
+        anisotropic frame's (``common.aniso_counters``: ``aniso_pixels``,
+        ``aniso_line_pixels``, ``aniso_taps``)."""
         out = self._latest_out()
         passes.collect(wait=True)
         total = self.scene_data.num_models
@@ -987,6 +991,7 @@ class Renderer:
             "exposure_ev": float(self.frame_state.exposure_ev),
             "taa_history_valid": bool(self.frame_state.taa_valid),
             "frame_program": self.frame_program,
+            **{k: int(v) for k, v in out.get("tap_counts", {}).items()},
             **{k: int(v) for k, v in out.get("aniso_counts", {}).items()},
             **self.memory_stats(),
             **self._program_stats(),

@@ -459,8 +459,9 @@ KERNELS = {
 def frame_calls(dev) -> dict:
     """Kernel -> the arguments of its call in one 1920x1080 frame: K4 in a
     default-path frame, K8 in a packed-path frame (the packed u8 atlas,
-    ``mat_select_kernel`` on); "pcf_tail" -> those of the PCF tail after
-    K4."""
+    ``mat_select_kernel`` on, the plain material tap: the kernel one, T1 and
+    T2, takes no K8); "pcf_tail" -> those of the PCF tail after K4."""
+    from ..render import common
     from ..render.deferred import deferred_frame
     from ..render.params import FrameState, RenderSettings
     from ..render.testing import synthetic_device_scene, synthetic_frame_params
@@ -489,10 +490,13 @@ def frame_calls(dev) -> dict:
 
         for key, mod, at in recorded:
             setattr(mod, at, recorder(key))
+        engage = common.tap_kernels_engage
+        common.tap_kernels_engage = lambda *a: False
         try:
             deferred_frame(scene, params, FrameState.initial(WIDTH, HEIGHT, dev), frame_settings)
             torch.cuda.synchronize()
         finally:
+            common.tap_kernels_engage = engage
             for key, mod, at in recorded:
                 setattr(mod, at, origs[key])
         calls.update({key: args[0] for key, args in seen.items()})
