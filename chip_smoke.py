@@ -265,11 +265,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (K1/K2, the kernel path) against X1 on the same setups, their differing
    depth and id pixels logged by class and gated at 0; the xla Renderer at
    1080p with the 4096^2 map: 10 counted ``render_frame`` calls (only X1
-   launched, 11 times: the first frame also renders the cached map), drop
+   launched, 11 times: the first frame also renders the cached map, and T1,
+   the resolve's footprint of each slot tapped on either backend), drop
    counters 0, then 3 forward frames the same way; the PCF tables' bytes; ms/frame and peak GiB in turns with the
    default Renderer (3 runs of 10 frames each); card/CPU frames at 128^2,
    deferred (2 carried) and forward, depth, ids and counters bit-equal,
-   colour within 1e-3, only X1 launched.
+   colour within 1e-3, only X1, M1 and T1 launched.
 15. program -- (on phase 7's files at 1080p with the 4096^2 map) the frame
    program (``render/program.py``: the frame captured into a CUDA graph and
    replayed): (a) one op-by-op deferred frame, one forward frame and one
@@ -3025,7 +3026,8 @@ def main() -> int:
                 measure(name, ca, ck, label)
 
     capture(default_kernels, scene, params[0], settings)
-    with patched(common_mod, "tap_kernels_engage", lambda *a: False):  # K8 in the plain tap
+    # K8 in the plain tap at T1's footprint (the rule forced off, T2 not taken)
+    with patched(common_mod, "tap_kernels_engage", lambda *a: False):
         capture(packed_kernels, packed, packed_params[0], packed_settings)
     # T1 and T2 as the cells run them (mat_select_kernel off): trilinear, anisotropic x4
     for filt in ("trilinear", "anisotropic"):
@@ -3576,9 +3578,12 @@ def main() -> int:
         def gate(rr, out, label, frames):
             launches = dict(_cuda.LAUNCHES)
             used = {k: v for k, v in launches.items() if v}
-            # the first frame renders the shadow map (a second X1 launch)
-            check(used == {"exhaustive_raster": frames + 1},
-                  f"xla {label}: launches {used}, expected only X1, {frames + 1} times")
+            # the first frame renders the shadow map (a second X1 launch); T1
+            # takes the quad-LOD footprint of each slot tapped on either backend
+            slots = int(out["tap_counts"]["tap_pixels"]) // max(int((out["tri_id"] >= 0).sum()), 1)
+            check(used == {"exhaustive_raster": frames + 1, "tap_footprint": frames * slots},
+                  f"xla {label}: launches {used}, expected only X1, {frames + 1} times, and "
+                  f"T1, {frames * slots} times")
             st = rr.stats()
             for key in ("bin_pair_overflow", "bin_giant_truncated", "compact_overflow",
                         "shadow_compact_overflow"):
@@ -3738,11 +3743,13 @@ def main() -> int:
         rep["cross_color_max_abs_forward"] = cross("xla 128 forward", sc_cpu, sdata, small_x,
                                                    size=128, frames=1, frame="forward")
         used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
-        # the masked scene's frames also run M1, the masked raster of both backends
-        check(set(used) == {"exhaustive_raster", "masked_raster"},
+        # the masked scene's frames also run M1, the masked raster of both
+        # backends, and T1, the resolve's footprint on both backends
+        check(set(used) == {"exhaustive_raster", "masked_raster", "tap_footprint"},
               f"xla cross frames launched {used}")
-        log("xla", f"128^2 card frames: launches {used} (X1, and M1 for the masked models: the "
-                   "reference runs one masked raster under every backend; none of K1-K9)")
+        log("xla", f"128^2 card frames: launches {used} (X1, M1 for the masked models: the "
+                   "reference runs one masked raster under every backend; T1 for the "
+                   "footprints; none of K1-K9)")
         rep["seconds"] = time.perf_counter() - t_phase
         log("xla", f"phase done in {rep['seconds']:.1f} s")
         return rep

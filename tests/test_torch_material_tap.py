@@ -1,13 +1,19 @@
 """The material tap's two kernels, T1 ``tap_footprint`` and T2
-``material_tap`` (``csrc/material_tap.cu``): the quad-LOD footprint and the
-N packed-atlas taps of ``render/common.py resolve_materials``.
+``material_tap`` (``csrc/material_tap.cu``): the two stages of a slot's tap
+in ``render/common.py resolve_materials``, the same on both devices -- T1
+every quad-LOD footprint, T2 the packed-atlas taps where
+``common.tap_kernels_engage`` holds.
 
-On the CPU: the engagement rule (``common.tap_kernels_engage``) for each
-kind of input; the CPU wrappers return their plain versions, and those
-compose the resolve's own plain path (``quad_corner_uvs``, the KHR
-transform, ``footprint_lod[_aniso]``, ``sample_pyramid_tri`` and
-``_sample_aniso``) bit for bit; the counters ``tap_pixels`` and
-``tap_kernel_pixels`` of a CPU frame (no kernel pixels there).
+On the CPU: the engagement rule for each kind of input (it ignores the
+device); the CPU wrappers return their plain versions, and those compose
+the plain footprint (``quad_corner_uvs``, the KHR transform,
+``footprint_lod[_aniso]``) and the plain taps (``sample_pyramid_tri``,
+``_sample_aniso``) bit for bit; a 32x24 frame's resolve calls
+``tex.tap_footprint`` once a slot tapped and ``tex.material_tap`` only
+where the rule holds (trilinear and dense anisotropic on the packed
+atlas; not bilinear, compacted anisotropic, the quad atlas or the xla
+backend); the counters ``tap_pixels`` and ``tap_kernel_pixels`` of a CPU
+frame (no kernel pixels there).
 
 Marked ``cuda`` (each skips inside the ``cuda_device`` fixture without a
 card): both kernels ``torch.equal`` to the plain path on the card --
@@ -15,10 +21,11 @@ trilinear and anisotropic at N = 2, 3, 4 and 16, ``mat_select_kernel`` off
 and on, u8, bf16 and f32 atlases, global rows from 0 and 37, empty records
 (fused resolve's tri_id -1 pixels), degenerate triangles, LODs past the
 chain's end and taps wrapping at rect edges --; and replayed 256x144
-frames of the deferred, masked, anisotropic and forward Renderers
-byte-equal to the same frames with the plain path forced, one launch of
-each kernel a replay.  On a machine with a card (no JAX, hence no
-conftest): ``python -m pytest --noconftest tests/test_torch_material_tap.py -q``."""
+frames of the deferred, masked, anisotropic, forward, bilinear and
+compacted anisotropic Renderers byte-equal to the same frames with both
+wrappers patched to their plain versions, one launch of T1 a replay and
+one of T2 where the rule holds.  On a machine with a card (no JAX, hence
+no conftest): ``python -m pytest --noconftest tests/test_torch_material_tap.py -q``."""
 
 from types import SimpleNamespace
 
@@ -115,7 +122,7 @@ ENGAGE = {
     "f16": (_stand_in(dtype=torch.float16), {}, False),
     "quad_atlas": (_stand_in(lanes=64), {}, False),
     "other_lanes": (_stand_in(lanes=128), {}, False),
-    "cpu": (_stand_in(cuda=False), {}, False),
+    "ignores_the_device": (_stand_in(cuda=False), {}, True),
 }
 
 
@@ -220,6 +227,49 @@ def test_tap_counters_of_a_cpu_frame(tmp_path, filt):
         passes.COUNTERS.reset()
 
 
+# the resolve's settings beside the default (trilinear, packed atlas):
+# (overrides, packed atlas, whether T2 engages)
+RESOLVE_KINDS = {
+    "trilinear": (dict(), True, True),
+    "bilinear": (dict(texture_filter="bilinear"), True, False),
+    "anisotropic_compacted": (dict(texture_filter="anisotropic", aniso_compact_frac=0.25), True,
+                              False),
+    "quad_atlas": (dict(), False, False),
+    "xla": (dict(raster_backend="xla"), True, False),
+}
+
+
+@pytest.mark.parametrize("kind", list(RESOLVE_KINDS))
+def test_resolve_calls_the_wrappers_on_every_device(monkeypatch, kind):
+    """A 32x24 frame's resolve calls ``tex.tap_footprint`` once a slot
+    tapped (every quad-LOD footprint) and ``tex.material_tap`` once a slot
+    where ``tap_kernels_engage`` holds, else never."""
+    from unclerenderer_tpu_torch.render.deferred import deferred_frame
+    from unclerenderer_tpu_torch.render.params import FrameState
+    from unclerenderer_tpu_torch.render.testing import synthetic_device_scene, synthetic_frame_params
+
+    over, packed, engaged = RESOLVE_KINDS[kind]
+    scene, data = synthetic_device_scene(4, rich_materials=True, atlas_u8=True,
+                                         packed_trilinear=packed, device="cpu")
+    settings = RenderSettings(width=32, height=24, shadow_map_size=64, combined_material=True,
+                              material_packed_trilinear=packed, **over)
+    quad_flat = scene.quad_img.reshape(-1, scene.quad_img.shape[-1])
+    assert common.tap_kernels_engage(quad_flat, settings) is engaged
+    calls = {"tap_footprint": 0, "material_tap": 0}
+    for name in calls:
+        def counted(*a, name=name, orig=getattr(tex, name), **k):
+            calls[name] += 1
+            return orig(*a, **k)
+        monkeypatch.setattr(tex, name, counted)
+    params = synthetic_frame_params(data, 32, 24, device="cpu")
+    out, _ = deferred_frame(scene, params, FrameState.initial(32, 24, "cpu"), settings)
+    valid = int((out["tri_id"] >= 0).sum())
+    assert valid > 0
+    slots = int(out["tap_counts"]["tap_pixels"]) // valid
+    assert slots == 1 and int(out["tap_counts"]["tap_kernel_pixels"]) == 0
+    assert calls == {"tap_footprint": slots, "material_tap": slots if engaged else 0}
+
+
 def test_tap_counters_sum_the_slots():
     """Per-slot taps (the quad atlas) count each slot's valid pixels."""
     from unclerenderer_tpu_torch.render.deferred import deferred_frame
@@ -281,11 +331,15 @@ def test_material_tap_kernel_bit_equal(cuda_device, n, dtype, select):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# kind -> (settings overrides, masked scene, whether T2 engages)
 FRAME_KINDS = {
-    "deferred": (dict(), False),
-    "masked": (dict(), True),
-    "anisotropic": (dict(texture_filter="anisotropic"), False),
-    "forward": (dict(renderer_type="forward"), False),
+    "deferred": (dict(), False, True),
+    "masked": (dict(), True, True),
+    "anisotropic": (dict(texture_filter="anisotropic"), False, True),
+    "forward": (dict(renderer_type="forward"), False, True),
+    "bilinear": (dict(texture_filter="bilinear"), False, False),
+    "anisotropic_compacted": (dict(texture_filter="anisotropic", aniso_compact_frac=0.25), False,
+                              False),
 }
 
 
@@ -293,12 +347,14 @@ FRAME_KINDS = {
 @pytest.mark.parametrize("kind", list(FRAME_KINDS))
 def test_replayed_frames_equal_the_plain_path(cuda_device, tmp_path, monkeypatch, kind):
     """A 256x144 Renderer's frames replayed from its frame program, byte-
-    equal to a Renderer's whose taps take the plain path, one launch of
-    each kernel a replay (the combined material: one slot)."""
+    equal to a Renderer's whose wrappers ``tex.tap_footprint`` and
+    ``tex.material_tap`` are patched to their plain versions; one launch of
+    T1 a replay, and of T2 where ``tap_kernels_engage`` holds (the combined
+    material: one slot)."""
     from unclerenderer_tpu_torch.render.renderer import Renderer
     from unclerenderer_tpu_torch.render.testing import write_scene
 
-    over, masked = FRAME_KINDS[kind]
+    over, masked, engaged = FRAME_KINDS[kind]
     monkeypatch.setenv("UNCLERENDERER_SCENE_CACHE", "")
     path = write_scene(tmp_path, 6, sphere_res=(12, 8), n_materials=4, tex_size=32,
                        masked=masked)
@@ -308,7 +364,8 @@ def test_replayed_frames_equal_the_plain_path(cuda_device, tmp_path, monkeypatch
     for kernels in (True, False):
         with monkeypatch.context() as m:
             if not kernels:
-                m.setattr(common, "tap_kernels_engage", lambda *a: False)
+                m.setattr(tex, "tap_footprint", tex.tap_footprint_ref)
+                m.setattr(tex, "material_tap", tex.material_tap_ref)
             r = Renderer(path, settings=settings, device=cuda_device)
             assert r.settings.combined_material and r.settings.material_packed_trilinear
             center = np.asarray(r.scene_data.scene_center)
@@ -329,10 +386,13 @@ def test_replayed_frames_equal_the_plain_path(cuda_device, tmp_path, monkeypatch
                 assert torch.equal(got[i][key], want[i][key]), (i, key)
         pixels = int(want[i]["tap_counts"]["tap_pixels"])
         assert pixels == int((want[i]["tri_id"] >= 0).sum()) > 0
-        assert int(want[i]["tap_counts"]["tap_kernel_pixels"]) == 0
-        assert {k: int(v) for k, v in got[i]["tap_counts"].items()} == {
-            "tap_pixels": pixels, "tap_kernel_pixels": pixels}
-    # frames 2 and 3 replay the program: one launch of each kernel, none plain
+        # the counter reads the rule, whichever version the wrappers run
+        for run in (got, want):
+            assert {k: int(v) for k, v in run[i]["tap_counts"].items()} == {
+                "tap_pixels": pixels, "tap_kernel_pixels": pixels if engaged else 0}
+    # frames 2 and 3 replay the program: one launch of T1, of T2 where the
+    # rule holds; none with the plain versions patched in
     for i in (2, 3):
-        assert got_launches[i]["tap_footprint"] == got_launches[i]["material_tap"] == 1
+        assert got_launches[i]["tap_footprint"] == 1
+        assert got_launches[i]["material_tap"] == int(engaged)
         assert want_launches[i]["tap_footprint"] == want_launches[i]["material_tap"] == 0

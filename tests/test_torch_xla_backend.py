@@ -16,8 +16,9 @@ path (``unclerenderer_tpu/render/common.py _use_pallas`` false), on the CPU:
   (compact ids): ids, depth,
   object ids, compact ids and every counter bit-equal, hdr/colour within
   1e-4 (the bar of ``tests/test_torch_frame.py``); the frames dispatch to
-  no plain version of K1-K9, only to X1's and, with masked models, M1's
-  (the reference's one masked raster serves both backends); the kernel
+  no plain version of K1-K9, only to X1's, T1's (the resolve's quad-LOD
+  footprint on either backend) and, with masked models, M1's (the
+  reference's one masked raster serves both backends); the kernel
   path's frame differs
   from the reference's XLA frame (its PCF table), so the comparison sees the
   backend;
@@ -294,9 +295,10 @@ def test_frames_match_reference_xla_path(case, dispatches):
     j_state = JState.initial(SIZE, SIZE)
     t_state = interop.to_port(j_state, FrameState, "cpu")
     step = jax.jit(functools.partial(j_deferred, settings=j_settings))
-    # X1, and M1 (the masked raster of both backends) where masked models are on
-    want_dispatch = {"exhaustive_raster"} | ({"masked_raster"} if t_settings.has_masked_models
-                                             else set())
+    # X1, T1 (the quad-LOD footprint of both backends), and M1 (the masked
+    # raster of both backends) where masked models are on
+    want_dispatch = {"exhaustive_raster", "tap_footprint"} | (
+        {"masked_raster"} if t_settings.has_masked_models else set())
     for i in range(n_frames):
         a = 0.05 * i
         params = j_frame_params(data, SIZE, SIZE, camera_pos=(4.0 * np.sin(a), 1.5,

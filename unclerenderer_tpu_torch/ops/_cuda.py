@@ -25,9 +25,8 @@ plain ints (``c_void_p`` argtypes take ints), holding the GIL. A non-zero
 return raises ``RuntimeError``; a launch is counted in ``LAUNCHES``, one
 count per kernel wrapper, which ``chip_smoke.py`` reads to show which
 kernels a run went through (a launch captured into a frame program's CUDA
-graph counts at each replay instead, ``CAPTURED``). What each piece costs
-on the card is in PERF.md (``python3 -m
-unclerenderer_tpu_torch.sweeps.launch_path`` measures it).
+graph counts at each replay instead, ``CAPTURED``). ``chip_smoke.py``'s
+``launch_us`` measures a wrapper's host cost per call on the card.
 """
 
 from __future__ import annotations

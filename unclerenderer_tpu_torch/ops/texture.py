@@ -15,9 +15,12 @@ live here, each with its plain version (``*_ref``) beside it:
 * ``env_select`` -- K7 (``csrc/env_select.cu``), the seamless env decode
   under ``RenderSettings.env_select_kernel``;
 * ``tap_footprint`` and ``material_tap`` -- T1 and T2
-  (``csrc/material_tap.cu``), the material resolve's quad-LOD footprint and
-  its trilinear or anisotropic taps on the packed atlas, from the resolve
-  record image (``render/common.py resolve_materials``).
+  (``csrc/material_tap.cu``), the material resolve's two stages on both
+  devices, from the resolve record image (``render/common.py
+  resolve_materials``): T1 every quad-LOD footprint, whatever the filter,
+  atlas or raster backend; T2 the trilinear or dense anisotropic taps on
+  the packed atlas (``tap_kernels_engage``), where the other taps read
+  T1's planes with the plain samplers.
 """
 
 from __future__ import annotations
@@ -534,7 +537,8 @@ def _check_records(name, full):
 
 
 def tap_footprint(full, uv, lanes, row0: int = 0, max_aniso: int = 0):
-    """T1 wrapper (same contract as ``tap_footprint_ref``)."""
+    """T1 wrapper (same contract as ``tap_footprint_ref``): the resolve's
+    quad-LOD footprint on both devices (the plain version on the CPU)."""
     _check_records("tap_footprint", full)
     if uv.shape != full.shape[:2] + (2,) or uv.dtype != torch.float32:
         raise ValueError("tap_footprint: uv must be (H, W, 2) f32")

@@ -558,8 +558,8 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
                   settings: RenderSettings):
     """D3D12_FILTER_ANISOTROPIC analog: ``max_anisotropy`` trilinear taps
     along the major-axis footprint at the minor-axis LOD; ``footprint``:
-    the (lod, dmaj, extent) of ``tex.footprint_lod_aniso`` or
-    ``tex.uv_screen_lod_aniso``.  Returns (sample, aniso_tap_overflow).
+    the slot's (lod, dmaj, extent) planes (``tex.tap_footprint`` or
+    ``tex.uv_screen_lod_aniso``).  Returns (sample, aniso_tap_overflow).
 
     With 0 < ``aniso_compact_frac`` < 1 the line taps run only over a
     compacted list of the anisotropic pixels (extent > 0; static cap =
@@ -600,18 +600,18 @@ def _sample_aniso(quad_flat, atlas_width, rect0, suv, footprint, valid,
 
 
 def tap_kernels_engage(quad_flat, settings: RenderSettings) -> bool:
-    """Whether a material tap runs as the two kernels T1 and T2
-    (``tex.tap_footprint``, ``tex.material_tap``): on the card, on the
-    kernel path, on the packed 256-lane atlas (C = 16) in u8, f32 or bf16,
-    with the quad-derivative LOD, trilinear or the dense anisotropic taps.
-    Every other tap (the CPU, the xla backend, bilinear, forward-difference
-    LOD, the compacted anisotropic taps, the quad atlas) runs the plain
-    code, which is also the kernels' reference."""
+    """Whether a material tap's taps run as ``tex.material_tap`` (T2 on the
+    card, ``material_tap_ref`` on the CPU): on the kernel path, on the
+    packed 256-lane atlas (C = 16) in u8, f32 or bf16, with the
+    quad-derivative LOD, trilinear or the dense anisotropic taps.  The rule
+    reads the settings and the atlas, never the device.  Every other tap
+    (the xla backend, bilinear, forward-difference LOD, the compacted
+    anisotropic taps, the quad atlas) takes the plain samplers."""
     if settings.texture_filter == "anisotropic":
         dense = not 0.0 < settings.aniso_compact_frac < 1.0
     else:
         dense = settings.texture_filter == "trilinear"
-    return (dense and quad_flat.is_cuda and use_kernel_path(settings)
+    return (dense and use_kernel_path(settings)
             and settings.lod_derivatives == "quad" and tex.atlas_is_packed_tri(quad_flat)
             and quad_flat.dtype in tex.ATLAS_DTYPE_CODE)
 
@@ -629,14 +629,21 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     quad derivatives ("quad"), or forward differences of the pixels' uvs
     gated by triangle edges ("forward", ``tex.uv_screen_lod``); one
     combined-material tap (``combined_material``), else one tap per enabled
-    slot (``slot_enabled``) on the per-map atlas.  The result carries
+    slot (``slot_enabled``) on the per-map atlas.
+
+    A slot's tap has two stages, the same on both devices.  The footprint:
+    the slot's planes (su, sv, lod and, anisotropic, dmaj.u, dmaj.v,
+    extent) from ``tex.tap_footprint`` under quad LOD (T1 on the card), else
+    from the forward differences.  The taps: ``tex.material_tap`` where
+    ``tap_kernels_engage`` holds (T2 on the card), else the plain samplers
+    at the planes.  The result carries
     ``aniso_tap_overflow`` (0 unless the compacted anisotropic taps
     overflowed their cap; per-slot, the last slot's count) and
     ``aniso_counts`` (``aniso_counters`` summed over the slots tapped; empty
     unless the filter is anisotropic) and ``tap_counts``: ``tap_pixels``
     (the valid pixels tapped, summed over the slots) and
-    ``tap_kernel_pixels`` (those the kernels T1 and T2 took,
-    ``tap_kernels_engage``).
+    ``tap_kernel_pixels`` (those the kernels T1 and T2 took: the taps of
+    ``tap_kernels_engage`` with the atlas on the card; 0 on the CPU).
 
     A row slab (sharded frame): ``tri_id`` holds the slab's rows from
     global row ``row0``, pixel centres stay global; ``next_tri_row`` /
@@ -686,12 +693,7 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     atlas_width = scene.quad_img.shape[1]
     kernels = tap_kernels_engage(quad_flat, settings)
     quad_lod = settings.lod_derivatives == "quad"
-    if quad_lod and not kernels:
-        # D3D 2x2-quad derivatives with helper-lane semantics, evaluated
-        # analytically from the pixel's own triangle at the quad corners
-        # (on the kernel path T1 evaluates them)
-        corners = tex.quad_corner_uvs(av, row0)
-    elif not quad_lod:
+    if not quad_lod:
         # forward differences of the pixels' uvs, gated by the triangle
         # ids of the neighbours (+x/+y, then -x/-y); the frame's edge rows
         # and columns count as the same triangle (a 0 difference)
@@ -706,69 +708,64 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     aniso_counts: dict = {}  # aniso_counters, summed over the slots tapped
     slots_tapped = [0]
     aniso = settings.texture_filter == "anisotropic"
+    n_taps = settings.max_anisotropy if aniso else 0
     select = settings.mat_select_kernel and use_kernel_path(settings)
+    shape = valid.shape
 
     def sample_slot(slot):
+        """The material tap of ``slot`` (``settings.texture_filter``) with
+        the slot's own rect and KHR transform: its footprint, then its
+        taps."""
         slots_tapped[0] += 1
-        with scope("MaterialTap"):
-            return _kernel_slot(slot) if kernels else _sample_slot(slot)
-
-    def _kernel_slot(slot):
-        """``_sample_slot`` as T1 and T2, from the record image."""
-        base = 9 + PK.GEO
+        base = 9 + PK.GEO  # the material record's first lane in the resolve record
         lanes = (base + PK.M_UVOS + slot * 4, base + PK.M_UVROT + slot * 2,
                  base + PK.M_RECT + slot * 4)
-        n_taps = settings.max_anisotropy if aniso else 0
-        with scope("AnisoFootprint") if aniso else contextlib.nullcontext():
-            planes = tex.tap_footprint(full, uv, lanes, row0, n_taps)
-        if aniso:
-            for k, v in aniso_counters(planes[5].reshape(valid.shape), valid, settings).items():
-                aniso_counts[k] = aniso_counts[k] + v if k in aniso_counts else v
-        with scope("AnisoTaps") if aniso else contextlib.nullcontext():
-            s = tex.material_tap(quad_flat, atlas_width, full, lanes[2], planes, n_taps, select)
-        return s.reshape(valid.shape + (s.shape[-1],))
-
-    def _sample_slot(slot):
-        """The material tap of ``slot`` (``settings.texture_filter``) with
-        the slot's own rect and KHR transform."""
-        t_os = uv_os[..., slot * 4:slot * 4 + 4]
-        t_rot = uv_rot[..., slot * 2:slot * 2 + 2]
-        suv = tex.apply_texture_transform(uv, t_os, t_rot)
         rect0 = rects[..., slot * 4:slot * 4 + 4]
-        scale = uv_os[..., slot * 4 + 2:slot * 4 + 4]
-        base_w = rect0[..., 2] * scale[..., 0].abs()
-        base_h = rect0[..., 3] * scale[..., 1].abs()
-        # a slab's seam rows difference against the neighbours' rows
-        ua, ub = row_halo(suv) if row_halo is not None and not quad_lod else (None, None)
-        if quad_lod:
-            # derivatives of the transformed uv, as the shader's quad sees
-            d_dx, d_dy = tex.quad_derivatives(corners, t_os, t_rot)
-        if aniso:
-            with scope("AnisoFootprint"):
+        with scope("MaterialTap"):
+            # the footprint: planes (K, H*W) su, sv, lod[, dmaj.u, dmaj.v, extent]
+            with scope("AnisoFootprint") if aniso else contextlib.nullcontext():
                 if quad_lod:
-                    footprint = tex.footprint_lod_aniso(d_dx, d_dy, base_w, base_h,
-                                                        settings.max_anisotropy)
+                    # D3D 2x2-quad derivatives with helper-lane semantics,
+                    # evaluated analytically from the pixel's own triangle
+                    # at the quad corners
+                    planes = tex.tap_footprint(full, uv, lanes, row0, n_taps)
                 else:
-                    footprint = tex.uv_screen_lod_aniso(suv, base_w, base_h, same_x, same_y,
-                                                        settings.max_anisotropy, uv_above=ua,
-                                                        uv_below=ub, same_tri_bx=same_bx,
-                                                        same_tri_by=same_by)
-            for k, v in aniso_counters(footprint[2], valid, settings).items():
-                aniso_counts[k] = aniso_counts[k] + v if k in aniso_counts else v
-            with scope("AnisoTaps"):
-                s, aniso_overflow[0] = _sample_aniso(quad_flat, atlas_width, rect0, suv,
-                                                     footprint, valid, settings)
-            return s
-        if quad_lod:
-            lod = tex.footprint_lod(d_dx, d_dy, base_w, base_h)
-        else:
-            lod = tex.uv_screen_lod(suv, base_w, base_h, same_x, same_y, uv_above=ua,
-                                    uv_below=ub, same_tri_bx=same_bx, same_tri_by=same_by)
-        if settings.texture_filter == "bilinear":
-            level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
-            return tex.sample_level_any(quad_flat, atlas_width, rect0, suv, level)
-        return tex.sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod,
-                                        select_kernel=select)
+                    t_os = uv_os[..., slot * 4:slot * 4 + 4]
+                    suv = tex.apply_texture_transform(uv, t_os, uv_rot[..., slot * 2:slot * 2 + 2])
+                    base_w = rect0[..., 2] * t_os[..., 2].abs()
+                    base_h = rect0[..., 3] * t_os[..., 3].abs()
+                    # a slab's seam rows difference against the neighbours' rows
+                    ua, ub = row_halo(suv) if row_halo is not None else (None, None)
+                    edges = dict(uv_above=ua, uv_below=ub, same_tri_bx=same_bx,
+                                 same_tri_by=same_by)
+                    if aniso:
+                        lod, dmaj, extent = tex.uv_screen_lod_aniso(
+                            suv, base_w, base_h, same_x, same_y, n_taps, **edges)
+                        fp = (lod, dmaj[..., 0], dmaj[..., 1], extent)
+                    else:
+                        fp = (tex.uv_screen_lod(suv, base_w, base_h, same_x, same_y, **edges),)
+                    planes = torch.stack((suv[..., 0], suv[..., 1]) + fp).reshape(2 + len(fp), -1)
+            if aniso:
+                for k, v in aniso_counters(planes[5].reshape(shape), valid, settings).items():
+                    aniso_counts[k] = aniso_counts[k] + v if k in aniso_counts else v
+            # the taps at the planes
+            with scope("AnisoTaps") if aniso else contextlib.nullcontext():
+                if kernels:
+                    s = tex.material_tap(quad_flat, atlas_width, full, lanes[2], planes, n_taps,
+                                         select)
+                    return s.reshape(shape + (s.shape[-1],))
+                suv = planes[0:2].t().reshape(shape + (2,))
+                lod = planes[2].reshape(shape)
+                if aniso:
+                    fp = (lod, planes[3:5].t().reshape(shape + (2,)), planes[5].reshape(shape))
+                    s, aniso_overflow[0] = _sample_aniso(quad_flat, atlas_width, rect0, suv, fp,
+                                                         valid, settings)
+                    return s
+                if settings.texture_filter == "bilinear":
+                    level = tex._to_int(torch.round(torch.clamp(lod, min=0.0)))
+                    return tex.sample_level_any(quad_flat, atlas_width, rect0, suv, level)
+                return tex.sample_trilinear_any(quad_flat, atlas_width, rect0, suv, lod,
+                                                select_kernel=select)
 
     albedo = M(PK.M_BCF, 3) * v_color[..., :3]
     alpha = M(PK.M_ALPHA) * v_color[..., 3]
@@ -815,7 +812,8 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         "aniso_tap_overflow": aniso_overflow[0],
         "aniso_counts": aniso_counts,
         "tap_counts": {"tap_pixels": n_valid * slots_tapped[0],
-                       "tap_kernel_pixels": n_valid * (slots_tapped[0] if kernels else 0)},
+                       "tap_kernel_pixels": n_valid * (slots_tapped[0]
+                                                        if kernels and quad_flat.is_cuda else 0)},
         "model_id": model_id,
         "object_id_f": M(PK.M_OBJID),
         "world_pos": world_pos,

@@ -15,7 +15,7 @@
   the kernel path, as on the reference's Pallas path: ``hzb_pallas_tail`` K6,
   ``env_select_kernel`` K7 (not under ``env_matmul_gather``: the
   reference's precedence), ``mat_select_kernel`` K8 (packed-trilinear
-  atlas; where the material tap runs as T1 and T2 on the card, T2 takes
+  atlas; where the taps run as ``material_tap``, T2 on the card, T2 takes
   K8's blends instead, ``render/common.py tap_kernels_engage``) and
   ``bin_mat_idx`` K9.  ``fused_resolve="on"`` makes K1 and K2
   emit each pixel's resolve record (``render/common.py

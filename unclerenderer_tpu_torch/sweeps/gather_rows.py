@@ -7,8 +7,6 @@ opt-in) at both counts.
 Variants:
 
 * ``shipped``          -- ``gather_rows`` itself;
-* ``previous``         -- the kernel before the redesign: one thread an
-  output element, a 64-bit divide each, the table read from device memory;
 * ``R rows, staged``   -- R rows a thread, its indices loaded first, then
   the table staged in shared memory by every block;
 * ``R rows, direct``   -- R rows a thread, the table read through the L1;
@@ -42,14 +40,6 @@ SOURCE = r"""
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-__global__ void previous(const __nv_bfloat16* __restrict__ table, const int* __restrict__ idx,
-                         float* __restrict__ out, int64_t total, int c) {
-  const int64_t i = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (i >= total) return;
-  const int64_t r = i / c;
-  const int col = (int)(i - r * c);
-  out[i] = __bfloat162float(table[(int64_t)idx[r] * c + col]);
-}
 template <int R>
 __device__ __forceinline__ void load(const int* __restrict__ idx, int64_t r0, int64_t n, int* r) {
 #pragma unroll
@@ -107,7 +97,7 @@ void launch(const __nv_bfloat16* t, int64_t elems, const int* idx, float* out, i
   }
   rows<R, S, W, P><<<(unsigned)blocks, 256, S ? elems * 2 : 0, st>>>(t, elems, idx, out, n);
 }
-// variant: R | 16 staged | 32 word | 64 persistent; 0 the previous kernel
+// variant: R | 16 staged | 32 word | 64 persistent
 #define CASE(R, S, W, P) case R | 16 * S | 32 * W | 64 * P: launch<R, S, W, P>(t, elems, idx, out, n, st); break;
 extern "C" int run(int variant, const void* table, long long rows_, const int* idx, float* out,
                    long long n, void* stream) {
@@ -115,7 +105,6 @@ extern "C" int run(int variant, const void* table, long long rows_, const int* i
   auto t = (const __nv_bfloat16*)table;
   const int64_t elems = rows_ * 2;
   switch (variant) {
-    case 0: previous<<<(unsigned)((2 * n + 255) / 256), 256, 0, st>>>(t, idx, out, 2 * n, 2); break;
     CASE(2, 1, 0, 0) CASE(4, 1, 0, 0) CASE(2, 0, 0, 0) CASE(4, 0, 0, 0)
     CASE(2, 0, 1, 0) CASE(2, 1, 1, 0) CASE(2, 1, 1, 1) CASE(2, 0, 1, 1)
   }
@@ -124,7 +113,7 @@ extern "C" int run(int variant, const void* table, long long rows_, const int* i
 """
 
 S, W, P = 16, 32, 64
-VARIANTS = {"shipped": -1, "previous": 0, "2 rows, staged": 2 | S, "4 rows, staged": 4 | S,
+VARIANTS = {"shipped": -1, "2 rows, staged": 2 | S, "4 rows, staged": 4 | S,
             "2 rows, direct": 2, "4 rows, direct": 4, "2 rows, direct, word": 2 | W,
             "2 rows, staged, word": 2 | S | W, "2 rows, staged, word, persistent": 2 | S | W | P,
             "2 rows, direct, word, persistent": 2 | W | P}

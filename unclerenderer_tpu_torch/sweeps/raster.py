@@ -5,16 +5,11 @@ the default path (263,184 triangles, 4096^2 shadow map) gives them.
 For each launch (shadow fine, shadow mid, camera fine, camera mid for K1;
 shadow and camera for K2) it prints the shapes, the work the inputs hold
 -- live (tile, block) or (tile, chunk) pairs, (pixel, valid row) pairs,
-the most blocks or live chunks one tile has, the blocks the previous
-design launched, and the share of (warp rectangle, row) pairs that the
+the most blocks or live chunks one tile has, and the share of (warp rectangle, row) pairs that the
 kernels' warp skip drops -- and the device time of every variant, each
 first held bit-equal to the plain version:
 
 * ``shipped``        -- the kernel wrapper of ``ops/raster_kernels.py``;
-* ``previous``       -- the kernels before the redesign (sources below): one
-  512-thread block a tile with 8 pixel slots a thread (K1), one thread a
-  pixel and a serial walk of the tile's overlap words in every 256-pixel
-  block (K2);
 * ``1 / 4 rectangles a block`` -- K1 blocks over 128 or 512 pixels of a
   tile (shipped: 256);
 * ``16 / 64 warps a tile`` -- K1 with fewer or more spare warps turned
@@ -34,8 +29,8 @@ first held bit-equal to the plain version:
 The variants are the shipped sources with a line or two replaced
 (``VARIANTS``), built through ``_cuda.build_source``.  Device time per
 launch: CUDA graphs of 10 launches, median of three rounds taken in turns.
-``--ptxas`` first prints what ``nvcc -Xptxas -v`` says of the shipped and
-previous kernels (registers, shared memory, spills).  Run from the
+``--ptxas`` first prints what ``nvcc -Xptxas -v`` says of the shipped
+kernels (registers, shared memory, spills).  Run from the
 repository root on a CUDA machine::
 
     python3 -m unclerenderer_tpu_torch.sweeps.raster [--ptxas] [--out FILE.json]
@@ -60,290 +55,6 @@ from ..timing import graph_ms, nvidia_smi
 
 WIDTH, HEIGHT, SHADOW = 1920, 1080, 4096
 ROUNDS, REPS = 3, 10
-
-PREVIOUS_BINNED = r"""// K1: binned visibility raster, one bin level (fine or mid).
-//
-// Replaces unclerenderer_tpu/ops/pallas_raster.py _binned_kernel (launched by
-// _run_binned_kernel / rasterize_binned).  The TPU kernel walked bin blocks
-// in order on one core and revisited each tile's output block; here every
-// tile is one thread block that walks its own contiguous block range
-// [tile_start, tile_start + tile_count), so blocks need no order and tiles
-// no atomics: max-key / min-id is commutative.
-//
-// Bound: ALU -- each (pixel, slot) pair costs three edge functions, the
-// depth numerator and denominator and one IEEE divide (~20 FP ops).  The
-// design keeps the block's 16 x chunk coefficients, ids and valid flags in
-// shared memory (read as warp broadcasts), keeps each pixel's best key and
-// id in registers for the whole tile, and writes every pixel once.  Dead
-// budget blocks belong to no tile and cost nothing.
-//
-// Bit-exactness: the arithmetic is the reference's contraction pattern,
-// written with explicit round-to-nearest intrinsics (built with -fmad=false):
-//   ev  = (a*qx + b*qy) + c   ->  fma(a, qx, b*qy) + c
-//   key = nz / nw              ->  IEEE division (__fdiv_rn)
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 512;
-constexpr int kPixPerThread = 8;  // tiles up to 4096 pixels
-
-__device__ __forceinline__ float lin(float a, float b, float c, float qx, float qy) {
-  return __fadd_rn(__fmaf_rn(a, qx, __fmul_rn(b, qy)), c);
-}
-
-__device__ __forceinline__ bool inside(float a, float b, float c, float qx, float qy) {
-  const float ev = lin(a, b, c, qx, qy);
-  const bool tl = (a > 0.f) || (a == 0.f && b > 0.f);
-  return (ev > 0.f) || (ev == 0.f && tl);
-}
-
-template <bool kWantIds, bool kOrtho>
-__global__ void __launch_bounds__(kThreads)
-binned_raster_kernel(const float* __restrict__ coef, const int* __restrict__ tri_id,
-                     const float* __restrict__ valid, const int* __restrict__ tile_start,
-                     const int* __restrict__ tile_count, float* __restrict__ out_key,
-                     int* __restrict__ out_id, int chunk, int tile_h, int tile_w, int n_tx,
-                     float y_off) {
-  extern __shared__ float smem[];
-  float* s_coef = smem;                 // [16][chunk]
-  float* s_valid = smem + 16 * chunk;   // [chunk]
-  int* s_tid = reinterpret_cast<int*>(s_valid + chunk);  // [chunk]
-
-  const int tile = blockIdx.x;
-  const int pix = tile_h * tile_w;
-  const float x0 = static_cast<float>((tile % n_tx) * tile_w);
-  const float y0 = __fadd_rn(static_cast<float>((tile / n_tx) * tile_h), y_off);
-
-  float qx[kPixPerThread], qy[kPixPerThread], best[kPixPerThread];
-  int bid[kPixPerThread];
-#pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    qx[k] = __fadd_rn(__fadd_rn(x0, static_cast<float>(p % tile_w)), 0.5f);
-    qy[k] = __fadd_rn(__fadd_rn(y0, static_cast<float>(p / tile_w)), 0.5f);
-    best[k] = -1.f;
-    bid[k] = -1;
-  }
-
-  const int b0 = tile_start[tile];
-  const int nb = tile_count[tile];
-  for (int bi = 0; bi < nb; ++bi) {
-    const size_t b = static_cast<size_t>(b0 + bi);
-    __syncthreads();  // previous block's smem is no longer read
-    for (int i = threadIdx.x; i < 16 * chunk; i += kThreads) s_coef[i] = coef[b * 16 * chunk + i];
-    for (int i = threadIdx.x; i < chunk; i += kThreads) {
-      s_valid[i] = valid[b * chunk + i];
-      if (kWantIds) s_tid[i] = tri_id[b * chunk + i];
-    }
-    __syncthreads();
-    for (int s = 0; s < chunk; ++s) {
-      if (!(s_valid[s] > 0.f)) continue;
-      const float a0 = s_coef[0 * chunk + s], a1 = s_coef[1 * chunk + s], a2 = s_coef[2 * chunk + s];
-      const float e0 = s_coef[3 * chunk + s], e1 = s_coef[4 * chunk + s], e2 = s_coef[5 * chunk + s];
-      const float c0 = s_coef[6 * chunk + s], c1 = s_coef[7 * chunk + s], c2 = s_coef[8 * chunk + s];
-      const float za = s_coef[9 * chunk + s], zb = s_coef[10 * chunk + s], zc = s_coef[11 * chunk + s];
-      const float wa = s_coef[12 * chunk + s], wb = s_coef[13 * chunk + s], wc = s_coef[14 * chunk + s];
-      const int t = kWantIds ? s_tid[s] : 0;
-#pragma unroll
-      for (int k = 0; k < kPixPerThread; ++k) {
-        if (threadIdx.x + k * kThreads >= pix) continue;
-        if (!(inside(a0, e0, c0, qx[k], qy[k]) && inside(a1, e1, c1, qx[k], qy[k]) &&
-              inside(a2, e2, c2, qx[k], qy[k])))
-          continue;
-        float key = lin(za, zb, zc, qx[k], qy[k]);
-        if (!kOrtho) {
-          const float nw = lin(wa, wb, wc, qx[k], qy[k]);
-          if (!(nw > 0.f)) continue;
-          key = __fdiv_rn(key, nw);
-        }
-        if (!(key >= 0.f && key <= 1.f)) continue;
-        if (key > best[k] || (kWantIds && key == best[k] && t < bid[k])) {
-          best[k] = key;
-          bid[k] = t;
-        }
-      }
-    }
-  }
-
-  const size_t base = static_cast<size_t>(tile) * pix;
-#pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    if (p >= pix) continue;
-    out_key[base + p] = best[k];
-    if (kWantIds) out_id[base + p] = bid[k];
-  }
-}
-
-template <bool kWantIds, bool kOrtho>
-void launch(const float* coef, const int* tri_id, const float* valid, const int* tile_start,
-            const int* tile_count, float* out_key, int* out_id, int n_tiles, int chunk,
-            int tile_h, int tile_w, int n_tx, float y_off, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (16 * chunk + chunk) + sizeof(int) * chunk;
-  binned_raster_kernel<kWantIds, kOrtho><<<n_tiles, kThreads, smem, stream>>>(
-      coef, tri_id, valid, tile_start, tile_count, out_key, out_id, chunk, tile_h, tile_w,
-      n_tx, y_off);
-}
-
-}  // namespace
-
-extern "C" int binned_raster(const float* coef, const int* tri_id, const float* valid,
-                             const int* tile_start, const int* tile_count, float* out_key,
-                             int* out_id, int n_tiles, int chunk, int tile_h, int tile_w,
-                             int n_tx, float y_off, int want_ids, int ortho, void* stream) {
-  if (tile_h * tile_w > kThreads * kPixPerThread) return static_cast<int>(cudaErrorInvalidValue);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (want_ids) {
-    if (ortho)
-      launch<true, true>(coef, tri_id, valid, tile_start, tile_count, out_key, out_id, n_tiles,
-                         chunk, tile_h, tile_w, n_tx, y_off, s);
-    else
-      launch<true, false>(coef, tri_id, valid, tile_start, tile_count, out_key, out_id, n_tiles,
-                          chunk, tile_h, tile_w, n_tx, y_off, s);
-  } else {
-    if (ortho)
-      launch<false, true>(coef, tri_id, valid, tile_start, tile_count, out_key, out_id, n_tiles,
-                          chunk, tile_h, tile_w, n_tx, y_off, s);
-    else
-      launch<false, false>(coef, tri_id, valid, tile_start, tile_count, out_key, out_id,
-                           n_tiles, chunk, tile_h, tile_w, n_tx, y_off, s);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-
-PREVIOUS_GIANT = r"""// K2/K3: giant-level visibility raster (brute force over a small table).
-//
-// Replaces unclerenderer_tpu/ops/pallas_raster.py _raster_kernel_onepass
-// (K2, 1D tile grid with an in-kernel chunk loop) and _raster_kernel (K3,
-// its 2D tiles x chunks fallback), both launched by rasterize_pallas for the
-// giant level of rasterize_binned.  One kernel serves both: the pair of TPU
-// grids only differed in how the chunk loop was scheduled.
-//
-// Bound: ALU (edge evaluations per live (pixel, triangle) pair).  The giant
-// table holds tens of triangles that each cover many tiles, so the cost is
-// set by the skip granularity: a chunk whose overlap bit for the tile is
-// clear is skipped with one uniform branch; a live chunk's 16 x chunk
-// coefficients are staged in shared memory and read as warp broadcasts.
-// One thread per pixel keeps its best key and row in registers.
-//
-// Output: raw key (-1 = miss) and the winner's int32 GLOBAL id via the
-// ids map (the TPU kernel emitted it as an f32 record column, exact only
-// below 2^24; here it is an integer load).  Ties resolve to the smallest
-// row, i.e. the smallest global id (rows ascend in global id).
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float lin(float a, float b, float c, float qx, float qy) {
-  return __fadd_rn(__fmaf_rn(a, qx, __fmul_rn(b, qy)), c);
-}
-
-__device__ __forceinline__ bool inside(float a, float b, float c, float qx, float qy) {
-  const float ev = lin(a, b, c, qx, qy);
-  const bool tl = (a > 0.f) || (a == 0.f && b > 0.f);
-  return (ev > 0.f) || (ev == 0.f && tl);
-}
-
-template <bool kWantIds, bool kOrtho>
-__global__ void __launch_bounds__(kThreads)
-giant_raster_kernel(const float* __restrict__ coef, const float* __restrict__ valid,
-                    const int* __restrict__ overlap, const int* __restrict__ ids,
-                    float* __restrict__ out_key, int* __restrict__ out_id, int n_chunks,
-                    int chunk, int tile_h, int tile_w, int n_tx, float y_off) {
-  extern __shared__ float smem[];
-  float* s_coef = smem;                // [16][chunk]
-  float* s_valid = smem + 16 * chunk;  // [chunk]
-
-  const int tile = blockIdx.x;
-  const int pix = tile_h * tile_w;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
-  const float x0 = static_cast<float>((tile % n_tx) * tile_w);
-  const float y0 = __fadd_rn(static_cast<float>((tile / n_tx) * tile_h), y_off);
-  const float qx = __fadd_rn(__fadd_rn(x0, static_cast<float>(p % tile_w)), 0.5f);
-  const float qy = __fadd_rn(__fadd_rn(y0, static_cast<float>(p / tile_w)), 0.5f);
-
-  float best = -1.f;
-  int brow = -1;
-  const int* ov = overlap + static_cast<size_t>(tile) * n_chunks;
-  for (int c = 0; c < n_chunks; ++c) {
-    if (ov[c] == 0) continue;  // uniform across the block
-    __syncthreads();
-    for (int i = threadIdx.x; i < 16 * chunk; i += kThreads)
-      s_coef[i] = coef[static_cast<size_t>(c) * 16 * chunk + i];
-    for (int i = threadIdx.x; i < chunk; i += kThreads)
-      s_valid[i] = valid[static_cast<size_t>(c) * chunk + i];
-    __syncthreads();
-    if (p >= pix) continue;
-    for (int s = 0; s < chunk; ++s) {
-      if (!(s_valid[s] > 0.f)) continue;
-      if (!(inside(s_coef[0 * chunk + s], s_coef[3 * chunk + s], s_coef[6 * chunk + s], qx, qy) &&
-            inside(s_coef[1 * chunk + s], s_coef[4 * chunk + s], s_coef[7 * chunk + s], qx, qy) &&
-            inside(s_coef[2 * chunk + s], s_coef[5 * chunk + s], s_coef[8 * chunk + s], qx, qy)))
-        continue;
-      float key = lin(s_coef[9 * chunk + s], s_coef[10 * chunk + s], s_coef[11 * chunk + s], qx, qy);
-      if (!kOrtho) {
-        const float nw =
-            lin(s_coef[12 * chunk + s], s_coef[13 * chunk + s], s_coef[14 * chunk + s], qx, qy);
-        if (!(nw > 0.f)) continue;
-        key = __fdiv_rn(key, nw);
-      }
-      if (!(key >= 0.f && key <= 1.f)) continue;
-      // rows are visited in ascending order: a later equal key never wins
-      if (key > best) {
-        best = key;
-        brow = c * chunk + s;
-      }
-    }
-  }
-  if (p >= pix) return;
-  const size_t o = static_cast<size_t>(tile) * pix + p;
-  out_key[o] = best;
-  if (kWantIds) out_id[o] = brow < 0 ? -1 : (ids != nullptr ? ids[brow] : brow);
-}
-
-template <bool kWantIds, bool kOrtho>
-void launch(const float* coef, const float* valid, const int* overlap, const int* ids,
-            float* out_key, int* out_id, int n_tiles, int n_chunks, int chunk, int tile_h,
-            int tile_w, int n_tx, float y_off, cudaStream_t stream) {
-  const int pix = tile_h * tile_w;
-  const dim3 grid(n_tiles, (pix + kThreads - 1) / kThreads);
-  const size_t smem = sizeof(float) * (16 * chunk + chunk);
-  giant_raster_kernel<kWantIds, kOrtho><<<grid, kThreads, smem, stream>>>(
-      coef, valid, overlap, ids, out_key, out_id, n_chunks, chunk, tile_h, tile_w, n_tx, y_off);
-}
-
-}  // namespace
-
-extern "C" int giant_raster(const float* coef, const float* valid, const int* overlap,
-                            const int* ids, float* out_key, int* out_id, int n_tiles,
-                            int n_chunks, int chunk, int tile_h, int tile_w, int n_tx,
-                            float y_off, int want_ids, int ortho, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (want_ids) {
-    if (ortho)
-      launch<true, true>(coef, valid, overlap, ids, out_key, out_id, n_tiles, n_chunks, chunk,
-                         tile_h, tile_w, n_tx, y_off, s);
-    else
-      launch<true, false>(coef, valid, overlap, ids, out_key, out_id, n_tiles, n_chunks, chunk,
-                          tile_h, tile_w, n_tx, y_off, s);
-  } else {
-    if (ortho)
-      launch<false, true>(coef, valid, overlap, ids, out_key, out_id, n_tiles, n_chunks, chunk,
-                          tile_h, tile_w, n_tx, y_off, s);
-    else
-      launch<false, false>(coef, valid, overlap, ids, out_key, out_id, n_tiles, n_chunks, chunk,
-                           tile_h, tile_w, n_tx, y_off, s);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-
 
 # a diagnostic variant computes something else: timed, not held to the plain version
 DIAGNOSTIC = "(diagnostic) "
@@ -439,10 +150,9 @@ def shipped_source(name: str) -> str:
 
 
 def variant_sources():
-    """(kernel, variant) -> source text: the previous kernels and the
-    shipped sources with their lines replaced."""
-    out = {("binned_raster", "previous"): PREVIOUS_BINNED,
-           ("giant_raster", "previous"): PREVIOUS_GIANT}
+    """(kernel, variant) -> source text: the shipped sources with their
+    lines replaced."""
+    out = {}
     for name, variants in VARIANTS.items():
         shipped = shipped_source(name)
         for label, edits in variants.items():
@@ -570,8 +280,7 @@ def warp_rows(name, args):
 
 
 def work(name, args) -> dict:
-    """What one call's inputs hold, and the blocks the previous design
-    launched."""
+    """What one call's inputs hold."""
     tested, kept, _ = warp_rows(name, args)
     skip = 1.0 - kept / tested if tested else 0.0
     if name == "binned_raster":
@@ -584,7 +293,7 @@ def work(name, args) -> dict:
         return {"tiles": int(s.shape[0]), "pix": pix, "chunk": int(coef.shape[-1]),
                 "tile_blocks": int(c.sum()), "tiles_with_blocks": int((c > 0).sum()),
                 "max_blocks_per_tile": int(c.max()), "valid_rows": int(rows.sum()),
-                "pairs": pix * int(rows.sum()), "previous_blocks": int(s.shape[0]),
+                "pairs": pix * int(rows.sum()),
                 "warp_rows": tested, "warp_skip_share": skip}
     (coef, valid, overlap), (th, tw) = args[:3], args[4:6]
     pix = th * tw
@@ -595,7 +304,6 @@ def work(name, args) -> dict:
             "chunk": int(coef.shape[-1]), "tile_chunks": int(live.sum()),
             "max_chunks_per_tile": int(live.sum(1).max()), "valid_rows": int(rows.sum()),
             "pairs": pix * int(rows.sum()),
-            "previous_blocks": int(overlap.shape[0]) * -(-pix // 256),
             "warp_rows": tested, "warp_skip_share": skip}
 
 
@@ -614,12 +322,8 @@ def main() -> int:
     result = {"device": smi, "ptxas": {}, "launches": []}
     sources = variant_sources()
     if args.ptxas:
-        with tempfile.TemporaryDirectory() as tmp:
-            for name in ("binned_raster", "giant_raster"):
-                result["ptxas"][name] = ptxas(name, _cuda.CSRC / f"{name}.cu")
-                src = Path(tmp) / f"previous_{name}.cu"
-                src.write_text(sources[(name, "previous")])
-                result["ptxas"][f"previous {name}"] = ptxas(f"previous {name}", src)
+        for name in ("binned_raster", "giant_raster"):
+            result["ptxas"][name] = ptxas(name, _cuda.CSRC / f"{name}.cu")
     _cuda.library()
     fns = {key: bind(f"{key[0]} {key[1]}", key[0], text) for key, text in sources.items()}
     dev = torch.device("cuda", 0)

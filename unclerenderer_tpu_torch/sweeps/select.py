@@ -8,10 +8,6 @@ Variants, each first held bit-equal to the plain version:
 
 * ``shipped``   -- the kernel wrapper (``ops/shadow.py select9``,
   ``ops/texture.py mat_select``);
-* ``previous``  -- the kernels before their redesign (sources below): K4 one
-  thread a receiver, 9 two-byte loads and 9 scalar stores at a 36-byte
-  stride, its deltas copied from a host array; K8 one thread a (pixel,
-  channel), a 64-bit divide, 7 parameter and 8 single-byte loads a thread;
 * K8 ``T threads a pixel, P pixels a thread, shfl / L1`` -- T in 1, 2, 4
   threads share a pixel's 16 channels; its row index and 7 parameters
   loaded by its lanes in turn and shuffled (shfl), or by every lane (L1);
@@ -29,7 +25,7 @@ reference's ``_select9_fetch`` returns (N, 9)); eager device time from
 CUDA events over 20 calls, since the tail cannot be captured in a graph.
 
 The alternatives are template instances of the shipped sources, exported
-through C entries appended to them (``VARIANTS``); all four sources build
+through C entries appended to them (``VARIANTS``); both sources build
 at once through ``_cuda.build_source``.  Device time per call: CUDA graphs
 of 10 calls, median of three rounds taken in turns.  ``--ptxas`` first
 prints what ``nvcc -Xptxas -v`` says of every instance (registers, spills).
@@ -60,187 +56,6 @@ from .raster import ptxas
 WIDTH, HEIGHT, SHADOW = 1920, 1080, 4096
 ROUNDS, REPS = 3, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-
-PREVIOUS_SELECT9 = r"""// K4: PCF 3x3 neighbourhood fetch from the u16 superblock shadow table.
-//
-// Replaces unclerenderer_tpu/ops/shadow.py _select9_kernel (via
-// _select9_call / _select9_fetch / shadow_factor_blocks).  The TPU path
-// first gathered each receiver's whole 128-lane superblock row (256 B) into
-// a materialised (grid, 1024, 128) array, then selected 9 lanes in VMEM.
-// Here one thread per receiver reads the 9 texels straight from
-// table[row * lanes + base + delta_k] and writes them as f32 (u16 -> f32 is
-// exact), so no row array is ever materialised.
-//
-// Bound: latency of scattered 2-byte reads.  The 9 taps of a receiver lie
-// in one 256 B row (3 runs of 3 adjacent texels), neighbouring receivers
-// hit neighbouring rows, and the loads are independent, so each thread
-// keeps 9 requests in flight and the L1/L2 absorb the row reuse.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-struct Deltas {
-  int d[9];
-};
-
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-select9_kernel(const uint16_t* __restrict__ table, const int* __restrict__ row,
-               const int* __restrict__ base, float* __restrict__ out, int n, int lanes,
-               Deltas deltas) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint16_t* r = table + static_cast<size_t>(row[i]) * lanes + base[i];
-  uint16_t v[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) v[k] = __ldg(r + deltas.d[k]);
-  float* o = out + static_cast<size_t>(i) * 9;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) o[k] = static_cast<float>(v[k]);
-}
-
-}  // namespace
-
-extern "C" int shadow_select9(const uint16_t* table, const int* row, const int* base,
-                              const int* deltas, float* out, int n, int lanes, void* stream) {
-  Deltas d;
-  for (int k = 0; k < 9; ++k) d.d[k] = deltas[k];  // host array
-  if (n > 0) {
-    select9_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(table, row, base, out, n, lanes, d);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-
-PREVIOUS_MAT_SELECT = r"""// K8: packed-trilinear material decode, one C-channel trilinear sample per
-// pixel from ONE 16C-lane row of the packed atlas.
-//
-// Replaces unclerenderer_tpu/ops/texture.py _mat_select_kernel (via
-// _mat_select_call, called from sample_pyramid_tri under
-// RenderSettings.mat_select_kernel).  Row lanes 0:4C are the mip-L bilinear
-// quad (TL, TR, BL, BR), lanes 4C:13C the parent texel's 3x3 at mip L+1.
-// Per channel: u8 -> f32 as (float)(int)byte * (1/255) with gamma 2
-// (x * x) on channels {0,1,2,8,9,10} of C=16, tap-a quad blend, tap-b 2x2
-// picked from the 3x3 by (cox < 0.5, roy < 0.5), mip lerp -- the Pallas
-// kernel's expressions, with the multiply-adds XLA:CPU contracts in it as
-// explicit __fmaf_rn and no other contraction (-fmad=false).
-//
-// The TPU call first gathered every pixel's whole row into a materialised
-// (grid, 1024, 16C) array in HBM (530 MB of u8 rows at 1080p) and decoded
-// all 13C lanes in VMEM.  Here C threads serve one pixel, one per channel;
-// each reads only its 8 winning lanes straight from the atlas by rows_idx
-// (4 quad lanes + the 2x2 of the 3x3), so no row array exists and 5 of the
-// 13 lanes are never decoded.
-//
-// Bound: latency of scattered row reads (2M rows of 256 B from a ~200 MB
-// atlas at 1080p).  Neighbouring threads read neighbouring bytes of one
-// row, so each quarter-row read is one transaction; parameters are read as
-// (7, N) rows (coalesced across pixels) and the (N, C) output is written
-// contiguously.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ float decode(T v, bool gamma);
-
-template <>
-__device__ __forceinline__ float decode<uint8_t>(uint8_t v, bool gamma) {
-  const float x = __fmul_rn(static_cast<float>(static_cast<int>(v)),
-                            static_cast<float>(1.0 / 255.0));
-  return gamma ? __fmul_rn(x, x) : x;
-}
-
-template <>
-__device__ __forceinline__ float decode<float>(float v, bool) { return v; }
-
-template <>
-__device__ __forceinline__ float decode<__nv_bfloat16>(__nv_bfloat16 v, bool) {
-  return __bfloat162float(v);
-}
-
-// a * (1 - f) + b * f, contracted as XLA:CPU contracts the Pallas kernel:
-// fma(a, 1 - f, b * f) for the taps, fma(b, f, a * (1 - f)) for the mip lerp
-__device__ __forceinline__ float lerp_fa(float a, float b, float f) {
-  return __fmaf_rn(a, __fsub_rn(1.0f, f), __fmul_rn(b, f));
-}
-
-__device__ __forceinline__ float lerp_fb(float a, float b, float f) {
-  return __fmaf_rn(b, f, __fmul_rn(a, __fsub_rn(1.0f, f)));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mat_select_kernel(const T* __restrict__ atlas, const int* __restrict__ rows_idx,
-                  const float* __restrict__ params, float* __restrict__ out, int64_t n,
-                  int c, int lanes) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n * c) return;
-  const int64_t p = i / c;
-  const int ch = static_cast<int>(i - p * c);
-  const bool gamma = (ch < 3) || (ch >= 8 && ch < 11);
-  const T* row = atlas + static_cast<int64_t>(rows_idx[p]) * lanes + ch;
-
-  const float fx = params[p], fy = params[n + p];
-  const float fx2 = params[2 * n + p], fy2 = params[3 * n + p];
-  const float frac = params[4 * n + p];
-  const int i0 = params[5 * n + p] < 0.5f ? 0 : 1;  // 3x3 column of the base
-  const int j0 = params[6 * n + p] < 0.5f ? 0 : 1;  // 3x3 row of the base
-
-  const float q00 = decode(__ldg(row), gamma);
-  const float q10 = decode(__ldg(row + c), gamma);
-  const float q01 = decode(__ldg(row + 2 * c), gamma);
-  const float q11 = decode(__ldg(row + 3 * c), gamma);
-  const T* r3 = row + 4 * c;  // lane of 3x3 cell (j, i): (j * 3 + i) * c
-  const float tl2 = decode(__ldg(r3 + (j0 * 3 + i0) * c), gamma);
-  const float tr2 = decode(__ldg(r3 + (j0 * 3 + i0 + 1) * c), gamma);
-  const float bl2 = decode(__ldg(r3 + ((j0 + 1) * 3 + i0) * c), gamma);
-  const float br2 = decode(__ldg(r3 + ((j0 + 1) * 3 + i0 + 1) * c), gamma);
-
-  const float a = lerp_fa(lerp_fa(q00, q10, fx), lerp_fa(q01, q11, fx), fy);
-  const float b = lerp_fa(lerp_fa(tl2, tr2, fx2), lerp_fa(bl2, br2, fx2), fy2);
-  out[i] = lerp_fb(a, b, frac);
-}
-
-}  // namespace
-
-// dtype: 0 = u8, 1 = f32, 2 = bf16
-extern "C" int mat_select(const void* atlas, const int* rows_idx, const float* params,
-                          float* out, long long n, int c, int lanes, int dtype,
-                          void* stream) {
-  const int64_t total = static_cast<int64_t>(n) * c;
-  if (total > 0) {
-    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    auto s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0)
-      mat_select_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const uint8_t*>(atlas),
-                                                    rows_idx, params, out, n, c, lanes);
-    else if (dtype == 1)
-      mat_select_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const float*>(atlas),
-                                                    rows_idx, params, out, n, c, lanes);
-    else
-      mat_select_kernel<<<blocks, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(atlas), rows_idx, params, out, n, c, lanes);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the previous C entries' signatures (argtypes)
-PREVIOUS_SIGNATURES = {
-    # table, row, base, deltas (host int[9]), out, n, lanes, stream
-    "shadow_select9": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # atlas, rows_idx, params (7, n), out, n, c, lanes, dtype, stream
-    "mat_select": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
-}
 
 # a C entry of one template instance, appended to the shipped source
 ENTRY_TEXT = {
@@ -338,15 +153,13 @@ def entry_name(kernel: str, label: str) -> str:
 
 def variant_sources() -> dict:
     """Library name -> source text: each kernel's shipped source with the C
-    entry of every variant appended, and the two previous sources."""
+    entry of every variant appended."""
     out = {}
     for name, variants in VARIANTS.items():
         text = (_cuda.CSRC / f"{name}.cu").read_text()
         for label, targs in variants.items():
             text += ENTRY_TEXT[name].format(entry=entry_name(name, label), **targs)
         out[f"sweep_{name}"] = text + (PLANES if name == "shadow_select9" else "")
-    out["sweep_previous_shadow_select9"] = PREVIOUS_SELECT9
-    out["sweep_previous_mat_select"] = PREVIOUS_MAT_SELECT
     return out
 
 
@@ -367,8 +180,6 @@ def entries(sources: dict) -> dict:
         for label in variants:
             fns[(name, label)] = _bound(getattr(libs[f"sweep_{name}"], entry_name(name, label)),
                                         _cuda.SIGNATURES[name])
-        fns[(name, "previous")] = _bound(getattr(libs[f"sweep_previous_{name}"], name),
-                                         PREVIOUS_SIGNATURES[name])
     planes = _bound(libs["sweep_shadow_select9"].sweep_select9_planes,
                     _cuda.SIGNATURES["shadow_select9"])
     return fns, planes
@@ -402,27 +213,22 @@ def layouts(planes_fn, args, tail):
             "(N, 9) rows": lambda: shadow_mod.select9(*args), "(9, N) planes": planes}
 
 
-def entry_call(fn, name: str, previous: bool, args):
-    """One launch of C entry ``fn`` (kernel ``name``; ``previous``: its old
-    signature) on a captured call's normalised arguments; returns the
-    output like the wrapper."""
+def entry_call(fn, name: str, args):
+    """One launch of C entry ``fn`` (kernel ``name``) on a captured call's
+    normalised arguments; returns the output like the wrapper."""
     stream = torch.cuda.current_stream().cuda_stream
     if name == "mat_select":
         atlas, rows, params7 = args
         n = rows.shape[0]
         out = torch.empty((n, 16), dtype=torch.float32, device=atlas.device)
-        tail = (16, 256, 0) if previous else (0,)  # (c, lanes,) dtype u8
-        err = fn(atlas.data_ptr(), rows.data_ptr(), params7.data_ptr(), out.data_ptr(), n, *tail,
-                 stream)
+        err = fn(atlas.data_ptr(), rows.data_ptr(), params7.data_ptr(), out.data_ptr(), n, 0,
+                 stream)  # dtype u8
     else:
         table, row, base, deltas = args
         n, lanes = row.shape[0], table.shape[1]
         out = torch.empty((n, 9), dtype=torch.float32, device=table.device)
         head = (table.data_ptr(), row.data_ptr(), base.data_ptr())
-        if previous:
-            err = fn(*head, ctypes.addressof(deltas), out.data_ptr(), n, lanes, stream)
-        else:
-            err = fn(*head, out.data_ptr(), n, lanes, shadow_mod._PCF_BW[tuple(deltas)], stream)
+        err = fn(*head, out.data_ptr(), n, lanes, shadow_mod._PCF_BW[tuple(deltas)], stream)
     if err:
         raise RuntimeError(f"{name}: cudaError {err}")
     return out
@@ -459,8 +265,8 @@ KERNELS = {
 def frame_calls(dev) -> dict:
     """Kernel -> the arguments of its call in one 1920x1080 frame: K4 in a
     default-path frame, K8 in a packed-path frame (the packed u8 atlas,
-    ``mat_select_kernel`` on, the plain material tap: the kernel one, T1 and
-    T2, takes no K8); "pcf_tail" -> those of the PCF tail after K4."""
+    ``mat_select_kernel`` on, the plain tap after T1's footprint: T2 takes
+    no K8); "pcf_tail" -> those of the PCF tail after K4."""
     from ..render import common
     from ..render.deferred import deferred_frame
     from ..render.params import FrameState, RenderSettings
@@ -531,15 +337,13 @@ def main() -> int:
         if name == "mat_select":
             norm = (a[0], a[1].to(torch.int32).contiguous(), a[2].contiguous())
         else:
-            deltas = (ctypes.c_int * 9)(*a[3])  # the previous entry's host array
             norm = (a[0], a[1].to(torch.int32).contiguous(), a[2].to(torch.int32).contiguous(),
-                    deltas)
+                    a[3])
         want = ref(*a)
         variants = {"shipped": lambda a=a, wrapper=wrapper: wrapper(*a)}
         for (kernel, label), fn in fns.items():
             if kernel == name:
-                variants[label] = (lambda fn=fn, prev=label == "previous":
-                                   entry_call(fn, name, prev, norm))
+                variants[label] = lambda fn=fn: entry_call(fn, name, norm)
         for label, fn in variants.items():
             if not torch.equal(fn(), want):
                 raise RuntimeError(f"{label} {name} != plain at the frame's call")
