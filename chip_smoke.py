@@ -10,10 +10,11 @@ Fourteen paths of the port are driven: five through ``deferred_frame``,
 * packed  -- the packed-trilinear material configuration: the u8 combined
   PACKED atlas (256 lanes), a procedural seamless env cube built here, and
   the four kernel flags on, which adds K6 (HZB tail), K7 (env select) and K9
-  (block-index copy); its material tap runs T1 and T2 (``tap_footprint``,
-  ``material_tap``, ``csrc/material_tap.cu``: not TPU kernels, the
-  reference's element-wise quad-LOD tap), and K8 (material select) the
-  plain tap's decode, captured from the frame with the plain tap forced;
+  (block-index copy); its resolve runs R1, T1 and T2 (``interp_attrs``,
+  ``tap_footprint``, ``material_tap``, ``csrc/material_tap.cu``: not TPU
+  kernels, the reference's element-wise attribute interpolation and
+  quad-LOD tap), and K8 (material select) the plain tap's decode, captured
+  from the frame with the plain tap forced;
 * masked  -- the reference's own ``RenderSettings()`` (alpha-masked models
   on, per-slot material taps) on its masked scene (every 4th model a MASK
   material; per-map quad atlas), with the Renderer's ``masked_tri_cap``:
@@ -104,8 +105,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    NaN/signed-zero/equal keys for K10, odd lengths, misaligned views and 1-8
    byte types for the K9/K11/K12 copy) and on the
    inputs captured from one full-size frame of the default and the packed
-   path (T1 and T2 from its trilinear and anisotropic x4 frames with
-   ``mat_select_kernel`` off, as the benchmark's cells run them), with both
+   path (R1 from its trilinear frame, T1 and T2 from its trilinear and
+   anisotropic x4 frames with ``mat_select_kernel`` off, as the benchmark's
+   cells run them), with both
    versions timed (the kernel over 50 eager calls, in turns
    with its library call where it has one, and replayed from a CUDA graph; K1 and
    K2 get a line per launch with its level, its live (pixel, row) pairs
@@ -585,6 +587,9 @@ def work_present(color):
 # 7 blends of 4 operations)
 TAP_FOOTPRINT_OPS = 160
 TAP_OPS = 32 + 16 * (8 + 7 * 4)
+# R1 a pixel: three edges (3 coefficients of 2, then 3), the weights' sum,
+# select and 3 divides, 16 lanes of 3
+INTERP_ATTR_OPS = 3 * (3 * 2 + 3) + 6 + 16 * 3
 
 
 def record_sectors(lanes) -> int:
@@ -601,6 +606,13 @@ def work_tap_footprint(full, uv, lanes, row0=0, max_aniso=0):
             *range(lane_os, lane_os + 4), lane_rot, lane_rot + 1, lane_rect + 2, lane_rect + 3]
     return n * (32 * record_sectors(read) + 8 + 4 * (6 if max_aniso else 3)), \
         n * TAP_FOOTPRINT_OPS
+
+
+def work_interp_attrs(full, width, row0=0):
+    """R1: the record sectors of the vertices and their attributes (lanes
+    0:60, its 16-byte loads); the five attributes written, 64 B a pixel."""
+    n = full.shape[0] * full.shape[1]
+    return n * (32 * record_sectors(range(60)) + 4 * 16), n * INTERP_ATTR_OPS
 
 
 def work_material_tap(tri_flat, atlas_width, full, rect_lane, planes, n_taps=0, select=False):
@@ -729,7 +741,7 @@ def call_belongs(name, args, kwargs) -> bool:
         return False
     if name in ("shadow_select9", "shadow_select9_f32"):
         return (args[0].dtype == torch.float32) == name.endswith("_f32")
-    return (kwargs.get("records") is not None) == name.endswith("_attrs")
+    return (kwargs.get("records") is not None) == name.endswith("raster_attrs")
 
 
 def kernel_device_ms(fn, reps=10, attempts=5):
@@ -890,6 +902,7 @@ def tiny_inputs(dev):
                           {}),
         "present_u8": ((f32,), {}),
         "tap_footprint": ((rec.view(4, 4, 128), f32[:8].reshape(4, 4, 2), (73, 89, 97)), {}),
+        "interp_attrs": ((rec.view(4, 4, 128), 4), {}),
         "material_tap": ((torch.zeros((4, 256), dtype=torch.uint8, device=dev), 2,
                           rec.view(4, 4, 128), 97, f32[:3].reshape(3, 4).repeat(1, 4)), {}),
     }
@@ -1362,8 +1375,8 @@ def renderer_phase(dev, smi, scene_dir: Path) -> dict:
         check(err <= COLOR_ATOL, f"renderer cross {label}: color err {err}")
         used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
         if settings is flags:  # the packed atlas's tap is T1 and T2, not K8
-            for name in ("hzb_tail", "env_select", "tap_footprint", "material_tap",
-                         "materialize_rows"):
+            for name in ("hzb_tail", "env_select", "interp_attrs", "tap_footprint",
+                         "material_tap", "materialize_rows"):
                 check(used.get(name, 0) > 0, f"renderer cross {label}: {name} not launched")
         log("renderer", f"card vs CPU Renderer {RENDERER_SMALL}^2 ({label}): 2 carried frames, "
                         f"depth/ids/counters bit-equal, color max err {err:.3g}; card launches "
@@ -2593,9 +2606,13 @@ def main() -> int:
         "present_u8": dict(module=present_mod, ref=present_mod.present_u8_ref, work=work_present,
                            source=csrc + "present_u8.cu",
                            replaces="unclerenderer_tpu/render/renderer.py:779"),
-        # the material tap, T1 and T2: not TPU kernels either; the reference's
-        # XLA element-wise resolve (the quad corners and footprint; the
-        # packed trilinear tap, once or max_anisotropy times)
+        # the resolve's attributes R1 and material tap T1 and T2: not TPU
+        # kernels either; the reference's XLA element-wise resolve (InterpAttr;
+        # the quad corners and footprint; the packed trilinear tap, once or
+        # max_anisotropy times)
+        "interp_attrs": dict(module=tex_mod, ref=tex_mod.interp_attrs_ref,
+                             work=work_interp_attrs, source=csrc + "material_tap.cu",
+                             replaces="unclerenderer_tpu/render/common.py:1048"),
         "tap_footprint": dict(module=tex_mod, ref=tex_mod.tap_footprint_ref,
                               work=work_tap_footprint, source=csrc + "material_tap.cu",
                               replaces="unclerenderer_tpu/render/common.py:1071"),
@@ -2616,9 +2633,9 @@ def main() -> int:
     attr_kernels = ("binned_raster_attrs", "giant_raster_attrs")
     packed_kernels = ("hzb_tail", "env_select", "mat_select", "materialize_rows")
     tap_kernels = ("tap_footprint", "material_tap")
-    # the packed frame's path: its material tap is T1 and T2, K8 only the
-    # plain tap's decode
-    packed_path = ("hzb_tail", "env_select", "materialize_rows") + tap_kernels
+    # the packed frame's path: its attributes are R1's, its material tap T1
+    # and T2, K8 only the plain tap's decode
+    packed_path = ("hzb_tail", "env_select", "materialize_rows", "interp_attrs") + tap_kernels
     probe_kernels = ("merge_select", "copy_rows", "materialize")
     sampling_kernels = ("binned_raster", "giant_raster", "shadow_select9_f32", "gather_rows")
     report = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -3029,9 +3046,11 @@ def main() -> int:
     # K8 in the plain tap at T1's footprint (the rule forced off, T2 not taken)
     with patched(common_mod, "tap_kernels_engage", lambda *a: False):
         capture(packed_kernels, packed, packed_params[0], packed_settings)
-    # T1 and T2 as the cells run them (mat_select_kernel off): trilinear, anisotropic x4
+    # R1, T1 and T2 as the cells run them (mat_select_kernel off): trilinear,
+    # anisotropic x4 (R1 once: its call is the same under either filter)
     for filt in ("trilinear", "anisotropic"):
-        capture(tap_kernels, packed, packed_params[0],
+        capture(tap_kernels + (("interp_attrs",) if filt == "trilinear" else ()), packed,
+                packed_params[0],
                 dataclasses.replace(packed_settings, texture_filter=filt, mat_select_kernel=False))
 
     # ---- 4. cross-device frames: kernels on the card vs plain versions on the CPU
@@ -3578,12 +3597,14 @@ def main() -> int:
         def gate(rr, out, label, frames):
             launches = dict(_cuda.LAUNCHES)
             used = {k: v for k, v in launches.items() if v}
-            # the first frame renders the shadow map (a second X1 launch); T1
-            # takes the quad-LOD footprint of each slot tapped on either backend
+            # the first frame renders the shadow map (a second X1 launch); R1
+            # takes each resolve's attributes and T1 the quad-LOD footprint of
+            # each slot tapped on either backend
             slots = int(out["tap_counts"]["tap_pixels"]) // max(int((out["tri_id"] >= 0).sum()), 1)
-            check(used == {"exhaustive_raster": frames + 1, "tap_footprint": frames * slots},
-                  f"xla {label}: launches {used}, expected only X1, {frames + 1} times, and "
-                  f"T1, {frames * slots} times")
+            check(used == {"exhaustive_raster": frames + 1, "interp_attrs": frames,
+                           "tap_footprint": frames * slots},
+                  f"xla {label}: launches {used}, expected only X1, {frames + 1} times, R1, "
+                  f"{frames} times, and T1, {frames * slots} times")
             st = rr.stats()
             for key in ("bin_pair_overflow", "bin_giant_truncated", "compact_overflow",
                         "shadow_compact_overflow"):
@@ -3744,12 +3765,14 @@ def main() -> int:
                                                    size=128, frames=1, frame="forward")
         used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
         # the masked scene's frames also run M1, the masked raster of both
-        # backends, and T1, the resolve's footprint on both backends
-        check(set(used) == {"exhaustive_raster", "masked_raster", "tap_footprint"},
+        # backends, and R1 and T1, the resolve's attributes and footprint on
+        # both backends
+        check(set(used) == {"exhaustive_raster", "masked_raster", "interp_attrs",
+                            "tap_footprint"},
               f"xla cross frames launched {used}")
         log("xla", f"128^2 card frames: launches {used} (X1, M1 for the masked models: the "
-                   "reference runs one masked raster under every backend; T1 for the "
-                   "footprints; none of K1-K9)")
+                   "reference runs one masked raster under every backend; R1 for the "
+                   "attributes, T1 for the footprints; none of K1-K9)")
         rep["seconds"] = time.perf_counter() - t_phase
         log("xla", f"phase done in {rep['seconds']:.1f} s")
         return rep
@@ -3841,8 +3864,8 @@ def main() -> int:
          **({"mask_ms": k["frame"]["mask_ms"], "tile_ms": k["frame"]["tile_ms"],
              "mask_bytes": k["frame"]["mask_bytes"], "tpu_kernel": False}
             if n == "exhaustive_raster" else {}),
-         **({"tpu_kernel": False} if n in ("masked_raster", "present_u8", "tap_footprint",
-                                           "material_tap") else {})}
+         **({"tpu_kernel": False} if n in ("masked_raster", "present_u8", "interp_attrs",
+                                           "tap_footprint", "material_tap") else {})}
         for n, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

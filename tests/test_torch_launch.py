@@ -15,7 +15,7 @@ from test_torch_threads import one_torch_thread  # noqa: F401 -- one torch threa
 WRAPPERS = ["binned_raster", "giant_raster", "binned_raster_attrs", "giant_raster_attrs",
             "binned_raster_debug", "shadow_select9", "shadow_select9_f32", "gather_rows", "hzb_tail", "env_select", "mat_select",
             "materialize_rows", "merge_select", "copy_rows", "materialize", "exhaustive_raster",
-            "masked_raster", "present_u8", "tap_footprint", "material_tap"]
+            "masked_raster", "present_u8", "tap_footprint", "interp_attrs", "material_tap"]
 
 
 class StubEntry:

@@ -213,7 +213,8 @@ def test_tap_counters_of_a_cpu_frame(tmp_path, filt):
         valid = int((out["tri_id"] >= 0).sum())
         assert valid > 0
         assert {k: int(v) for k, v in out["tap_counts"].items()} == {
-            "tap_pixels": valid, "tap_kernel_pixels": 0}
+            "tap_pixels": valid, "tap_kernel_pixels": 0, "attr_pixels": valid,
+            "attr_kernel_pixels": 0}
         assert passes.COUNTERS.totals() == {}
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
             outs = [r.render_frame() for _ in range(2)]
@@ -284,7 +285,8 @@ def test_tap_counters_sum_the_slots():
     valid = int((out["tri_id"] >= 0).sum())
     assert valid > 0 and not settings.combined_material
     assert {k: int(v) for k, v in out["tap_counts"].items()} == {
-        "tap_pixels": 3 * valid, "tap_kernel_pixels": 0}
+        "tap_pixels": 3 * valid, "tap_kernel_pixels": 0, "attr_pixels": valid,
+        "attr_kernel_pixels": 0}
 
 
 # ---- the kernels on the card
@@ -389,7 +391,8 @@ def test_replayed_frames_equal_the_plain_path(cuda_device, tmp_path, monkeypatch
         # the counter reads the rule, whichever version the wrappers run
         for run in (got, want):
             assert {k: int(v) for k, v in run[i]["tap_counts"].items()} == {
-                "tap_pixels": pixels, "tap_kernel_pixels": pixels if engaged else 0}
+                "tap_pixels": pixels, "tap_kernel_pixels": pixels if engaged else 0,
+                "attr_pixels": pixels, "attr_kernel_pixels": pixels}
     # frames 2 and 3 replay the program: one launch of T1, of T2 where the
     # rule holds; none with the plain versions patched in
     for i in (2, 3):

@@ -173,11 +173,13 @@ def test_carried_frames_match_reference(run, i):
 def test_stats_match_reference(run):
     j_stats, t_stats = run["stats"]
     # the port's keys of its own: how the frame ran (the CPU runs op by op)
-    # and the material tap's counters (every valid pixel, none by the kernels)
-    assert set(t_stats) == set(j_stats) | {"frame_program", "tap_pixels", "tap_kernel_pixels"}
+    # and the resolve's counters (every valid pixel, none by the kernels)
+    assert set(t_stats) == set(j_stats) | {"frame_program", "tap_pixels", "tap_kernel_pixels",
+                                           "attr_pixels", "attr_kernel_pixels"}
     t_stats = dict(t_stats)
     assert t_stats.pop("frame_program") == f"eager: {CPU_REASON}"
     assert t_stats.pop("tap_pixels") > 0 and t_stats.pop("tap_kernel_pixels") == 0
+    assert t_stats.pop("attr_pixels") > 0 and t_stats.pop("attr_kernel_pixels") == 0
     for k, v in j_stats.items():
         if k == "exposure_ev":
             assert abs(t_stats[k] - v) <= ATOL_EV

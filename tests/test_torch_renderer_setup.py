@@ -141,9 +141,10 @@ def test_render_frames_match_reference(scene):
     assert t._frame_counter == j._frame_counter == 3 and t._last_out is None
     j_stats, t_stats = j.stats(), t.stats()  # re-renders the current view
     # the port's keys of its own: how the frame ran (the CPU runs op by op)
-    # and the material tap's counters (every valid pixel, none by the kernels)
+    # and the resolve's counters (every valid pixel, none by the kernels)
     assert t_stats.pop("frame_program") == f"eager: {CPU_REASON}"
     assert t_stats.pop("tap_pixels") > 0 and t_stats.pop("tap_kernel_pixels") == 0
+    assert t_stats.pop("attr_pixels") > 0 and t_stats.pop("attr_kernel_pixels") == 0
     assert {k: v for k, v in t_stats.items() if k != "exposure_ev"} == \
         {k: v for k, v in j_stats.items() if k != "exposure_ev"}
 

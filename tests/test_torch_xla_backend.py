@@ -295,9 +295,10 @@ def test_frames_match_reference_xla_path(case, dispatches):
     j_state = JState.initial(SIZE, SIZE)
     t_state = interop.to_port(j_state, FrameState, "cpu")
     step = jax.jit(functools.partial(j_deferred, settings=j_settings))
-    # X1, T1 (the quad-LOD footprint of both backends), and M1 (the masked
-    # raster of both backends) where masked models are on
-    want_dispatch = {"exhaustive_raster", "tap_footprint"} | (
+    # X1, R1 and T1 (the resolve's attributes and quad-LOD footprint on both
+    # backends), and M1 (the masked raster of both backends) where masked
+    # models are on
+    want_dispatch = {"exhaustive_raster", "interp_attrs", "tap_footprint"} | (
         {"masked_raster"} if t_settings.has_masked_models else set())
     for i in range(n_frames):
         a = 0.05 * i

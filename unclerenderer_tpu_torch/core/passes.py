@@ -33,7 +33,8 @@ one check.  ``STORE``'s records take their launch time from
 ``time.time_ns()``, the clock of the profiler's Chrome trace: a trace's
 ``ts`` is ``time.time_ns() / 1e3`` less its ``baseTimeNanoseconds / 1e3``.
 
-``COUNTERS`` holds a frame's device counters (the anisotropic tap's pixel
+``COUNTERS`` holds a frame's device counters (the resolve's interpolated
+and tapped pixels, those its kernels took, and the anisotropic tap's pixel
 and tap counts, ``render/common.py resolve_materials``): the Renderer adds
 each frame's to the store's running sums on the device while a profiler
 records, and ``totals()`` reads the sums once, after the frames.

@@ -1,25 +1,33 @@
-// T1 tap_footprint and T2 material_tap: the material resolve's tap on the
-// packed 256-lane atlas (C = 16 channels) with the quad-derivative LOD, as two
-// launches a material slot.
+// T1 tap_footprint, T2 material_tap and R1 interp_attrs: the material resolve's
+// attribute interpolation and its tap on the packed 256-lane atlas (C = 16
+// channels) with the quad-derivative LOD: one launch a resolve, then two a
+// material slot.
 //
-// Replaces no TPU kernel.  The reference runs the tap as XLA element-wise
-// code (unclerenderer_tpu/render/common.py resolve_materials: the quad
-// corners' uvs, the KHR transform, footprint_lod or footprint_lod_aniso, then
-// sample_pyramid_tri once, or max_anisotropy times along the major axis); so
-// did the port, as some hundreds of PyTorch element-wise kernels a slot, each
-// writing its (H, W) or (H, W, 16) intermediate to device memory, the
-// multiply-adds emulated exactly in f64 (ops/fma.py).  The plain versions
-// stay beside the wrappers (ops/texture.py tap_footprint_ref,
-// material_tap_ref) and the frame takes them on the CPU.
+// Replace no TPU kernel.  The reference runs the resolve as XLA element-wise
+// code (unclerenderer_tpu/render/common.py resolve_materials: InterpAttr at
+// :1048-1062; the quad corners' uvs, the KHR transform, footprint_lod or
+// footprint_lod_aniso, then sample_pyramid_tri once, or max_anisotropy times
+// along the major axis); so did the port, as some hundreds of PyTorch
+// element-wise kernels, each writing its (H, W) or (H, W, 16) intermediate to
+// device memory, the multiply-adds emulated exactly in f64 (ops/fma.py).  The
+// plain versions stay beside the wrappers (ops/texture.py interp_attrs_ref,
+// tap_footprint_ref, material_tap_ref) and the frame takes them on the CPU.
+//
+// R1, one thread a pixel, reads the record's lanes 0:60 (the three
+// homogeneous screen vertices, then each vertex's 16 attribute lanes) as 15
+// 16-byte loads, forms the three edge functions at the pixel centre (x + 0.5,
+// global y + 0.5) and the barycentric weights, and writes the five
+// interpolated attributes -- world_pos, v_normal (3 each), tangent4 (4), uv
+// (2), v_color (4) -- as five (H, W, n) f32 images, the plain path's tensors.
 //
 // T1, one thread a pixel, reads from the (H, W, 128) resolve record image the
 // pixel's three screen-space vertices (lanes 0:9), the vertices' uvs (lanes
 // 19 + 16k), the slot's offset-scale, rotation and rect (lanes given), and
-// the centre uv the resolve interpolated.  It evaluates the triangle's uv at
-// the pixel's 2x2 quad's TL, TR and BL centres (the helper lanes' bases
-// x & ~1, y & ~1 on global rows), transforms centre and corners, and writes
-// SoA planes (K, H*W): su, sv, lod (trilinear), and dmaj.u, dmaj.v, extent
-// (anisotropic, footprint_lod_aniso's minor-axis LOD).
+// the centre uv R1 interpolated.  It evaluates the triangle's uv at the
+// pixel's 2x2 quad's TL, TR and BL centres (the helper lanes' bases x & ~1,
+// y & ~1 on global rows) with R1's weights, transforms centre and corners,
+// and writes SoA planes (K, H*W): su, sv, lod (trilinear), and dmaj.u,
+// dmaj.v, extent (anisotropic, footprint_lod_aniso's minor-axis LOD).
 //
 // T2, laid out as K8 (mat_select.cu): kTpp threads a pixel, each holding
 // kC / kTpp channels, one vector load of each of the 8 winning lane groups,
@@ -29,8 +37,9 @@
 // (anisotropic).  Each tap's mip rects, texel coordinates, WRAP remainder,
 // row index and 3x3 window live in registers; only (H*W, 16) f32 is written.
 //
-// Bit-equal on the card to the PyTorch path it replaces: every expression is
-// the plain path's, operation for operation.  ops/fma.py's fma is __fmaf_rn;
+// Bit-equal on the card to the PyTorch path they replace: every expression is
+// the plain path's, operation for operation.  ops/fma.py's fma is __fmaf_rn
+// (R1's and T1's fma_ also give a NaN result the emulation's payload);
 // every other product, sum and quotient a single _rn intrinsic (-fmad=false
 // adds no contraction); torch.log2 is log2f, torch.floor floorf, torch.round
 // rintf, sqrt(x.double()).float() __dsqrt_rn then __double2float_rn; maximum,
@@ -41,14 +50,21 @@
 // K8 (kSelect).  A row index below 0 wraps by the atlas's rows, as PyTorch's
 // indexing does (the rect of a zero record, fused resolve's empty pixels).
 // The plain path divides the N taps' sum by N as PyTorch's CUDA division by a
-// Python scalar does: a multiply by the f32 reciprocal.
+// Python scalar does: a multiply by the f32 reciprocal.  The edge functions,
+// weights and interpolation are written once (edge, edge_at, weights,
+// interp3) for R1's centres and T1's quad corners.
 //
-// What bounds them: bytes.  At 1920x1080 (2,073,600 pixels) T1 reads 8
-// sectors of each 512-byte record (~531 MB) and the centre uv (17 MB) and
-// writes 3 or 6 planes (25 or 50 MB); T2 reads the planes and one record
-// sector, each tap's 8 lane groups of its atlas row (128 B at u8, many rows
-// shared by neighbouring pixels) and writes 133 MB.  chip_smoke.py prints
-// each kernel's time beside its byte bound.
+// What bounds them: bytes.  At 1920x1080 (2,073,600 pixels) R1 reads 8
+// sectors of each 512-byte record (lanes 0:64, ~531 MB) and writes 64 B a
+// pixel (~133 MB): ~664 MB, ~0.20 ms at 3.35 TB/s.  Its loads are 16 bytes
+// wide, all requested before the arithmetic, so each thread has its 240 bytes
+// in flight at once; neighbouring threads' rows lie 512 B apart, so a warp's
+// load touches 32 sectors and the next load the other halves of them, which
+// L1 holds.  T1 reads 8 sectors of each record (~531 MB) and the centre uv
+// (17 MB) and writes 3 or 6 planes (25 or 50 MB); T2 reads the planes and
+// one record sector, each tap's 8 lane groups of its atlas row (128 B at u8,
+// many rows shared by neighbouring pixels) and writes 133 MB.
+// chip_smoke.py prints each kernel's time beside its byte bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,35 +127,58 @@ __device__ __forceinline__ int wsub(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
-// ---- T1: the footprint
+// ---- R1 and T1: the edge functions, the weights and the interpolation
 
-// render/common.py _edge_fn's coefficients: fdiff(a, b, c, d) = fma(a, b, -(c * d))
+// ops/fma.py fma: one rounding, __fmaf_rn.  A NaN result is the emulation's
+// own: its f64 product and sum carry an input NaN's payload and sign, where
+// the f32 unit returns its canonical NaN, so a NaN is computed as it does.
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  const float r = __fmaf_rn(a, b, c);
+  if (!isnan_(r)) return r;
+  return __double2float_rn(__dadd_rn(__dmul_rn(a, b), c));
+}
+
+// ops/texture.py edge_fn's coefficients: fdiff(a, b, c, d) = fma(a, b, -(c * d))
 struct Edge {
   float cx, cy, cz;
 };
 
 __device__ __forceinline__ Edge edge(const float* pa, const float* pb) {
-  return {__fmaf_rn(pa[1], pb[2], -__fmul_rn(pa[2], pb[1])),
-          __fmaf_rn(pa[2], pb[0], -__fmul_rn(pa[0], pb[2])),
-          __fmaf_rn(pa[0], pb[1], -__fmul_rn(pa[1], pb[0]))};
+  return {fma_(pa[1], pb[2], -__fmul_rn(pa[2], pb[1])),
+          fma_(pa[2], pb[0], -__fmul_rn(pa[0], pb[2])),
+          fma_(pa[0], pb[1], -__fmul_rn(pa[1], pb[0]))};
 }
 
 // fdot([(cx, X), (cy, Y)], cz) = fma(cx, X, cy * Y) + cz
 __device__ __forceinline__ float edge_at(const Edge& e, float X, float Y) {
-  return __fadd_rn(__fmaf_rn(e.cx, X, __fmul_rn(e.cy, Y)), e.cz);
+  return __fadd_rn(fma_(e.cx, X, __fmul_rn(e.cy, Y)), e.cz);
 }
 
-// uv_at(X, Y): the barycentric weights at (X, Y), then _interp3 of the uvs,
-// fma(w2, a2, fma(w0, a0, w1 * a1))
-__device__ __forceinline__ void uv_at(const Edge* e, const float* uvs, float X, float Y,
-                                      float* out) {
+// the barycentric weights at (X, Y) of the edges (p1, p2), (p2, p0), (p0, p1):
+// f_k / ((f0 + f1) + f2), a sum of 0 (either sign) replaced by 1, NaN kept
+__device__ __forceinline__ void weights(const Edge* e, float X, float Y, float* w) {
   const float f0 = edge_at(e[0], X, Y), f1 = edge_at(e[1], X, Y), f2 = edge_at(e[2], X, Y);
   float fs = __fadd_rn(__fadd_rn(f0, f1), f2);
   fs = fs != 0.0f ? fs : 1.0f;
-  const float w0 = __fdiv_rn(f0, fs), w1 = __fdiv_rn(f1, fs), w2 = __fdiv_rn(f2, fs);
+  w[0] = __fdiv_rn(f0, fs);
+  w[1] = __fdiv_rn(f1, fs);
+  w[2] = __fdiv_rn(f2, fs);
+}
+
+// _interp3 of one lane of the three vertices: fma(w2, a2, fma(w0, a0, w1 * a1))
+__device__ __forceinline__ float interp3(const float* w, float a0, float a1, float a2) {
+  return fma_(w[2], a2, fma_(w[0], a0, __fmul_rn(w[1], a1)));
+}
+
+// ---- T1: the footprint
+
+// uv_at(X, Y): the weights at (X, Y), then the vertices' uvs interpolated
+__device__ __forceinline__ void uv_at(const Edge* e, const float* uvs, float X, float Y,
+                                      float* out) {
+  float w[3];
+  weights(e, X, Y, w);
 #pragma unroll
-  for (int c = 0; c < 2; ++c)
-    out[c] = __fmaf_rn(w2, uvs[4 + c], __fmaf_rn(w0, uvs[c], __fmul_rn(w1, uvs[2 + c])));
+  for (int c = 0; c < 2; ++c) out[c] = interp3(w, uvs[c], uvs[2 + c], uvs[4 + c]);
 }
 
 // apply_texture_transform: scale, rotate (cos, sin), offset, uncontracted
@@ -217,6 +256,53 @@ tap_footprint_kernel(const float* __restrict__ rec, const float* __restrict__ uv
   out[4 * n + p] = major_x ? dx[1] : dy[1];
   // 1.0 - 1.0 / n_eff: PyTorch's reciprocal, times 1.0, from 1.0
   out[5 * n + p] = __fsub_rn(1.0f, __fdiv_rn(1.0f, n_eff));
+}
+
+// ---- R1: the attributes at the pixel centres
+
+// lanes of a resolve record R1 reads: the screen vertices (0:9) and the three
+// vertices' attributes (9 + 16 k: world_pos 3, normal 3, tangent 4, uv 2,
+// colour 4), rounded up to whole 16-byte loads
+constexpr int kAttr = 16;
+constexpr int kVertLoads = (9 + 3 * kAttr + 3) / 4;
+
+__global__ void __launch_bounds__(kThreads)
+interp_attrs_kernel(const float* __restrict__ rec, float* __restrict__ world_pos,
+                    float* __restrict__ v_normal, float* __restrict__ tangent4,
+                    float* __restrict__ uv, float* __restrict__ v_color, int n, int width,
+                    int row0) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n) return;
+  const int row = p / width;
+  const int x = p - row * width;
+  const float* r = rec + static_cast<int64_t>(p) * kRec;
+  float v[4 * kVertLoads];
+#pragma unroll
+  for (int i = 0; i < kVertLoads; ++i) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(r) + i);
+    v[4 * i] = q.x;
+    v[4 * i + 1] = q.y;
+    v[4 * i + 2] = q.z;
+    v[4 * i + 3] = q.w;
+  }
+  const Edge e[3] = {edge(v + 3, v + 6), edge(v + 6, v), edge(v, v + 3)};
+  float w[3];
+  // the pixel centre; a slab's rows stay the frame's
+  weights(e, __fadd_rn(__int2float_rn(x), 0.5f), __fadd_rn(__int2float_rn(row0 + row), 0.5f),
+          w);
+  float a[kAttr];
+#pragma unroll
+  for (int c = 0; c < kAttr; ++c)
+    a[c] = interp3(w, v[9 + c], v[9 + kAttr + c], v[9 + 2 * kAttr + c]);
+  const int64_t q = p;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    world_pos[3 * q + c] = a[c];
+    v_normal[3 * q + c] = a[3 + c];
+  }
+  reinterpret_cast<float4*>(tangent4)[q] = make_float4(a[6], a[7], a[8], a[9]);
+  reinterpret_cast<float2*>(uv)[q] = make_float2(a[10], a[11]);
+  reinterpret_cast<float4*>(v_color)[q] = make_float4(a[12], a[13], a[14], a[15]);
 }
 
 // ---- T2: the taps
@@ -434,6 +520,20 @@ extern "C" int tap_footprint(const float* rec, const float* uv, float* out, long
     tap_footprint_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         rec, uv, out, static_cast<int>(n), width, row0, lane_os, lane_rot, lane_rect, max_aniso);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rec (n, 128) f32 records, 16-byte aligned; the five attributes out, (n, 3),
+// (n, 3), (n, 4), (n, 2) and (n, 4) f32; pixel p at column p % width of global
+// row row0 + p / width
+extern "C" int interp_attrs(const float* rec, float* world_pos, float* v_normal, float* tangent4,
+                            float* uv, float* v_color, long long n, int width, int row0,
+                            void* stream) {
+  if (n < 0 || n > 0x7fffffffLL || width <= 0) return cudaErrorInvalidValue;
+  if (n > 0)
+    interp_attrs_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        rec, world_pos, v_normal, tangent4, uv, v_color, static_cast<int>(n), width, row0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -104,6 +104,9 @@ SIGNATURES = {
     # the material tap's footprint: rec (n, 128), uv (n, 2), out planes, n, width,
     # row0, the slot's offset-scale / rotation / rect lanes, max_aniso (0: trilinear)
     "tap_footprint": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P],
+    # the resolve's attributes: rec (n, 128), world_pos, v_normal, tangent4, uv,
+    # v_color out, n, width, row0
+    "interp_attrs": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     # the material taps: atlas (rows, 256), rec, planes, out (n, 16), n,
     # atlas_width, atlas rows, rect lane, n_taps (0: trilinear), dtype, select
     "material_tap": [_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _P],
@@ -116,8 +119,9 @@ ENTRY = {"materialize_rows": "copy_bytes", "copy_rows": "copy_bytes", "materiali
 # K2/K3 count under binned_raster_attrs and giant_raster_attrs; K1 under
 # kernel_debug_print under binned_raster_debug; K4 on f32 rows under
 # shadow_select9_f32; M1, the masked raster, under masked_raster; the
-# present's u8 conversion under present_u8; the material tap's two kernels
-# under tap_footprint and material_tap)
+# present's u8 conversion under present_u8; the resolve's attribute
+# interpolation under interp_attrs, the material tap's two kernels under
+# tap_footprint and material_tap)
 LAUNCHES = {name: 0 for name in [n for n in SIGNATURES if n not in ENTRY.values()] + list(ENTRY)}
 
 # kernel wrapper -> bound C function, and device index -> raw current

@@ -6,7 +6,7 @@ packed-trilinear atlas (one 16C-lane row gather, ``sample_pyramid_tri``) --
 with the trilinear, bilinear and anisotropic footprints, and its IBL path
 (seamless packed-trilinear env cube, hat-function matmuls for the BRDF LUT
 and the irradiance tail), and the quad-atlas env samplers
-(``sample_cube_pyramid``, ``sample_cube_pyramid_level``).  Five kernels
+(``sample_cube_pyramid``, ``sample_cube_pyramid_level``).  Six kernels
 live here, each with its plain version (``*_ref``) beside it:
 
 * ``gather_rows`` -- K5 (``csrc/gather_rows.cu``), the draw-mask row gather;
@@ -14,13 +14,14 @@ live here, each with its plain version (``*_ref``) beside it:
   under ``RenderSettings.mat_select_kernel`` (on the plain tap only);
 * ``env_select`` -- K7 (``csrc/env_select.cu``), the seamless env decode
   under ``RenderSettings.env_select_kernel``;
-* ``tap_footprint`` and ``material_tap`` -- T1 and T2
-  (``csrc/material_tap.cu``), the material resolve's two stages on both
+* ``interp_attrs``, ``tap_footprint`` and ``material_tap`` -- R1, T1 and
+  T2 (``csrc/material_tap.cu``), the material resolve's stages on both
   devices, from the resolve record image (``render/common.py
-  resolve_materials``): T1 every quad-LOD footprint, whatever the filter,
-  atlas or raster backend; T2 the trilinear or dense anisotropic taps on
-  the packed atlas (``tap_kernels_engage``), where the other taps read
-  T1's planes with the plain samplers.
+  resolve_materials``): R1 the attributes at the pixel centres, in every
+  resolve; T1 every quad-LOD footprint, whatever the filter, atlas or
+  raster backend; T2 the trilinear or dense anisotropic taps on the
+  packed atlas (``tap_kernels_engage``), where the other taps read T1's
+  planes with the plain samplers.
 """
 
 from __future__ import annotations
@@ -534,6 +535,55 @@ def tap_footprint_ref(full, uv, lanes, row0: int = 0, max_aniso: int = 0):
 def _check_records(name, full):
     if full.dim() != 3 or full.shape[-1] != 128 or full.dtype != torch.float32:
         raise ValueError(f"{name}: the record image must be (H, W, 128) f32")
+
+
+# the interpolated attributes (lane offset in a vertex's 16, width): world_pos,
+# v_normal, tangent4, uv, v_color
+ATTRS = ((0, 3), (3, 3), (6, 4), (10, 2), (12, 4))
+
+
+def interp_attrs_ref(full, width: int, row0: int = 0):
+    """Plain version of R1: the resolve's attributes at the pixel centres of
+    the (H, W, 128) resolve record image ``full`` -- the barycentric weights
+    of the pixel's triangle (``edge_fn`` of its homogeneous screen vertices,
+    lanes 0:9) at (x + 0.5, y + 0.5), rows global from ``row0``, then
+    ``interp3`` of each attribute -- as the five (H, W, n) f32 images
+    world_pos, v_normal, tangent4, uv, v_color."""
+    av = full[..., 0:57]
+    p0, p1, p2 = av[..., 0:3], av[..., 3:6], av[..., 6:9]
+    dev = full.device
+    yy = torch.arange(row0, row0 + full.shape[0], dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    qx, qy = xx + 0.5, yy + 0.5
+    e0 = edge_fn(p1, p2, qx, qy)
+    e1 = edge_fn(p2, p0, qx, qy)
+    e2 = edge_fn(p0, p1, qx, qy)
+    ssum = e0 + e1 + e2
+    ssum = torch.where(ssum != 0.0, ssum, torch.ones_like(ssum))
+    bary = (e0 / ssum, e1 / ssum, e2 / ssum)
+    return tuple(interp3(bary, av, offset, n) for offset, n in ATTRS)
+
+
+def interp_attrs(full, width: int, row0: int = 0):
+    """R1 wrapper (same contract as ``interp_attrs_ref``): the resolve's
+    attribute interpolation on both devices (the plain version on the
+    CPU)."""
+    _check_records("interp_attrs", full)
+    if full.shape[1] != width:
+        raise ValueError(f"interp_attrs: the record image is {full.shape[1]} wide, not {width}")
+    if _cuda.on_cpu("interp_attrs", full):
+        return interp_attrs_ref(full, width, row0)
+    if not full.is_contiguous():
+        full = full.contiguous()
+    dev = _cuda.check_cuda("interp_attrs", full)
+    if full.data_ptr() % 16:  # 16-byte loads of the vertex lanes
+        raise ValueError("interp_attrs: the record image must be 16-byte aligned")
+    height = full.shape[0]
+    outs = tuple(torch.empty((height, width, n), dtype=torch.float32, device=full.device)
+                 for _offset, n in ATTRS)
+    _cuda.launch("interp_attrs", dev, full.data_ptr(), *(o.data_ptr() for o in outs),
+                 height * width, width, row0)
+    return outs
 
 
 def tap_footprint(full, uv, lanes, row0: int = 0, max_aniso: int = 0):

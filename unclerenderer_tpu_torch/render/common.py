@@ -624,7 +624,8 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     ONE per-pixel gather of the 128-wide record (or ``full_override``, the
     (H, W, 128) record image the raster kernels emitted under fused
     resolve: the same records where ``tri_id >= 0``, zeros elsewhere, where
-    nothing reaches the outputs), then the material taps
+    nothing reaches the outputs), the attributes at the pixel centres
+    (``tex.interp_attrs``: R1 on the card), then the material taps
     (``settings.texture_filter``) at the LOD of ``lod_derivatives``: the
     quad derivatives ("quad"), or forward differences of the pixels' uvs
     gated by triangle edges ("forward", ``tex.uv_screen_lod``); one
@@ -641,16 +642,19 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
     overflowed their cap; per-slot, the last slot's count) and
     ``aniso_counts`` (``aniso_counters`` summed over the slots tapped; empty
     unless the filter is anisotropic) and ``tap_counts``: ``tap_pixels``
-    (the valid pixels tapped, summed over the slots) and
+    (the valid pixels tapped, summed over the slots),
     ``tap_kernel_pixels`` (those the kernels T1 and T2 took: the taps of
-    ``tap_kernels_engage`` with the atlas on the card; 0 on the CPU).
+    ``tap_kernels_engage`` with the atlas on the card; 0 on the CPU),
+    ``attr_pixels`` (the valid pixels interpolated) and
+    ``attr_kernel_pixels`` (those R1 took: all of them on the card, 0 on
+    the CPU).
 
     A row slab (sharded frame): ``tri_id`` holds the slab's rows from
     global row ``row0``, pixel centres stay global; ``next_tri_row`` /
     ``prev_tri_row`` are the id rows just below and above the slab and
     ``row_halo(x)`` gives the rows above and below a slab image, for the
     forward differences at the seams."""
-    width, height = settings.width, tri_id.shape[0]
+    width = settings.width
     dev = tri_id.device
     if full_override is not None:
         full = full_override
@@ -658,27 +662,11 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         with scope("RecGather"):
             rec = build_resolve_records(scene, pix9, ids=compact_ids)
             full = rec[torch.clamp(tri_id, min=0).long()]  # (H, W, 128)
-    av = full[..., 0:57]
     mrec = full[..., 57:121]
     valid = tri_id >= 0
-    p0, p1, p2 = av[..., 0:3], av[..., 3:6], av[..., 6:9]
-
-    yy = torch.arange(row0, row0 + height, dtype=torch.float32, device=dev)[:, None]
-    xx = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
-    qx, qy = xx + 0.5, yy + 0.5
 
     with scope("InterpAttr"):
-        e0 = tex.edge_fn(p1, p2, qx, qy)
-        e1 = tex.edge_fn(p2, p0, qx, qy)
-        e2 = tex.edge_fn(p0, p1, qx, qy)
-        ssum = e0 + e1 + e2
-        ssum = torch.where(ssum != 0.0, ssum, torch.ones_like(ssum))
-        bary = (e0 / ssum, e1 / ssum, e2 / ssum)
-        world_pos = tex.interp3(bary, av, 0, 3)
-        v_normal = tex.interp3(bary, av, 3, 3)
-        tangent4 = tex.interp3(bary, av, 6, 4)
-        uv = tex.interp3(bary, av, 10, 2)
-        v_color = tex.interp3(bary, av, 12, 4)
+        world_pos, v_normal, tangent4, uv, v_color = tex.interp_attrs(full, width, row0)
 
     def M(c, n=1):
         return mrec[..., c:c + n] if n > 1 else mrec[..., c]
@@ -813,7 +801,9 @@ def resolve_materials(scene: DeviceScene, pix9, tri_id, settings: RenderSettings
         "aniso_counts": aniso_counts,
         "tap_counts": {"tap_pixels": n_valid * slots_tapped[0],
                        "tap_kernel_pixels": n_valid * (slots_tapped[0]
-                                                        if kernels and quad_flat.is_cuda else 0)},
+                                                        if kernels and quad_flat.is_cuda else 0),
+                       "attr_pixels": n_valid,
+                       "attr_kernel_pixels": n_valid * int(full.is_cuda)},
         "model_id": model_id,
         "object_id_f": M(PK.M_OBJID),
         "world_pos": world_pos,

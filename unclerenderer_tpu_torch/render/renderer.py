@@ -801,8 +801,8 @@ class Renderer:
     @staticmethod
     def _count(out: dict) -> None:
         """A frame's device counters into ``passes.COUNTERS`` while a
-        profiler records: the material tap's (every frame) and the
-        anisotropic tap's (anisotropic frames)."""
+        profiler records: the resolve's attribute interpolation and material
+        tap's (every frame) and the anisotropic tap's (anisotropic frames)."""
         if passes.tracing():
             for key in ("tap_counts", "aniso_counts"):
                 if key in out:
@@ -962,8 +962,9 @@ class Renderer:
         holds (``programs``) and GpuTiming's table, the last frame's samples
         in it (read once its events complete).  Does not advance the
         frames.  A forward frame culls nothing: every model counts as
-        visible.  The material tap's counts (``tap_pixels``,
-        ``tap_kernel_pixels``: ``common.resolve_materials``), and an
+        visible.  The resolve's counts (``tap_pixels``,
+        ``tap_kernel_pixels``, ``attr_pixels``, ``attr_kernel_pixels``:
+        ``common.resolve_materials``), and an
         anisotropic frame's (``common.aniso_counters``: ``aniso_pixels``,
         ``aniso_line_pixels``, ``aniso_taps``)."""
         out = self._latest_out()
